@@ -1,0 +1,420 @@
+#!/usr/bin/env python3
+"""Build and drive the PyTorch/CUDA port on one NVIDIA GPU (an H100).
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught):
+  1. the card's name and power limit; build the CUDA kernels from csrc/.
+  2. kernels: each of the three denoise-step wrappers (stem_layer,
+     decoder_layer, layer_epilogue) on card tensors against its plain
+     PyTorch version on the same inputs, at the main path's shapes (64
+     windows of 121 tokens, and the 31-token tail window) in f32 and bf16
+     mode; each call must add one to its wrapper's count and launch the
+     expected C entries. layer_epilogue is checked on x0 alone (a1 = 1, no
+     inpaint) and on the update with the inpaint. Timed beside the plain
+     version and a PyTorch library yardstick.
+  3. main path A: ``eval_stage2.run`` on synthetic AMASS-layout records
+     (64 sequences x 120 frames), full release width, random weights from
+     a seed, DDPM-1000 in bf16.
+  4. main path B: ``stage2_generate_batched`` on 64 head trajectories of
+     140 frames (a 120-frame window plus a ragged 30-frame window with the
+     overlap inpaint), DDPM-1000, then one DDIM-50 pass; each kernel's
+     launch count, and each C entry's, must equal windows x steps x its
+     launches per step.
+  5. chain parity: the f32 kernels on the card against the plain versions
+     on the CPU, same weights and noise, DDIM-50 on a small batch.
+Then one JSON line of per-kernel results, and as the last line
+{"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import pickle
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+PEAK_BF16 = 989e12     # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
+HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 bytes/s
+BATCH = 64             # windows per chain: the eval batch of the release runs
+TOL_F32 = 1e-4         # f32 kernel vs plain: summation order only
+TOL_BF16 = 2e-2        # bf16 kernel vs plain: a bf16 rounding may flip where sums differ in order
+UPDATE = (0.9, 0.1, 0.05)  # a1, a2, a3 of the epilogue's update check: x0 dominates
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def cuda_time_ms(fn, warmup=3, reps=15):
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    import torch.nn.functional as F
+
+    from egoego_release_tpu_torch.diffusion.gaussian_diffusion import (
+        CondGaussianDiffusion, DiffusionConfig)
+    from egoego_release_tpu_torch.eval import eval_stage2
+    from egoego_release_tpu_torch.eval.build import build_pipeline
+    from egoego_release_tpu_torch.eval.pipeline import gt_from_smpl_params_batched
+    from egoego_release_tpu_torch.ops import cuda_kernels as ck
+    from egoego_release_tpu_torch.ops import fused_layer as fl
+    from egoego_release_tpu_torch.ops import fused_step as fs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    # -- phase 1 -----------------------------------------------------------
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    card = f"{torch.cuda.get_device_name(0)}, power limit {smi.split(',')[-1].strip()}"
+    built = ck.build(force=True)
+    log(f"phase 1: built {', '.join(ck.SOURCES)} in {built['seconds']:.1f} s")
+    for name, rep in built["ptxas"].items():
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    # -- phase 2: kernels against their plain versions ---------------------
+    cfg = DiffusionConfig()
+    diff_bf16 = CondGaussianDiffusion(cfg, device=dev, seed=0)
+    model = diff_bf16.model
+    prep = {True: fs.prepare_step_params(model, True), False: fs.prepare_step_params(model, False)}
+    g = torch.Generator(device=dev).manual_seed(1)
+    nh, dk, dv, dm, d = cfg.n_head, cfg.d_k, cfg.d_v, cfg.d_model, cfg.d_feats
+    kw = dict(n_head=nh, d_k=dk, d_v=dv)
+
+    def inputs(t):
+        rn = lambda *s: torch.randn(*s, generator=g, device=dev)
+        mask = torch.ones(BATCH, t + 1, device=dev)
+        ipm = torch.zeros(BATCH, t, device=dev)
+        ipm[:, :cfg.overlap_frames] = 1.0
+        return {
+            "x": rn(BATCH, t, d), "xc": rn(BATCH, t, d), "noise": rn(BATCH, t, d),
+            "h": rn(BATCH, t + 1, dm), "mask": mask,
+            "emb": fs.noise_level_embeddings(model, [999])[0],
+            "pos": prep[True]["pos_table"][1: t + 2].contiguous(),
+            "ipv": rn(BATCH, t, d), "ipm": ipm,
+        }
+
+    # C-entry launches of one call of each wrapper: 4 GEMMs and one
+    # attention per layer, plus the stem's and the update's GEMM
+    c_launches = {"stem_layer": {"gemm": 5, "attention": 1}, "decoder_layer": {"gemm": 4, "attention": 1},
+                  "layer_epilogue": {"gemm": 5, "attention": 1}}
+
+    def calls(inp, bf16):
+        """[(name, check, wrapper, plain, args)]; the last case of each name
+        is the one timed."""
+        p = prep[bf16]
+        return [
+            ("stem_layer", "", fs.stem_layer, fs.stem_layer_plain,
+             (inp["x"], inp["xc"], inp["emb"], inp["pos"], inp["mask"], p)),
+            ("decoder_layer", "", fl.decoder_layer, fl.decoder_layer_plain, (inp["h"], inp["mask"], p["layers"][1])),
+            ("layer_epilogue", " x0", fs.layer_epilogue, fs.layer_epilogue_plain,
+             (inp["h"], inp["mask"], inp["x"], inp["noise"], (1.0, 0.0, 0.0), None, None, p)),
+            ("layer_epilogue", " update+inpaint", fs.layer_epilogue, fs.layer_epilogue_plain,
+             (inp["h"], inp["mask"], inp["x"], inp["noise"], UPDATE, inp["ipv"], inp["ipm"], p)),
+        ]
+
+    def check(name, what, wrapper, plain, args, bf16, t):
+        """The wrapper on card tensors against its plain version; the call
+        must count once and launch its C entries."""
+        ck.launch_counts.clear()
+        ck.kernel_launches.clear()
+        out_k = wrapper(*args, **kw)
+        counts = (dict(ck.launch_counts), dict(ck.kernel_launches))
+        if counts != ({name: 1}, c_launches[name]):
+            raise AssertionError(f"{name}: the wrapper counted/launched {counts}, want {name}: 1, {c_launches[name]}")
+        out_p = plain(*args, **kw)
+        torch.cuda.synchronize()
+        if what == " x0" and float((out_p.abs() < 1).float().mean()) < 0.5:
+            raise AssertionError("layer_epilogue x0 check: x0 is mostly clipped, the check has no teeth")
+        err = float((out_k - out_p).abs().max())
+        tol = TOL_BF16 if bf16 else TOL_F32
+        log(f"phase 2: {name}{what} tokens={t + 1} {'bf16' if bf16 else 'f32'}: "
+            f"max|kernel - plain| = {err:.3e} (bound {tol})")
+        if out_k.shape != out_p.shape or not math.isfinite(err) or err > tol:
+            raise AssertionError(f"{name}{what} disagrees with its plain version: {err} > {tol}")
+        return err
+
+    def library_layer(h, mask, lp):
+        """One DecoderLayer from PyTorch library calls in bf16 (SDPA,
+        matmul, layer_norm): the yardstick, never called by the port."""
+        b, t, _ = h.shape
+        x = h.reshape(b * t, dm)
+        qkv = (torch.matmul(x.to(torch.bfloat16), lp["wqkv"]).float() + lp["bqkv"]).to(torch.bfloat16)
+        q, k, v = (qkv[:, i * nh * dk:(i + 1) * nh * dk].reshape(b, t, nh, dk).transpose(1, 2)
+                   for i in range(3))
+        ctx = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(b * t, nh * dv)
+        m = mask.reshape(b * t, 1)
+        h0 = F.layer_norm(torch.matmul(ctx, lp["wfc"]).float() + lp["bfc"] + x, (dm,),
+                          lp["ln1s"], lp["ln1b"]) * m
+        h1 = torch.relu(torch.matmul(h0.to(torch.bfloat16), lp["w1"]).float() + lp["b1"])
+        h2 = torch.matmul(h1.to(torch.bfloat16), lp["w2"]).float() + lp["b2"]
+        return (F.layer_norm(h2 + h0, (dm,), lp["ln2s"], lp["ln2b"]) * m).reshape(b, t, dm)
+
+    def library(name, inp):
+        p = prep[True]
+        if name == "decoder_layer":
+            return lambda: library_layer(inp["h"], inp["mask"], p["layers"][1])
+        if name == "stem_layer":
+            def run():
+                src = torch.cat([inp["x"], inp["xc"]], -1).to(torch.bfloat16)
+                stem = torch.matmul(src, p["wst"]).float() + p["bst"]
+                h = torch.cat([inp["emb"].expand(BATCH, 1, dm), stem], 1) + inp["pos"]
+                return library_layer(h, inp["mask"], p["layers"][0])
+            return run
+
+        def run():
+            t = inp["x"].shape[1]
+            h = library_layer(inp["h"], inp["mask"], p["layers"][-1])
+            x0 = torch.clamp(torch.matmul(h[:, 1:t + 1].to(torch.bfloat16), p["lw"][:, :d]).float() + p["lb"], -1, 1)
+            a1, a2, a3 = UPDATE
+            xn = a1 * x0 + a2 * inp["x"] + a3 * inp["noise"]
+            return xn + inp["ipm"][..., None] * (inp["ipv"] - xn)
+        return run
+
+    def cost(name, t):
+        """FLOPs and the bytes each input is read once and each output
+        written once, for one call at BATCH windows of t frames, bf16 weights."""
+        tok = BATCH * (t + 1)
+        flops = (2 * tok * dm * nh * (2 * dk + dv) + 2 * BATCH * nh * (t + 1) ** 2 * (dk + dv)
+                 + 2 * tok * nh * dv * dm + 4 * tok * dm * dm)
+        wbytes = 2 * (dm * nh * (2 * dk + dv) + nh * dv * dm + 2 * dm * dm) + 4 * (nh * (2 * dk + dv) + 7 * dm)
+        act = 4 * tok * dm
+        nbytes = wbytes + 4 * tok  # weights + mask
+        if name == "stem_layer":
+            flops += 2 * BATCH * t * 2 * d * dm
+            nbytes += 2 * 4 * BATCH * t * d + 4 * dm + 4 * (t + 1) * dm + 2 * 2 * d * dm + 4 * dm + act
+        elif name == "decoder_layer":
+            nbytes += 2 * act
+        else:
+            flops += 2 * BATCH * t * dm * d
+            nbytes += act + 4 * 4 * BATCH * t * d + 4 * BATCH * t + 2 * dm * d + 4 * d
+        return flops, nbytes
+
+    def layer_parts(h, mask, lp):
+        """Median time of each of a layer's five launches (CUDA events)."""
+        b, t, _ = h.shape
+        rows = b * t
+        bf = torch.bfloat16
+        x, m = h.reshape(rows, dm), mask.reshape(rows)
+        qkv = torch.empty(rows, lp["wqkv"].shape[1], dtype=bf, device=dev)
+        ctx = torch.empty(rows, nh * dv, dtype=bf, device=dev)
+        h0 = torch.empty(rows, dm, device=dev)
+        h1 = torch.empty(rows, dm, dtype=bf, device=dev)
+        out = torch.empty(rows, dm, device=dev)
+        parts = {
+            "qkv": lambda: ck.gemm(ck.BIAS, x, lp["wqkv"], lp["bqkv"], qkv, M=rows),
+            "attention": lambda: ck.attention(qkv, ctx, B=b, T=t, t_keys=t, **kw),
+            "fc_ln": lambda: ck.gemm(ck.LAYER_NORM, ctx, lp["wfc"], lp["bfc"], h0, M=rows, res=x,
+                                     ln_s=lp["ln1s"], ln_b=lp["ln1b"], row_mask=m),
+            "w1_relu": lambda: ck.gemm(ck.BIAS_RELU, h0, lp["w1"], lp["b1"], h1, M=rows),
+            "w2_ln": lambda: ck.gemm(ck.LAYER_NORM, h1, lp["w2"], lp["b2"], out, M=rows, res=h0,
+                                     ln_s=lp["ln2s"], ln_b=lp["ln2b"], row_mask=m),
+        }
+        return {k: round(cuda_time_ms(f), 4) for k, f in parts.items()}
+
+    def step_profile(inp, steps=20):
+        """Wall time of `steps` reverse steps (host clock around
+        synchronize) and the device-busy share from torch.profiler."""
+        p = prep[True]
+        step = lambda: fs.fused_denoise_step(inp["x"], inp["xc"], inp["emb"], inp["pos"], inp["mask"],
+                                             inp["noise"], UPDATE, None, None, p, **kw)
+        step()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
+        out = {"step_ms": wall / steps * 1e3}
+        out["device_busy_share"] = busy_us * 1e-6 / wall if busy_us > 0 else "not measured"
+        return out
+
+    results = {}
+    for t in (cfg.window, 30):
+        inp = inputs(t)
+        for bf16 in (False, True):
+            for name, what, wrapper, plain, args in calls(inp, bf16):
+                err = check(name, what, wrapper, plain, args, bf16, t)
+                r = results.setdefault(name, {"max_abs_err": 0.0, "max_abs_err_f32": 0.0})
+                key = "max_abs_err" if bf16 else "max_abs_err_f32"
+                r[key] = max(r[key], err)
+        if t == cfg.window:
+            timed = {name: (wrapper, plain, args) for name, _, wrapper, plain, args in calls(inp, True)}
+            for name, (wrapper, plain, args) in timed.items():
+                flops, nbytes = cost(name, t)
+                r = results[name]
+                r["ms"] = cuda_time_ms(lambda: wrapper(*args, **kw))
+                r["plain_ms"] = cuda_time_ms(lambda: plain(*args, **kw))
+                r["library_ms"] = cuda_time_ms(library(name, inp))
+                t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM_BYTES_S * 1e3
+                r["bound_ms"] = max(t_ops, t_bytes)
+                r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+                r["gflop"] = flops / 1e9
+                r["mbytes"] = nbytes / 1e6
+                log(f"phase 2: {name} bf16 {BATCH}x{t + 1} tokens: kernel {r['ms']:.3f} ms, plain "
+                    f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+                    f"({r['bound_by']}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB) [{card}]")
+            results["decoder_layer"]["parts_ms"] = layer_parts(inp["h"], inp["mask"], prep[True]["layers"][1])
+            log(f"phase 2: decoder_layer bf16 launches: {results['decoder_layer']['parts_ms']} [{card}]")
+            step_prof = step_profile(inp)
+            log(f"phase 2: one reverse step, bf16 {BATCH}x{t + 1} tokens: {step_prof} [{card}]")
+    del prep, inp
+
+    # synthetic AMASS-layout records, stats and rest offsets (seeded)
+    data_dir = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(data_dir, exist_ok=True)
+    rng = np.random.RandomState(0)
+    def motion(n, t):
+        return {i: {
+            "seq_name": f"Transitions_mocap-synthetic{i}",
+            "trans": (np.cumsum(rng.randn(t, 3) * 0.01, 0) + [0.0, 0.0, 0.9]).astype(np.float32),
+            "root_orient": (rng.randn(t, 3) * 0.1).astype(np.float32),
+            "body_pose": (rng.randn(t, 63) * 0.1).astype(np.float32),
+        } for i in range(n)}
+
+    data_path = os.path.join(data_dir, "amass_test.p")
+    with open(data_path, "wb") as f:
+        pickle.dump(motion(BATCH, cfg.window), f)
+    stats_path = os.path.join(data_dir, "stats.p")
+    with open(stats_path, "wb") as f:
+        pickle.dump({"global_jpos_min": np.full((22, 3), -1.5, np.float32),
+                     "global_jpos_max": np.full((22, 3), 1.5, np.float32)}, f)
+    rest_path = os.path.join(data_dir, "rest.npy")
+    np.save(rest_path, np.concatenate([np.zeros((1, 3)), rng.uniform(-0.2, 0.2, (21, 3))]).astype(np.float32))
+    per_step = {"stem_layer": 1, "decoder_layer": cfg.n_dec_layers - 2, "layer_epilogue": 1}
+
+    c_per_step = {k: sum(n * c_launches[w][k] for w, n in per_step.items()) for k in ("gemm", "attention")}
+
+    def clear_counts():
+        ck.launch_counts.clear()
+        ck.kernel_launches.clear()
+
+    def check_counts(windows, steps, what):
+        got = {k: ck.launch_counts[k] for k in per_step}
+        want = {k: windows * steps * v for k, v in per_step.items()}
+        got_c = dict(ck.kernel_launches)
+        want_c = {k: windows * steps * v for k, v in c_per_step.items()}
+        log(f"{what}: launches {got} (expected {want}); C entries {got_c} (expected {want_c})")
+        if got != want or got_c != want_c:
+            raise AssertionError(f"{what}: launch counts {got}, {got_c} != {want}, {want_c}")
+        return got
+
+    # -- phase 3: main path A, the eval_stage2 CLI --------------------------
+    opt = eval_stage2.parse_opt([
+        "--test_data_path", data_path, "--stats_path", stats_path, "--rest_offsets", rest_path,
+        "--batch_seqs", str(BATCH), "--out_dir", os.path.join(data_dir, "out"), "--device", "cuda"])
+    clear_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eval_stage2.run(opt)
+    torch.cuda.synchronize()
+    dt_a = time.perf_counter() - t0
+    check_counts(1, cfg.timesteps, "phase 3")
+    if res["num_seqs"] != BATCH or not all(math.isfinite(v) for v in res["mean"].values()):
+        raise AssertionError(f"phase 3: bad eval result {res['mean']}")
+    log(f"phase 3: eval_stage2 {BATCH} seqs x {cfg.window} frames DDPM-{cfg.timesteps} bf16 in {dt_a:.2f} s "
+        f"({BATCH / dt_a:.2f} seqs/s) [{card}]; mpjpe {res['mean']['mpjpe']:.1f} mm (random weights)")
+
+    # -- phase 4: main path B, the two-window chain -------------------------
+    pipe = build_pipeline(stats_path=stats_path, rest_offsets_path=rest_path, device=dev)
+    mo = motion(BATCH, 140)
+    _, _, head = gt_from_smpl_params_batched(
+        pipe, *(np.stack([mo[i][k] for i in range(BATCH)]) for k in ("trans", "root_orient", "body_pose")))
+    clear_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    aa, root = pipe.stage2_generate_batched(head, fs.TorchNoise(dev, seed=3))
+    torch.cuda.synchronize()
+    dt_b = time.perf_counter() - t0
+    launches = check_counts(2, cfg.timesteps, "phase 4 DDPM")
+    if aa.shape != (BATCH, 140, 22, 3) or root.shape != (BATCH, 140, 3):
+        raise AssertionError(f"phase 4: shapes {tuple(aa.shape)}, {tuple(root.shape)}")
+    if not (torch.isfinite(aa).all() and torch.isfinite(root).all()):
+        raise AssertionError("phase 4: non-finite output")
+    log(f"phase 4: DDPM-{cfg.timesteps} chain, {BATCH} x 140 frames (2 windows) in {dt_b:.2f} s "
+        f"({BATCH / dt_b:.2f} seqs/s, {dt_b / (2 * cfg.timesteps) * 1e3:.3f} ms/step) [{card}]")
+
+    pipe = build_pipeline(stats_path=stats_path, rest_offsets_path=rest_path, device=dev, sampler="ddim")
+    clear_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    aa_d, root_d = pipe.stage2_generate_batched(head, fs.TorchNoise(dev, seed=4))
+    torch.cuda.synchronize()
+    dt_d = time.perf_counter() - t0
+    check_counts(2, cfg.ddim_steps, "phase 4 DDIM")
+    if not (torch.isfinite(aa_d).all() and torch.isfinite(root_d).all()):
+        raise AssertionError("phase 4 DDIM: non-finite output")
+    log(f"phase 4: DDIM-{cfg.ddim_steps} chain in {dt_d:.2f} s ({BATCH / dt_d:.2f} seqs/s) [{card}]")
+
+    # -- phase 5: f32 kernels on the card vs plain versions on the CPU ------
+    # both runs draw the same noise from a CPU generator; the sampler moves
+    # each draw to its own device
+    outs = {}
+    for where in (dev, torch.device("cpu")):
+        p = build_pipeline(stats_path=stats_path, rest_offsets_path=rest_path, device=where,
+                           sampler="ddim", compute_dtype="float32")
+        outs[where.type] = [o.cpu() for o in p.stage2_generate_batched(head[:2, :40].cpu(),
+                                                                       fs.TorchNoise("cpu", seed=5))]
+    chain_err = max(float((a - b).abs().max()) for a, b in zip(outs["cuda"], outs["cpu"]))
+    log(f"phase 5: DDIM-{cfg.ddim_steps} f32 chain, 2 x 40 frames: max|card kernels - CPU plain| = {chain_err:.3e}")
+    if not chain_err < 1e-3:
+        raise AssertionError(f"phase 5: card and CPU chains disagree by {chain_err}")
+
+    replaces = {"stem_layer": "egoego_release_tpu/ops/fused_step.py:126",
+                "decoder_layer": "egoego_release_tpu/ops/fused_layer.py:113",
+                "layer_epilogue": "egoego_release_tpu/ops/fused_step.py:160"}
+    kernels = []
+    for name, r in results.items():
+        # each wrapper launches GEMMs (csrc/gemm.cu) and attention (csrc/attention.cu)
+        kernels.append({
+            "name": name, "route": "cuda", "source": "egoego_release_tpu_torch/csrc/gemm.cu",
+            "replaces": replaces[name], "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "max_abs_err_f32": r["max_abs_err_f32"],
+            "tol_bf16": TOL_BF16, "tol_f32": TOL_F32,
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "gflop": r["gflop"], "mbytes": r["mbytes"],
+            "shape": f"{BATCH} windows x {cfg.window + 1} tokens, bf16", "card": card,
+        })
+    log(f"main path: eval_stage2 {dt_a:.3f} s; DDPM chain {dt_b:.3f} s; DDIM chain {dt_d:.3f} s; "
+        f"whole smoke {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels, "step": step_prof}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,224 @@
+"""Head-pose-conditioned Gaussian diffusion, stage 2 (port of
+egoego_release_tpu/diffusion/gaussian_diffusion.py, inference part).
+
+Every reverse step runs through the three step kernels of
+ops/fused_step.py: on the card the hand-written CUDA kernels, on the CPU
+their plain versions. The window chain is a host loop: windows depend on
+each other through the inpainted overlap, and each window's 1000 steps are
+queued on the device without a host sync.
+
+Randomness comes from outside: a noise source (``ops.fused_step.TorchNoise``
+by default) hands out each window's initial x, condition noise and per-step
+noise, so a test can replay another framework's draws.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+
+from egoego_release_tpu_torch.diffusion.schedule import make_diffusion_constants
+from egoego_release_tpu_torch.models.denoiser import TransformerDiffusionModel, init_weights_
+from egoego_release_tpu_torch.ops import fk as fk_mod
+from egoego_release_tpu_torch.ops import heading
+from egoego_release_tpu_torch.ops import rotations as rot
+from egoego_release_tpu_torch.ops.fused_step import fused_p_sample_loop, prepare_step_params
+from egoego_release_tpu_torch.utils.device import resolve_device
+
+NUM_JOINTS = fk_mod.NUM_JOINTS
+HEAD_IDX = fk_mod.HEAD_IDX
+JPOS_DIM = NUM_JOINTS * 3          # 66
+ROT_DIM = NUM_JOINTS * 6           # 132
+D_FEATS = JPOS_DIM + ROT_DIM       # 198
+
+
+@dataclass(frozen=True)
+class DiffusionConfig:
+    """The released stage-2 configuration (d_model 512, 4 heads, 4 layers,
+    d_k = d_v = 256, 120-frame windows, cosine DDPM-1000, pred_x0)."""
+
+    d_feats: int = D_FEATS
+    d_model: int = 512
+    n_head: int = 4
+    n_dec_layers: int = 4
+    d_k: int = 256
+    d_v: int = 256
+    window: int = 120
+    timesteps: int = 1000
+    overlap_frames: int = 10
+    compute_dtype: str = "bfloat16"  # "float32" = exact f32 parity mode
+    sampler: str = "ddpm"            # "ddim" = strided fast sampler
+    ddim_steps: int = 50
+
+
+class NormStats(NamedTuple):
+    """Min/max normalization stats of the joint positions, (22, 3) each."""
+
+    jpos_min: torch.Tensor
+    jpos_max: torch.Tensor
+
+
+def normalize_jpos(jpos: torch.Tensor, stats: NormStats) -> torch.Tensor:
+    """[min, max] -> [-1, 1]; jpos (..., 22, 3)."""
+    return (jpos - stats.jpos_min) / (stats.jpos_max - stats.jpos_min) * 2.0 - 1.0
+
+
+def de_normalize_jpos(n: torch.Tensor, stats: NormStats) -> torch.Tensor:
+    return (n + 1.0) * 0.5 * (stats.jpos_max - stats.jpos_min) + stats.jpos_min
+
+
+def head_condition_mask(bs: int, t: int, joint_idx: int = HEAD_IDX, device="cpu") -> torch.Tensor:
+    """1 = to generate, 0 = conditioned: the head's position and rotation dims."""
+    mask = torch.ones(bs, t, D_FEATS, device=device)
+    p, r = joint_idx * 3, JPOS_DIM + joint_idx * 6
+    mask[:, :, p: p + 3] = 0.0
+    mask[:, :, r: r + 6] = 0.0
+    return mask
+
+
+def new_denoiser(cfg: DiffusionConfig) -> TransformerDiffusionModel:
+    """An uninitialized denoiser of the configured shape, on the CPU."""
+    return TransformerDiffusionModel(cfg.d_feats, cfg.d_model, cfg.n_dec_layers, cfg.n_head,
+                                     cfg.d_k, cfg.d_v, max_timesteps=cfg.window + 1)
+
+
+class CondGaussianDiffusion:
+    """Holds the denoiser (an ``nn.Module`` on ``device``), the f32 schedule
+    and the kernel operands prepared from the weights."""
+
+    def __init__(self, cfg: DiffusionConfig = DiffusionConfig(), device="cuda",
+                 model: TransformerDiffusionModel | None = None, seed: int = 0):
+        if cfg.compute_dtype not in ("bfloat16", "float32"):
+            raise ValueError(f"compute_dtype must be bfloat16 or float32, got {cfg.compute_dtype!r}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.consts = make_diffusion_constants(cfg.timesteps)
+        if model is None:
+            model = init_weights_(new_denoiser(cfg), torch.Generator().manual_seed(seed))
+        self.model = model.to(self.device).eval()
+        self._prep = None
+
+    def step_params(self) -> dict:
+        """Kernel operands, prepared once from the current weights."""
+        if self._prep is None:
+            self._prep = prepare_step_params(self.model, self.cfg.compute_dtype == "bfloat16")
+        return self._prep
+
+    # -- reverse process ---------------------------------------------------
+
+    def p_sample_loop(self, x_start, cond_mask, padding_mask=None, inpaint_value=None,
+                      inpaint_mask=None, *, noise):
+        """DDPM over every timestep (inpaint_mask (B, T, 1), 1 = force)."""
+        return fused_p_sample_loop(self, x_start, cond_mask, padding_mask, inpaint_value,
+                                   inpaint_mask, noise=noise)
+
+    def p_sample_loop_ddim(self, x_start, cond_mask, num_steps: int = 50, eta: float = 0.0,
+                           padding_mask=None, inpaint_value=None, inpaint_mask=None, *, noise):
+        """DDIM over ``num_steps`` strided timesteps (eta 0: deterministic)."""
+        return fused_p_sample_loop(self, x_start, cond_mask, padding_mask, inpaint_value,
+                                   inpaint_mask, noise=noise, ddim_steps=num_steps, eta=eta)
+
+    # -- canonical sliding-window sampling ---------------------------------
+
+    def _canonicalize_window(self, head_jpos, head_jquat, stats: NormStats):
+        aligned_trans, aligned_quat, recover_rot_quat = heading.rotate_at_frame(
+            head_jpos, head_jquat, cano_t_idx=0)
+        move0 = aligned_trans[:, 0:1, :] * aligned_trans.new_tensor([1.0, 1.0, 0.0])
+        aligned_trans = aligned_trans - move0
+        rot6d = rot.matrix_to_rot6d(rot.quat_to_matrix(aligned_quat))
+
+        bs, t = aligned_trans.shape[:2]
+        x_start = aligned_trans.new_zeros(bs, t, D_FEATS)
+        p, r = HEAD_IDX * 3, JPOS_DIM + HEAD_IDX * 6
+        x_start[:, :, p: p + 3] = aligned_trans
+        x_start[:, :, r: r + 6] = rot6d
+        njpos = normalize_jpos(x_start[:, :, :JPOS_DIM].reshape(bs, t, NUM_JOINTS, 3), stats)
+        x_start[:, :, :JPOS_DIM] = njpos.reshape(bs, t, JPOS_DIM)
+        return x_start, recover_rot_quat
+
+    def convert_model_res_to_data(self, res, recover_rot_quat, stats: NormStats):
+        """Model output -> (local_aa (B,T,22,3), root_pos (B,T,3), head_pos
+        (B,T,3)) in the original, un-canonicalized frame."""
+        bs, t, _ = res.shape
+        global_jpos = de_normalize_jpos(res[:, :, :JPOS_DIM].reshape(bs, t, NUM_JOINTS, 3), stats)
+        rot6d = res[:, :, JPOS_DIM:].reshape(bs, t, NUM_JOINTS, 6)
+        global_quat = rot.matrix_to_quat(rot.rot6d_to_matrix(rot6d))
+        ori_global_quat = rot.quat_multiply(recover_rot_quat, global_quat)
+        rq = recover_rot_quat[:, :, 0, :]
+        ori_root_jpos = rot.quat_apply(rq, global_jpos[:, :, 0, :])
+        ori_head_jpos = rot.quat_apply(rq, global_jpos[:, :, HEAD_IDX, :])
+        ori_global_mat = rot.quat_to_matrix(ori_global_quat)
+        local_mat = rot.quat_to_matrix(fk_mod.ik_to_local_quat(rot.matrix_to_quat(ori_global_mat)))
+        return rot.matrix_to_axis_angle(local_mat), ori_root_jpos, ori_head_jpos
+
+    def _next_window_inpaint(self, root_pos, local_aa, rest_offsets, stats: NormStats):
+        """FK re-projection of the last ``overlap`` frames into the next
+        window's canonical frame. Returns (B, overlap, D_FEATS)."""
+        bs, t = root_pos.shape[:2]
+        ov = self.cfg.overlap_frames
+        gq, gp = fk_mod.fk_smpl(root_pos.reshape(-1, 3), local_aa.reshape(-1, NUM_JOINTS, 3),
+                                rest_offsets)
+        gq = gq.reshape(bs, t, NUM_JOINTS, 4)[:, -ov:]
+        gp = gp.reshape(bs, t, NUM_JOINTS, 3)[:, -ov:]
+        aligned_trans, _, recover = heading.rotate_at_frame(
+            gp[:, :, HEAD_IDX, :], gq[:, :, HEAD_IDX, :], cano_t_idx=0)
+        move0 = aligned_trans[:, 0:1, :] * aligned_trans.new_tensor([1.0, 1.0, 0.0])
+        inv = rot.quat_invert(recover)
+        jpos_n = normalize_jpos(rot.quat_apply(inv, gp) - move0[:, :, None, :], stats)
+        rot6d = rot.matrix_to_rot6d(rot.quat_to_matrix(rot.quat_multiply(inv, gq)))
+        return torch.cat([jpos_n.reshape(bs, ov, JPOS_DIM), rot6d.reshape(bs, ov, ROT_DIM)], dim=-1)
+
+    def _sample_window(self, head_jpos, head_jquat, stats, inpaint_value, noise):
+        """One canonical window: canonicalize -> reverse chain (with the
+        overlap inpaint when ``inpaint_value`` is given) -> decode."""
+        bs, t = head_jpos.shape[:2]
+        x_start, recover = self._canonicalize_window(head_jpos, head_jquat, stats)
+        cond_mask = head_condition_mask(bs, t, device=x_start.device)
+        value = mask = None
+        if inpaint_value is not None:
+            ov = self.cfg.overlap_frames
+            mask = x_start.new_zeros(bs, t, 1)
+            mask[:, :ov] = 1.0
+            value = x_start.new_zeros(bs, t, D_FEATS)
+            value[:, :ov] = inpaint_value
+        if self.cfg.sampler == "ddim":
+            x = self.p_sample_loop_ddim(x_start, cond_mask, num_steps=self.cfg.ddim_steps,
+                                        inpaint_value=value, inpaint_mask=mask, noise=noise)
+        else:
+            x = self.p_sample_loop(x_start, cond_mask, inpaint_value=value, inpaint_mask=mask,
+                                   noise=noise)
+        return self.convert_model_res_to_data(x, recover, stats)
+
+    @torch.no_grad()
+    def sample_sliding_window_w_canonical(self, head_jpos, head_jquat, stats: NormStats,
+                                          rest_offsets, *, noise):
+        """Long sequences in overlapping windows with per-window
+        canonicalization, overlap inpainting and head-continuity stitching.
+        head_jpos (B, T, 3), head_jquat (B, T, 4) wxyz. ``noise.window()`` is
+        called once per window. Returns (local_aa (B, T', 22, 3), root_pos
+        (B, T', 3))."""
+        cfg = self.cfg
+        num_steps = head_jpos.shape[1]
+        stride = cfg.window - cfg.overlap_frames
+        ov = cfg.overlap_frames
+        whole_aa = whole_root = whole_head = inpaint_value = None
+        for t_idx in range(0, num_steps, stride):
+            tw = min(cfg.window, num_steps - t_idx)
+            if tw <= ov:
+                break
+            aa, root, headp = self._sample_window(
+                head_jpos[:, t_idx: t_idx + tw], head_jquat[:, t_idx: t_idx + tw], stats,
+                inpaint_value, noise.window())
+            if t_idx == 0:
+                whole_aa, whole_root, whole_head = aa, root, headp
+            else:
+                move = whole_head[:, -1:, :] - headp[:, ov - 1: ov, :]
+                root = root + move
+                headp = headp + move
+                whole_aa = torch.cat([whole_aa, aa[:, ov:]], dim=1)
+                whole_root = torch.cat([whole_root, root[:, ov:]], dim=1)
+                whole_head = torch.cat([whole_head, headp[:, ov:]], dim=1)
+            inpaint_value = self._next_window_inpaint(root, aa, rest_offsets, stats)
+        return whole_aa, whole_root

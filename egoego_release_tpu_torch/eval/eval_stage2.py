@@ -1,0 +1,152 @@
+"""Stage-2 diffusion eval on the AMASS test split, on the card.
+
+Port of egoego_release_tpu/eval/eval_stage2.py with the same flags plus
+``--device`` (default ``cuda``; ``--device cpu`` runs the plain versions of
+the kernels). For each test sequence (Transitions_mocap + HumanEva, first
+``window`` frames) it runs FK on the GT, snaps it to the floor, conditions
+the diffusion model on the GT head pose, samples, and scores; it writes a
+JSON summary.
+
+    python -m egoego_release_tpu_torch.eval.eval_stage2 \\
+        --test_data_path <test_amass_smplh_motion.p> --stats_path <stats.p> \\
+        --checkpoint stage2_diffusion_4.pt --smplh_path smpl_models/smplh_amass
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+
+from egoego_release_tpu_torch.data.formats import load_motion_dict
+from egoego_release_tpu_torch.eval.build import build_pipeline
+from egoego_release_tpu_torch.eval.pipeline import (
+    evaluate_batch,
+    evaluate_sequence,
+    gt_from_smpl_params,
+    gt_from_smpl_params_batched,
+)
+from egoego_release_tpu_torch.ops.fused_step import TorchNoise
+
+TEST_SUBSETS = ("Transitions_mocap", "HumanEva")
+
+
+def _not_ported(flag: str) -> NotImplementedError:
+    return NotImplementedError(f"{flag} is not ported to the PyTorch package yet (see ROADMAP.md)")
+
+
+def run(opt) -> dict:
+    if opt.fused:
+        raise _not_ported("--fused")
+    if opt.sample_microbatch > 0:
+        raise _not_ported("--sample_microbatch")
+    if opt.dp != 1 or opt.tp != 1:
+        raise _not_ported("--dp/--tp")
+    # --fused_step is accepted: on the card every step runs through the kernels.
+    pipeline = build_pipeline(
+        stats_path=opt.stats_path, smplh_path=opt.smplh_path,
+        rest_offsets_path=opt.rest_offsets, diffusion_ckpt=opt.checkpoint,
+        window=opt.window, sampler="ddim" if opt.ddim_steps else "ddpm",
+        ddim_steps=opt.ddim_steps or 50, timesteps=opt.timesteps, seed=opt.seed,
+        device=opt.device)
+    data = load_motion_dict(opt.test_data_path)
+    noise = TorchNoise(pipeline.device, seed=opt.seed)
+
+    eligible = []
+    for idx in data:
+        rec = data[idx]
+        seq_name = rec.get("seq_name", str(idx))
+        if opt.filter_subsets and not any(s in seq_name for s in TEST_SUBSETS):
+            continue
+        if rec["trans"].shape[0] < opt.window:
+            continue
+        eligible.append((seq_name, rec))
+        if opt.max_seqs and len(eligible) >= opt.max_seqs:
+            break
+
+    agg: dict[str, list] = {}
+    per_seq = {}
+
+    def record_result(seq_name, md):
+        per_seq[seq_name] = {k: float(np.mean(v)) for k, v in md.items() if k != "single_jpe"}
+        for k, v in per_seq[seq_name].items():
+            agg.setdefault(k, []).append(v)
+        print(f"[{len(per_seq)}] {seq_name}: mpjpe={per_seq[seq_name]['mpjpe']:.2f}mm "
+              f"head_dist={per_seq[seq_name]['head_dist']:.4f}")
+
+    t = opt.window
+    if opt.batch_seqs <= 1:
+        for seq_name, rec in eligible:
+            gt_jrot, gt_jpos, gt_head_pose = gt_from_smpl_params(
+                pipeline, rec["trans"][:t], rec["root_orient"][:t], rec["body_pose"][:t])
+            md, _ = evaluate_sequence(pipeline, gt_head_pose, gt_jrot, gt_jpos, noise,
+                                      sample_bs=opt.sample_bs)
+            record_result(seq_name, md)
+    else:
+        t0 = time.perf_counter()
+        for s in range(0, len(eligible), opt.batch_seqs):
+            chunk = eligible[s: s + opt.batch_seqs]
+            gq, gp, head = gt_from_smpl_params_batched(
+                pipeline,
+                np.stack([rec["trans"][:t] for _, rec in chunk]),
+                np.stack([rec["root_orient"][:t] for _, rec in chunk]),
+                np.stack([rec["body_pose"][:t] for _, rec in chunk]))
+            mds = evaluate_batch(pipeline, head, gq, gp, noise, sample_bs=opt.sample_bs)
+            for (seq_name, _), md in zip(chunk, mds):
+                record_result(seq_name, md)
+        dt = time.perf_counter() - t0
+        if eligible:
+            print(f"batched eval: {len(eligible)} seqs in {dt:.1f}s "
+                  f"({len(eligible) / dt:.2f} seqs/sec on {pipeline.device})")
+
+    summary = {k: float(np.mean(v)) for k, v in agg.items()}
+    result = {"mean": summary, "per_seq": per_seq, "num_seqs": len(per_seq)}
+    os.makedirs(opt.out_dir, exist_ok=True)
+    out_path = os.path.join(opt.out_dir, "stage2_diffusion_model_res_on_amass_test.json")
+    with open(out_path, "w") as f:
+        json.dump(result, f, indent=2)
+    print("mean:", json.dumps(summary, indent=2))
+    print("saved:", out_path)
+    return result
+
+
+def parse_opt(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--test_data_path", required=True,
+                   help="AMASS test motion pickle (test_amass_smplh_motion.p)")
+    p.add_argument("--stats_path", required=True,
+                   help="min/max stats pickle (cano_min_max_mean_std_data_window_120.p)")
+    p.add_argument("--checkpoint", default=None, help="stage2 torch .pt checkpoint")
+    p.add_argument("--smplh_path", default=None)
+    p.add_argument("--rest_offsets", default=None)
+    p.add_argument("--window", type=int, default=120)
+    p.add_argument("--timesteps", type=int, default=1000,
+                   help="DDPM steps (1000 = reference; lower for smoke runs)")
+    p.add_argument("--sample_bs", type=int, default=1)
+    p.add_argument("--batch_seqs", type=int, default=16, help="sequences per diffusion batch")
+    p.add_argument("--ddim_steps", type=int, default=0,
+                   help="use the fast DDIM sampler with N steps (0 = parity DDPM-1000)")
+    p.add_argument("--fused", action="store_true", help="not ported (raises)")
+    p.add_argument("--fused_step", action="store_true",
+                   help="accepted for compatibility: every step runs through the step kernels")
+    p.add_argument("--sample_microbatch", type=int, default=0, help="not ported (N > 0 raises)")
+    p.add_argument("--dp", type=int, default=1, help="not ported (values other than 1 raise)")
+    p.add_argument("--tp", type=int, default=1, help="not ported (values other than 1 raise)")
+    p.add_argument("--max_seqs", type=int, default=0)
+    p.add_argument("--filter_subsets", action="store_true", default=True)
+    p.add_argument("--no_filter_subsets", dest="filter_subsets", action="store_false")
+    p.add_argument("--out_dir", default="./results")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    run(parse_opt(argv))
+
+
+if __name__ == "__main__":
+    main()

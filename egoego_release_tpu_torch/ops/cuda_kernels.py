@@ -1,0 +1,223 @@
+"""Build, load and call the hand-written CUDA kernels in ``csrc/``.
+
+Each ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, at first use, into
+``build/torch_kernels/`` beside the package (rebuilt when a source is newer
+than its library), and loaded with ``ctypes``. Every C entry returns
+``cudaGetLastError()`` after its launch; a non-zero code raises here. The
+kernels launch on PyTorch's current stream and allocate nothing: the callers
+allocate outputs with ``torch.empty``.
+
+Nothing here is imported or built for CPU tensors; the wrappers in
+``ops/fused_layer.py`` and ``ops/fused_step.py`` take their plain PyTorch
+versions for those.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+from collections import Counter
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
+SOURCES = ("gemm", "attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Launches of each ported TPU kernel, counted by its wrapper once its
+# kernel chain has been launched on the card.
+launch_counts: Counter = Counter()
+# Launches of each C entry ("gemm", "attention"), counted once the entry
+# has returned without error.
+kernel_launches: Counter = Counter()
+
+# GEMM epilogue modes (csrc/gemm.cu GemmMode)
+BIAS, BIAS_RELU, LAYER_NORM, STEM, STEP = range(5)
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+class GemmArgs(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "a", "a2", "w", "bias", "res", "ln_s", "ln_b", "row_mask", "pos", "emb",
+        "x", "noise", "ipv", "ipm", "out")] + [(name, ctypes.c_int) for name in (
+        "M", "N", "K", "lda", "ldw", "ldo", "k_split", "a_bf16", "out_bf16",
+        "compute_bf16", "mode", "t_data")] + [(name, ctypes.c_float) for name in (
+        "c1", "c2", "c3")]
+
+
+class AttnArgs(ctypes.Structure):
+    _fields_ = [("qkv", ctypes.c_void_p), ("ctx", ctypes.c_void_p)] + [
+        (name, ctypes.c_int) for name in (
+            "B", "T", "t_keys", "n_head", "d_k", "d_v", "ld_qkv", "ld_ctx",
+            "is_bf16")] + [("scale", ctypes.c_float)]
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit's nvcc")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"libegoego_{name}.so"
+
+
+def _stale(name: str) -> bool:
+    lib = _lib_path(name)
+    if not lib.exists():
+        return True
+    deps = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return max(d.stat().st_mtime for d in deps) > lib.stat().st_mtime
+
+
+def build(force: bool = False) -> dict:
+    """Compile every stale source, one ``nvcc`` per source, all at once.
+    Returns {"seconds": wall time, "ptxas": {name: compiler report}}."""
+    t0 = time.perf_counter()
+    todo = [n for n in SOURCES if force or _stale(n)]
+    reports = {}
+    if todo:
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for name in todo:
+            tmp = BUILD_DIR / f"libegoego_{name}.{os.getpid()}.tmp.so"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            out, err = proc.communicate()
+            reports[name] = out + err
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu:\n{out}{err}")
+            else:
+                os.replace(tmp, _lib_path(name))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return {"seconds": time.perf_counter() - t0, "ptxas": reports}
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    if name not in _libs:
+        build()
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        entry = getattr(lib, f"egoego_{name}")
+        entry.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        entry.restype = ctypes.c_int
+        size = getattr(lib, "egoego_gemm_args_size" if name == "gemm" else "egoego_attn_args_size")
+        size.restype = ctypes.c_int
+        want = ctypes.sizeof(GemmArgs if name == "gemm" else AttnArgs)
+        if size() != want:
+            raise RuntimeError(f"{name}: argument struct is {size()} bytes in C, {want} in Python")
+        _libs[name] = lib
+    return _libs[name]
+
+
+def _check(code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {code}")
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _need(t: torch.Tensor, dtype, shape=None, what="tensor") -> None:
+    if not t.is_cuda or not t.is_contiguous() or t.dtype not in (
+            dtype if isinstance(dtype, tuple) else (dtype,)):
+        raise ValueError(f"{what}: need a contiguous CUDA tensor of {dtype}, "
+                         f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: need shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def gemm(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+         out: torch.Tensor, *, M: int, a2: torch.Tensor | None = None, res=None, ln_s=None, ln_b=None, row_mask=None,
+         pos=None, emb=None, x=None, noise=None, ipv=None, ipm=None,
+         t_data: int = 0, scal=(0.0, 0.0, 0.0), n: int | None = None) -> torch.Tensor:
+    """out (M, N) = epilogue(A W + b) on the card; W is (K, ldw) row-major
+    in the compute dtype (bf16 -> tensor cores, f32 -> CUDA cores), of which
+    the first N = ``n`` (default ldw) columns are used; bf16 weights need
+    ldw % 8 == 0 (16-byte rows)."""
+    K, ldw = w.shape
+    N = ldw if n is None else n
+    f32, bf16 = torch.float32, torch.bfloat16
+    _need(w, (f32, bf16), what="w")
+    if N > ldw or (w.dtype == bf16 and (ldw % 8 or w.data_ptr() % 16)):
+        raise ValueError(f"w: need N <= ldw and, in bf16, 16-byte rows; got N={N}, ldw={ldw}")
+    _need(a, (f32, bf16), what="a")
+    _need(bias, f32, (N,), "bias")
+    _need(out, (f32, bf16), what="out")
+    if out.numel() != M * N:
+        raise ValueError(f"out: need {M}x{N} elements, got {tuple(out.shape)}")
+    lda = a.shape[-1]
+    k_split = 0
+    if mode == STEM:
+        _need(a2, a.dtype, a.shape, "a2")
+        _need(pos, f32, (t_data + 1, N), "pos")
+        _need(emb, f32, (N,), "emb")
+        if a.numel() != (M // (t_data + 1)) * t_data * lda or K != 2 * lda:
+            raise ValueError("stem: a/a2 must be (B, t_data, d) with K = 2 d")
+        k_split = lda
+    elif mode == STEP:
+        _need(x, f32, (M, N), "x")
+        _need(noise, f32, (M, N), "noise")
+        if ipv is not None:
+            _need(ipv, f32, (M, N), "ipv")
+            _need(ipm, f32, (M,), "ipm")
+        if a.numel() != (M // t_data) * (t_data + 1) * K or lda != K:
+            raise ValueError("step: a must be (B, t_data + 1, K)")
+    else:
+        if a.numel() != M * K or lda != K:
+            raise ValueError(f"a: need {M}x{K} elements, got {tuple(a.shape)}")
+    if mode == LAYER_NORM:
+        _need(res, f32, (M, N), "res")
+        _need(ln_s, f32, (N,), "ln_s")
+        _need(ln_b, f32, (N,), "ln_b")
+        _need(row_mask, f32, (M,), "row_mask")
+        if out.dtype != f32 or N > 512:
+            raise ValueError("layer-norm epilogue: f32 output, N <= 512")
+    args = GemmArgs(
+        a=_ptr(a), a2=_ptr(a2), w=_ptr(w), bias=_ptr(bias), res=_ptr(res),
+        ln_s=_ptr(ln_s), ln_b=_ptr(ln_b), row_mask=_ptr(row_mask), pos=_ptr(pos),
+        emb=_ptr(emb), x=_ptr(x), noise=_ptr(noise), ipv=_ptr(ipv), ipm=_ptr(ipm),
+        out=_ptr(out), M=M, N=N, K=K, lda=lda, ldw=ldw, ldo=N, k_split=k_split,
+        a_bf16=int(a.dtype == bf16), out_bf16=int(out.dtype == bf16),
+        compute_bf16=int(w.dtype == bf16), mode=mode, t_data=t_data,
+        c1=scal[0], c2=scal[1], c3=scal[2],
+    )
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    with torch.cuda.device(a.device):
+        _check(_lib("gemm").egoego_gemm(ctypes.byref(args), stream), "gemm")
+    kernel_launches["gemm"] += 1
+    return out
+
+
+def attention(qkv: torch.Tensor, ctx: torch.Tensor, *, B: int, T: int,
+              t_keys: int, n_head: int, d_k: int, d_v: int) -> torch.Tensor:
+    """ctx (B*T, H*dv) = softmax(q k^T / sqrt(dk), keys < t_keys) v per head."""
+    dt = qkv.dtype
+    _need(qkv, (torch.float32, torch.bfloat16), (B * T, n_head * (2 * d_k + d_v)), "qkv")
+    _need(ctx, dt, (B * T, n_head * d_v), "ctx")
+    if d_v > 256 or not 0 < t_keys <= T:
+        raise ValueError(f"attention: need d_v <= 256 and 0 < t_keys <= T, got {d_v}, {t_keys}, {T}")
+    args = AttnArgs(qkv=_ptr(qkv), ctx=_ptr(ctx), B=B, T=T, t_keys=t_keys,
+                    n_head=n_head, d_k=d_k, d_v=d_v, ld_qkv=qkv.shape[1],
+                    ld_ctx=ctx.shape[1], is_bf16=int(dt == torch.bfloat16),
+                    scale=1.0 / d_k ** 0.5)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    with torch.cuda.device(qkv.device):
+        _check(_lib("attention").egoego_attention(ctypes.byref(args), stream), "attention")
+    kernel_launches["attention"] += 1
+    return ctx

@@ -1,0 +1,61 @@
+"""SMPL 22-joint forward / inverse kinematics on torch tensors (port of
+egoego_release_tpu/ops/fk.py): joints at the same tree depth update
+together, so FK is 8 batched steps instead of 21."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from egoego_release_tpu_torch.ops import rotations as rot
+
+SMPL_PARENTS = np.asarray(
+    [-1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16, 17, 18, 19],
+    dtype=np.int64,
+)
+NUM_JOINTS = 22
+HEAD_IDX = 15
+ROOT_IDX = 0
+
+
+def _levels(parents: np.ndarray):
+    depth = np.zeros(len(parents), dtype=np.int64)
+    for j in range(1, len(parents)):
+        depth[j] = depth[parents[j]] + 1
+    return [(np.nonzero(depth == d)[0], parents[depth == d]) for d in range(1, depth.max() + 1)]
+
+
+_LEVELS = _levels(SMPL_PARENTS)
+
+
+def fk_from_local_quat(local_quat: torch.Tensor, local_offsets: torch.Tensor,
+                       root_trans: torch.Tensor | None = None):
+    """local_quat (..., 22, 4), local_offsets (22, 3) or (..., 22, 3),
+    optional root_trans (..., 3). Returns (global_quat, global_jpos)."""
+    local_offsets = local_offsets.expand(local_quat.shape[:-1] + (3,))
+    gq = local_quat.clone()
+    gp = local_offsets.clone()
+    for js, ps in _LEVELS:
+        js_t = torch.as_tensor(js, device=gq.device)
+        ps_t = torch.as_tensor(ps, device=gq.device)
+        parent_q = gq[..., ps_t, :]
+        gp[..., js_t, :] = rot.quat_apply(parent_q, local_offsets[..., js_t, :]) + gp[..., ps_t, :]
+        gq[..., js_t, :] = rot.quat_multiply(parent_q, local_quat[..., js_t, :])
+    if root_trans is not None:
+        gp = gp + root_trans[..., None, :]
+    return gq, gp
+
+
+def ik_to_local_quat(global_quat: torch.Tensor) -> torch.Tensor:
+    """Global joint rotations -> rotations relative to the parent."""
+    parents = torch.as_tensor(SMPL_PARENTS[1:], device=global_quat.device)
+    child_local = rot.quat_multiply(rot.quat_invert(global_quat[..., parents, :]),
+                                    global_quat[..., 1:, :])
+    return torch.cat([global_quat[..., :1, :], child_local], dim=-2)
+
+
+def fk_smpl(root_trans: torch.Tensor, local_aa: torch.Tensor, rest_offsets: torch.Tensor):
+    """root_trans (..., 3), local_aa (..., 22, 3), rest_offsets (22, 3) ->
+    (global_quat (..., 22, 4), global_jpos (..., 22, 3))."""
+    local_quat = rot.matrix_to_quat(rot.axis_angle_to_matrix(local_aa))
+    return fk_from_local_quat(local_quat, rest_offsets, root_trans)

@@ -1,0 +1,126 @@
+"""One post-LN DecoderLayer as a chain of hand-written CUDA kernels.
+
+Port of egoego_release_tpu/ops/fused_layer.py ``_layer_body`` /
+``_layer_kernel`` (the TPU kernel that ``fused_step._call_mid_layer``
+launches for every middle layer of a denoise step):
+
+    QKV projection -> per-head attention (f32 softmax) -> fc + residual -> LayerNorm (eps 1e-5) x padding mask
+    -> Dense-ReLU-Dense + residual -> LayerNorm x padding mask
+
+On the TPU the whole layer was one kernel with its ~5 MB of bf16 weights
+resident in VMEM. An H100 SM has 227 KB of shared memory, so on the card
+the layer is five launches (csrc/gemm.cu, csrc/attention.cu): the fused
+QKV product, attention, fc with the residual + LayerNorm + mask epilogue,
+w1 with bias + ReLU, and w2 with the residual + LayerNorm + mask epilogue.
+The layer is compute-bound at the main path's shapes (~47 GFLOP against
+~40 MB), so the products run on the tensor cores in bf16 mode.
+
+Rounding points in bf16 mode are those of ``_layer_body``: the layer input
+is rounded to bf16 for the QKV product, q/k/v after their bias, p before
+p v, ctx before fc, h0 before w1 and h1 before w2. LayerNorm statistics and
+the inter-layer activations stay f32. ``bf16=False`` is the f32 parity mode
+(no TF32 anywhere).
+
+``decoder_layer`` runs the plain PyTorch version for CPU tensors and the
+kernels for CUDA tensors; it never falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from egoego_release_tpu_torch.ops import cuda_kernels as ck
+
+LN_EPS = 1e-5
+
+
+def layer_params(layer, bf16: bool) -> dict:
+    """Kernel operands of one ``models.transformer.DecoderLayer``: weight
+    matrices as (in, out) in the compute dtype (bf16 or f32), q/k/v fused
+    into one (d_model, H*(2 dk + dv)) product, biases and LayerNorm rows f32."""
+    wdt = torch.bfloat16 if bf16 else torch.float32
+    sa, ff = layer.self_attn, layer.pos_ffn
+    w = lambda t: t.detach().t().contiguous().to(wdt)
+    f = lambda t: t.detach().float().contiguous()
+    return {
+        "wqkv": torch.cat([w(sa.w_q.weight), w(sa.w_k.weight), w(sa.w_v.weight)], 1).contiguous(),
+        "bqkv": torch.cat([f(sa.w_q.bias), f(sa.w_k.bias), f(sa.w_v.bias)]).contiguous(),
+        "wfc": w(sa.fc.weight), "bfc": f(sa.fc.bias),
+        "ln1s": f(sa.layer_norm.weight), "ln1b": f(sa.layer_norm.bias),
+        "w1": w(ff.w_1.weight[..., 0]), "b1": f(ff.w_1.bias),
+        "w2": w(ff.w_2.weight[..., 0]), "b2": f(ff.w_2.bias),
+        "ln2s": f(ff.layer_norm.weight), "ln2b": f(ff.layer_norm.bias),
+    }
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
+def matmul_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A W with A rounded to W's dtype first, then an f32 product: the
+    arithmetic of a bf16 tensor-core product with f32 accumulation (or a
+    plain f32 product in f32 mode)."""
+    return a.to(w.dtype).float() @ w.float()
+
+
+def layer_norm_plain(y: torch.Tensor, s: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    mu = y.mean(-1, keepdim=True)
+    var = ((y - mu) ** 2).mean(-1, keepdim=True)
+    return (y - mu) * torch.rsqrt(var + LN_EPS) * s + b
+
+
+def decoder_layer_plain(h, mask, lp, *, n_head, d_k, d_v):
+    """Plain PyTorch version of the kernel chain: h (B, T, dm) f32, mask
+    (B, T) f32. The mask scales output rows only; every token is a key."""
+    bsz, t, dm = h.shape
+    bf16 = lp["wqkv"].dtype == torch.bfloat16
+    rnd = round_bf16 if bf16 else (lambda a: a)
+    x = h.reshape(bsz * t, dm)
+    qkv = rnd(matmul_plain(x, lp["wqkv"]) + lp["bqkv"])
+    hk = n_head * d_k
+    heads = lambda a, d: a.reshape(bsz, t, n_head, d).transpose(1, 2)
+    q, k, v = heads(qkv[:, :hk], d_k), heads(qkv[:, hk:2 * hk], d_k), heads(qkv[:, 2 * hk:], d_v)
+    s = (q @ k.transpose(-1, -2)) * (1.0 / d_k ** 0.5)
+    p = rnd(torch.softmax(s, dim=-1))
+    ctx = rnd((p @ v).transpose(1, 2).reshape(bsz * t, n_head * d_v))
+    m = mask.reshape(bsz * t, 1).float()
+    h0 = layer_norm_plain(matmul_plain(ctx, lp["wfc"]) + lp["bfc"] + x, lp["ln1s"], lp["ln1b"]) * m
+    h1 = rnd(torch.relu(matmul_plain(h0, lp["w1"]) + lp["b1"]))
+    out = layer_norm_plain(matmul_plain(h1, lp["w2"]) + lp["b2"] + h0, lp["ln2s"], lp["ln2b"]) * m
+    return out.reshape(bsz, t, dm)
+
+
+def decoder_layer_cuda(h, mask, lp, *, n_head, d_k, d_v):
+    """The layer as five launches on the card; same contract as the plain
+    version. ``mask`` must be a contiguous f32 (B, T) tensor."""
+    bsz, t, dm = h.shape
+    m_rows = bsz * t
+    cdt = lp["wqkv"].dtype
+    dev = h.device
+    x = h.reshape(m_rows, dm)
+    mask = mask.reshape(m_rows)
+    qkv = torch.empty(m_rows, lp["wqkv"].shape[1], dtype=cdt, device=dev)
+    ck.gemm(ck.BIAS, x, lp["wqkv"], lp["bqkv"], qkv, M=m_rows)
+    ctx = torch.empty(m_rows, n_head * d_v, dtype=cdt, device=dev)
+    ck.attention(qkv, ctx, B=bsz, T=t, t_keys=t, n_head=n_head, d_k=d_k, d_v=d_v)
+    h0 = torch.empty(m_rows, dm, dtype=torch.float32, device=dev)
+    ck.gemm(ck.LAYER_NORM, ctx, lp["wfc"], lp["bfc"], h0, M=m_rows, res=x,
+            ln_s=lp["ln1s"], ln_b=lp["ln1b"], row_mask=mask)
+    h1 = torch.empty(m_rows, lp["w1"].shape[1], dtype=cdt, device=dev)
+    ck.gemm(ck.BIAS_RELU, h0, lp["w1"], lp["b1"], h1, M=m_rows)
+    out = torch.empty(m_rows, dm, dtype=torch.float32, device=dev)
+    ck.gemm(ck.LAYER_NORM, h1, lp["w2"], lp["b2"], out, M=m_rows, res=h0,
+            ln_s=lp["ln2s"], ln_b=lp["ln2b"], row_mask=mask)
+    return out.reshape(bsz, t, dm)
+
+
+def decoder_layer(h, mask, lp, *, n_head, d_k, d_v):
+    """One DecoderLayer: the kernel chain for CUDA tensors (counted in
+    ``cuda_kernels.launch_counts["decoder_layer"]`` once its launches have
+    returned), the plain version for CPU tensors."""
+    if h.is_cuda:
+        out = decoder_layer_cuda(h, mask, lp, n_head=n_head, d_k=d_k, d_v=d_v)
+        ck.launch_counts["decoder_layer"] += 1
+        return out
+    return decoder_layer_plain(h, mask, lp, n_head=n_head, d_k=d_k, d_v=d_v)

@@ -1,0 +1,248 @@
+"""The DDPM/DDIM reverse step as three hand-written kernels (port of
+egoego_release_tpu/ops/fused_step.py).
+
+One reverse step is ``n_dec_layers`` kernel calls, as on the TPU:
+
+  stem_layer      replaces _stem_layer_kernel: the stem as a split-K
+                  product x @ Wx + x_cond @ Wc + b, the noise-level token
+                  at slot 0, the 1-based position rows, then DecoderLayer 0
+  decoder_layer   replaces _layer_kernel (ops/fused_layer.py), layers
+                  1 .. L-2
+  layer_epilogue  replaces _layer_epilogue_kernel: DecoderLayer L-1, token
+                  0 dropped, linear_out, x0 clipped to [-1, 1], then
+                      x_next = a1 x0 + a2 x_t + a3 noise
+                  and the optional overlap inpaint x + m (v - x)
+
+DDPM  a1 = posterior_mean_coef1[t], a2 = posterior_mean_coef2[t],
+      a3 = [t > 0] exp(0.5 posterior_log_variance_clipped[t])
+DDIM  a2 = sqrt(max(1 - ac_prev - sigma^2, 0)) / sqrt(1 - ac_t),
+      a1 = sqrt(ac_prev) - a2 sqrt(ac_t),  a3 = sigma
+
+On the card each wrapper is a chain of launches (csrc/gemm.cu,
+csrc/attention.cu; see ops/fused_layer.py for why a layer is not one
+kernel there): the stem and the update ride in GEMM epilogues, so only
+the (B, T+1, d_model) activations cross device memory between layers.
+
+The port pads nothing: a window of T frames is T + 1 tokens, every row is
+real, and every token is a key. The samplers
+take their noise from outside (a ``TorchNoise`` or any object with
+``initial``, ``cond`` and ``step``), compute the schedule scalars on the
+host from the f32 schedule and embed every noise level of the chain once
+up front, so no step waits on the device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from egoego_release_tpu_torch.ops import cuda_kernels as ck
+from egoego_release_tpu_torch.ops.fused_layer import (
+    decoder_layer,
+    decoder_layer_cuda,
+    decoder_layer_plain,
+    layer_params,
+    matmul_plain,
+)
+
+
+def prepare_step_params(model, bf16: bool) -> dict:
+    """Kernel operands of a ``TransformerDiffusionModel``: per-layer dicts
+    (fused_layer.layer_params), the stem weight (2 d, d_model), the output
+    projection (d_model, d) zero-padded to a multiple of 8 columns (16-byte
+    bf16 rows) in the compute dtype, f32 biases, and the position table."""
+    wdt = torch.bfloat16 if bf16 else torch.float32
+    mt = model.motion_transformer
+    f = lambda t: t.detach().float().contiguous()
+    lw = model.linear_out.weight.detach().t()
+    lw = torch.nn.functional.pad(lw, (0, -lw.shape[1] % 8))
+    return {
+        "layers": [layer_params(layer, bf16) for layer in mt.layer_stack],
+        "wst": mt.start_conv.weight.detach()[..., 0].t().contiguous().to(wdt),
+        "bst": f(mt.start_conv.bias),
+        "lw": lw.contiguous().to(wdt),
+        "lb": f(model.linear_out.bias),
+        "pos_table": mt.position_table,
+    }
+
+
+@torch.no_grad()
+def noise_level_embeddings(model, ts) -> torch.Tensor:
+    """(n, d_model) noise-level tokens for the timesteps ``ts``."""
+    dev = model.linear_out.weight.device
+    return model.time_mlp(torch.as_tensor(np.asarray(ts), device=dev)).float().contiguous()
+
+
+# -- stem + layer 0 -------------------------------------------------------
+
+
+def stem_layer_plain(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v):
+    bsz, t, d = x.shape
+    stem = (matmul_plain(x.reshape(bsz * t, d), prep["wst"][:d])
+            + matmul_plain(xc.reshape(bsz * t, d), prep["wst"][d:]) + prep["bst"])
+    dm = stem.shape[-1]
+    h = torch.cat([emb.reshape(1, 1, dm).expand(bsz, 1, dm), stem.reshape(bsz, t, dm)], 1) + pos
+    return decoder_layer_plain(h, mask, prep["layers"][0], n_head=n_head, d_k=d_k, d_v=d_v)
+
+
+def stem_layer_cuda(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v):
+    bsz, t, _ = x.shape
+    dm = prep["bst"].shape[0]
+    h = torch.empty(bsz, t + 1, dm, dtype=torch.float32, device=x.device)
+    ck.gemm(ck.STEM, x, prep["wst"], prep["bst"], h, M=bsz * (t + 1), a2=xc,
+            pos=pos, emb=emb, t_data=t)
+    return decoder_layer_cuda(h, mask, prep["layers"][0], n_head=n_head, d_k=d_k, d_v=d_v)
+
+
+def stem_layer(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v):
+    """x, xc (B, T, d) f32; emb (d_model,) the noise-level token; pos
+    (T+1, d_model) the position rows of tokens 0..T; mask (B, T+1).
+    Returns the (B, T+1, d_model) output of DecoderLayer 0."""
+    if x.is_cuda:
+        out = stem_layer_cuda(x, xc, emb, pos, mask, prep, n_head=n_head, d_k=d_k, d_v=d_v)
+        ck.launch_counts["stem_layer"] += 1
+        return out
+    return stem_layer_plain(x, xc, emb, pos, mask, prep, n_head=n_head, d_k=d_k, d_v=d_v)
+
+
+# -- last layer + posterior update ---------------------------------------
+
+
+def layer_epilogue_plain(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v):
+    h = decoder_layer_plain(h, mask, prep["layers"][-1], n_head=n_head, d_k=d_k, d_v=d_v)
+    bsz, t, d = x.shape
+    feat = h[:, 1: t + 1].reshape(bsz * t, -1)
+    x0 = torch.clamp(matmul_plain(feat, prep["lw"][:, :d]) + prep["lb"], -1.0, 1.0).reshape(bsz, t, d)
+    a1, a2, a3 = scal
+    xn = a1 * x0 + a2 * x + a3 * noise
+    if ipv is not None:
+        xn = xn + ipm[..., None] * (ipv - xn)
+    return xn
+
+
+def layer_epilogue_cuda(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v):
+    h = decoder_layer_cuda(h, mask, prep["layers"][-1], n_head=n_head, d_k=d_k, d_v=d_v)
+    bsz, t, d = x.shape
+    out = torch.empty(bsz, t, d, dtype=torch.float32, device=x.device)
+    ck.gemm(ck.STEP, h, prep["lw"], prep["lb"], out, M=bsz * t,
+            x=x.reshape(bsz * t, d), noise=noise.reshape(bsz * t, d),
+            ipv=None if ipv is None else ipv.reshape(bsz * t, d),
+            ipm=None if ipm is None else ipm.reshape(bsz * t),
+            t_data=t, scal=scal, n=d)
+    return out
+
+
+def layer_epilogue(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v):
+    """h (B, T+1, d_model); x, noise (B, T, d) f32; scal = (a1, a2, a3)
+    host floats; ipv (B, T, d) and ipm (B, T) or both None. Returns x_next
+    (B, T, d) f32."""
+    if h.is_cuda:
+        out = layer_epilogue_cuda(h, mask, x, noise, scal, ipv, ipm, prep,
+                                  n_head=n_head, d_k=d_k, d_v=d_v)
+        ck.launch_counts["layer_epilogue"] += 1
+        return out
+    return layer_epilogue_plain(h, mask, x, noise, scal, ipv, ipm, prep,
+                                n_head=n_head, d_k=d_k, d_v=d_v)
+
+
+def fused_denoise_step(x, xc, emb, pos, mask, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v):
+    """One reverse step: ``len(prep["layers"])`` kernel calls."""
+    kw = dict(n_head=n_head, d_k=d_k, d_v=d_v)
+    h = stem_layer(x, xc, emb, pos, mask, prep, **kw)
+    for lp in prep["layers"][1:-1]:
+        h = decoder_layer(h, mask, lp, **kw)
+    return layer_epilogue(h, mask, x, noise, scal, ipv, ipm, prep, **kw)
+
+
+# -- schedule scalars (host, f32) ----------------------------------------
+
+
+def ddpm_scalars(consts, timesteps: int):
+    """[(t, (a1, a2, a3))] for t = T-1 .. 0."""
+    out = []
+    for t in range(timesteps - 1, -1, -1):
+        a3 = np.exp(np.float32(0.5) * consts.posterior_log_variance_clipped[t]) if t else np.float32(0.0)
+        out.append((t, (float(consts.posterior_mean_coef1[t]),
+                        float(consts.posterior_mean_coef2[t]), float(a3))))
+    return out
+
+
+def ddim_timesteps(timesteps: int, n_steps: int) -> np.ndarray:
+    return np.linspace(0, timesteps - 1, n_steps).astype(np.int32)[::-1]
+
+
+def ddim_scalars(consts, timesteps: int, n_steps: int, eta: float = 0.0):
+    """[(t, (a1, a2, a3))] over the strided DDIM schedule."""
+    f = np.float32
+    ts = ddim_timesteps(timesteps, n_steps)
+    out = []
+    for i, t in enumerate(ts):
+        ac_t = consts.alphas_cumprod[t]
+        ac_prev = consts.alphas_cumprod[ts[i + 1]] if i + 1 < len(ts) else f(1.0)
+        sigma = f(eta) * np.sqrt((f(1) - ac_prev) / (f(1) - ac_t)) * np.sqrt(f(1) - ac_t / ac_prev)
+        a2 = np.sqrt(np.maximum(f(1) - ac_prev - sigma * sigma, f(0))) / np.sqrt(f(1) - ac_t)
+        a1 = np.sqrt(ac_prev) - a2 * np.sqrt(ac_t)
+        out.append((int(t), (float(a1), float(a2), float(sigma))))
+    return out
+
+
+# -- sampling loop ---------------------------------------------------------
+
+
+class TorchNoise:
+    """The samplers' default noise source: every draw comes from one
+    ``torch.Generator`` on ``device`` (no host round trip)."""
+
+    def __init__(self, device, seed: int = 0):
+        self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    def window(self) -> "TorchNoise":
+        return self
+
+    def _draw(self, shape) -> torch.Tensor:
+        return torch.randn(shape, generator=self.generator, device=self.device)
+
+    initial = cond = step = _draw
+
+
+@torch.no_grad()
+def fused_p_sample_loop(diff, x_start, cond_mask, padding_mask=None, inpaint_value=None,
+                        inpaint_mask=None, *, noise, ddim_steps: int | None = None,
+                        eta: float = 0.0) -> torch.Tensor:
+    """The reverse chain on ``fused_denoise_step``. x_start, cond_mask
+    (B, T, d); padding_mask (B, 1, T+1) or None; inpaint_value (B, T, d)
+    with inpaint_mask (B, T, 1) (1 = force), or None. ``noise`` supplies
+    ``initial(shape)``, ``cond(shape)`` and one ``step(shape)`` per step, in
+    that order, on any device (they are moved to x_start's). ddim_steps
+    None = DDPM over every timestep."""
+    cfg = diff.cfg
+    if cfg.n_dec_layers < 2:
+        raise ValueError("the fused step needs n_dec_layers >= 2")
+    prep = diff.step_params()
+    bsz, t, d = x_start.shape
+    shape = (bsz, t, d)
+    draw = lambda f: f(shape).to(x_start.device, torch.float32).contiguous()
+    x = draw(noise.initial)
+    x_cond = (x_start * (1.0 - cond_mask) + cond_mask * draw(noise.cond)).contiguous()
+    if padding_mask is None:
+        mask = x_start.new_ones(bsz, t + 1)
+    else:
+        mask = padding_mask[:, 0, :].float().contiguous()
+    pos = prep["pos_table"][1: t + 2].contiguous()
+    if inpaint_value is not None:
+        ipv = inpaint_value.float().contiguous()
+        ipm = inpaint_mask[..., 0].float().contiguous()
+    else:
+        ipv = ipm = None
+
+    if ddim_steps is None:
+        sched = ddpm_scalars(diff.consts, cfg.timesteps)
+    else:
+        sched = ddim_scalars(diff.consts, cfg.timesteps, ddim_steps, eta)
+    embs = noise_level_embeddings(diff.model, [s[0] for s in sched])
+    kw = dict(n_head=cfg.n_head, d_k=cfg.d_k, d_v=cfg.d_v)
+    for i, (_, scal) in enumerate(sched):
+        x = fused_denoise_step(x, x_cond, embs[i], pos, mask, draw(noise.step),
+                               scal, ipv, ipm, prep, **kw)
+    return x

@@ -1,0 +1,83 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card. These need an NVIDIA GPU with nvcc and skip without one; run them
+there with (tests/conftest.py imports JAX, which the GPU machine may lack)
+
+    python -m pytest tests/test_torch_cuda.py -q --noconftest
+
+Tolerances: 1e-4 absolute in f32 mode (summation order only, no TF32) and
+2e-2 in bf16 mode (a bf16 rounding of q/k/v, p, ctx or h1 may flip where
+the two sum in other orders; outputs are O(1) LayerNorm values).
+"""
+
+import pytest
+import torch
+
+from egoego_release_tpu_torch.diffusion.gaussian_diffusion import CondGaussianDiffusion, DiffusionConfig
+from egoego_release_tpu_torch.ops import cuda_kernels as ck
+from egoego_release_tpu_torch.ops import fused_layer as fl
+from egoego_release_tpu_torch.ops import fused_step as fs
+
+pytestmark = pytest.mark.cuda
+TOL = {False: 1e-4, True: 2e-2}
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ck.build()
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("frames,d_head", [(120, 256), (13, 256), (30, 32)])
+def test_step_kernels_match_plain(card, bf16, frames, d_head):
+    """stem_layer / decoder_layer / layer_epilogue at the release width
+    (d_model 512, head width 256: the tensor-core attention in bf16) and at
+    head width 32 (the CUDA-core attention), with a padding-mask zero and
+    the overlap inpaint."""
+    cfg = DiffusionConfig(d_k=d_head, d_v=d_head)
+    diff = CondGaussianDiffusion(cfg, device=card, seed=0)
+    prep = fs.prepare_step_params(diff.model, bf16)
+    g = torch.Generator(device=card).manual_seed(1)
+    bsz, d, dm = 6, cfg.d_feats, cfg.d_model
+    rn = lambda *s: torch.randn(*s, generator=g, device=card)
+    x, xc, noise, ipv = rn(bsz, frames, d), rn(bsz, frames, d), rn(bsz, frames, d), rn(bsz, frames, d)
+    h = rn(bsz, frames + 1, dm)
+    mask = torch.ones(bsz, frames + 1, device=card)
+    mask[:, -2] = 0.0
+    ipm = torch.zeros(bsz, frames, device=card)
+    ipm[:, :10] = 1.0
+    emb = fs.noise_level_embeddings(diff.model, [500])[0]
+    pos = prep["pos_table"][1: frames + 2].contiguous()
+    kw = dict(n_head=cfg.n_head, d_k=d_head, d_v=d_head)
+    cases = [
+        (fs.stem_layer, fs.stem_layer_plain, (x, xc, emb, pos, mask, prep)),
+        (fl.decoder_layer, fl.decoder_layer_plain, (h, mask, prep["layers"][1])),
+        # x0 alone (a1 = 1, no inpaint), then the update with the inpaint
+        (fs.layer_epilogue, fs.layer_epilogue_plain, (h, mask, x, noise, (1.0, 0.0, 0.0), None, None, prep)),
+        (fs.layer_epilogue, fs.layer_epilogue_plain, (h, mask, x, noise, (0.9, 0.1, 0.05), ipv, ipm, prep)),
+    ]
+    for wrapper, plain, args in cases:
+        ck.launch_counts.clear()
+        out_k = wrapper(*args, **kw)
+        assert dict(ck.launch_counts) == {wrapper.__name__: 1}
+        out_p = plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert out_k.shape == out_p.shape
+        assert float((out_k - out_p).abs().max()) < TOL[bf16]
+
+
+def test_wrappers_count_and_route_to_kernels(card):
+    """On CUDA tensors the wrappers launch the kernels (and count them)."""
+    cfg = DiffusionConfig(d_model=64, n_head=2, d_k=32, d_v=32, n_dec_layers=3, window=24, timesteps=3)
+    diff = CondGaussianDiffusion(cfg, device=card)
+    x = torch.zeros(2, 24, cfg.d_feats, device=card)
+    ck.launch_counts.clear()
+    ck.kernel_launches.clear()
+    out = diff.p_sample_loop(x, torch.ones_like(x), noise=fs.TorchNoise(card, seed=0))
+    assert torch.isfinite(out).all()
+    assert dict(ck.launch_counts) == {"stem_layer": 3, "decoder_layer": 3, "layer_epilogue": 3}
+    # per step: 4 GEMMs per layer, plus the stem's and the update's
+    assert dict(ck.kernel_launches) == {"gemm": 3 * (4 * 3 + 2), "attention": 3 * 3}
