@@ -23,6 +23,21 @@ Phases (any failure exits non-zero; nothing is caught):
      launches per step.
   5. chain parity: the f32 kernels on the card against the plain versions
      on the CPU, same weights and noise, DDIM-50 on a small batch.
+  6. kernels of the --fused and stage-1 routes: fused_attention (csrc/mha.cu,
+     f32) at the HeadNet's shapes (blocks x 4 heads x T >= 256 x 256) and
+     fused_decoder_layer (the layer chain of gemm.cu + attention.cu) at 64
+     windows of 121 and 31 tokens in f32 and bf16, each on card tensors
+     against its plain version, counted once per call; timed beside the
+     plain version, a PyTorch library yardstick and the bound.
+  7. main path C: ``eval_stage2.run --fused`` (64 x 120 frames, DDPM-1000):
+     exactly 4 x 1000 fused_decoder_layer launches and no step kernel.
+  8. main path D: ``eval_egoego.run --headnet_window 256`` on 4 synthetic
+     kinpoly-layout sequences of 300 frames (written here), full width,
+     DDPM-1000: exactly 2 (HeadNet layers) x 4 fused_attention launches;
+     then stage 1 alone per sequence, timed, at window 256 and at the
+     release window 60 (no fused_attention launch).
+  9. stage-1 parity: stage1_head_pose at window 256 on the card (the mha
+     kernel) against the CPU (its plain version), same weights.
 Then one JSON line of per-kernel results, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -42,8 +57,11 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16 = 989e12     # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
+PEAK_F32 = 67e12       # H100 SXM f32 FLOP/s outside the tensor cores
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 bytes/s
 BATCH = 64             # windows per chain: the eval batch of the release runs
+SEQS_D, FRAMES_D = 4, 300  # path D: kinpoly-layout sequences and their OF frames
+HEADNET_WINDOW_D = 256     # the HeadNet block from which its attention takes the mha kernel
 TOL_F32 = 1e-4         # f32 kernel vs plain: summation order only
 TOL_BF16 = 2e-2        # bf16 kernel vs plain: a bf16 rounding may flip where sums differ in order
 UPDATE = (0.9, 0.1, 0.05)  # a1, a2, a3 of the epilogue's update check: x0 dominates
@@ -68,6 +86,51 @@ def cuda_time_ms(fn, warmup=3, reps=15):
     return statistics.median(times)
 
 
+def smooth_quats(rng, n):
+    """(n, 4) wxyz unit quaternions of a slowly turning head."""
+    aa = np.cumsum(rng.randn(n, 3) * 0.02, 0)
+    ang = np.linalg.norm(aa, axis=-1, keepdims=True)
+    axis = aa / np.maximum(ang, 1e-9)
+    return np.concatenate([np.cos(ang / 2), np.sin(ang / 2) * axis], -1).astype(np.float32)
+
+
+def write_kinpoly_fixture(root, rng, n_seqs, frames):
+    """The layout the kinpoly-mocap eval reads (RealWorldHeadPoseDataset with
+    eval_on_kinpoly_mocap): kinpoly-mocap/mocap_annotations.p, DROID-SLAM
+    npys under kinpoly/droid_slam_res/{scene}/{take}.npy, one OF feature npy
+    per frame; plus the qpos GT pickle. Plain pickles (no joblib)."""
+    feat_dir = os.path.join(root, "feats")
+    slam_dir = os.path.join(root, "kinpoly", "droid_slam_res", "subj")
+    for d in (feat_dir, slam_dir, os.path.join(root, "kinpoly-mocap")):
+        os.makedirs(d, exist_ok=True)
+    recs, gt = {}, {}
+    for si in range(n_seqs):
+        name = f"subj-take{si + 1}"
+        of_files = []
+        for i in range(frames):
+            f = os.path.join(feat_dir, f"raft_of_feats_{name}_{i}.npy")
+            np.save(f, rng.randn(512).astype(np.float32))
+            of_files.append(f)
+        walk = np.cumsum(rng.uniform(-0.02, 0.02, (frames + 1, 3)), 0)
+        head_qpos = np.concatenate([walk + [0, 0, 1.5], smooth_quats(rng, frames + 1)], -1).astype(np.float32)
+        recs[si] = {"seq_name": name, "head_qpos": head_qpos, "of_files": of_files,
+                    "head_vels": (rng.randn(frames + 1, 6) * 0.01).astype(np.float32)}
+        slam = np.concatenate([0.3 * walk + rng.randn(frames + 1, 3) * 1e-3, smooth_quats(rng, frames + 1)], -1)
+        np.save(os.path.join(slam_dir, f"take{si + 1}.npy"), slam.astype(np.float32))
+        qpos = np.zeros((frames, 76), np.float32)
+        qpos[:, :2] = walk[:frames, :2]
+        qpos[:, 2] = 0.92
+        qpos[:, 3:7] = [0.7071, 0.7071, 0, 0]
+        qpos[:, 7:] = rng.uniform(-0.2, 0.2, 69)
+        gt[name] = {"qpos": qpos, "head_pose": head_qpos[:frames]}
+    with open(os.path.join(root, "kinpoly-mocap", "mocap_annotations.p"), "wb") as f:
+        pickle.dump(recs, f)
+    gt_path = os.path.join(root, "full_body_gt.p")
+    with open(gt_path, "wb") as f:
+        pickle.dump(gt, f)
+    return gt_path
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -78,9 +141,11 @@ def main() -> int:
 
     from egoego_release_tpu_torch.diffusion.gaussian_diffusion import (
         CondGaussianDiffusion, DiffusionConfig)
-    from egoego_release_tpu_torch.eval import eval_stage2
+    from egoego_release_tpu_torch.eval import eval_egoego, eval_stage2
     from egoego_release_tpu_torch.eval.build import build_pipeline
     from egoego_release_tpu_torch.eval.pipeline import gt_from_smpl_params_batched
+    from egoego_release_tpu_torch.models.headnet import va2rot
+    from egoego_release_tpu_torch.ops import attention as attn
     from egoego_release_tpu_torch.ops import cuda_kernels as ck
     from egoego_release_tpu_torch.ops import fused_layer as fl
     from egoego_release_tpu_torch.ops import fused_step as fs
@@ -393,23 +458,230 @@ def main() -> int:
     if not chain_err < 1e-3:
         raise AssertionError(f"phase 5: card and CPU chains disagree by {chain_err}")
 
+    # -- phase 6: the kernels of the --fused and stage-1 routes -------------
+    def timed(r, flops, nbytes, peak, kernel, plain, lib):
+        r["ms"], r["plain_ms"], r["library_ms"] = cuda_time_ms(kernel), cuda_time_ms(plain), cuda_time_ms(lib)
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_S * 1e3
+        r["bound_ms"] = max(t_ops, t_bytes)
+        r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        r["gflop"], r["mbytes"] = flops / 1e9, nbytes / 1e6
+
+    def check_once(what, fn, want):
+        clear_counts()
+        out = fn()
+        counts = (dict(ck.launch_counts), dict(ck.kernel_launches))
+        if counts != want:
+            raise AssertionError(f"{what}: the wrapper counted/launched {counts}, want {want}")
+        return out
+
+    # HeadFormer attention at the release width: 4 heads of 256, f32. The
+    # first shape is path D's (300 frames in 2 blocks of 256).
+    hn_h, hn_d = 4, 256
+    blocks_d = -(-FRAMES_D // HEADNET_WINDOW_D)
+    fa = {"max_abs_err": 0.0}
+    for b, t in ((blocks_d, HEADNET_WINDOW_D), (8, 256), (4, 300), (2, 1024)):
+        q, k, v = (torch.randn(b, t, hn_h, hn_d, generator=g, device=dev).transpose(1, 2) for _ in range(3))
+        out_k = check_once("fused_attention", lambda: attn.fused_attention(q, k, v),
+                           ({"fused_attention": 1}, {"mha": 1}))
+        out_p = attn.fused_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        err = float((out_k - out_p).abs().max())
+        if out_k.shape != out_p.shape or not math.isfinite(err) or err > TOL_F32:
+            raise AssertionError(f"fused_attention {(b, hn_h, t, hn_d)} disagrees with its plain version: {err}")
+        fa["max_abs_err"] = max(fa["max_abs_err"], err)
+        r = {}
+        timed(r, 2 * b * hn_h * t * t * 2 * hn_d, 4 * b * hn_h * t * 4 * hn_d, PEAK_F32,
+              lambda: attn.fused_attention(q, k, v), lambda: attn.fused_attention_plain(q, k, v),
+              lambda: F.scaled_dot_product_attention(q, k, v))
+        log(f"phase 6: fused_attention f32 ({b}, {hn_h}, {t}, {hn_d}): max|kernel - plain| = {err:.3e} "
+            f"(bound {TOL_F32}); kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library (SDPA f32) "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; {r['gflop']:.2f} GFLOP, "
+            f"{r['mbytes']:.1f} MB) [{card}]")
+        if (b, t) == (blocks_d, HEADNET_WINDOW_D):
+            fa.update(r, shape=f"{b} blocks x {hn_h} heads x {t} tokens x {hn_d}, f32")
+    del q, k, v, out_k, out_p
+
+    # fused_decoder_layer: one layer of the --fused denoiser at the path's
+    # shapes; a padding-mask zero in every other window
+    fdl = {"max_abs_err": 0.0, "max_abs_err_f32": 0.0}
+    layer = model.motion_transformer.layer_stack[1]
+    for t in (cfg.window, 30):
+        h = torch.randn(BATCH, t + 1, dm, generator=g, device=dev)
+        mask = torch.ones(BATCH, t + 1, device=dev)
+        mask[::2, -2] = 0.0
+        for bf16 in (False, True):
+            lp = fl.layer_params(layer, bf16=bf16)
+            out_k = check_once("fused_decoder_layer", lambda: fl.fused_decoder_layer(h, mask, lp, **kw),
+                               ({"fused_decoder_layer": 1}, c_launches["decoder_layer"]))
+            out_p = fl.decoder_layer_plain(h, mask, lp, **kw)
+            torch.cuda.synchronize()
+            err = float((out_k - out_p).abs().max())
+            tol = TOL_BF16 if bf16 else TOL_F32
+            log(f"phase 6: fused_decoder_layer tokens={t + 1} {'bf16' if bf16 else 'f32'}: "
+                f"max|kernel - plain| = {err:.3e} (bound {tol})")
+            if out_k.shape != out_p.shape or not math.isfinite(err) or err > tol:
+                raise AssertionError(f"fused_decoder_layer disagrees with its plain version: {err} > {tol}")
+            key = "max_abs_err" if bf16 else "max_abs_err_f32"
+            fdl[key] = max(fdl[key], err)
+            if bf16 and t == cfg.window:
+                flops, nbytes = cost("decoder_layer", t)
+                timed(fdl, flops, nbytes, PEAK_BF16, lambda: fl.fused_decoder_layer(h, mask, lp, **kw),
+                      lambda: fl.decoder_layer_plain(h, mask, lp, **kw), lambda: library_layer(h, mask, lp))
+                fdl["shape"] = f"{BATCH} windows x {t + 1} tokens, bf16"
+                log(f"phase 6: fused_decoder_layer bf16 {BATCH}x{t + 1} tokens: kernel {fdl['ms']:.3f} ms, "
+                    f"plain {fdl['plain_ms']:.3f} ms, library {fdl['library_ms']:.3f} ms, bound "
+                    f"{fdl['bound_ms']:.4f} ms ({fdl['bound_by']}) [{card}]")
+    del h, mask, out_k, out_p
+
+    # -- phase 7: main path C, eval_stage2 --fused --------------------------
+    opt = eval_stage2.parse_opt([
+        "--test_data_path", data_path, "--stats_path", stats_path, "--rest_offsets", rest_path,
+        "--batch_seqs", str(BATCH), "--fused", "--out_dir", os.path.join(data_dir, "out_fused"),
+        "--device", "cuda"])
+    clear_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_c = eval_stage2.run(opt)
+    torch.cuda.synchronize()
+    dt_c = time.perf_counter() - t0
+    n_fdl = cfg.n_dec_layers * cfg.timesteps
+    want = ({"fused_decoder_layer": n_fdl},
+            {k: n_fdl * v for k, v in c_launches["decoder_layer"].items()})
+    got = (dict(ck.launch_counts), dict(ck.kernel_launches))
+    log(f"phase 7: launches {got[0]} (expected {want[0]}); C entries {got[1]} (expected {want[1]})")
+    if got != want:
+        raise AssertionError(f"phase 7: launch counts {got} != {want}")
+    if res_c["num_seqs"] != BATCH or not all(math.isfinite(v) for v in res_c["mean"].values()):
+        raise AssertionError(f"phase 7: bad eval result {res_c['mean']}")
+    log(f"phase 7: eval_stage2 --fused {BATCH} seqs x {cfg.window} frames DDPM-{cfg.timesteps} bf16 in "
+        f"{dt_c:.2f} s ({BATCH / dt_c:.2f} seqs/s, {dt_c / cfg.timesteps * 1e3:.3f} ms/step) [{card}]; "
+        f"mpjpe {res_c['mean']['mpjpe']:.1f} mm (random weights)")
+
+    # -- phase 8: main path D, eval_egoego with HeadNet blocks of 256 --------
+    kin_root = os.path.join(data_dir, "kinpoly")
+    gt_path = write_kinpoly_fixture(kin_root, np.random.RandomState(7), SEQS_D, FRAMES_D)
+    opt = eval_egoego.parse_opt([
+        "--data_root_folder", kin_root, "--full_body_gt_path", gt_path, "--stats_path", stats_path,
+        "--rest_offsets", rest_path, "--headnet_window", str(HEADNET_WINDOW_D),
+        "--out_dir", os.path.join(data_dir, "out_egoego"), "--device", "cuda"])
+    clear_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_d = eval_egoego.run(opt)
+    torch.cuda.synchronize()
+    dt_egoego = time.perf_counter() - t0
+    got = dict(ck.launch_counts)
+    n_fa = 2 * SEQS_D  # HeadNet layers x sequences: one attention call per layer per sequence
+    # stage 2 per sequence: a first window, then one per (window - overlap) new frames
+    windows = SEQS_D * (1 + math.ceil((FRAMES_D - cfg.window) / (cfg.window - cfg.overlap_frames)))
+    want = {"fused_attention": n_fa, "stem_layer": windows * cfg.timesteps,
+            "decoder_layer": windows * cfg.timesteps * (cfg.n_dec_layers - 2),
+            "layer_epilogue": windows * cfg.timesteps}
+    log(f"phase 8: launches {got} (expected {want}, {windows} windows); C entries {dict(ck.kernel_launches)}")
+    if got != want or ck.kernel_launches["mha"] != n_fa:
+        raise AssertionError(f"phase 8: launch counts {got} != {want}")
+    entries = res_d["per_seq"].values()
+    if res_d["num_seqs"] != SEQS_D or not all(math.isfinite(v) for e in entries for v in e.values()):
+        raise AssertionError(f"phase 8: bad eval result {res_d}")
+    log(f"phase 8: eval_egoego {SEQS_D} seqs x {FRAMES_D} frames, HeadNet window {HEADNET_WINDOW_D}, "
+        f"DDPM-{cfg.timesteps} in {dt_egoego:.2f} s ({SEQS_D / dt_egoego:.3f} seqs/s) [{card}]; "
+        f"s1_t_head {res_d['mean']['s1_t_head']:.1f} mm, mpjpe {res_d['mean']['mpjpe']:.1f} mm (random weights)")
+
+    # stage 1 alone on the same records, per sequence, at window 256 (the
+    # mha kernel) and at the release window 60 (einsum attention only)
+    ds = eval_egoego.select_dataset(opt)
+    records = [ds[i] for i in range(len(ds))]
+    stage1 = {}
+    for window in (HEADNET_WINDOW_D, 60):
+        pipe = build_pipeline(stats_path=stats_path, rest_offsets_path=rest_path, headnet_window=window,
+                              device=dev)
+        pipe.stage1_head_pose(records[0])  # warm-up
+        clear_counts()
+        times, outs = [], []
+        for rec in records:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(pipe.stage1_head_pose(rec))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        n = ck.launch_counts["fused_attention"]
+        want_n = 2 * len(records) if window >= 256 else 0
+        if n != want_n or dict(ck.launch_counts).keys() - {"fused_attention"}:
+            raise AssertionError(f"stage 1 at window {window}: launches {dict(ck.launch_counts)}, "
+                                 f"want fused_attention {want_n} only")
+        stage1[window] = {"ms_per_seq": statistics.median(times), "outs": outs}
+        log(f"phase 8: stage1_head_pose window {window}: {statistics.median(times):.2f} ms per sequence "
+            f"(median of {len(times)}, {FRAMES_D} frames), fused_attention launches {n} [{card}]")
+    init = torch.as_tensor(records[0]["head_pose"][0:1, 3:], device=dev)
+    vels = torch.randn(1, FRAMES_D, 3, generator=g, device=dev)
+    for where in (dev, torch.device("cpu")):
+        i_w, v_w = init.to(where), vels.to(where)
+        va2rot(i_w, v_w)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        va2rot(i_w, v_w)
+        torch.cuda.synchronize()
+        log(f"phase 8: va2rot over {FRAMES_D} frames on {where.type}: {(time.perf_counter() - t0) * 1e3:.2f} ms")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    pipe = build_pipeline(stats_path=stats_path, rest_offsets_path=rest_path,
+                          headnet_window=HEADNET_WINDOW_D, device=dev)
+    pipe.stage1_head_pose(records[0])
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        pipe.stage1_head_pose(records[0])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    n_launch = sum(e.count for e in ka if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
+    busy_us = sum(getattr(e, "self_device_time_total", 0) for e in ka)
+    log(f"phase 8: one stage1_head_pose (window {HEADNET_WINDOW_D}) under the profiler: {wall * 1e3:.2f} ms wall, "
+        f"{n_launch} kernel launches, device busy {busy_us / 1e3:.2f} ms "
+        f"({busy_us * 1e-6 / wall:.3f} of the wall time) [{card}]")
+
+    # -- phase 9: stage-1 parity, card (mha kernel) vs CPU (plain) ----------
+    pipe_cpu = build_pipeline(stats_path=stats_path, rest_offsets_path=rest_path,
+                              headnet_window=HEADNET_WINDOW_D, device="cpu")
+    err_t = err_q = 0.0
+    for rec, out in zip(records, stage1[HEADNET_WINDOW_D]["outs"]):
+        ref = pipe_cpu.stage1_head_pose(rec)["head_pose"]
+        got_hp = out["head_pose"].cpu()
+        if got_hp.shape != ref.shape or not torch.isfinite(got_hp).all():
+            raise AssertionError(f"phase 9: head pose {tuple(got_hp.shape)} vs {tuple(ref.shape)}")
+        err_t = max(err_t, float((got_hp[:, :3] - ref[:, :3]).abs().max()))
+        err_q = max(err_q, float((got_hp[:, 3:] - ref[:, 3:]).abs().max()))
+    log(f"phase 9: stage1_head_pose window {HEADNET_WINDOW_D}, card vs CPU over {len(records)} sequences: "
+        f"max translation error {err_t:.3e} m (bound 1e-3), max quaternion error {err_q:.3e} (bound 1e-4)")
+    if not (err_t < 1e-3 and err_q < 1e-4):
+        raise AssertionError(f"phase 9: card and CPU stage 1 disagree: {err_t} m, {err_q}")
+
     replaces = {"stem_layer": "egoego_release_tpu/ops/fused_step.py:126",
                 "decoder_layer": "egoego_release_tpu/ops/fused_layer.py:113",
-                "layer_epilogue": "egoego_release_tpu/ops/fused_step.py:160"}
+                "layer_epilogue": "egoego_release_tpu/ops/fused_step.py:160",
+                "fused_decoder_layer": "egoego_release_tpu/ops/fused_layer.py:172",
+                "fused_attention": "egoego_release_tpu/ops/attention.py:31"}
+    csrc = "egoego_release_tpu_torch/csrc/"
+    layer_srcs = [csrc + "gemm.cu", csrc + "attention.cu"]
+    results["fused_decoder_layer"] = dict(fdl, launches=n_fdl)
+    results["fused_attention"] = dict(fa, launches=n_fa)
+    for name in per_step:
+        results[name].update(launches=launches[name], shape=f"{BATCH} windows x {cfg.window + 1} tokens, bf16")
     kernels = []
     for name, r in results.items():
-        # each wrapper launches GEMMs (csrc/gemm.cu) and attention (csrc/attention.cu)
+        srcs = [csrc + "mha.cu"] if name == "fused_attention" else layer_srcs
         kernels.append({
-            "name": name, "route": "cuda", "source": "egoego_release_tpu_torch/csrc/gemm.cu",
-            "replaces": replaces[name], "launches": launches[name],
-            "max_abs_err": r["max_abs_err"], "max_abs_err_f32": r["max_abs_err_f32"],
-            "tol_bf16": TOL_BF16, "tol_f32": TOL_F32,
+            "name": name, "route": "cuda", "source": srcs[0], "sources": srcs,
+            "replaces": replaces[name], "launches": r["launches"],
+            "max_abs_err": r["max_abs_err"],
+            **({"max_abs_err_f32": r["max_abs_err_f32"]} if "max_abs_err_f32" in r else {}),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "gflop": r["gflop"], "mbytes": r["mbytes"],
-            "shape": f"{BATCH} windows x {cfg.window + 1} tokens, bf16", "card": card,
+            "shape": r["shape"], "card": card,
         })
     log(f"main path: eval_stage2 {dt_a:.3f} s; DDPM chain {dt_b:.3f} s; DDIM chain {dt_d:.3f} s; "
-        f"whole smoke {time.perf_counter() - t_start:.1f} s")
+        f"eval_stage2 --fused {dt_c:.3f} s; eval_egoego {dt_egoego:.3f} s; stage 1 "
+        f"{stage1[HEADNET_WINDOW_D]['ms_per_seq']:.2f} ms/seq (window {HEADNET_WINDOW_D}), "
+        f"{stage1[60]['ms_per_seq']:.2f} ms/seq (window 60); whole smoke {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "step": step_prof}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,4 +1,4 @@
-// Shared helpers of the denoiser's CUDA kernels (gemm.cu, attention.cu).
+// Shared helpers of the CUDA kernels (gemm.cu, attention.cu, mha.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -31,6 +31,16 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
+
+// 16-byte async copy from device to shared memory; pred false zero-fills
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll

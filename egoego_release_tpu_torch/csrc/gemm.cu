@@ -176,15 +176,6 @@ __device__ __forceinline__ void epilogue(const GemmArgs& p, const float* Cs, int
   }
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
 // bf16 tensor-core GEMM: 8 warps as WARPS_M x (8 / WARPS_M), FM x FN
 // fragments of 16x16 each. STAGES-deep cp.async pipeline: each stage holds
 // the raw A tile (f32 or bf16, as stored) and the bf16 W tile; before the

@@ -1,7 +1,8 @@
 """Loaders for the reference's on-disk formats: the motion pickles ({index:
 record} with trans (T,3), root_orient (T,3), body_pose (T,63), seq_name,
-...) and the min/max normalization stats pickle (loaders copied from
-egoego_release_tpu/data/formats.py).
+...), the min/max normalization stats pickle, DROID-SLAM trajectories
+((T, 7) npy, trans + quat wxyz) and the per-frame optical-flow feature npys
+(loaders copied from egoego_release_tpu/data/formats.py).
 
 The reference writes these files with joblib, which stores numpy arrays as
 raw bytes between pickle opcodes. ``load_pickle`` reads both that layout
@@ -11,12 +12,14 @@ the port needs no joblib.
 
 from __future__ import annotations
 
+import os
 import pickle
 
 import numpy as np
 import torch
 
 from egoego_release_tpu_torch.diffusion.gaussian_diffusion import NormStats
+from egoego_release_tpu_torch.ops.rotations import quat_to_matrix_np
 
 
 class _ArrayWrapper:
@@ -79,3 +82,32 @@ def load_norm_stats(path: str, device="cpu") -> NormStats:
     d = load_pickle(path)
     r = lambda k: torch.as_tensor(np.asarray(d[k], np.float32).reshape(22, 3), device=device)
     return NormStats(jpos_min=r("global_jpos_min"), jpos_max=r("global_jpos_max"))
+
+
+def load_droidslam(path: str):
+    """(T, 7) npy -> (trans (T, 3), rot_mat (T, 3, 3), quat wxyz (T, 4))."""
+    data = np.load(path)
+    trans = data[:, :3].astype(np.float32)
+    quat = data[:, 3:].astype(np.float32)
+    return trans, quat_to_matrix_np(quat), quat
+
+
+def load_of_feats(of_files: list[str], rewrite: tuple[str, str] | None = None,
+                  feat_dim: int = 512) -> np.ndarray:
+    """Stack per-frame optical-flow feature npys -> (T, feat_dim) f32.
+    ``rewrite`` maps the absolute paths stored in the pickles onto the local
+    data root; flow paths (raft_flows) are read as feature paths
+    (raft_of_feats)."""
+    out = np.empty((len(of_files), feat_dim), np.float32)
+    for i, f in enumerate(of_files):
+        if rewrite is not None:
+            f = f.replace(rewrite[0], rewrite[1])
+        out[i] = np.load(f.replace("raft_flows", "raft_of_feats")).reshape(-1)
+    return out
+
+
+def find_slam_npy(slam_res_folder: str, seq_name: str) -> str | None:
+    """seq_name 'scene-rest-of-name' -> {folder}/{scene}/{rest}.npy, or None."""
+    scene = seq_name.split("-")[0]
+    path = os.path.join(slam_res_folder, scene, "-".join(seq_name.split("-")[1:]) + ".npy")
+    return path if os.path.exists(path) else None

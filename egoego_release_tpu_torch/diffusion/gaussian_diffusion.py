@@ -1,9 +1,13 @@
 """Head-pose-conditioned Gaussian diffusion, stage 2 (port of
 egoego_release_tpu/diffusion/gaussian_diffusion.py, inference part).
 
-Every reverse step runs through the three step kernels of
+By default every reverse step runs through the three step kernels of
 ops/fused_step.py: on the card the hand-written CUDA kernels, on the CPU
-their plain versions. The window chain is a host loop: windows depend on
+their plain versions. With ``fused_transformer`` (the ``--fused`` mode)
+each step instead runs the denoiser forward through
+``ops.fused_layer.fused_denoiser_apply`` (one ``fused_decoder_layer`` per
+layer) and then the posterior or DDIM update and the inpaint in PyTorch,
+as the JAX package's non-step loop does. The window chain is a host loop: windows depend on
 each other through the inpainted overlap, and each window's 1000 steps are
 queued on the device without a host sync.
 
@@ -24,7 +28,13 @@ from egoego_release_tpu_torch.models.denoiser import TransformerDiffusionModel, 
 from egoego_release_tpu_torch.ops import fk as fk_mod
 from egoego_release_tpu_torch.ops import heading
 from egoego_release_tpu_torch.ops import rotations as rot
-from egoego_release_tpu_torch.ops.fused_step import fused_p_sample_loop, prepare_step_params
+from egoego_release_tpu_torch.ops.fused_layer import fused_denoiser_apply, layer_params
+from egoego_release_tpu_torch.ops.fused_step import (
+    ddim_scalars,
+    ddpm_scalars,
+    fused_p_sample_loop,
+    prepare_step_params,
+)
 from egoego_release_tpu_torch.utils.device import resolve_device
 
 NUM_JOINTS = fk_mod.NUM_JOINTS
@@ -51,6 +61,9 @@ class DiffusionConfig:
     compute_dtype: str = "bfloat16"  # "float32" = exact f32 parity mode
     sampler: str = "ddpm"            # "ddim" = strided fast sampler
     ddim_steps: int = 50
+    # the --fused denoiser (fused_decoder_layer per layer, bf16) instead of
+    # the step kernels; the CLIs give --fused_step precedence, as JAX does
+    fused_transformer: bool = False
 
 
 class NormStats(NamedTuple):
@@ -84,6 +97,35 @@ def new_denoiser(cfg: DiffusionConfig) -> TransformerDiffusionModel:
                                      cfg.d_k, cfg.d_v, max_timesteps=cfg.window + 1)
 
 
+@torch.no_grad()
+def fused_layer_p_sample_loop(diff, x_start, cond_mask, padding_mask=None, inpaint_value=None,
+                              inpaint_mask=None, *, noise, ddim_steps: int | None = None,
+                              eta: float = 0.0) -> torch.Tensor:
+    """The reverse chain of the ``--fused`` mode: per step the denoiser
+    through ``fused_denoiser_apply``, x0 clipped to [-1, 1], then
+    x_next = a1 x0 + a2 x_t + a3 noise with the step path's host scalars
+    (the DDPM posterior update, or the DDIM one written the same way),
+    then the inpaint. Noise is drawn as the step path draws it."""
+    cfg = diff.cfg
+    shape = x_start.shape
+    draw = lambda f: f(shape).to(x_start.device, torch.float32)
+    x = draw(noise.initial)
+    x_cond = x_start * (1.0 - cond_mask) + cond_mask * draw(noise.cond)
+    if ddim_steps is None:
+        sched = ddpm_scalars(diff.consts, cfg.timesteps)
+    else:
+        sched = ddim_scalars(diff.consts, cfg.timesteps, ddim_steps, eta)
+    layers = diff.fused_layer_params()
+    for t, (a1, a2, a3) in sched:
+        noise_t = torch.full((shape[0],), t, dtype=torch.int64, device=x.device)
+        x0 = fused_denoiser_apply(diff.model, torch.cat([x, x_cond], dim=-1), noise_t,
+                                  padding_mask, cfg, layers=layers).clamp(-1.0, 1.0)
+        x = a1 * x0 + a2 * x + a3 * draw(noise.step)
+        if inpaint_value is not None:
+            x = torch.where(inpaint_mask > 0, inpaint_value, x)
+    return x
+
+
 class CondGaussianDiffusion:
     """Holds the denoiser (an ``nn.Module`` on ``device``), the f32 schedule
     and the kernel operands prepared from the weights."""
@@ -99,6 +141,7 @@ class CondGaussianDiffusion:
             model = init_weights_(new_denoiser(cfg), torch.Generator().manual_seed(seed))
         self.model = model.to(self.device).eval()
         self._prep = None
+        self._fused_layers = None
 
     def step_params(self) -> dict:
         """Kernel operands, prepared once from the current weights."""
@@ -106,19 +149,27 @@ class CondGaussianDiffusion:
             self._prep = prepare_step_params(self.model, self.cfg.compute_dtype == "bfloat16")
         return self._prep
 
+    def fused_layer_params(self) -> list[dict]:
+        """Per-layer operands of the ``--fused`` denoiser, bf16 as in JAX."""
+        if self._fused_layers is None:
+            self._fused_layers = [layer_params(layer, bf16=True)
+                                  for layer in self.model.motion_transformer.layer_stack]
+        return self._fused_layers
+
     # -- reverse process ---------------------------------------------------
 
     def p_sample_loop(self, x_start, cond_mask, padding_mask=None, inpaint_value=None,
                       inpaint_mask=None, *, noise):
         """DDPM over every timestep (inpaint_mask (B, T, 1), 1 = force)."""
-        return fused_p_sample_loop(self, x_start, cond_mask, padding_mask, inpaint_value,
-                                   inpaint_mask, noise=noise)
+        loop = fused_layer_p_sample_loop if self.cfg.fused_transformer else fused_p_sample_loop
+        return loop(self, x_start, cond_mask, padding_mask, inpaint_value, inpaint_mask, noise=noise)
 
     def p_sample_loop_ddim(self, x_start, cond_mask, num_steps: int = 50, eta: float = 0.0,
                            padding_mask=None, inpaint_value=None, inpaint_mask=None, *, noise):
         """DDIM over ``num_steps`` strided timesteps (eta 0: deterministic)."""
-        return fused_p_sample_loop(self, x_start, cond_mask, padding_mask, inpaint_value,
-                                   inpaint_mask, noise=noise, ddim_steps=num_steps, eta=eta)
+        loop = fused_layer_p_sample_loop if self.cfg.fused_transformer else fused_p_sample_loop
+        return loop(self, x_start, cond_mask, padding_mask, inpaint_value, inpaint_mask,
+                    noise=noise, ddim_steps=num_steps, eta=eta)
 
     # -- canonical sliding-window sampling ---------------------------------
 

@@ -1,5 +1,7 @@
-"""Build the stage-2 ``EgoEgoPipeline`` from checkpoint and model files
-(port of the stage-2 part of egoego_release_tpu/eval/build.py)."""
+"""Build the ``EgoEgoPipeline`` (stage 2, and the stage-1 HeadNet and
+GravityNet) from checkpoint and model files (port of
+egoego_release_tpu/eval/build.py). Released ``.pt`` files load directly;
+the JAX package's orbax checkpoint directories are not read here."""
 
 from __future__ import annotations
 
@@ -15,8 +17,15 @@ from egoego_release_tpu_torch.diffusion.gaussian_diffusion import (
     new_denoiser,
 )
 from egoego_release_tpu_torch.eval.pipeline import EgoEgoPipeline
+from egoego_release_tpu_torch.models.denoiser import init_weights_
+from egoego_release_tpu_torch.models.gravitynet import HeadNormalFormer
+from egoego_release_tpu_torch.models.headnet import HeadFormer
 from egoego_release_tpu_torch.ops.fk import NUM_JOINTS, SMPL_PARENTS
-from egoego_release_tpu_torch.utils.convert import load_denoiser_weights, load_stage2_diffusion_ckpt
+from egoego_release_tpu_torch.utils.convert import (
+    load_denoiser_weights,
+    load_stage1_ckpt,
+    load_stage2_diffusion_ckpt,
+)
 from egoego_release_tpu_torch.utils.device import resolve_device
 
 
@@ -43,16 +52,36 @@ def load_rest_offsets(smplh_path: str | None, rest_offsets_path: str | None) -> 
         "(--rest_offsets).")
 
 
+def _stage1_model(model, kind: str, ckpt: str | None, n_layers: int, seed: int, **dims):
+    """A stage-1 model from a released .pt, or random-init from ``seed``."""
+    if ckpt and os.path.isdir(ckpt):
+        raise NotImplementedError(f"{kind} checkpoint {ckpt!r}: orbax directories are not read by "
+                                  "the PyTorch package (see ROADMAP.md); pass the released .pt")
+    if ckpt and os.path.isfile(ckpt):
+        return load_denoiser_weights(model, load_stage1_ckpt(ckpt, kind, n_layers, **dims))
+    if ckpt:
+        raise FileNotFoundError(f"{kind} checkpoint {ckpt!r} not found")
+    print(f"WARNING: no {kind} checkpoint; using random init")
+    return init_weights_(model, torch.Generator().manual_seed(seed))
+
+
 def build_pipeline(*, stats_path: str, smplh_path: str | None = None,
                    rest_offsets_path: str | None = None, diffusion_ckpt: str | None = None,
-                   window: int = 120, sampler: str = "ddpm", ddim_steps: int = 50,
-                   timesteps: int = 1000, compute_dtype: str = "bfloat16", seed: int = 0,
-                   device="cuda") -> EgoEgoPipeline:
-    """Stage-2 pipeline on ``device`` (the card unless device="cpu" is
-    passed). Without a checkpoint the denoiser is random-init from ``seed``."""
+                   headnet_ckpt: str | None = None, gravitynet_ckpt: str | None = None,
+                   window: int = 120, headnet_window: int = 60, headnet_d_model: int = 256,
+                   headnet_layers: int = 2, gravitynet_window: int = 120,
+                   gravitynet_d_model: int = 256, gravitynet_layers: int = 2, n_head: int = 4,
+                   d_k: int = 256, d_v: int = 256, sampler: str = "ddpm", ddim_steps: int = 50,
+                   timesteps: int = 1000, compute_dtype: str = "bfloat16",
+                   fused_transformer: bool = False, seed: int = 0, device="cuda") -> EgoEgoPipeline:
+    """The pipeline on ``device`` (the card unless device="cpu" is passed).
+    Models without a checkpoint are random-init: the denoiser from ``seed``,
+    HeadNet from ``seed + 1`` and GravityNet from ``seed + 2``, as in JAX.
+    ``fused_transformer`` selects the ``--fused`` denoiser path."""
     dev = resolve_device(device)
     cfg = DiffusionConfig(window=window, sampler=sampler, ddim_steps=ddim_steps,
-                          timesteps=timesteps, compute_dtype=compute_dtype)
+                          timesteps=timesteps, compute_dtype=compute_dtype,
+                          fused_transformer=fused_transformer)
     model = None
     if diffusion_ckpt and os.path.isfile(diffusion_ckpt):
         sd, _ = load_stage2_diffusion_ckpt(diffusion_ckpt)
@@ -62,6 +91,17 @@ def build_pipeline(*, stats_path: str, smplh_path: str | None = None,
     else:
         print("WARNING: no stage-2 checkpoint; using random init")
     diffusion = CondGaussianDiffusion(cfg, device=dev, model=model, seed=seed)
+    headnet = _stage1_model(
+        HeadFormer(d_model=headnet_d_model, n_layers=headnet_layers, n_head=n_head, d_k=d_k, d_v=d_v,
+                   window=headnet_window),
+        "headnet", headnet_ckpt, headnet_layers, seed + 1,
+        d_model=headnet_d_model, n_head=n_head, d_k=d_k, d_v=d_v)
+    gravitynet = _stage1_model(
+        HeadNormalFormer(d_model=gravitynet_d_model, n_layers=gravitynet_layers, n_head=n_head, d_k=d_k,
+                         d_v=d_v, window=gravitynet_window),
+        "gravitynet", gravitynet_ckpt, gravitynet_layers, seed + 2,
+        d_model=gravitynet_d_model, n_head=n_head, d_k=d_k, d_v=d_v)
     rest = load_rest_offsets(smplh_path, rest_offsets_path)
     return EgoEgoPipeline(diffusion=diffusion, stats=load_norm_stats(stats_path, device=dev),
-                          rest_offsets=torch.as_tensor(rest, device=dev))
+                          rest_offsets=torch.as_tensor(rest, device=dev),
+                          headnet=headnet.to(dev).eval(), gravitynet=gravitynet.to(dev).eval())

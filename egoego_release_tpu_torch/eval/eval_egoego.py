@@ -1,0 +1,190 @@
+"""Full-pipeline eval on ARES / GIMO / Kinpoly-MoCap, on the card.
+
+Port of egoego_release_tpu/eval/eval_egoego.py (the per-sequence path) with
+the same flags plus ``--device`` (default ``cuda``; ``--device cpu`` runs
+the plain versions of the kernels). Per test sequence:
+
+  stage 1 (HeadNet + GravityNet) -> stage-1 head metrics
+  -> qpos GT -> FK -> floor snap -> head-pose floor alignment
+  -> stage-2 conditional diffusion (best of --sample_bs by MPJPE)
+  -> full metric suite -> JSON.
+
+Scene splits, "step"-sequence exclusion and the SLAM-failure blacklist
+follow the JAX CLI.
+
+    python -m egoego_release_tpu_torch.eval.eval_egoego \\
+        --data_root_folder <root> --full_body_gt_path <mocap_annotations.p> \\
+        --stats_path <stats.p> --rest_offsets <rest.npy> --out_dir results
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import numpy as np
+
+from egoego_release_tpu_torch.data.formats import load_motion_dict, load_pickle
+from egoego_release_tpu_torch.data.headpose import (
+    ARESHeadPoseDataset,
+    GIMOHeadPoseDataset,
+    RealWorldHeadPoseDataset,
+)
+from egoego_release_tpu_torch.eval.build import build_pipeline
+from egoego_release_tpu_torch.eval.pipeline import HEAD_IDX, evaluate_sequence, stage1_metrics
+from egoego_release_tpu_torch.ops import fk as fk_mod
+from egoego_release_tpu_torch.ops import geometry
+from egoego_release_tpu_torch.ops.fused_step import TorchNoise
+
+ARES_TEST_SCENES = ("office_0", "hotel_0", "room_2", "frl_apartment_4", "apartment_0")
+GIMO_TEST_SCENES = ("storeroom0217", "classroom0219", "lab0220", "kitchen0214")
+
+
+def _not_ported(flag: str) -> NotImplementedError:
+    return NotImplementedError(f"{flag} is not ported to the PyTorch package yet (see ROADMAP.md)")
+
+
+def select_dataset(opt):
+    if opt.test_on_ares:
+        return ARESHeadPoseDataset(opt.data_root_folder, train=False, window=opt.window, for_eval=True)
+    if opt.test_on_gimo:
+        return GIMOHeadPoseDataset(opt.data_root_folder, train=False, window=opt.window, for_eval=True)
+    return RealWorldHeadPoseDataset(opt.data_root_folder, train=False, window=opt.window, for_eval=True,
+                                    eval_on_kinpoly_mocap=True)
+
+
+def keep_sequence(opt, seq_name: str, bad_seqs: set) -> bool:
+    if seq_name in bad_seqs or seq_name + ".npz" in bad_seqs:
+        return False
+    if opt.test_on_ares:
+        return seq_name.split("-")[0] in ARES_TEST_SCENES
+    if opt.test_on_gimo:
+        return seq_name.split("-")[0] in GIMO_TEST_SCENES
+    return "step" not in seq_name
+
+
+def run(opt) -> dict:
+    for flag, on in (("--batch_seqs > 1", opt.batch_seqs > 1), ("--of_bf16", opt.of_bf16),
+                     ("--of_int8", opt.of_int8), ("--mujoco_xml", bool(opt.mujoco_xml)),
+                     ("--save_html_vis", opt.save_html_vis), ("--sample_microbatch", opt.sample_microbatch > 0),
+                     ("--dp/--tp", opt.dp != 1 or opt.tp != 1)):
+        if on:
+            raise _not_ported(flag)
+    pipeline = build_pipeline(
+        stats_path=opt.stats_path, smplh_path=opt.smplh_path, rest_offsets_path=opt.rest_offsets,
+        diffusion_ckpt=opt.diffusion_ckpt, headnet_ckpt=opt.headnet_ckpt,
+        gravitynet_ckpt=opt.gravitynet_ckpt, window=opt.window, headnet_window=opt.headnet_window,
+        timesteps=opt.timesteps, fused_transformer=opt.fused and not opt.fused_step, seed=opt.seed,
+        device=opt.device)
+    ds = select_dataset(opt)
+    full_body_gt = load_motion_dict(opt.full_body_gt_path)
+    bad_seqs: set = set()
+    if opt.bad_seq_path and os.path.exists(opt.bad_seq_path):
+        bad_seqs = set(load_pickle(opt.bad_seq_path)["bad_seq"])
+    noise = TorchNoise(pipeline.device, seed=opt.seed)
+
+    eligible = []
+    for i in range(len(ds)):
+        rec = ds[i]
+        seq_name = rec["seq_name"]
+        if not keep_sequence(opt, seq_name, bad_seqs):
+            continue
+        gt_key = seq_name + ".npz" if opt.test_on_ares else seq_name
+        if gt_key not in full_body_gt:
+            continue
+        eligible.append((seq_name, rec, full_body_gt[gt_key]))
+        if opt.max_seqs and len(eligible) >= opt.max_seqs:
+            break
+
+    agg: dict[str, list] = {}
+    per_seq = {}
+    for seq_name, rec, gt_rec in eligible:
+        # ---- stage 1 ----
+        if opt.use_gt_head_pose:
+            head_pose = np.asarray(gt_rec["head_pose"], np.float32)
+        else:
+            head_pose = pipeline.stage1_head_pose(rec)["head_pose"].cpu().numpy()
+        head_pose = head_pose[:gt_rec["head_pose"].shape[0]]
+        s1_e, s1_o, s1_t = stage1_metrics(head_pose, gt_rec["head_pose"])
+        print(f"{seq_name}: stage1 E={s1_e:.4f} O={s1_o:.4f} T={s1_t:.1f}mm")
+
+        # ---- GT body: qpos codec + FK, snapped to the floor ----
+        gt_trans, gt_aa24 = geometry.qpos_to_smpl(pipeline._as_tensor(gt_rec["qpos"]))
+        gt_jrot, gt_jpos = fk_mod.fk_smpl(gt_trans, gt_aa24[:, :22], pipeline.rest_offsets)
+        floor, _, _ = geometry.determine_floor_height_and_contacts(gt_jpos.cpu().numpy(), 30)
+        gt_jpos = gt_jpos.clone()
+        gt_jpos[:, :, 2] -= float(np.float32(floor))
+
+        # align the predicted head pose to the floor-snapped GT start
+        gt_head = gt_jpos[:, HEAD_IDX].cpu().numpy()
+        head_pose = head_pose.copy()
+        head_pose[:, :3] += gt_head[0] - head_pose[0, :3]
+        if opt.use_gt_head_pose:
+            head_pose = np.concatenate([gt_head, gt_jrot[:, HEAD_IDX].cpu().numpy()], -1)
+
+        # ---- stage 2 + metrics ----
+        md, _ = evaluate_sequence(pipeline, head_pose, gt_jrot, gt_jpos, noise, sample_bs=opt.sample_bs)
+        entry = {k: float(np.mean(v)) for k, v in md.items() if k != "single_jpe"}
+        entry.update({"s1_e_head": s1_e, "s1_o_head": s1_o, "s1_t_head": s1_t})
+        per_seq[seq_name] = entry
+        for k, v in entry.items():
+            agg.setdefault(k, []).append(v)
+        print(f"  mpjpe={entry['mpjpe']:.2f}mm head_dist={entry['head_dist']:.4f}")
+
+    summary = {k: float(np.mean(v)) for k, v in agg.items()}
+    result = {"mean": summary, "per_seq": per_seq, "num_seqs": len(per_seq)}
+    os.makedirs(opt.out_dir, exist_ok=True)
+    tag = "ares" if opt.test_on_ares else ("gimo" if opt.test_on_gimo else "kinpoly")
+    with open(os.path.join(opt.out_dir, f"egoego_pipeline_res_on_{tag}.json"), "w") as f:
+        json.dump(result, f, indent=2)
+    print("mean:", json.dumps(summary, indent=2))
+    return result
+
+
+def parse_opt(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--data_root_folder", required=True)
+    p.add_argument("--full_body_gt_path", required=True,
+                   help="kinpoly-format mocap_annotations.p with qpos experts")
+    p.add_argument("--bad_seq_path", default=None)
+    p.add_argument("--stats_path", required=True)
+    p.add_argument("--diffusion_ckpt", default=None)
+    p.add_argument("--headnet_ckpt", default=None)
+    p.add_argument("--gravitynet_ckpt", default=None)
+    p.add_argument("--smplh_path", default=None)
+    p.add_argument("--rest_offsets", default=None)
+    p.add_argument("--window", type=int, default=120)
+    p.add_argument("--headnet_window", type=int, default=60,
+                   help="HeadNet block length; 256 or more routes its attention to the fused kernel")
+    p.add_argument("--timesteps", type=int, default=1000,
+                   help="DDPM steps (1000 = reference; lower for smoke runs)")
+    p.add_argument("--sample_bs", type=int, default=1)
+    p.add_argument("--batch_seqs", type=int, default=1, help="not ported (values above 1 raise)")
+    p.add_argument("--fused", action="store_true",
+                   help="denoiser layers through fused_decoder_layer (bf16) instead of the step kernels")
+    p.add_argument("--fused_step", action="store_true",
+                   help="the step kernels (the default path); wins over --fused")
+    p.add_argument("--sample_microbatch", type=int, default=0, help="not ported (N > 0 raises)")
+    p.add_argument("--of_bf16", action="store_true", help="not ported (raises)")
+    p.add_argument("--of_int8", action="store_true", help="not ported (raises)")
+    p.add_argument("--dp", type=int, default=1, help="not ported (values other than 1 raise)")
+    p.add_argument("--tp", type=int, default=1, help="not ported (values other than 1 raise)")
+    p.add_argument("--max_seqs", type=int, default=0)
+    p.add_argument("--test_on_ares", action="store_true")
+    p.add_argument("--test_on_gimo", action="store_true")
+    p.add_argument("--use_gt_head_pose", action="store_true")
+    p.add_argument("--save_html_vis", action="store_true", help="not ported (raises)")
+    p.add_argument("--mujoco_xml", default=None, help="not ported (raises)")
+    p.add_argument("--out_dir", default="./results")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    run(parse_opt(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -39,19 +39,18 @@ def _not_ported(flag: str) -> NotImplementedError:
 
 
 def run(opt) -> dict:
-    if opt.fused:
-        raise _not_ported("--fused")
     if opt.sample_microbatch > 0:
         raise _not_ported("--sample_microbatch")
     if opt.dp != 1 or opt.tp != 1:
         raise _not_ported("--dp/--tp")
-    # --fused_step is accepted: on the card every step runs through the kernels.
+    # The step kernels are the default path; --fused selects the per-layer
+    # fused_decoder_layer denoiser, and --fused_step wins over it as in JAX.
     pipeline = build_pipeline(
         stats_path=opt.stats_path, smplh_path=opt.smplh_path,
         rest_offsets_path=opt.rest_offsets, diffusion_ckpt=opt.checkpoint,
         window=opt.window, sampler="ddim" if opt.ddim_steps else "ddpm",
         ddim_steps=opt.ddim_steps or 50, timesteps=opt.timesteps, seed=opt.seed,
-        device=opt.device)
+        fused_transformer=opt.fused and not opt.fused_step, device=opt.device)
     data = load_motion_dict(opt.test_data_path)
     noise = TorchNoise(pipeline.device, seed=opt.seed)
 
@@ -129,9 +128,10 @@ def parse_opt(argv=None):
     p.add_argument("--batch_seqs", type=int, default=16, help="sequences per diffusion batch")
     p.add_argument("--ddim_steps", type=int, default=0,
                    help="use the fast DDIM sampler with N steps (0 = parity DDPM-1000)")
-    p.add_argument("--fused", action="store_true", help="not ported (raises)")
+    p.add_argument("--fused", action="store_true",
+                   help="denoiser layers through fused_decoder_layer (bf16) instead of the step kernels")
     p.add_argument("--fused_step", action="store_true",
-                   help="accepted for compatibility: every step runs through the step kernels")
+                   help="the step kernels (the default path); wins over --fused")
     p.add_argument("--sample_microbatch", type=int, default=0, help="not ported (N > 0 raises)")
     p.add_argument("--dp", type=int, default=1, help="not ported (values other than 1 raise)")
     p.add_argument("--tp", type=int, default=1, help="not ported (values other than 1 raise)")

@@ -1,6 +1,6 @@
-"""Stage-2 evaluation building blocks (port of the stage-2 part of
-egoego_release_tpu/eval/pipeline.py): head pose -> sliding-window
-diffusion -> FK -> floor -> metrics.
+"""Evaluation building blocks (port of egoego_release_tpu/eval/pipeline.py,
+per-record paths): stage 1 (HeadNet + GravityNet) -> head pose ->
+sliding-window diffusion -> FK -> floor -> metrics.
 
 Randomness comes from a noise source (``ops.fused_step.TorchNoise`` or a
 replay of another framework's draws) instead of a JAX key.
@@ -15,21 +15,31 @@ import torch
 
 from egoego_release_tpu_torch.diffusion.gaussian_diffusion import CondGaussianDiffusion, NormStats
 from egoego_release_tpu_torch.eval import metrics as metrics_mod
+from egoego_release_tpu_torch.models.gravitynet import (
+    HeadNormalFormer,
+    gravitynet_eval_transform,
+    prep_gravitynet_input,
+)
+from egoego_release_tpu_torch.models.headnet import HeadFormer, headformer_forward_for_eval
 from egoego_release_tpu_torch.ops import fk as fk_mod
 from egoego_release_tpu_torch.ops import floor as floor_mod
 from egoego_release_tpu_torch.ops import geometry
+from egoego_release_tpu_torch.ops import rotations as rot
 
 HEAD_IDX = fk_mod.HEAD_IDX
 
 
 @dataclass
 class EgoEgoPipeline:
-    """The stage-2 model with its normalization stats and skeleton, all on
-    ``diffusion.device``."""
+    """The stage-2 model with its normalization stats and skeleton, and the
+    stage-1 models, all on ``diffusion.device``."""
 
     diffusion: CondGaussianDiffusion
     stats: NormStats
     rest_offsets: torch.Tensor
+    headnet: HeadFormer | None = None
+    gravitynet: HeadNormalFormer | None = None
+    dist_scale: float = 10.0
 
     @property
     def device(self) -> torch.device:
@@ -37,6 +47,28 @@ class EgoEgoPipeline:
 
     def _as_tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.float32, device=self.device)
+
+    @torch.no_grad()
+    def stage1_head_pose(self, record: dict) -> dict:
+        """HeadNet + GravityNet -> world head pose (T, 7) for one record
+        (of (T, 512), head_pose (T+1, 7) GT, aligned_slam_trans, ori_slam_trans
+        (T+1, 3), ori_slam_rot_mat (T+1, 3, 3)): translation from GravityNet,
+        orientation from HeadNet. Returns head_pose, pred_scale, pred_normal
+        on the pipeline's device."""
+        gt_head_pose = self._as_tensor(record["head_pose"])
+        head_out = headformer_forward_for_eval(
+            self.headnet, self._as_tensor(record["of"])[None], gt_head_pose[0:1, 3:],
+            self._as_tensor(record["aligned_slam_trans"]), dist_scale=self.dist_scale)
+        ori_trans = self._as_tensor(record["ori_slam_trans"])
+        ori_trans = ori_trans - ori_trans[0:1]
+        ori_mat = self._as_tensor(record["ori_slam_rot_mat"])
+        feats, mask = prep_gravitynet_input(ori_mat[None], ori_trans[None], self.gravitynet.window)
+        normal = self.gravitynet(feats, mask)[0]
+        normal_out = gravitynet_eval_transform(normal, ori_mat, ori_trans, head_out["pred_scale"],
+                                               gt_head_pose)
+        t = min(normal_out["head_pose"].shape[0], head_out["head_pose"].shape[1])
+        head_pose = torch.cat([normal_out["head_pose"][:t, :3], head_out["head_pose"][0, :t, 3:]], dim=-1)
+        return {"head_pose": head_pose, "pred_scale": head_out["pred_scale"], "pred_normal": normal}
 
     def stage2_generate(self, head_pose, noise, sample_bs: int = 1):
         """Head pose (T, 7) -> (local_aa (S, T', 22, 3), root_pos (S, T', 3))
@@ -154,3 +186,19 @@ def gt_from_smpl_params_batched(pipeline: EgoEgoPipeline, trans, root_orient, bo
     gp = gp - floors[:, None, None, None] * gp.new_tensor([0.0, 0.0, 1.0])
     head_pose = torch.cat([gp[:, :, HEAD_IDX], gq[:, :, HEAD_IDX]], dim=-1)
     return gq, gp, head_pose
+
+
+def stage1_metrics(head_pose_pred, head_pose_gt):
+    """Stage-1 metric triple (head pose distance, rotation distance,
+    translation error in mm) after moving both initial xy positions to the
+    origin; numpy (T, 7) inputs, trimmed to the shorter."""
+    pred = np.array(head_pose_pred, dtype=np.float32)
+    gt = np.array(head_pose_gt, dtype=np.float32)
+    t = min(pred.shape[0], gt.shape[0])
+    pred, gt = pred[:t], gt[:t]
+    pred[:, :2] -= pred[0:1, :2]
+    gt[:, :2] -= gt[0:1, :2]
+    pred, gt = torch.from_numpy(pred), torch.from_numpy(gt)
+    hd, hrd, hte = metrics_mod.compute_head_pose_metrics(
+        pred[:, :3], rot.quat_to_matrix(pred[:, 3:]), gt[:, :3], rot.quat_to_matrix(gt[:, 3:]))
+    return float(hd), float(hrd), float(hte)

@@ -9,8 +9,8 @@ kernels launch on PyTorch's current stream and allocate nothing: the callers
 allocate outputs with ``torch.empty``.
 
 Nothing here is imported or built for CPU tensors; the wrappers in
-``ops/fused_layer.py`` and ``ops/fused_step.py`` take their plain PyTorch
-versions for those.
+``ops/fused_layer.py``, ``ops/fused_step.py`` and ``ops/attention.py`` take
+their plain PyTorch versions for those.
 """
 
 from __future__ import annotations
@@ -28,14 +28,14 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
-SOURCES = ("gemm", "attention")
+SOURCES = ("gemm", "attention", "mha")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Launches of each ported TPU kernel, counted by its wrapper once its
 # kernel chain has been launched on the card.
 launch_counts: Counter = Counter()
-# Launches of each C entry ("gemm", "attention"), counted once the entry
+# Launches of each C entry ("gemm", "attention", "mha"), counted once the entry
 # has returned without error.
 kernel_launches: Counter = Counter()
 
@@ -59,6 +59,18 @@ class AttnArgs(ctypes.Structure):
         (name, ctypes.c_int) for name in (
             "B", "T", "t_keys", "n_head", "d_k", "d_v", "ld_qkv", "ld_ctx",
             "is_bf16")] + [("scale", ctypes.c_float)]
+
+
+class MhaArgs(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in ("q", "k", "v", "out")] + [
+        (f"{t}_s{d}", ctypes.c_longlong) for t in "qkvo" for d in "bht"] + [
+        (name, ctypes.c_int) for name in ("B", "H", "T", "t_keys", "d_k", "d_v")] + [
+        ("scale", ctypes.c_float)]
+
+
+# argument struct and its C size function, per source
+_ARGS = {"gemm": (GemmArgs, "egoego_gemm_args_size"), "attention": (AttnArgs, "egoego_attn_args_size"),
+         "mha": (MhaArgs, "egoego_mha_args_size")}
 
 
 def _nvcc() -> str:
@@ -115,9 +127,10 @@ def _lib(name: str) -> ctypes.CDLL:
         entry = getattr(lib, f"egoego_{name}")
         entry.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         entry.restype = ctypes.c_int
-        size = getattr(lib, "egoego_gemm_args_size" if name == "gemm" else "egoego_attn_args_size")
+        struct, size_fn = _ARGS[name]
+        size = getattr(lib, size_fn)
         size.restype = ctypes.c_int
-        want = ctypes.sizeof(GemmArgs if name == "gemm" else AttnArgs)
+        want = ctypes.sizeof(struct)
         if size() != want:
             raise RuntimeError(f"{name}: argument struct is {size()} bytes in C, {want} in Python")
         _libs[name] = lib
@@ -221,3 +234,33 @@ def attention(qkv: torch.Tensor, ctx: torch.Tensor, *, B: int, T: int,
         _check(_lib("attention").egoego_attention(ctypes.byref(args), stream), "attention")
     kernel_launches["attention"] += 1
     return ctx
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, *,
+        t_keys: int) -> torch.Tensor:
+    """out (B, H, T, dv) = softmax(q k^T / sqrt(dk), keys < t_keys) v per
+    (batch, head), f32 on the CUDA cores. q, k (B, H, T, dk), v and out
+    (B, H, T, dv): any strides over (B, H, T) that are multiples of 4
+    floats, unit stride over the head width, 16-byte aligned, head widths
+    multiples of 4 up to 256 (the kernel reads float4 vectors)."""
+    b, h, t, dk = q.shape
+    dv = v.shape[-1]
+    for name, x, d in (("q", q, dk), ("k", k, dk), ("v", v, dv), ("out", out, dv)):
+        if x.device != q.device or not x.is_cuda or x.dtype != torch.float32 or x.stride(-1) != 1:
+            raise ValueError(f"mha {name}: need a CUDA f32 tensor with unit stride over the "
+                             f"head width, got {x.dtype} on {x.device}, strides {x.stride()}")
+        if tuple(x.shape) != (b, h, t, d):
+            raise ValueError(f"mha {name}: need shape {(b, h, t, d)}, got {tuple(x.shape)}")
+        if x.data_ptr() % 16 or any(s % 4 for s in x.stride()[:3]):
+            raise ValueError(f"mha {name}: need 16-byte aligned rows, got strides {x.stride()}")
+    if not (0 < t_keys <= t and 0 < dk <= 256 and 0 < dv <= 256 and dk % 4 == 0 and dv % 4 == 0):
+        raise ValueError(f"mha: need 0 < t_keys <= T and head widths that are multiples of 4 up to "
+                         f"256, got {t_keys}, {t}, {dk}, {dv}")
+    strides = {f"{n}_s{d}": s for n, x in zip("qkvo", (q, k, v, out)) for d, s in zip("bht", x.stride()[:3])}
+    args = MhaArgs(q=_ptr(q), k=_ptr(k), v=_ptr(v), out=_ptr(out), B=b, H=h, T=t, t_keys=t_keys,
+                   d_k=dk, d_v=dv, scale=1.0 / dk ** 0.5, **strides)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        _check(_lib("mha").egoego_mha(ctypes.byref(args), stream), "mha")
+    kernel_launches["mha"] += 1
+    return out

@@ -21,13 +21,17 @@ p v, ctx before fc, h0 before w1 and h1 before w2. LayerNorm statistics and
 the inter-layer activations stay f32. ``bf16=False`` is the f32 parity mode
 (no TF32 anywhere).
 
-``decoder_layer`` runs the plain PyTorch version for CPU tensors and the
-kernels for CUDA tensors; it never falls back from one to the other.
+``decoder_layer`` (a middle layer of the step path) and
+``fused_decoder_layer`` (every layer of the ``--fused`` denoiser, port of
+``fused_decoder_layer`` and ``fused_denoiser_apply``) run the plain
+PyTorch version for CPU tensors and the kernels for CUDA tensors; they
+never fall back from one to the other.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from egoego_release_tpu_torch.ops import cuda_kernels as ck
 
@@ -124,3 +128,54 @@ def decoder_layer(h, mask, lp, *, n_head, d_k, d_v):
         ck.launch_counts["decoder_layer"] += 1
         return out
     return decoder_layer_plain(h, mask, lp, n_head=n_head, d_k=d_k, d_v=d_v)
+
+
+def fused_decoder_layer(x, padding_mask, lp, *, n_head, d_k, d_v):
+    """One DecoderLayer of the ``--fused`` denoiser (port of
+    egoego_release_tpu/ops/fused_layer.py ``fused_decoder_layer``): x (B, T,
+    d_model) f32, padding_mask (B, T) f32, ``lp`` from ``layer_params`` (bf16
+    or f32 compute). The kernel chain of ``decoder_layer`` for CUDA tensors,
+    counted in ``cuda_kernels.launch_counts["fused_decoder_layer"]``, the
+    plain version for CPU tensors.
+
+    The TPU wrapper pads T to 128 and B to its batch tile, masks the padded
+    keys to -inf and slices the padded rows off. Here the attention kernel
+    is told the key count T itself (``t_keys = T``), so there are no padded
+    keys to mask, and there are no padded rows; padding-mask zeros inside T
+    stay visible keys on both. The result is the same function of the real
+    tokens."""
+    if x.is_cuda:
+        out = decoder_layer_cuda(x, padding_mask, lp, n_head=n_head, d_k=d_k, d_v=d_v)
+        ck.launch_counts["fused_decoder_layer"] += 1
+        return out
+    return decoder_layer_plain(x, padding_mask, lp, n_head=n_head, d_k=d_k, d_v=d_v)
+
+
+def fused_denoiser_apply(model, src, noise_t, padding_mask, cfg, layers=None, bf16: bool = True):
+    """The denoiser forward (models/denoiser.py semantics) with every layer
+    through ``fused_decoder_layer`` (port of ``fused_denoiser_apply``).
+    src (B, T, 2 d_feats), noise_t (B,), padding_mask (B, 1, T+1) or None;
+    returns x0 (B, T, d_feats) f32. ``layers`` are the per-layer operands
+    (``layer_params``), prepared here when None. The layers compute in bf16
+    by default, as the JAX ``--fused`` path does whatever the configured
+    compute dtype (its default ``compute_dtype=jnp.bfloat16``);
+    ``bf16=False`` is the f32 parity mode. The noise-level MLP (exact-erf
+    GELU), the stem, the position rows 1..T+1 of a ``cfg.window + 2`` row
+    table and ``linear_out`` stay plain f32 PyTorch, as they stay jnp."""
+    mt = model.motion_transformer
+    if layers is None:
+        layers = [layer_params(layer, bf16) for layer in mt.layer_stack]
+    bsz, t, _ = src.shape
+    emb = model.time_mlp(noise_t).float()
+    x = F.linear(src.float(), mt.start_conv.weight[..., 0], mt.start_conv.bias)
+    x = torch.cat([emb[:, None, :], x], dim=1)
+    if mt.position_table.shape[0] != cfg.window + 2:
+        raise ValueError(f"position table has {mt.position_table.shape[0]} rows, want window + 2")
+    x = (x + mt.position_table[1: t + 2]).contiguous()
+    if padding_mask is None:
+        mask = x.new_ones(bsz, t + 1)
+    else:
+        mask = padding_mask[:, 0, :].float().contiguous()
+    for lp in layers:
+        x = fused_decoder_layer(x, mask, lp, n_head=cfg.n_head, d_k=cfg.d_k, d_v=cfg.d_v)
+    return F.linear(x[:, 1:], model.linear_out.weight, model.linear_out.bias)

@@ -1,11 +1,39 @@
-"""Host-side floor-height estimation (numpy copy of the floor part of
-egoego_release_tpu/ops/geometry.py): static toe frames, 1-D DBSCAN over
+"""Geometry helpers (port of parts of egoego_release_tpu/ops/geometry.py):
+the MuJoCo qpos -> SMPL codec of the kinpoly GT records, and host-side
+floor-height estimation (numpy copy): static toe frames, 1-D DBSCAN over
 their heights (eps 0.005, min_samples 3, noise participating as a
 cluster), floor = the lowest cluster median minus an offset."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from egoego_release_tpu_torch.ops import rotations as rot
+
+# MuJoCo body order -> SMPL joint order (24 joints)
+MUJOCO2SMPL_JOINT_IDX = np.asarray(
+    [0, 1, 5, 9, 2, 6, 10, 3, 7, 11, 4, 8, 12, 14, 19, 13, 15, 20, 16, 21, 17, 22, 18, 23]
+)
+
+
+def qpos_to_smpl(qpos: torch.Tensor):
+    """MuJoCo qpos (T, 76) = [trans (3), root quat wxyz (4), 23 joints x
+    intrinsic ZYX euler (69)] -> (trans (T, 3), pose axis-angle (T, 24, 3))
+    in SMPL joint order."""
+    trans = qpos[:, :3]
+    root_aa = rot.quat_to_axis_angle(qpos[:, 3:7])
+    eulers = qpos[:, 7:].reshape(-1, 23, 3)
+    a, b, c = eulers[..., 0], eulers[..., 1], eulers[..., 2]
+    ca, sa, cb, sb, cc, sc = torch.cos(a), torch.sin(a), torch.cos(b), torch.sin(b), torch.cos(c), torch.sin(c)
+    m = torch.stack([
+        ca * cb, ca * sb * sc - sa * cc, ca * sb * cc + sa * sc,
+        sa * cb, sa * sb * sc + ca * cc, sa * sb * cc - ca * sc,
+        -sb, cb * sc, cb * cc,
+    ], dim=-1).reshape(eulers.shape[:-1] + (3, 3))
+    aa = torch.cat([root_aa[:, None, :], rot.matrix_to_axis_angle(m)], dim=1)
+    return trans, aa[:, torch.as_tensor(MUJOCO2SMPL_JOINT_IDX, device=qpos.device)]
+
 
 FLOOR_VEL_THRESH = 0.005
 FLOOR_HEIGHT_OFFSET = 0.01

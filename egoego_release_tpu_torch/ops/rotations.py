@@ -8,6 +8,7 @@ over any leading batch dims.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -54,6 +55,46 @@ def quat_between(x: Tensor, y: Tensor) -> Tensor:
     """Unnormalized quaternion rotating vector x onto y (callers normalize)."""
     w = torch.sqrt((x * x).sum(-1) * (y * y).sum(-1)) + (x * y).sum(-1)
     return torch.cat([w[..., None], _cross(x, y)], dim=-1)
+
+
+def standardize_quat(q: Tensor) -> Tensor:
+    """Flip the sign so that w >= 0 (pytorch3d.standardize_quaternion)."""
+    return torch.where(q[..., :1] < 0, -q, q)
+
+
+def quat_to_matrix_np(q) -> np.ndarray:
+    """Numpy twin of ``quat_to_matrix`` for the host-side data loaders."""
+    q = np.asarray(q, np.float32)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    two_s = 2.0 / np.sum(q * q, axis=-1)
+    m = np.stack([
+        1 - two_s * (y * y + z * z), two_s * (x * y - z * w), two_s * (x * z + y * w),
+        two_s * (x * y + z * w), 1 - two_s * (x * x + z * z), two_s * (y * z - x * w),
+        two_s * (x * z - y * w), two_s * (y * z + x * w), 1 - two_s * (x * x + y * y),
+    ], axis=-1)
+    return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def matrix_to_quat_np(m) -> np.ndarray:
+    """Numpy twin of ``matrix_to_quat`` (same pivot and sign conventions)."""
+    m = np.asarray(m, np.float32)
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    sqrtp = lambda x: np.sqrt(np.maximum(x, 0.0))
+    q_abs = np.stack([
+        sqrtp(1.0 + m00 + m11 + m22), sqrtp(1.0 + m00 - m11 - m22),
+        sqrtp(1.0 - m00 + m11 - m22), sqrtp(1.0 - m00 - m11 + m22),
+    ], axis=-1)
+    quat_by_w = np.stack([q_abs[..., 0] ** 2, m21 - m12, m02 - m20, m10 - m01], axis=-1)
+    quat_by_x = np.stack([m21 - m12, q_abs[..., 1] ** 2, m10 + m01, m02 + m20], axis=-1)
+    quat_by_y = np.stack([m02 - m20, m10 + m01, q_abs[..., 2] ** 2, m12 + m21], axis=-1)
+    quat_by_z = np.stack([m10 - m01, m20 + m02, m21 + m12, q_abs[..., 3] ** 2], axis=-1)
+    cand = np.stack([quat_by_w, quat_by_x, quat_by_y, quat_by_z], axis=-2)
+    cand = cand / (2.0 * np.maximum(q_abs, 0.1))[..., None]
+    best = np.argmax(q_abs, axis=-1)
+    out = np.take_along_axis(cand, best[..., None, None].astype(np.int64), axis=-2)[..., 0, :]
+    return out / np.maximum(np.linalg.norm(out, axis=-1, keepdims=True), 1e-12)
 
 
 def quat_to_matrix(q: Tensor) -> Tensor:

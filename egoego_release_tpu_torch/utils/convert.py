@@ -1,10 +1,15 @@
-"""Weights into the port's denoiser.
+"""Weights into the port's models.
 
-* ``denoiser_state_dict_from_jax``: the JAX package's flax parameter tree
-  (as numpy) -> this package's ``state_dict`` (Dense kernels transposed,
-  the Conv1d(k=1) axis added back).
+* ``denoiser_state_dict_from_jax``, ``headformer_state_dict_from_jax``,
+  ``gravitynet_state_dict_from_jax``: the JAX package's flax parameter
+  trees (as numpy) -> this package's ``state_dict``s (Dense kernels
+  transposed, the Conv1d(k=1) axis added back, ``affine_{i}`` ->
+  ``affine_layers.{i}``).
 * ``load_stage2_diffusion_ckpt``: a released ``stage2_diffusion_*.pt``
   read directly, EMA weights by default.
+* ``load_stage1_ckpt``: a released ``stage1_headnet_*.pt`` or
+  ``stage1_gravitynet_*.pt``, checked against the target widths and
+  layer count before it is used.
 """
 
 from __future__ import annotations
@@ -17,38 +22,73 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
+def _dense(sd, key, leaf):
+    sd[key + ".weight"] = _t(np.asarray(leaf["kernel"]).T)
+    sd[key + ".bias"] = _t(leaf["bias"])
+
+
+def _conv(sd, key, leaf):
+    sd[key + ".weight"] = _t(np.asarray(leaf["kernel"]).T[..., None])
+    sd[key + ".bias"] = _t(leaf["bias"])
+
+
+def _norm(sd, key, leaf):
+    sd[key + ".weight"] = _t(leaf["scale"])
+    sd[key + ".bias"] = _t(leaf["bias"])
+
+
+def _decoder(sd, prefix, tree):
+    """A flax ``Decoder`` subtree -> ``{prefix}.start_conv``,
+    ``{prefix}.layer_stack.{i}...``."""
+    _conv(sd, f"{prefix}.start_conv", tree["start_conv"])
+    i = 0
+    while f"layer_{i}" in tree:
+        lp, key = tree[f"layer_{i}"], f"{prefix}.layer_stack.{i}"
+        for name in ("w_q", "w_k", "w_v", "fc"):
+            _dense(sd, f"{key}.self_attn.{name}", lp["self_attn"][name])
+        _norm(sd, f"{key}.self_attn.layer_norm", lp["self_attn"]["layer_norm"])
+        _conv(sd, f"{key}.pos_ffn.w_1", lp["pos_ffn"]["w_1"])
+        _conv(sd, f"{key}.pos_ffn.w_2", lp["pos_ffn"]["w_2"])
+        _norm(sd, f"{key}.pos_ffn.layer_norm", lp["pos_ffn"]["layer_norm"])
+        i += 1
+
+
+def _mlp(sd, prefix, tree):
+    i = 0
+    while f"affine_{i}" in tree:
+        _dense(sd, f"{prefix}.affine_layers.{i}", tree[f"affine_{i}"])
+        i += 1
+
+
 def denoiser_state_dict_from_jax(params) -> dict[str, torch.Tensor]:
     """{"params": {...}} of ``TransformerDiffusionModel`` -> state_dict."""
     p = params["params"]
     sd = {}
+    _dense(sd, "time_mlp.1", p["time_mlp_1"])
+    _dense(sd, "time_mlp.3", p["time_mlp_2"])
+    _decoder(sd, "motion_transformer", p["motion_transformer"])
+    _dense(sd, "linear_out", p["linear_out"])
+    return sd
 
-    def dense(key, leaf):
-        sd[key + ".weight"] = _t(np.asarray(leaf["kernel"]).T)
-        sd[key + ".bias"] = _t(leaf["bias"])
 
-    def conv(key, leaf):
-        sd[key + ".weight"] = _t(np.asarray(leaf["kernel"]).T[..., None])
-        sd[key + ".bias"] = _t(leaf["bias"])
+def headformer_state_dict_from_jax(params) -> dict[str, torch.Tensor]:
+    """{"params": {...}} of ``HeadFormer`` -> state_dict."""
+    p = params["params"]
+    sd = {}
+    _decoder(sd, "action_transformer", p["action_transformer"])
+    for head in ("va", "dist"):
+        _mlp(sd, f"action_{head}_mlp", p[f"action_{head}_mlp"])
+        _dense(sd, f"action_{head}_fc", p[f"action_{head}_fc"])
+    return sd
 
-    def norm(key, leaf):
-        sd[key + ".weight"] = _t(leaf["scale"])
-        sd[key + ".bias"] = _t(leaf["bias"])
 
-    dense("time_mlp.1", p["time_mlp_1"])
-    dense("time_mlp.3", p["time_mlp_2"])
-    mt = p["motion_transformer"]
-    conv("motion_transformer.start_conv", mt["start_conv"])
-    i = 0
-    while f"layer_{i}" in mt:
-        lp, key = mt[f"layer_{i}"], f"motion_transformer.layer_stack.{i}"
-        for name in ("w_q", "w_k", "w_v", "fc"):
-            dense(f"{key}.self_attn.{name}", lp["self_attn"][name])
-        norm(f"{key}.self_attn.layer_norm", lp["self_attn"]["layer_norm"])
-        conv(f"{key}.pos_ffn.w_1", lp["pos_ffn"]["w_1"])
-        conv(f"{key}.pos_ffn.w_2", lp["pos_ffn"]["w_2"])
-        norm(f"{key}.pos_ffn.layer_norm", lp["pos_ffn"]["layer_norm"])
-        i += 1
-    dense("linear_out", p["linear_out"])
+def gravitynet_state_dict_from_jax(params) -> dict[str, torch.Tensor]:
+    """{"params": {...}} of ``HeadNormalFormer`` -> state_dict."""
+    p = params["params"]
+    sd = {}
+    _decoder(sd, "action_transformer", p["action_transformer"])
+    _mlp(sd, "action_normal_mlp", p["action_normal_mlp"])
+    _dense(sd, "action_normal_fc", p["action_normal_fc"])
     return sd
 
 
@@ -74,10 +114,38 @@ def load_stage2_diffusion_ckpt(path: str, use_ema: bool = True):
 
 
 def load_denoiser_weights(model: torch.nn.Module, sd: dict) -> torch.nn.Module:
-    """Load a denoiser state_dict; the reference's frozen position table
-    (recomputed here) is the only key the module may lack."""
+    """Load a denoiser (or stage-1 model) state_dict; the reference's frozen
+    position table (recomputed here) is the only key the module may lack."""
     missing, unexpected = model.load_state_dict(sd, strict=False)
     unexpected = [k for k in unexpected if "position" not in k]
     if missing or unexpected:
-        raise ValueError(f"denoiser weights: missing {missing}, unexpected {unexpected}")
+        raise ValueError(f"weights: missing {missing}, unexpected {unexpected}")
     return model
+
+
+def load_stage1_ckpt(path: str, kind: str, n_layers: int = 2, *, d_model: int = 256,
+                     n_head: int = 4, d_k: int = 256, d_v: int = 256) -> dict:
+    """stage1_headnet_*.pt / stage1_gravitynet_*.pt -> the state_dict of
+    ``HeadFormer`` / ``HeadNormalFormer``, from
+    ``transformer_encoder_state_dict`` when the file has it. Refuses a
+    checkpoint whose attention widths or decoder layer count differ from
+    the target's (the release uses d_k = d_v = 256)."""
+    if kind not in ("headnet", "gravitynet"):
+        raise ValueError(f"kind must be headnet or gravitynet, got {kind!r}")
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("transformer_encoder_state_dict", ckpt)
+    wq = sd["action_transformer.layer_stack.0.self_attn.w_q.weight"]
+    wv = sd["action_transformer.layer_stack.0.self_attn.w_v.weight"]
+    want_q, want_v = (n_head * d_k, d_model), (n_head * d_v, d_model)
+    if tuple(wq.shape) != want_q or tuple(wv.shape) != want_v:
+        raise ValueError(
+            f"stage-1 checkpoint dims mismatch: w_q {tuple(wq.shape)} vs expected {want_q}, w_v "
+            f"{tuple(wv.shape)} vs expected {want_v} (d_model={d_model}, n_head={n_head}, "
+            f"d_k={d_k}, d_v={d_v}); the release config uses d_k=d_v=256")
+    found = 0
+    while f"action_transformer.layer_stack.{found}.self_attn.w_q.weight" in sd:
+        found += 1
+    if found != n_layers:
+        raise ValueError(f"decoder layer-count mismatch: checkpoint has {found} layers, "
+                         f"target module expects {n_layers}")
+    return {k: v.float() for k, v in sd.items() if torch.is_tensor(v)}

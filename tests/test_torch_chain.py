@@ -173,7 +173,8 @@ def test_eval_stage2_cli_on_cpu(tmp_path, batch_seqs):
         assert all(np.isfinite(v) for v in entry.values())
 
 
-@pytest.mark.parametrize("flag", [["--fused"], ["--sample_microbatch", "2"], ["--dp", "2"], ["--tp", "2"]])
+@pytest.mark.parametrize("flag", [["--fused", "--sample_microbatch", "2"], ["--sample_microbatch", "2"],
+                                  ["--dp", "2"], ["--tp", "2"]])
 def test_eval_stage2_unported_flags_raise(tmp_path, flag):
     paths = _amass(tmp_path, np.random.RandomState(3), n=1)
     opt = eval_stage2.parse_opt(["--test_data_path", paths["data.p"], "--stats_path", paths["stats.p"],

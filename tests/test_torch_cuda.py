@@ -81,3 +81,65 @@ def test_wrappers_count_and_route_to_kernels(card):
     assert dict(ck.launch_counts) == {"stem_layer": 3, "decoder_layer": 3, "layer_epilogue": 3}
     # per step: 4 GEMMs per layer, plus the stem's and the update's
     assert dict(ck.kernel_launches) == {"gemm": 3 * (4 * 3 + 2), "attention": 3 * 3}
+
+
+@pytest.mark.parametrize("b,t,d_head", [(8, 256, 256), (4, 300, 256), (1, 1024, 256), (3, 37, 24)])
+def test_fused_attention_matches_plain(card, b, t, d_head):
+    """The mha kernel on the strided (B, H, T, d) views that
+    MultiHeadAttention hands over, against its plain version: f32 on both
+    sides, so 1e-4 bounds the summation order only. T = 300 and 37 leave a
+    ragged last key tile."""
+    from egoego_release_tpu_torch.ops import attention as attn
+
+    g = torch.Generator(device=card).manual_seed(t)
+    q, k, v = (torch.randn(b, t, 4, d_head, generator=g, device=card).transpose(1, 2) for _ in range(3))
+    ck.launch_counts.clear()
+    ck.kernel_launches.clear()
+    out_k = attn.fused_attention(q, k, v)
+    assert dict(ck.launch_counts) == {"fused_attention": 1} and dict(ck.kernel_launches) == {"mha": 1}
+    out_p = attn.fused_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert out_k.shape == out_p.shape == (b, 4, t, d_head)
+    assert float((out_k - out_p).abs().max()) < TOL[False]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("frames", [120, 30])
+def test_fused_decoder_layer_matches_plain(card, bf16, frames):
+    """fused_decoder_layer at the --fused path's shape (release width,
+    frames + 1 tokens, a padding-mask zero) against its plain version; it
+    counts under its own name, not as decoder_layer."""
+    cfg = DiffusionConfig()
+    diff = CondGaussianDiffusion(cfg, device=card, seed=0)
+    lp = fl.layer_params(diff.model.motion_transformer.layer_stack[2], bf16=bf16)
+    g = torch.Generator(device=card).manual_seed(frames)
+    h = torch.randn(6, frames + 1, cfg.d_model, generator=g, device=card)
+    mask = torch.ones(6, frames + 1, device=card)
+    mask[:, -3] = 0.0
+    kw = dict(n_head=cfg.n_head, d_k=cfg.d_k, d_v=cfg.d_v)
+    ck.launch_counts.clear()
+    out_k = fl.fused_decoder_layer(h, mask, lp, **kw)
+    assert dict(ck.launch_counts) == {"fused_decoder_layer": 1}
+    out_p = fl.decoder_layer_plain(h, mask, lp, **kw)
+    torch.cuda.synchronize()
+    assert float((out_k - out_p).abs().max()) < TOL[bf16]
+
+
+def test_headformer_routes_long_windows_to_the_kernel(card):
+    """A HeadFormer block of 256 frames goes through fused_attention once
+    per layer on the card and agrees with the same model on the CPU; at 60
+    frames it stays on the einsum path."""
+    from egoego_release_tpu_torch.models.headnet import HeadFormer
+
+    for window, launches in ((256, 2), (60, 0)):
+        model = HeadFormer(d_model=64, n_head=2, d_k=32, d_v=32, window=window, mlp_hsize=(64,)).eval()
+        x = torch.randn(2, window, 512, generator=torch.Generator().manual_seed(window))
+        mask = torch.ones(2, window)
+        mask[1, window // 2:] = 0.0
+        with torch.no_grad():
+            want = model(x, mask)
+            ck.launch_counts.clear()
+            got = model.to(card)(x.to(card), mask.to(card))
+        assert ck.launch_counts["fused_attention"] == launches
+        for a, b in zip(got, want):
+            assert float((a.cpu() - b).abs().max()) < TOL[False]
