@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
-  1. the card's name and power limit; build the CUDA kernels from csrc/.
+  1. the card's name and power limit; build the CUDA kernels from csrc/;
+     their registers and spills, and the mha kernel's HMMA count (cuobjdump).
   2. kernels: each of the three denoise-step wrappers (stem_layer,
      decoder_layer, layer_epilogue) on card tensors against its plain
      PyTorch version on the same inputs, at the main path's shapes (64
@@ -24,11 +25,15 @@ Phases (any failure exits non-zero; nothing is caught):
   5. chain parity: the f32 kernels on the card against the plain versions
      on the CPU, same weights and noise, DDIM-50 on a small batch.
   6. kernels of the --fused and stage-1 routes: fused_attention (csrc/mha.cu,
-     f32) at the HeadNet's shapes (blocks x 4 heads x T >= 256 x 256) and
-     fused_decoder_layer (the layer chain of gemm.cu + attention.cu) at 64
-     windows of 121 and 31 tokens in f32 and bf16, each on card tensors
-     against its plain version, counted once per call; timed beside the
-     plain version, a PyTorch library yardstick and the bound.
+     f32 in and out, 3xTF32 tensor cores) at the HeadNet's shapes (blocks x
+     4 heads x T >= 256 x 256) and fused_decoder_layer (the layer chain of
+     gemm.cu + attention.cu) at 64 windows of 121 and 31 tokens in f32 and
+     bf16, each on card tensors against its plain version, counted once per
+     call; timed beside the plain version, a PyTorch library yardstick and
+     the bound. fused_attention and its yardstick (SDPA f32) are also timed
+     on the device alone (torch.profiler), with the host cost per call, both
+     bounds (3xTF32 and f32 CUDA cores) and max|SDPA - plain|; beside them
+     the card's own mma.sync TF32 rate (a probe kernel built here).
   7. main path C: ``eval_stage2.run --fused`` (64 x 120 frames, DDPM-1000):
      exactly 4 x 1000 fused_decoder_layer launches and no step kernel.
   8. main path D: ``eval_egoego.run --headnet_window 256`` on 4 synthetic
@@ -48,6 +53,8 @@ import json
 import math
 import os
 import pickle
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -58,6 +65,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16 = 989e12     # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 PEAK_F32 = 67e12       # H100 SXM f32 FLOP/s outside the tensor cores
+PEAK_TF32 = 495e12     # H100 SXM dense TF32 FLOP/s (tensor cores; NVIDIA data sheet)
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 bytes/s
 BATCH = 64             # windows per chain: the eval batch of the release runs
 SEQS_D, FRAMES_D = 4, 300  # path D: kinpoly-layout sequences and their OF frames
@@ -84,6 +92,77 @@ def cuda_time_ms(fn, warmup=3, reps=15):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_time_ms(fn, reps=20):
+    """Device time of one call of fn: the self device time of every kernel
+    and memory operation that torch.profiler sees over reps calls, over
+    reps; and the names of those kernels with their counts."""
+    import torch
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    us = sum(e.self_device_time_total for e in dev)
+    if us <= 0:
+        raise AssertionError("torch.profiler saw no device time")
+    # the profiler may miss a launch at the start of its window: divide by
+    # the count it saw of the function's most frequent kernel, one a call
+    return us / max(e.count for e in dev) / 1e3, {e.key[:60]: e.count for e in dev}
+
+
+# The card's rate for the instruction the mha kernel runs on: warps that
+# run nothing but independent mma.sync.m16n8k8 TF32 products.
+MMA_PROBE = r"""
+#include <cstdint>
+__global__ void mma_probe(float* out, int iters) {
+  uint32_t a[4], b[2];
+  for (int i = 0; i < 4; ++i) a[i] = __float_as_uint(threadIdx.x * 1e-3f + i) & 0xffffe000u;
+  for (int i = 0; i < 2; ++i) b[i] = __float_as_uint(threadIdx.x * 2e-3f + i) & 0xffffe000u;
+  float c[8][4] = {};
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+                   "{%8, %9}, {%0, %1, %2, %3};\n"
+                   : "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  float s = 0.f;
+  for (int j = 0; j < 8; ++j) s += c[j][0] + c[j][1] + c[j][2] + c[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int mma_probe_run(float* out, int blocks, int threads, int iters) {
+  mma_probe<<<blocks, threads>>>(out, iters);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def mma_sync_tf32_tflops(nvcc, build_dir):
+    """TFLOP/s of mma.sync TF32 on the card: 2 blocks of 8 warps an SM, 8
+    independent accumulators a warp, timed by CUDA events."""
+    import ctypes
+    import torch
+    src, lib_path = os.path.join(build_dir, "mma_probe.cu"), os.path.join(build_dir, "libmma_probe.so")
+    with open(src, "w") as f:
+        f.write(MMA_PROBE)
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                    "-o", lib_path, src], check=True, capture_output=True)
+    lib = ctypes.CDLL(lib_path)
+    lib.mma_probe_run.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    blocks, threads, iters = 2 * torch.cuda.get_device_properties(0).multi_processor_count, 256, 4096
+    out = torch.empty(blocks * threads, device="cuda")
+    run = lambda: lib.mma_probe_run(out.data_ptr(), blocks, threads, iters)
+    if run() != 0:
+        raise AssertionError("mma probe: launch failed")
+    ms = cuda_time_ms(run, warmup=1, reps=5)
+    return blocks * (threads // 32) * iters * 8 * 2 * 16 * 8 * 8 / ms / 1e9
 
 
 def smooth_quats(rng, n):
@@ -166,6 +245,15 @@ def main() -> int:
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    # the mha kernel's products run on the tensor cores: count its HMMA
+    # (and FFMA, the softmax's arithmetic) instructions in the built library
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(ck.BUILD_DIR / "libegoego_mha.so")],
+                          capture_output=True, text=True, check=True).stdout
+    hmma, ffma = re.findall(r"\bHMMA\.[\w.]+", sass), re.findall(r"\bFFMA\b", sass)
+    log(f"phase 1: mha SASS: {len(hmma)} HMMA ({', '.join(sorted(set(hmma)))}), {len(ffma)} FFMA")
+    if not hmma or any("TF32" not in x for x in hmma):
+        raise AssertionError("mha: no TF32 tensor-core instruction in the built kernel")
 
     # -- phase 2: kernels against their plain versions ---------------------
     cfg = DiffusionConfig()
@@ -459,11 +547,12 @@ def main() -> int:
         raise AssertionError(f"phase 5: card and CPU chains disagree by {chain_err}")
 
     # -- phase 6: the kernels of the --fused and stage-1 routes -------------
-    def timed(r, flops, nbytes, peak, kernel, plain, lib):
+    def timed(r, flops, nbytes, peak, kernel, plain, lib, ops="operations"):
+        """Per-call times and the bound: ops names the operation rate."""
         r["ms"], r["plain_ms"], r["library_ms"] = cuda_time_ms(kernel), cuda_time_ms(plain), cuda_time_ms(lib)
         t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_S * 1e3
         r["bound_ms"] = max(t_ops, t_bytes)
-        r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        r["bound_by"] = ops if t_ops >= t_bytes else "bytes"
         r["gflop"], r["mbytes"] = flops / 1e9, nbytes / 1e6
 
     def check_once(what, fn, want):
@@ -475,10 +564,17 @@ def main() -> int:
         return out
 
     # HeadFormer attention at the release width: 4 heads of 256, f32. The
-    # first shape is path D's (300 frames in 2 blocks of 256).
+    # first shape is path D's (300 frames in 2 blocks of 256). The kernel
+    # runs three TF32 products for each f32 product, so its bound is
+    # 3 FLOPs / PEAK_TF32 (the f32 CUDA-core bound is printed beside it).
+    # Per-call ms (CUDA events around one Python call) include the
+    # wrapper's host time; device ms (torch.profiler) do not.
     hn_h, hn_d = 4, 256
     blocks_d = -(-FRAMES_D // HEADNET_WINDOW_D)
-    fa = {"max_abs_err": 0.0}
+    fa = {"max_abs_err": 0.0, "per_shape": [],
+          "mma_sync_tf32_tflops": mma_sync_tf32_tflops(ck._nvcc(), data_dir)}
+    log(f"phase 6: mma.sync m16n8k8 TF32 alone on this card: {fa['mma_sync_tf32_tflops']:.1f} TFLOP/s "
+        f"(3xTF32 f32-accurate ceiling of an mma.sync kernel: {fa['mma_sync_tf32_tflops'] / 3:.1f}) [{card}]")
     for b, t in ((blocks_d, HEADNET_WINDOW_D), (8, 256), (4, 300), (2, 1024)):
         q, k, v = (torch.randn(b, t, hn_h, hn_d, generator=g, device=dev).transpose(1, 2) for _ in range(3))
         out_k = check_once("fused_attention", lambda: attn.fused_attention(q, k, v),
@@ -489,16 +585,34 @@ def main() -> int:
         if out_k.shape != out_p.shape or not math.isfinite(err) or err > TOL_F32:
             raise AssertionError(f"fused_attention {(b, hn_h, t, hn_d)} disagrees with its plain version: {err}")
         fa["max_abs_err"] = max(fa["max_abs_err"], err)
-        r = {}
-        timed(r, 2 * b * hn_h * t * t * 2 * hn_d, 4 * b * hn_h * t * 4 * hn_d, PEAK_F32,
-              lambda: attn.fused_attention(q, k, v), lambda: attn.fused_attention_plain(q, k, v),
-              lambda: F.scaled_dot_product_attention(q, k, v))
-        log(f"phase 6: fused_attention f32 ({b}, {hn_h}, {t}, {hn_d}): max|kernel - plain| = {err:.3e} "
-            f"(bound {TOL_F32}); kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library (SDPA f32) "
-            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; {r['gflop']:.2f} GFLOP, "
-            f"{r['mbytes']:.1f} MB) [{card}]")
+        kernel = lambda: attn.fused_attention(q, k, v)
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v)
+        sdpa_err = float((sdpa() - out_p).abs().max())
+        flops, nbytes = 2 * b * hn_h * t * t * 2 * hn_d, 4 * b * hn_h * t * 4 * hn_d
+        r = {"shape": f"({b}, {hn_h}, {t}, {hn_d})", "max_abs_err": err, "library_max_abs_err": sdpa_err}
+        timed(r, 3 * flops, nbytes, PEAK_TF32, kernel, lambda: attn.fused_attention_plain(q, k, v), sdpa,
+              ops="operations (3xTF32)")
+        r["bound_f32_core_ms"] = max(flops / PEAK_F32, nbytes / HBM_BYTES_S) * 1e3
+        r["gflop"] = flops / 1e9
+        r["device_ms"], k_names = device_time_ms(kernel)
+        r["library_device_ms"], lib_names = device_time_ms(sdpa)
+        r["tflops"] = flops / r["device_ms"] / 1e9
+        r["library_tflops"] = flops / r["library_device_ms"] / 1e9
+        log(f"phase 6: fused_attention f32 {r['shape']}: max|kernel - plain| = {err:.3e} (bound {TOL_F32}), "
+            f"max|SDPA - plain| = {sdpa_err:.3e}; per call: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"SDPA f32 {r['library_ms']:.4f} ms; device: kernel {r['device_ms']:.4f} ms "
+            f"({r['tflops']:.1f} TFLOP/s), SDPA f32 {r['library_device_ms']:.4f} ms ({r['library_tflops']:.1f} "
+            f"TFLOP/s); bound {r['bound_ms']:.4f} ms ({r['bound_by']}), f32-core bound "
+            f"{r['bound_f32_core_ms']:.4f} ms ({flops / 1e9:.3f} GFLOP, {r['mbytes']:.1f} MB) [{card}]")
+        log(f"phase 6: fused_attention {r['shape']}: host cost per wrapper call (ms - device ms) "
+            f"{r['ms'] - r['device_ms']:.4f} ms; SDPA {r['library_ms'] - r['library_device_ms']:.4f} ms; "
+            f"device kernels {k_names} vs SDPA {lib_names}")
+        fa["per_shape"].append({key: r[key] for key in (
+            "shape", "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms",
+            "bound_f32_core_ms", "tflops", "library_tflops", "max_abs_err", "library_max_abs_err")})
         if (b, t) == (blocks_d, HEADNET_WINDOW_D):
-            fa.update(r, shape=f"{b} blocks x {hn_h} heads x {t} tokens x {hn_d}, f32")
+            fa.update({key: x for key, x in r.items() if key != "max_abs_err"},
+                      shape=f"{b} blocks x {hn_h} heads x {t} tokens x {hn_d}, f32")
     del q, k, v, out_k, out_p
 
     # fused_decoder_layer: one layer of the --fused denoiser at the path's
@@ -677,6 +791,8 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "gflop": r["gflop"], "mbytes": r["mbytes"],
             "shape": r["shape"], "card": card,
+            **{key: r[key] for key in ("device_ms", "library_device_ms", "bound_f32_core_ms", "per_shape",
+                                       "mma_sync_tf32_tflops") if key in r},
         })
     log(f"main path: eval_stage2 {dt_a:.3f} s; DDPM chain {dt_b:.3f} s; DDIM chain {dt_d:.3f} s; "
         f"eval_stage2 --fused {dt_c:.3f} s; eval_egoego {dt_egoego:.3f} s; stage 1 "

@@ -10,11 +10,13 @@ with any strides over (B, H, T) and unit stride over the head width. So
 a copy, and gets the output as a (B, H, T, d_v) view of a (B, T, H, d_v)
 buffer, which flattens to (B, T, H d_v) for ``fc`` without a copy either.
 
-``fused_attention`` launches the hand-written kernel (csrc/mha.cu, f32 on
-the CUDA cores, K/V streamed with an online softmax) for CUDA tensors and
-runs ``fused_attention_plain`` for CPU tensors; it never falls back from
-one to the other. The TPU wrapper pads T to 128 and masks the padded keys;
-the card kernel masks keys at or past T itself, so nothing is padded.
+``fused_attention`` launches the hand-written kernel (csrc/mha.cu: f32 in
+and out, both products on the tensor cores as three TF32 products each,
+which keeps f32 accuracy; K/V streamed with an online softmax) for CUDA
+tensors and runs ``fused_attention_plain`` for CPU tensors; it never falls
+back from one to the other. The TPU wrapper pads T to 128 and masks the
+padded keys; the card kernel masks keys at or past T itself, so nothing is
+padded.
 """
 
 from __future__ import annotations
@@ -34,7 +36,9 @@ def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
 
 def fused_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     b, h, t, _ = q.shape
-    out = torch.empty(b, t, h, v.shape[-1], dtype=torch.float32, device=q.device).transpose(1, 2)
+    dv = v.shape[-1]
+    # (B, H, T, d_v) over a (B, T, H, d_v) buffer
+    out = torch.empty_strided((b, h, t, dv), (t * h * dv, dv, h * dv, 1), dtype=torch.float32, device=q.device)
     return ck.mha(q, k, v, out, t_keys=t)
 
 

@@ -236,13 +236,10 @@ def attention(qkv: torch.Tensor, ctx: torch.Tensor, *, B: int, T: int,
     return ctx
 
 
-def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, *,
-        t_keys: int) -> torch.Tensor:
-    """out (B, H, T, dv) = softmax(q k^T / sqrt(dk), keys < t_keys) v per
-    (batch, head), f32 on the CUDA cores. q, k (B, H, T, dk), v and out
-    (B, H, T, dv): any strides over (B, H, T) that are multiples of 4
-    floats, unit stride over the head width, 16-byte aligned, head widths
-    multiples of 4 up to 256 (the kernel reads float4 vectors)."""
+def _mha_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+              t_keys: int) -> MhaArgs:
+    """Check the layout of one ``mha`` call and return its argument struct,
+    pointers unset."""
     b, h, t, dk = q.shape
     dv = v.shape[-1]
     for name, x, d in (("q", q, dk), ("k", k, dk), ("v", v, dv), ("out", out, dv)):
@@ -251,14 +248,37 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, *,
                              f"head width, got {x.dtype} on {x.device}, strides {x.stride()}")
         if tuple(x.shape) != (b, h, t, d):
             raise ValueError(f"mha {name}: need shape {(b, h, t, d)}, got {tuple(x.shape)}")
-        if x.data_ptr() % 16 or any(s % 4 for s in x.stride()[:3]):
+        if any(s % 4 for s in x.stride()[:3]):
             raise ValueError(f"mha {name}: need 16-byte aligned rows, got strides {x.stride()}")
     if not (0 < t_keys <= t and 0 < dk <= 256 and 0 < dv <= 256 and dk % 4 == 0 and dv % 4 == 0):
         raise ValueError(f"mha: need 0 < t_keys <= T and head widths that are multiples of 4 up to "
                          f"256, got {t_keys}, {t}, {dk}, {dv}")
     strides = {f"{n}_s{d}": s for n, x in zip("qkvo", (q, k, v, out)) for d, s in zip("bht", x.stride()[:3])}
-    args = MhaArgs(q=_ptr(q), k=_ptr(k), v=_ptr(v), out=_ptr(out), B=b, H=h, T=t, t_keys=t_keys,
-                   d_k=dk, d_v=dv, scale=1.0 / dk ** 0.5, **strides)
+    return MhaArgs(B=b, H=h, T=t, t_keys=t_keys, d_k=dk, d_v=dv, scale=1.0 / dk ** 0.5, **strides)
+
+
+# checked argument structs of mha, by everything _mha_args reads but the pointers
+_mha_layouts: dict[tuple, MhaArgs] = {}
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, *,
+        t_keys: int) -> torch.Tensor:
+    """out (B, H, T, dv) = softmax(q k^T / sqrt(dk), keys < t_keys) v per
+    (batch, head), f32 in and out, the products on the tensor cores at f32
+    accuracy (3xTF32). q, k (B, H, T, dk), v and out (B, H, T, dv): any
+    strides over (B, H, T) that are multiples of 4 floats, unit stride over
+    the head width, 16-byte aligned, head widths multiples of 4 up to 256
+    (the kernel copies 16-byte vectors). A layout is checked once and its
+    struct kept, so a repeated call only sets the pointers."""
+    key = (t_keys, q.shape, k.shape, v.shape, out.shape, q.stride(), k.stride(), v.stride(), out.stride(),
+           q.dtype, k.dtype, v.dtype, out.dtype, q.device, k.device, v.device, out.device)
+    args = _mha_layouts.get(key)
+    if args is None:
+        args = _mha_layouts[key] = _mha_args(q, k, v, out, t_keys)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if any(p % 16 for p in ptrs):
+        raise ValueError("mha: need 16-byte aligned q, k, v and out")
+    args.q, args.k, args.v, args.out = ptrs
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         _check(_lib("mha").egoego_mha(ctypes.byref(args), stream), "mha")

@@ -59,6 +59,41 @@ def test_fused_attention_plain_matches_jax(b, h, t, dk, dv):
     np.testing.assert_allclose(ours, oracle, atol=ATOL_ATTN, rtol=0)
 
 
+def _tf32(x: torch.Tensor, nearest: bool = True) -> torch.Tensor:
+    """f32 values cut to TF32 (10 mantissa bits) on their int32 view: to
+    nearest, ties away from zero (cvt.rna, and csrc/mha.cu's split), or
+    truncated (what the tensor core does with an operand's low bits)."""
+    bits = x.view(torch.int32)
+    return ((bits + 0x1000 if nearest else bits) & -0x2000).view(torch.float32)
+
+
+def _matmul_tf32(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a b with TF32 operands and f32 sums: one pass, or csrc/mha.cu's three
+    (a = hi + lo, lo truncated by the tensor core; lo hi + hi lo + hi hi)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return torch.matmul(ah, bh)
+    al, bl = _tf32(a - ah, nearest=False), _tf32(b - bh, nearest=False)
+    return torch.matmul(al, bh) + torch.matmul(ah, bl) + torch.matmul(ah, bh)
+
+
+@pytest.mark.parametrize("passes,within", [(3, True), (1, False)])
+def test_tf32_passes_against_float64(passes, within):
+    """The numerical case for the card kernel, held on the CPU: attention at
+    (1, 4, 256, 256) with both products in TF32 against a float64
+    reference. Three TF32 products per f32 product stay under 1e-5, where
+    plain f32 lands; one TF32 pass breaks the 1e-4 the stage-1 path is held
+    to."""
+    rng = np.random.RandomState(256)
+    q, k, v = (torch.from_numpy(rng.randn(1, 4, 256, 256).astype(np.float32)) for _ in range(3))
+    s = _matmul_tf32(q, k.transpose(-1, -2), passes) * (1.0 / 256 ** 0.5)
+    got = _matmul_tf32(torch.softmax(s, -1), v, passes)
+    q64, k64, v64 = q.double(), k.double(), v.double()
+    want = torch.matmul(torch.softmax(torch.matmul(q64, k64.transpose(-1, -2)) / 16.0, -1), v64)
+    err = float((got.double() - want).abs().max())
+    assert (err < 1e-5) if within else (err > 1e-4), err
+
+
 def _port_decoder(jparams, cfg, use_full_attention):
     sd = {}
     _decoder(sd, "d", jparams["params"])

@@ -4,7 +4,8 @@ there with (tests/conftest.py imports JAX, which the GPU machine may lack)
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
-Tolerances: 1e-4 absolute in f32 mode (summation order only, no TF32) and
+Tolerances: 1e-4 absolute in f32 mode (summation order only: no TF32, or
+3xTF32, which keeps f32 accuracy, in csrc/mha.cu) and
 2e-2 in bf16 mode (a bf16 rounding of q/k/v, p, ctx or h1 may flip where
 the two sum in other orders; outputs are O(1) LayerNorm values).
 """
@@ -83,12 +84,16 @@ def test_wrappers_count_and_route_to_kernels(card):
     assert dict(ck.kernel_launches) == {"gemm": 3 * (4 * 3 + 2), "attention": 3 * 3}
 
 
-@pytest.mark.parametrize("b,t,d_head", [(8, 256, 256), (4, 300, 256), (1, 1024, 256), (3, 37, 24)])
+@pytest.mark.parametrize("b,t,d_head", [(8, 256, 256), (4, 300, 256), (1, 1024, 256), (3, 37, 24),
+                                         (2, 256, 256), (3, 300, 20), (9, 130, 20)])
 def test_fused_attention_matches_plain(card, b, t, d_head):
     """The mha kernel on the strided (B, H, T, d) views that
     MultiHeadAttention hands over, against its plain version: f32 on both
-    sides, so 1e-4 bounds the summation order only. T = 300 and 37 leave a
-    ragged last key tile."""
+    sides (3xTF32 on the card), so 1e-4 bounds the summation order only.
+    T = 300 and 37 leave ragged key and query tiles; (2, 256, 256) is path
+    D's shape; head widths 24 and 20 are not multiples of 16 or 8, and are
+    zero-padded in shared memory. On an H100 (132 SMs), (8, 256), (4, 300)
+    and (9, 130) take 64-query blocks, the others 16-query blocks."""
     from egoego_release_tpu_torch.ops import attention as attn
 
     g = torch.Generator(device=card).manual_seed(t)
@@ -101,6 +106,25 @@ def test_fused_attention_matches_plain(card, b, t, d_head):
     torch.cuda.synchronize()
     assert out_k.shape == out_p.shape == (b, 4, t, d_head)
     assert float((out_k - out_p).abs().max()) < TOL[False]
+
+
+@pytest.mark.parametrize("t,t_keys,d_head", [(300, 1, 256), (300, 37, 256), (300, 65, 256),
+                                             (300, 299, 20), (40, 17, 24), (600, 1, 256), (600, 300, 20)])
+def test_mha_masks_keys_past_t_keys(card, t, t_keys, d_head):
+    """cuda_kernels.mha with t_keys < T: keys at or past t_keys get no
+    weight. t_keys = 1 and 37 leave some key groups of the first 64-key
+    tile with no live key; 65 puts one live key in the second tile. T = 600
+    takes 64-query blocks on an H100, T = 300 and 40 16-query blocks."""
+    g = torch.Generator(device=card).manual_seed(t_keys)
+    q, k, v = (torch.randn(2, t, 4, d_head, generator=g, device=card).transpose(1, 2) for _ in range(3))
+    out = torch.full((2, t, 4, d_head), float("nan"), device=card).transpose(1, 2)
+    ck.kernel_launches.clear()
+    ck.mha(q, k, v, out, t_keys=t_keys)
+    assert dict(ck.kernel_launches) == {"mha": 1}
+    s = torch.matmul(q, k[:, :, :t_keys].transpose(-1, -2)) / d_head ** 0.5
+    want = torch.matmul(torch.softmax(s, -1), v[:, :, :t_keys])
+    torch.cuda.synchronize()
+    assert float((out - want).abs().max()) < TOL[False]
 
 
 @pytest.mark.parametrize("bf16", [False, True])
