@@ -94,7 +94,7 @@ def cuda_time_ms(fn, warmup=3, reps=15):
     return statistics.median(times)
 
 
-def device_time_ms(fn, reps=20):
+def device_time_ms(fn, reps=20, chain=False):
     """Device time of one call of fn: the self device time of every kernel
     and memory operation that torch.profiler sees over reps calls, over
     reps; and the names of those kernels with their counts."""
@@ -112,8 +112,10 @@ def device_time_ms(fn, reps=20):
     if us <= 0:
         raise AssertionError("torch.profiler saw no device time")
     # the profiler may miss a launch at the start of its window: divide by
-    # the count it saw of the function's most frequent kernel, one a call
-    return us / max(e.count for e in dev) / 1e3, {e.key[:60]: e.count for e in dev}
+    # the count it saw of the function's most frequent kernel, one a call;
+    # a chain launches some kernel several times a call, so it divides by reps
+    calls = reps if chain else max(e.count for e in dev)
+    return us / calls / 1e3, {e.key[:60]: e.count for e in dev}
 
 
 # The card's rate for the instruction the mha kernel runs on: warps that
@@ -245,6 +247,8 @@ def main() -> int:
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+            elif "wgmma" in line or "setmaxnreg" in line:
+                log(f"  {name}: {line.strip()}")
     # the mha kernel's products run on the tensor cores: count its HMMA
     # (and FFMA, the softmax's arithmetic) instructions in the built library
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -254,6 +258,17 @@ def main() -> int:
     log(f"phase 1: mha SASS: {len(hmma)} HMMA ({', '.join(sorted(set(hmma)))}), {len(ffma)} FFMA")
     if not hmma or any("TF32" not in x for x in hmma):
         raise AssertionError("mha: no TF32 tensor-core instruction in the built kernel")
+    # the layer products run on wgmma: its SASS form is HGMMA
+    sass = subprocess.run([cuobjdump, "-sass", str(ck.BUILD_DIR / "libegoego_gemm.so")],
+                          capture_output=True, text=True, check=True).stdout
+    hgmma, hmma = re.findall(r"\bHGMMA\.[\w.]+", sass), re.findall(r"\bHMMA\.[\w.]+", sass)
+    log(f"phase 1: gemm SASS: {len(hgmma)} HGMMA ({', '.join(sorted(set(hgmma)))}), {len(hmma)} HMMA "
+        f"(the WMMA kernel of the stem and the update)")
+    if not hgmma:
+        raise AssertionError("gemm: no wgmma (HGMMA) instruction in the built kernels")
+    if any("spill" in line and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line)
+           for line in built["ptxas"].get("gemm", "").splitlines()):
+        raise AssertionError("gemm: a kernel spills registers")
 
     # -- phase 2: kernels against their plain versions ---------------------
     cfg = DiffusionConfig()
@@ -277,10 +292,13 @@ def main() -> int:
             "ipv": rn(BATCH, t, d), "ipm": ipm,
         }
 
-    # C-entry launches of one call of each wrapper: 4 GEMMs and one
-    # attention per layer, plus the stem's and the update's GEMM
-    c_launches = {"stem_layer": {"gemm": 5, "attention": 1}, "decoder_layer": {"gemm": 4, "attention": 1},
-                  "layer_epilogue": {"gemm": 5, "attention": 1}}
+    # kernel launches of one call of each wrapper: 4 GEMMs and one attention
+    # per layer (the GEMMs on the wgmma kernel in bf16), plus the stem's and
+    # the update's GEMM (WMMA in bf16)
+    def c_launches(name, bf16=True):
+        n_other = 0 if name in ("decoder_layer", "fused_decoder_layer") else 1
+        counts = {"gemm_wgmma": 4, "gemm": n_other} if bf16 else {"gemm": 4 + n_other}
+        return {k: v for k, v in {**counts, "attention": 1}.items() if v}
 
     def calls(inp, bf16):
         """[(name, check, wrapper, plain, args)]; the last case of each name
@@ -303,8 +321,9 @@ def main() -> int:
         ck.kernel_launches.clear()
         out_k = wrapper(*args, **kw)
         counts = (dict(ck.launch_counts), dict(ck.kernel_launches))
-        if counts != ({name: 1}, c_launches[name]):
-            raise AssertionError(f"{name}: the wrapper counted/launched {counts}, want {name}: 1, {c_launches[name]}")
+        if counts != ({name: 1}, c_launches(name, bf16)):
+            raise AssertionError(f"{name}: the wrapper counted/launched {counts}, want {name}: 1, "
+                                 f"{c_launches(name, bf16)}")
         out_p = plain(*args, **kw)
         torch.cuda.synchronize()
         if what == " x0" and float((out_p.abs() < 1).float().mean()) < 0.5:
@@ -322,15 +341,15 @@ def main() -> int:
         matmul, layer_norm): the yardstick, never called by the port."""
         b, t, _ = h.shape
         x = h.reshape(b * t, dm)
-        qkv = (torch.matmul(x.to(torch.bfloat16), lp["wqkv"]).float() + lp["bqkv"]).to(torch.bfloat16)
+        qkv = (torch.matmul(x.to(torch.bfloat16), lp["wqkv"].t()).float() + lp["bqkv"]).to(torch.bfloat16)
         q, k, v = (qkv[:, i * nh * dk:(i + 1) * nh * dk].reshape(b, t, nh, dk).transpose(1, 2)
                    for i in range(3))
         ctx = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(b * t, nh * dv)
         m = mask.reshape(b * t, 1)
-        h0 = F.layer_norm(torch.matmul(ctx, lp["wfc"]).float() + lp["bfc"] + x, (dm,),
+        h0 = F.layer_norm(torch.matmul(ctx, lp["wfc"].t()).float() + lp["bfc"] + x, (dm,),
                           lp["ln1s"], lp["ln1b"]) * m
-        h1 = torch.relu(torch.matmul(h0.to(torch.bfloat16), lp["w1"]).float() + lp["b1"])
-        h2 = torch.matmul(h1.to(torch.bfloat16), lp["w2"]).float() + lp["b2"]
+        h1 = torch.relu(torch.matmul(h0.to(torch.bfloat16), lp["w1"].t()).float() + lp["b1"])
+        h2 = torch.matmul(h1.to(torch.bfloat16), lp["w2"].t()).float() + lp["b2"]
         return (F.layer_norm(h2 + h0, (dm,), lp["ln2s"], lp["ln2b"]) * m).reshape(b, t, dm)
 
     def library(name, inp):
@@ -373,27 +392,88 @@ def main() -> int:
             nbytes += act + 4 * 4 * BATCH * t * d + 4 * BATCH * t + 2 * dm * d + 4 * d
         return flops, nbytes
 
-    def layer_parts(h, mask, lp):
-        """Median time of each of a layer's five launches (CUDA events)."""
-        b, t, _ = h.shape
-        rows = b * t
+    def launch_parts(inp):
+        """The launches of one step, each alone on the operands the chain
+        gives it: {name: (launch, (M, K, N) of its product or None, the
+        tensors it reads, the tensors it writes)}. The five launches of a
+        layer, then the stem's and the update's GEMM."""
+        p = prep[True]
+        lp = p["layers"][1]
+        b, t1, _ = inp["h"].shape
+        rows, t = b * t1, t1 - 1
         bf = torch.bfloat16
-        x, m = h.reshape(rows, dm), mask.reshape(rows)
-        qkv = torch.empty(rows, lp["wqkv"].shape[1], dtype=bf, device=dev)
+        x, m = inp["h"].reshape(rows, dm), inp["mask"].reshape(rows)
+        xb = x.to(bf)  # the bf16 copy that the previous layer's last epilogue writes
+        n_qkv = lp["wqkv"].shape[0]
+        qkv = torch.empty(rows, n_qkv, dtype=bf, device=dev)
         ctx = torch.empty(rows, nh * dv, dtype=bf, device=dev)
-        h0 = torch.empty(rows, dm, device=dev)
+        h0, h0b = torch.empty(rows, dm, device=dev), torch.empty(rows, dm, dtype=bf, device=dev)
         h1 = torch.empty(rows, dm, dtype=bf, device=dev)
-        out = torch.empty(rows, dm, device=dev)
-        parts = {
-            "qkv": lambda: ck.gemm(ck.BIAS, x, lp["wqkv"], lp["bqkv"], qkv, M=rows),
-            "attention": lambda: ck.attention(qkv, ctx, B=b, T=t, t_keys=t, **kw),
-            "fc_ln": lambda: ck.gemm(ck.LAYER_NORM, ctx, lp["wfc"], lp["bfc"], h0, M=rows, res=x,
-                                     ln_s=lp["ln1s"], ln_b=lp["ln1b"], row_mask=m),
-            "w1_relu": lambda: ck.gemm(ck.BIAS_RELU, h0, lp["w1"], lp["b1"], h1, M=rows),
-            "w2_ln": lambda: ck.gemm(ck.LAYER_NORM, h1, lp["w2"], lp["b2"], out, M=rows, res=h0,
-                                     ln_s=lp["ln2s"], ln_b=lp["ln2b"], row_mask=m),
+        out, outb = torch.empty(rows, dm, device=dev), torch.empty(rows, dm, dtype=bf, device=dev)
+        stem, stemb = torch.empty(rows, dm, device=dev), torch.empty(rows, dm, dtype=bf, device=dev)
+        step = torch.empty(b * t, d, device=dev)
+        ln1 = [x, lp["ln1s"], lp["ln1b"], m]
+        ln2 = [h0, lp["ln2s"], lp["ln2b"], m]
+        return {
+            "qkv": (lambda: ck.gemm(ck.BIAS, xb, lp["wqkv"], lp["bqkv"], qkv, M=rows),
+                    (rows, dm, n_qkv), [xb, lp["wqkv"], lp["bqkv"]], [qkv]),
+            "attention": (lambda: ck.attention(qkv, ctx, B=b, T=t1, t_keys=t1, **kw), None, [qkv], [ctx]),
+            "fc_ln": (lambda: ck.gemm(ck.LAYER_NORM, ctx, lp["wfc"], lp["bfc"], h0, M=rows, res=x,
+                                      ln_s=lp["ln1s"], ln_b=lp["ln1b"], row_mask=m, out_b=h0b),
+                      (rows, nh * dv, dm), [ctx, lp["wfc"], lp["bfc"], *ln1], [h0, h0b]),
+            "w1_relu": (lambda: ck.gemm(ck.BIAS_RELU, h0b, lp["w1"], lp["b1"], h1, M=rows),
+                        (rows, dm, dm), [h0b, lp["w1"], lp["b1"]], [h1]),
+            "w2_ln": (lambda: ck.gemm(ck.LAYER_NORM, h1, lp["w2"], lp["b2"], out, M=rows, res=h0,
+                                      ln_s=lp["ln2s"], ln_b=lp["ln2b"], row_mask=m, out_b=outb),
+                      (rows, dm, dm), [h1, lp["w2"], lp["b2"], *ln2], [out, outb]),
+            "stem": (lambda: ck.gemm(ck.STEM, inp["x"], p["wst"], p["bst"], stem, M=rows, a2=inp["xc"],
+                                     pos=inp["pos"], emb=inp["emb"], t_data=t, out_b=stemb),
+                     (b * t, 2 * d, dm), [inp["x"], inp["xc"], p["wst"], p["bst"], inp["pos"], inp["emb"]],
+                     [stem, stemb]),
+            "step": (lambda: ck.gemm(ck.STEP, inp["h"], p["lw"], p["lb"], step, M=b * t,
+                                     x=inp["x"].reshape(b * t, d), noise=inp["noise"].reshape(b * t, d),
+                                     t_data=t, scal=UPDATE, n=d),
+                     (b * t, dm, d), [inp["h"][:, 1:], p["lw"], p["lb"], inp["x"], inp["noise"]], [step]),
         }
-        return {k: round(cuda_time_ms(f), 4) for k, f in parts.items()}
+
+    def launch_table(inp):
+        """Per launch of one step: its device time (torch.profiler) and per-
+        call time (CUDA events around one Python call; the difference is the
+        wrapper's host cost), beside cuBLAS (torch.matmul bf16 at the same
+        M, K, N; SDPA bf16 for the attention) on the device, both rates, and
+        the bound: max(operations / 989 TFLOP/s, bytes / 3.35 TB/s), each
+        input read once and each output written once."""
+        b, t1, _ = inp["h"].shape
+        table = {}
+        for name, (fn, mkn, reads, writes) in launch_parts(inp).items():
+            if mkn is None:
+                flops = 2 * b * nh * t1 * t1 * (dk + dv)
+                q, k, v = (torch.randn(b, nh, t1, dk, generator=g, device=dev, dtype=torch.bfloat16)
+                           for _ in range(3))
+                lib = lambda: F.scaled_dot_product_attention(q, k, v)
+            else:
+                flops = 2 * mkn[0] * mkn[1] * mkn[2]
+                a_l = torch.randn(mkn[0], mkn[1], generator=g, device=dev).to(torch.bfloat16)
+                w_l = torch.randn(mkn[1], mkn[2], generator=g, device=dev).to(torch.bfloat16)
+                lib = lambda: torch.matmul(a_l, w_l)
+            nbytes = sum(x.numel() * x.element_size() for x in reads + writes)
+            r = {"mkn": mkn, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+                 "bound_ops_ms": flops / PEAK_BF16 * 1e3, "bound_bytes_ms": nbytes / HBM_BYTES_S * 1e3}
+            r["bound_ms"] = max(r["bound_ops_ms"], r["bound_bytes_ms"])
+            r["ms"] = cuda_time_ms(fn)
+            r["device_ms"], names = device_time_ms(fn)
+            r["host_ms"] = r["ms"] - r["device_ms"]
+            r["library_device_ms"], _ = device_time_ms(lib)
+            r["tflops"] = flops / r["device_ms"] / 1e9
+            r["library_tflops"] = flops / r["library_device_ms"] / 1e9
+            r["kernels"] = names
+            table[name] = r
+            log(f"phase 2: launch {name} {BATCH}x{t1} tokens (M, K, N) = {mkn}: device {r['device_ms']:.4f} ms "
+                f"({r['tflops']:.1f} TFLOP/s), per call {r['ms']:.4f} ms (host {r['host_ms']:.4f}); "
+                f"{'SDPA' if mkn is None else 'torch.matmul'} bf16 device {r['library_device_ms']:.4f} ms "
+                f"({r['library_tflops']:.1f} TFLOP/s); bound {r['bound_ms']:.4f} ms (ops {r['bound_ops_ms']:.4f}, "
+                f"bytes {r['bound_bytes_ms']:.4f}; {r['gflop']:.2f} GFLOP, {r['mbytes']:.1f} MB); {names} [{card}]")
+        return table
 
     def step_profile(inp, steps=20):
         """Wall time of `steps` reverse steps (host clock around
@@ -432,18 +512,20 @@ def main() -> int:
                 r["ms"] = cuda_time_ms(lambda: wrapper(*args, **kw))
                 r["plain_ms"] = cuda_time_ms(lambda: plain(*args, **kw))
                 r["library_ms"] = cuda_time_ms(library(name, inp))
+                r["device_ms"], _ = device_time_ms(lambda: wrapper(*args, **kw), chain=True)
+                r["library_device_ms"], _ = device_time_ms(library(name, inp), chain=True)
                 t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM_BYTES_S * 1e3
                 r["bound_ms"] = max(t_ops, t_bytes)
                 r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
                 r["gflop"] = flops / 1e9
                 r["mbytes"] = nbytes / 1e6
-                log(f"phase 2: {name} bf16 {BATCH}x{t + 1} tokens: kernel {r['ms']:.3f} ms, plain "
-                    f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+                log(f"phase 2: {name} bf16 {BATCH}x{t + 1} tokens: kernel {r['ms']:.3f} ms (device "
+                    f"{r['device_ms']:.4f}), plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms (device "
+                    f"{r['library_device_ms']:.4f}), bound {r['bound_ms']:.4f} ms "
                     f"({r['bound_by']}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB) [{card}]")
-            results["decoder_layer"]["parts_ms"] = layer_parts(inp["h"], inp["mask"], prep[True]["layers"][1])
-            log(f"phase 2: decoder_layer bf16 launches: {results['decoder_layer']['parts_ms']} [{card}]")
             step_prof = step_profile(inp)
             log(f"phase 2: one reverse step, bf16 {BATCH}x{t + 1} tokens: {step_prof} [{card}]")
+        results["decoder_layer"].setdefault("launch_table", {})[f"{BATCH}x{t + 1}"] = launch_table(inp)
     del prep, inp
 
     # synthetic AMASS-layout records, stats and rest offsets (seeded)
@@ -469,7 +551,8 @@ def main() -> int:
     np.save(rest_path, np.concatenate([np.zeros((1, 3)), rng.uniform(-0.2, 0.2, (21, 3))]).astype(np.float32))
     per_step = {"stem_layer": 1, "decoder_layer": cfg.n_dec_layers - 2, "layer_epilogue": 1}
 
-    c_per_step = {k: sum(n * c_launches[w][k] for w, n in per_step.items()) for k in ("gemm", "attention")}
+    c_per_step = {k: sum(n * c_launches(w).get(k, 0) for w, n in per_step.items())
+                  for k in ("gemm", "gemm_wgmma", "attention")}
 
     def clear_counts():
         ck.launch_counts.clear()
@@ -626,7 +709,7 @@ def main() -> int:
         for bf16 in (False, True):
             lp = fl.layer_params(layer, bf16=bf16)
             out_k = check_once("fused_decoder_layer", lambda: fl.fused_decoder_layer(h, mask, lp, **kw),
-                               ({"fused_decoder_layer": 1}, c_launches["decoder_layer"]))
+                               ({"fused_decoder_layer": 1}, c_launches("fused_decoder_layer", bf16)))
             out_p = fl.decoder_layer_plain(h, mask, lp, **kw)
             torch.cuda.synchronize()
             err = float((out_k - out_p).abs().max())
@@ -642,8 +725,11 @@ def main() -> int:
                 timed(fdl, flops, nbytes, PEAK_BF16, lambda: fl.fused_decoder_layer(h, mask, lp, **kw),
                       lambda: fl.decoder_layer_plain(h, mask, lp, **kw), lambda: library_layer(h, mask, lp))
                 fdl["shape"] = f"{BATCH} windows x {t + 1} tokens, bf16"
-                log(f"phase 6: fused_decoder_layer bf16 {BATCH}x{t + 1} tokens: kernel {fdl['ms']:.3f} ms, "
-                    f"plain {fdl['plain_ms']:.3f} ms, library {fdl['library_ms']:.3f} ms, bound "
+                fdl["device_ms"], _ = device_time_ms(lambda: fl.fused_decoder_layer(h, mask, lp, **kw), chain=True)
+                fdl["library_device_ms"], _ = device_time_ms(lambda: library_layer(h, mask, lp), chain=True)
+                log(f"phase 6: fused_decoder_layer bf16 {BATCH}x{t + 1} tokens: kernel {fdl['ms']:.3f} ms "
+                    f"(device {fdl['device_ms']:.4f}), plain {fdl['plain_ms']:.3f} ms, library "
+                    f"{fdl['library_ms']:.3f} ms (device {fdl['library_device_ms']:.4f}), bound "
                     f"{fdl['bound_ms']:.4f} ms ({fdl['bound_by']}) [{card}]")
     del h, mask, out_k, out_p
 
@@ -660,7 +746,7 @@ def main() -> int:
     dt_c = time.perf_counter() - t0
     n_fdl = cfg.n_dec_layers * cfg.timesteps
     want = ({"fused_decoder_layer": n_fdl},
-            {k: n_fdl * v for k, v in c_launches["decoder_layer"].items()})
+            {k: n_fdl * v for k, v in c_launches("fused_decoder_layer").items()})
     got = (dict(ck.launch_counts), dict(ck.kernel_launches))
     log(f"phase 7: launches {got[0]} (expected {want[0]}); C entries {got[1]} (expected {want[1]})")
     if got != want:
@@ -792,7 +878,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "gflop": r["gflop"], "mbytes": r["mbytes"],
             "shape": r["shape"], "card": card,
             **{key: r[key] for key in ("device_ms", "library_device_ms", "bound_f32_core_ms", "per_shape",
-                                       "mma_sync_tf32_tflops") if key in r},
+                                       "mma_sync_tf32_tflops", "launch_table") if key in r},
         })
     log(f"main path: eval_stage2 {dt_a:.3f} s; DDPM chain {dt_b:.3f} s; DDIM chain {dt_d:.3f} s; "
         f"eval_stage2 --fused {dt_c:.3f} s; eval_egoego {dt_egoego:.3f} s; stage 1 "

@@ -35,12 +35,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Launches of each ported TPU kernel, counted by its wrapper once its
 # kernel chain has been launched on the card.
 launch_counts: Counter = Counter()
-# Launches of each C entry ("gemm", "attention", "mha"), counted once the entry
-# has returned without error.
+# Launches of each kernel of the C entries, counted once the entry has
+# returned without error: "gemm_wgmma" (the layer products in bf16) and
+# "gemm" (the others) as egoego_gemm reports its choice, "attention", "mha".
 kernel_launches: Counter = Counter()
 
-# GEMM epilogue modes (csrc/gemm.cu GemmMode)
+# GEMM epilogue modes (csrc/gemm.cu GemmMode); the first three are the
+# products of a DecoderLayer, whose weights are (N, K)
 BIAS, BIAS_RELU, LAYER_NORM, STEM, STEP = range(5)
+LAYER_MODES = (BIAS, BIAS_RELU, LAYER_NORM)
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -48,9 +51,9 @@ _libs: dict[str, ctypes.CDLL] = {}
 class GemmArgs(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "a", "a2", "w", "bias", "res", "ln_s", "ln_b", "row_mask", "pos", "emb",
-        "x", "noise", "ipv", "ipm", "out")] + [(name, ctypes.c_int) for name in (
+        "x", "noise", "ipv", "ipm", "out", "out_b")] + [(name, ctypes.c_int) for name in (
         "M", "N", "K", "lda", "ldw", "ldo", "k_split", "a_bf16", "out_bf16",
-        "compute_bf16", "mode", "t_data")] + [(name, ctypes.c_float) for name in (
+        "compute_bf16", "mode", "t_data", "w_nk", "wgmma")] + [(name, ctypes.c_float) for name in (
         "c1", "c2", "c3")]
 
 
@@ -157,23 +160,45 @@ def _need(t: torch.Tensor, dtype, shape=None, what="tensor") -> None:
 
 def gemm(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
          out: torch.Tensor, *, M: int, a2: torch.Tensor | None = None, res=None, ln_s=None, ln_b=None, row_mask=None,
-         pos=None, emb=None, x=None, noise=None, ipv=None, ipm=None,
+         pos=None, emb=None, x=None, noise=None, ipv=None, ipm=None, out_b=None,
          t_data: int = 0, scal=(0.0, 0.0, 0.0), n: int | None = None) -> torch.Tensor:
-    """out (M, N) = epilogue(A W + b) on the card; W is (K, ldw) row-major
-    in the compute dtype (bf16 -> tensor cores, f32 -> CUDA cores), of which
-    the first N = ``n`` (default ldw) columns are used; bf16 weights need
-    ldw % 8 == 0 (16-byte rows)."""
-    K, ldw = w.shape
-    N = ldw if n is None else n
+    """out (M, N) = epilogue(A W + b) on the card, in W's dtype (bf16 ->
+    tensor cores, f32 -> CUDA cores).
+
+    The layer modes (BIAS, BIAS_RELU, LAYER_NORM) take W as (N, K),
+    ``nn.Linear``'s layout; in bf16 they run the wgmma kernel, which reads A
+    as bf16 (the caller hands over the bf16 copy of an f32 activation) and
+    writes bf16 (f32 for LAYER_NORM), with K and N multiples of 8 and 16-byte
+    aligned A, W and out. STEM and STEP take W as (K, ldw) row-major, of
+    which the first N = ``n`` (default ldw) columns are used; bf16 there
+    needs ldw % 8 == 0. ``out_b`` (LAYER_NORM, STEM): a bf16 (M, N) tensor
+    that receives the f32 output rounded to bf16."""
     f32, bf16 = torch.float32, torch.bfloat16
     _need(w, (f32, bf16), what="w")
-    if N > ldw or (w.dtype == bf16 and (ldw % 8 or w.data_ptr() % 16)):
-        raise ValueError(f"w: need N <= ldw and, in bf16, 16-byte rows; got N={N}, ldw={ldw}")
+    layer = mode in LAYER_MODES
+    if layer:
+        if n is not None:
+            raise ValueError("n: the layer modes use every row of w")
+        N, K = w.shape
+        ldw = K
+    else:
+        K, ldw = w.shape
+        N = ldw if n is None else n
+        if N > ldw or (w.dtype == bf16 and (ldw % 8 or w.data_ptr() % 16)):
+            raise ValueError(f"w: need N <= ldw and, in bf16, 16-byte rows; got N={N}, ldw={ldw}")
     _need(a, (f32, bf16), what="a")
     _need(bias, f32, (N,), "bias")
     _need(out, (f32, bf16), what="out")
+    if layer and w.dtype == bf16 and (a.dtype != bf16 or (out.dtype == f32) != (mode == LAYER_NORM) or K % 8 or N % 8
+                                      or any(t.data_ptr() % 16 for t in (a, w, out))):
+        raise ValueError(f"the wgmma GEMM needs a bf16 A, a bf16 out (f32 for LAYER_NORM), K and N multiples of 8 "
+                         f"and 16-byte aligned A, W and out; got A {a.dtype}, out {out.dtype}, K={K}, N={N}")
     if out.numel() != M * N:
         raise ValueError(f"out: need {M}x{N} elements, got {tuple(out.shape)}")
+    if out_b is not None:
+        _need(out_b, bf16, what="out_b")
+        if mode not in (LAYER_NORM, STEM) or out.dtype != f32 or out_b.numel() != M * N or out_b.data_ptr() % 16:
+            raise ValueError("out_b: a 16-byte aligned bf16 copy of the f32 output of LAYER_NORM or STEM")
     lda = a.shape[-1]
     k_split = 0
     if mode == STEM:
@@ -205,15 +230,15 @@ def gemm(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         a=_ptr(a), a2=_ptr(a2), w=_ptr(w), bias=_ptr(bias), res=_ptr(res),
         ln_s=_ptr(ln_s), ln_b=_ptr(ln_b), row_mask=_ptr(row_mask), pos=_ptr(pos),
         emb=_ptr(emb), x=_ptr(x), noise=_ptr(noise), ipv=_ptr(ipv), ipm=_ptr(ipm),
-        out=_ptr(out), M=M, N=N, K=K, lda=lda, ldw=ldw, ldo=N, k_split=k_split,
+        out=_ptr(out), out_b=_ptr(out_b), M=M, N=N, K=K, lda=lda, ldw=ldw, ldo=N, k_split=k_split,
         a_bf16=int(a.dtype == bf16), out_bf16=int(out.dtype == bf16),
-        compute_bf16=int(w.dtype == bf16), mode=mode, t_data=t_data,
+        compute_bf16=int(w.dtype == bf16), mode=mode, t_data=t_data, w_nk=int(layer),
         c1=scal[0], c2=scal[1], c3=scal[2],
     )
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
         _check(_lib("gemm").egoego_gemm(ctypes.byref(args), stream), "gemm")
-    kernel_launches["gemm"] += 1
+    kernel_launches["gemm_wgmma" if args.wgmma else "gemm"] += 1
     return out
 
 

@@ -13,13 +13,19 @@ the layer is five launches (csrc/gemm.cu, csrc/attention.cu): the fused
 QKV product, attention, fc with the residual + LayerNorm + mask epilogue,
 w1 with bias + ReLU, and w2 with the residual + LayerNorm + mask epilogue.
 The layer is compute-bound at the main path's shapes (~47 GFLOP against
-~40 MB), so the products run on the tensor cores in bf16 mode.
+~40 MB), so the products run on the tensor cores in bf16 mode, on the
+wgmma kernel, which reads both operands as bf16 in device memory: the
+weights as (N, K) and A as the bf16 copy of the layer input and of h0
+that their producers write beside the f32 tensor (the stem's and the
+LayerNorms' epilogues). The chain hands the (f32, bf16) pair from layer to
+layer; a layer called alone makes the copy of its input.
 
 Rounding points in bf16 mode are those of ``_layer_body``: the layer input
 is rounded to bf16 for the QKV product, q/k/v after their bias, p before
-p v, ctx before fc, h0 before w1 and h1 before w2. LayerNorm statistics and
-the inter-layer activations stay f32. ``bf16=False`` is the f32 parity mode
-(no TF32 anywhere).
+p v, ctx before fc, h0 before w1 and h1 before w2 (rounding the input or h0
+where it is written is the same round-to-nearest as rounding it at the
+product). LayerNorm statistics and the inter-layer activations stay f32.
+``bf16=False`` is the f32 parity mode (no TF32 anywhere).
 
 ``decoder_layer`` (a middle layer of the step path) and
 ``fused_decoder_layer`` (every layer of the ``--fused`` denoiser, port of
@@ -40,14 +46,15 @@ LN_EPS = 1e-5
 
 def layer_params(layer, bf16: bool) -> dict:
     """Kernel operands of one ``models.transformer.DecoderLayer``: weight
-    matrices as (in, out) in the compute dtype (bf16 or f32), q/k/v fused
-    into one (d_model, H*(2 dk + dv)) product, biases and LayerNorm rows f32."""
+    matrices as (out, in), ``nn.Linear``'s layout (K-major rows for the
+    kernels), in the compute dtype (bf16 or f32), q/k/v fused into one
+    (H*(2 dk + dv), d_model) product, biases and LayerNorm rows f32."""
     wdt = torch.bfloat16 if bf16 else torch.float32
     sa, ff = layer.self_attn, layer.pos_ffn
-    w = lambda t: t.detach().t().contiguous().to(wdt)
+    w = lambda t: t.detach().contiguous().to(wdt)
     f = lambda t: t.detach().float().contiguous()
     return {
-        "wqkv": torch.cat([w(sa.w_q.weight), w(sa.w_k.weight), w(sa.w_v.weight)], 1).contiguous(),
+        "wqkv": torch.cat([w(sa.w_q.weight), w(sa.w_k.weight), w(sa.w_v.weight)], 0).contiguous(),
         "bqkv": torch.cat([f(sa.w_q.bias), f(sa.w_k.bias), f(sa.w_v.bias)]).contiguous(),
         "wfc": w(sa.fc.weight), "bfc": f(sa.fc.bias),
         "ln1s": f(sa.layer_norm.weight), "ln1b": f(sa.layer_norm.bias),
@@ -68,6 +75,11 @@ def matmul_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return a.to(w.dtype).float() @ w.float()
 
 
+def linear_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``matmul_plain`` with w as (N, K): A W^T."""
+    return a.to(w.dtype).float() @ w.float().t()
+
+
 def layer_norm_plain(y: torch.Tensor, s: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     mu = y.mean(-1, keepdim=True)
     var = ((y - mu) ** 2).mean(-1, keepdim=True)
@@ -81,7 +93,7 @@ def decoder_layer_plain(h, mask, lp, *, n_head, d_k, d_v):
     bf16 = lp["wqkv"].dtype == torch.bfloat16
     rnd = round_bf16 if bf16 else (lambda a: a)
     x = h.reshape(bsz * t, dm)
-    qkv = rnd(matmul_plain(x, lp["wqkv"]) + lp["bqkv"])
+    qkv = rnd(linear_plain(x, lp["wqkv"]) + lp["bqkv"])
     hk = n_head * d_k
     heads = lambda a, d: a.reshape(bsz, t, n_head, d).transpose(1, 2)
     q, k, v = heads(qkv[:, :hk], d_k), heads(qkv[:, hk:2 * hk], d_k), heads(qkv[:, 2 * hk:], d_v)
@@ -89,54 +101,64 @@ def decoder_layer_plain(h, mask, lp, *, n_head, d_k, d_v):
     p = rnd(torch.softmax(s, dim=-1))
     ctx = rnd((p @ v).transpose(1, 2).reshape(bsz * t, n_head * d_v))
     m = mask.reshape(bsz * t, 1).float()
-    h0 = layer_norm_plain(matmul_plain(ctx, lp["wfc"]) + lp["bfc"] + x, lp["ln1s"], lp["ln1b"]) * m
-    h1 = rnd(torch.relu(matmul_plain(h0, lp["w1"]) + lp["b1"]))
-    out = layer_norm_plain(matmul_plain(h1, lp["w2"]) + lp["b2"] + h0, lp["ln2s"], lp["ln2b"]) * m
+    h0 = layer_norm_plain(linear_plain(ctx, lp["wfc"]) + lp["bfc"] + x, lp["ln1s"], lp["ln1b"]) * m
+    h1 = rnd(torch.relu(linear_plain(h0, lp["w1"]) + lp["b1"]))
+    out = layer_norm_plain(linear_plain(h1, lp["w2"]) + lp["b2"] + h0, lp["ln2s"], lp["ln2b"]) * m
     return out.reshape(bsz, t, dm)
 
 
-def decoder_layer_cuda(h, mask, lp, *, n_head, d_k, d_v):
+def decoder_layer_cuda(h, mask, lp, *, n_head, d_k, d_v, hb=None, with_copy=False):
     """The layer as five launches on the card; same contract as the plain
-    version. ``mask`` must be a contiguous f32 (B, T) tensor."""
+    version, and returns (out, its bf16 copy or None). ``mask`` must be a
+    contiguous f32 (B, T) tensor. In bf16 mode ``hb`` is h's bf16 copy (made
+    here when None) and ``with_copy`` has the last LayerNorm write out's."""
     bsz, t, dm = h.shape
     m_rows = bsz * t
     cdt = lp["wqkv"].dtype
+    bf16 = cdt == torch.bfloat16
     dev = h.device
     x = h.reshape(m_rows, dm)
+    xb = (x.to(torch.bfloat16) if hb is None else hb.reshape(m_rows, dm)) if bf16 else x
     mask = mask.reshape(m_rows)
-    qkv = torch.empty(m_rows, lp["wqkv"].shape[1], dtype=cdt, device=dev)
-    ck.gemm(ck.BIAS, x, lp["wqkv"], lp["bqkv"], qkv, M=m_rows)
+    copy = lambda: torch.empty(m_rows, dm, dtype=torch.bfloat16, device=dev) if bf16 else None
+    qkv = torch.empty(m_rows, lp["wqkv"].shape[0], dtype=cdt, device=dev)
+    ck.gemm(ck.BIAS, xb, lp["wqkv"], lp["bqkv"], qkv, M=m_rows)
     ctx = torch.empty(m_rows, n_head * d_v, dtype=cdt, device=dev)
     ck.attention(qkv, ctx, B=bsz, T=t, t_keys=t, n_head=n_head, d_k=d_k, d_v=d_v)
     h0 = torch.empty(m_rows, dm, dtype=torch.float32, device=dev)
+    h0b = copy()
     ck.gemm(ck.LAYER_NORM, ctx, lp["wfc"], lp["bfc"], h0, M=m_rows, res=x,
-            ln_s=lp["ln1s"], ln_b=lp["ln1b"], row_mask=mask)
-    h1 = torch.empty(m_rows, lp["w1"].shape[1], dtype=cdt, device=dev)
-    ck.gemm(ck.BIAS_RELU, h0, lp["w1"], lp["b1"], h1, M=m_rows)
+            ln_s=lp["ln1s"], ln_b=lp["ln1b"], row_mask=mask, out_b=h0b)
+    h1 = torch.empty(m_rows, lp["w1"].shape[0], dtype=cdt, device=dev)
+    ck.gemm(ck.BIAS_RELU, h0 if h0b is None else h0b, lp["w1"], lp["b1"], h1, M=m_rows)
     out = torch.empty(m_rows, dm, dtype=torch.float32, device=dev)
+    outb = copy() if with_copy else None
     ck.gemm(ck.LAYER_NORM, h1, lp["w2"], lp["b2"], out, M=m_rows, res=h0,
-            ln_s=lp["ln2s"], ln_b=lp["ln2b"], row_mask=mask)
-    return out.reshape(bsz, t, dm)
+            ln_s=lp["ln2s"], ln_b=lp["ln2b"], row_mask=mask, out_b=outb)
+    return out.reshape(bsz, t, dm), None if outb is None else outb.reshape(bsz, t, dm)
 
 
-def decoder_layer(h, mask, lp, *, n_head, d_k, d_v):
+def decoder_layer(h, mask, lp, *, n_head, d_k, d_v, hb=None, with_copy=False):
     """One DecoderLayer: the kernel chain for CUDA tensors (counted in
     ``cuda_kernels.launch_counts["decoder_layer"]`` once its launches have
-    returned), the plain version for CPU tensors."""
+    returned), the plain version for CPU tensors. ``hb`` and ``with_copy``
+    are ``decoder_layer_cuda``'s (the step chain's bf16 copies); with_copy
+    returns (out, its bf16 copy or None) instead of out."""
     if h.is_cuda:
-        out = decoder_layer_cuda(h, mask, lp, n_head=n_head, d_k=d_k, d_v=d_v)
+        out = decoder_layer_cuda(h, mask, lp, n_head=n_head, d_k=d_k, d_v=d_v, hb=hb, with_copy=with_copy)
         ck.launch_counts["decoder_layer"] += 1
-        return out
-    return decoder_layer_plain(h, mask, lp, n_head=n_head, d_k=d_k, d_v=d_v)
+    else:
+        out = decoder_layer_plain(h, mask, lp, n_head=n_head, d_k=d_k, d_v=d_v), None
+    return out if with_copy else out[0]
 
 
-def fused_decoder_layer(x, padding_mask, lp, *, n_head, d_k, d_v):
+def fused_decoder_layer(x, padding_mask, lp, *, n_head, d_k, d_v, hb=None, with_copy=False):
     """One DecoderLayer of the ``--fused`` denoiser (port of
     egoego_release_tpu/ops/fused_layer.py ``fused_decoder_layer``): x (B, T,
     d_model) f32, padding_mask (B, T) f32, ``lp`` from ``layer_params`` (bf16
     or f32 compute). The kernel chain of ``decoder_layer`` for CUDA tensors,
     counted in ``cuda_kernels.launch_counts["fused_decoder_layer"]``, the
-    plain version for CPU tensors.
+    plain version for CPU tensors; ``hb`` and ``with_copy`` as there.
 
     The TPU wrapper pads T to 128 and B to its batch tile, masks the padded
     keys to -inf and slices the padded rows off. Here the attention kernel
@@ -145,10 +167,11 @@ def fused_decoder_layer(x, padding_mask, lp, *, n_head, d_k, d_v):
     stay visible keys on both. The result is the same function of the real
     tokens."""
     if x.is_cuda:
-        out = decoder_layer_cuda(x, padding_mask, lp, n_head=n_head, d_k=d_k, d_v=d_v)
+        out = decoder_layer_cuda(x, padding_mask, lp, n_head=n_head, d_k=d_k, d_v=d_v, hb=hb, with_copy=with_copy)
         ck.launch_counts["fused_decoder_layer"] += 1
-        return out
-    return decoder_layer_plain(x, padding_mask, lp, n_head=n_head, d_k=d_k, d_v=d_v)
+    else:
+        out = decoder_layer_plain(x, padding_mask, lp, n_head=n_head, d_k=d_k, d_v=d_v), None
+    return out if with_copy else out[0]
 
 
 def fused_denoiser_apply(model, src, noise_t, padding_mask, cfg, layers=None, bf16: bool = True):
@@ -176,6 +199,9 @@ def fused_denoiser_apply(model, src, noise_t, padding_mask, cfg, layers=None, bf
         mask = x.new_ones(bsz, t + 1)
     else:
         mask = padding_mask[:, 0, :].float().contiguous()
-    for lp in layers:
-        x = fused_decoder_layer(x, mask, lp, n_head=cfg.n_head, d_k=cfg.d_k, d_v=cfg.d_v)
+    kw = dict(n_head=cfg.n_head, d_k=cfg.d_k, d_v=cfg.d_v)
+    xb = None
+    for lp in layers[:-1]:
+        x, xb = fused_decoder_layer(x, mask, lp, hb=xb, with_copy=True, **kw)
+    x = fused_decoder_layer(x, mask, layers[-1], hb=xb, **kw)
     return F.linear(x[:, 1:], model.linear_out.weight, model.linear_out.bias)

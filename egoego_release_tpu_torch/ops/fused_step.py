@@ -21,7 +21,8 @@ DDIM  a2 = sqrt(max(1 - ac_prev - sigma^2, 0)) / sqrt(1 - ac_t),
 On the card each wrapper is a chain of launches (csrc/gemm.cu,
 csrc/attention.cu; see ops/fused_layer.py for why a layer is not one
 kernel there): the stem and the update ride in GEMM epilogues, so only
-the (B, T+1, d_model) activations cross device memory between layers.
+the (B, T+1, d_model) activations cross device memory between layers, in
+f32 and, for the next layer's bf16 products, as a bf16 copy.
 
 The port pads nothing: a window of T frames is T + 1 tokens, every row is
 real, and every token is a key. The samplers
@@ -85,24 +86,30 @@ def stem_layer_plain(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v):
     return decoder_layer_plain(h, mask, prep["layers"][0], n_head=n_head, d_k=d_k, d_v=d_v)
 
 
-def stem_layer_cuda(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v):
+def stem_layer_cuda(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v, with_copy=False):
+    """The stem's GEMM (which also writes the bf16 copy of its output in
+    bf16 mode), then layer 0; returns ``decoder_layer_cuda``'s pair."""
     bsz, t, _ = x.shape
     dm = prep["bst"].shape[0]
     h = torch.empty(bsz, t + 1, dm, dtype=torch.float32, device=x.device)
+    hb = torch.empty_like(h, dtype=torch.bfloat16) if prep["wst"].dtype == torch.bfloat16 else None
     ck.gemm(ck.STEM, x, prep["wst"], prep["bst"], h, M=bsz * (t + 1), a2=xc,
-            pos=pos, emb=emb, t_data=t)
-    return decoder_layer_cuda(h, mask, prep["layers"][0], n_head=n_head, d_k=d_k, d_v=d_v)
+            pos=pos, emb=emb, t_data=t, out_b=hb)
+    return decoder_layer_cuda(h, mask, prep["layers"][0], n_head=n_head, d_k=d_k, d_v=d_v, hb=hb,
+                              with_copy=with_copy)
 
 
-def stem_layer(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v):
+def stem_layer(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v, with_copy=False):
     """x, xc (B, T, d) f32; emb (d_model,) the noise-level token; pos
     (T+1, d_model) the position rows of tokens 0..T; mask (B, T+1).
-    Returns the (B, T+1, d_model) output of DecoderLayer 0."""
+    Returns the (B, T+1, d_model) output of DecoderLayer 0, or with
+    ``with_copy`` (output, its bf16 copy on the card in bf16 mode, else None)."""
     if x.is_cuda:
-        out = stem_layer_cuda(x, xc, emb, pos, mask, prep, n_head=n_head, d_k=d_k, d_v=d_v)
+        out = stem_layer_cuda(x, xc, emb, pos, mask, prep, n_head=n_head, d_k=d_k, d_v=d_v, with_copy=with_copy)
         ck.launch_counts["stem_layer"] += 1
-        return out
-    return stem_layer_plain(x, xc, emb, pos, mask, prep, n_head=n_head, d_k=d_k, d_v=d_v)
+    else:
+        out = stem_layer_plain(x, xc, emb, pos, mask, prep, n_head=n_head, d_k=d_k, d_v=d_v), None
+    return out if with_copy else out[0]
 
 
 # -- last layer + posterior update ---------------------------------------
@@ -120,8 +127,8 @@ def layer_epilogue_plain(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k
     return xn
 
 
-def layer_epilogue_cuda(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v):
-    h = decoder_layer_cuda(h, mask, prep["layers"][-1], n_head=n_head, d_k=d_k, d_v=d_v)
+def layer_epilogue_cuda(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v, hb=None):
+    h, _ = decoder_layer_cuda(h, mask, prep["layers"][-1], n_head=n_head, d_k=d_k, d_v=d_v, hb=hb)
     bsz, t, d = x.shape
     out = torch.empty(bsz, t, d, dtype=torch.float32, device=x.device)
     ck.gemm(ck.STEP, h, prep["lw"], prep["lb"], out, M=bsz * t,
@@ -132,13 +139,14 @@ def layer_epilogue_cuda(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k,
     return out
 
 
-def layer_epilogue(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v):
+def layer_epilogue(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v, hb=None):
     """h (B, T+1, d_model); x, noise (B, T, d) f32; scal = (a1, a2, a3)
-    host floats; ipv (B, T, d) and ipm (B, T) or both None. Returns x_next
-    (B, T, d) f32."""
+    host floats; ipv (B, T, d) and ipm (B, T) or both None; hb the bf16
+    copy of h on the card (made there when None). Returns x_next (B, T, d)
+    f32."""
     if h.is_cuda:
         out = layer_epilogue_cuda(h, mask, x, noise, scal, ipv, ipm, prep,
-                                  n_head=n_head, d_k=d_k, d_v=d_v)
+                                  n_head=n_head, d_k=d_k, d_v=d_v, hb=hb)
         ck.launch_counts["layer_epilogue"] += 1
         return out
     return layer_epilogue_plain(h, mask, x, noise, scal, ipv, ipm, prep,
@@ -148,10 +156,10 @@ def layer_epilogue(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v)
 def fused_denoise_step(x, xc, emb, pos, mask, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v):
     """One reverse step: ``len(prep["layers"])`` kernel calls."""
     kw = dict(n_head=n_head, d_k=d_k, d_v=d_v)
-    h = stem_layer(x, xc, emb, pos, mask, prep, **kw)
+    h, hb = stem_layer(x, xc, emb, pos, mask, prep, with_copy=True, **kw)
     for lp in prep["layers"][1:-1]:
-        h = decoder_layer(h, mask, lp, **kw)
-    return layer_epilogue(h, mask, x, noise, scal, ipv, ipm, prep, **kw)
+        h, hb = decoder_layer(h, mask, lp, hb=hb, with_copy=True, **kw)
+    return layer_epilogue(h, mask, x, noise, scal, ipv, ipm, prep, hb=hb, **kw)
 
 
 # -- schedule scalars (host, f32) ----------------------------------------

@@ -229,3 +229,44 @@ def test_fused_transformer_loop_matches_step_loop(denoisers, sampler):
         runs.append(loop(x_start, cond, inpaint_value=ipv, inpaint_mask=ipm, noise=TorchNoise("cpu", 9)))
     np.testing.assert_allclose(runs[0].numpy(), runs[1].numpy(), atol=ATOL_STACK, rtol=0)
     np.testing.assert_array_equal(runs[0][:, :4].numpy(), ipv[:, :4].numpy())
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_layer_params_are_the_jax_weights_transposed(bf16):
+    """layer_params keeps each weight matrix as (N, K), nn.Linear's layout
+    and the wgmma kernel's K-major operand: the transpose of the JAX
+    kernel's (K, N) matrix (q, k, v stacked along N), bit for bit in the
+    compute dtype; biases and LayerNorm rows stay f32."""
+    _, variables, _, layer = _layer(9, 1, seed=3)
+    jp = {k: np.asarray(v.astype(jnp.float32)) for k, v in jfl.layer_params_from_flax(
+        variables["params"], dtype=jnp.bfloat16 if bf16 else jnp.float32).items()}
+    lp = tfl.layer_params(layer, bf16=bf16)
+    want = {"wqkv": np.concatenate([jp["wq"], jp["wk"], jp["wv"]], 1).T,
+            "bqkv": np.concatenate([jp["bq"], jp["bk"], jp["bv"]], 1)[0],
+            **{k: jp[k].T for k in ("wfc", "w1", "w2")},
+            **{k: jp[k][0] for k in ("bfc", "ln1s", "ln1b", "b1", "b2", "ln2s", "ln2b")}}
+    assert lp.keys() == want.keys()
+    for key, w in want.items():
+        assert lp[key].dtype == (torch.bfloat16 if bf16 and key[0] == "w" else torch.float32), key
+        assert lp[key].is_contiguous()
+        np.testing.assert_array_equal(lp[key].float().numpy(), w, err_msg=key)
+
+
+def test_bf16_copy_at_the_producer_is_the_rounding_at_the_product():
+    """The wgmma kernel reads A as the bf16 copy that the producing epilogue
+    (the stem's, the LayerNorms') writes beside its f32 output, where
+    _layer_body rounds the f32 operand at the product (x.astype(cdt)). Both
+    are one round-to-nearest-even of the same f32 value, so the QKV and w1
+    products of the plain layer at the release width are the same, bit for
+    bit, from the copy as from the f32 tensor; a truncating copy would not
+    be."""
+    torch.manual_seed(0)
+    layer = ttr.DecoderLayer(512, 4, 256, 256)
+    lp = tfl.layer_params(layer, bf16=True)
+    x = torch.randn(2 * 121, 512)
+    h0 = tfl.layer_norm_plain(3 * torch.randn(2 * 121, 512), lp["ln1s"], lp["ln1b"])
+    for a, w in ((x, lp["wqkv"]), (h0, lp["w1"])):
+        copy = a.to(torch.bfloat16)
+        assert torch.equal(tfl.linear_plain(copy, w), tfl.linear_plain(a, w))
+        truncated = (a.view(torch.int32) & -65536).view(torch.float32).to(torch.bfloat16)
+        assert not torch.equal(tfl.linear_plain(truncated, w), tfl.linear_plain(a, w))

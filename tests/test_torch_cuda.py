@@ -80,8 +80,57 @@ def test_wrappers_count_and_route_to_kernels(card):
     out = diff.p_sample_loop(x, torch.ones_like(x), noise=fs.TorchNoise(card, seed=0))
     assert torch.isfinite(out).all()
     assert dict(ck.launch_counts) == {"stem_layer": 3, "decoder_layer": 3, "layer_epilogue": 3}
-    # per step: 4 GEMMs per layer, plus the stem's and the update's
-    assert dict(ck.kernel_launches) == {"gemm": 3 * (4 * 3 + 2), "attention": 3 * 3}
+    # per step: 4 GEMMs per layer on the wgmma kernel, plus the stem's and
+    # the update's on the WMMA kernel
+    assert dict(ck.kernel_launches) == {"gemm_wgmma": 3 * 4 * 3, "gemm": 3 * 2, "attention": 3 * 3}
+
+
+@pytest.mark.parametrize("mode,m,n,k", [
+    (mode, m, n, k) for mode in (ck.BIAS, ck.BIAS_RELU, ck.LAYER_NORM) for m in (7744, 726, 93)
+    for n in (3072, 512, 384) for k in (512, 1024) if not (mode == ck.LAYER_NORM and n > 512)])
+def test_wgmma_gemm_matches_plain(card, mode, m, n, k):
+    """The three layer modes through the wgmma kernel against linear_plain
+    and the epilogue's plain form: M = 64 x 121 (the path), 6 x 121 and 93
+    (not multiples of the 128- or 64-row tiles), N = 3072 (QKV), 512 and 384
+    (not a multiple of the 256-column tile); the LayerNorm's bf16 copy is
+    its f32 output rounded, bit for bit. Values stay under 2 in magnitude,
+    where a bf16 output rounding is under 2e-2."""
+    g = torch.Generator(device=card).manual_seed(m + n + k)
+    rn = lambda *s: torch.randn(*s, generator=g, device=card)
+    bf = torch.bfloat16
+    a, w, bias = rn(m, k).to(bf), (rn(n, k) * 0.25 / k ** 0.5).to(bf), 0.25 * rn(n)
+    acc = fl.linear_plain(a, w) + bias
+    ck.kernel_launches.clear()
+    if mode == ck.LAYER_NORM:
+        res, ln_s, ln_b = rn(m, n), 1 + 0.1 * rn(n), 0.1 * rn(n)
+        mask = (rn(m) > -1).float()
+        out, out_b = torch.empty(m, n, device=card), torch.empty(m, n, dtype=bf, device=card)
+        ck.gemm(mode, a, w, bias, out, M=m, res=res, ln_s=ln_s, ln_b=ln_b, row_mask=mask, out_b=out_b)
+        want = fl.layer_norm_plain(acc + res, ln_s, ln_b) * mask[:, None]
+    else:
+        out = torch.empty(m, n, dtype=bf, device=card)
+        ck.gemm(mode, a, w, bias, out, M=m)
+        want = torch.relu(acc) if mode == ck.BIAS_RELU else acc
+    assert dict(ck.kernel_launches) == {"gemm_wgmma": 1}
+    torch.cuda.synchronize()
+    assert float((out.float() - want).abs().max()) < TOL[True]
+    if mode == ck.LAYER_NORM:
+        assert torch.equal(out_b, out.to(bf))
+
+
+def test_wgmma_gemm_refuses_what_it_cannot_read(card):
+    """The wgmma kernel reads A as bf16 and K in 16-byte rows, and writes
+    bf16 outside the LayerNorm modes; the wrapper raises instead of handing
+    another layout to any kernel."""
+    bf = torch.bfloat16
+    w, bias = torch.zeros(256, 64, dtype=bf, device=card), torch.zeros(256, device=card)
+    out = torch.empty(8, 256, dtype=bf, device=card)
+    with pytest.raises(ValueError, match="bf16 A"):
+        ck.gemm(ck.BIAS, torch.zeros(8, 64, device=card), w, bias, out, M=8)
+    with pytest.raises(ValueError, match="bf16 A"):
+        ck.gemm(ck.BIAS, torch.zeros(8, 60, dtype=bf, device=card), w[:, :60].contiguous(), bias, out, M=8)
+    with pytest.raises(ValueError, match="bf16 out"):
+        ck.gemm(ck.BIAS, torch.zeros(8, 64, dtype=bf, device=card), w, bias, torch.empty(8, 256, device=card), M=8)
 
 
 @pytest.mark.parametrize("b,t,d_head", [(8, 256, 256), (4, 300, 256), (1, 1024, 256), (3, 37, 24),
