@@ -94,28 +94,79 @@ def cuda_time_ms(fn, warmup=3, reps=15):
     return statistics.median(times)
 
 
+PROFILER_TRIES = 3
+EVENT_TIMED = []  # device_time_ms calls that the profiler left to CUDA events
+
+
 def device_time_ms(fn, reps=20, chain=False):
     """Device time of one call of fn: the self device time of every kernel
     and memory operation that torch.profiler sees over reps calls, over
-    reps; and the names of those kernels with their counts."""
+    reps; and the names of those kernels with their counts. On a run where
+    the profiler sees no device time (CUPTI delivers none now and then), it
+    tries again, and after PROFILER_TRIES such runs it times fn with CUDA
+    events behind a held stream (held_events_ms)."""
     import torch
     from torch.autograd import DeviceType
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    for _ in range(PROFILER_TRIES):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        us = sum(e.self_device_time_total for e in dev)
+        if us > 0:
+            # the profiler may miss a launch at the start of its window: divide
+            # by the count it saw of the function's most frequent kernel, one a
+            # call; a chain launches some kernel several times a call, so it
+            # divides by reps
+            calls = reps if chain else max(e.count for e in dev)
+            return us / calls / 1e3, {e.key[:60]: e.count for e in dev}
+    ms = held_events_ms(fn, reps)
+    EVENT_TIMED.append(ms)
+    log(f"device_time_ms: torch.profiler saw no device time in {PROFILER_TRIES} runs; "
+        f"timed with CUDA events behind a held stream: {ms:.4f} ms")
+    return ms, {"(CUDA events; the profiler saw no kernel)": reps}
+
+
+_SLEEP_CYCLES_PER_MS = []
+
+
+def held_events_ms(fn, reps):
+    """Device time of one call of fn by CUDA events: a sleep kernel holds the
+    stream while reps calls are queued behind it, so the events around them
+    time the card's work without the host's gaps. If the card reached the
+    first call before the last was queued, the hold doubles and it runs
+    again; it raises if that never holds."""
+    import torch
+
+    def events():
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    if not _SLEEP_CYCLES_PER_MS:
+        torch.cuda._sleep(1000)
+        a, b = events()
+        a.record()
+        torch.cuda._sleep(10 ** 7)
+        b.record()
+        b.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(10 ** 7 / a.elapsed_time(b))
+    hold_ms = 5.0
+    for _ in range(6):
+        start, end = events()
+        torch.cuda._sleep(int(hold_ms * _SLEEP_CYCLES_PER_MS[0]))
+        start.record()
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    us = sum(e.self_device_time_total for e in dev)
-    if us <= 0:
-        raise AssertionError("torch.profiler saw no device time")
-    # the profiler may miss a launch at the start of its window: divide by
-    # the count it saw of the function's most frequent kernel, one a call;
-    # a chain launches some kernel several times a call, so it divides by reps
-    calls = reps if chain else max(e.count for e in dev)
-    return us / calls / 1e3, {e.key[:60]: e.count for e in dev}
+        end.record()
+        held = not start.query()
+        end.synchronize()
+        if held:
+            return start.elapsed_time(end) / reps
+        hold_ms *= 2
+    raise AssertionError(f"held_events_ms: the card ran ahead of the host even behind a {hold_ms / 2:.0f} ms hold")
 
 
 # The card's rate for the instruction the mha kernel runs on: warps that
@@ -835,9 +886,10 @@ def main() -> int:
     ka = prof.key_averages()
     n_launch = sum(e.count for e in ka if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
     busy_us = sum(getattr(e, "self_device_time_total", 0) for e in ka)
+    busy = (f"device busy {busy_us / 1e3:.2f} ms ({busy_us * 1e-6 / wall:.3f} of the wall time)" if busy_us > 0
+            else "device busy not measured (the profiler saw no device time)")
     log(f"phase 8: one stage1_head_pose (window {HEADNET_WINDOW_D}) under the profiler: {wall * 1e3:.2f} ms wall, "
-        f"{n_launch} kernel launches, device busy {busy_us / 1e3:.2f} ms "
-        f"({busy_us * 1e-6 / wall:.3f} of the wall time) [{card}]")
+        f"{n_launch} kernel launches, {busy} [{card}]")
 
     # -- phase 9: stage-1 parity, card (mha kernel) vs CPU (plain) ----------
     pipe_cpu = build_pipeline(stats_path=stats_path, rest_offsets_path=rest_path,
@@ -883,7 +935,8 @@ def main() -> int:
     log(f"main path: eval_stage2 {dt_a:.3f} s; DDPM chain {dt_b:.3f} s; DDIM chain {dt_d:.3f} s; "
         f"eval_stage2 --fused {dt_c:.3f} s; eval_egoego {dt_egoego:.3f} s; stage 1 "
         f"{stage1[HEADNET_WINDOW_D]['ms_per_seq']:.2f} ms/seq (window {HEADNET_WINDOW_D}), "
-        f"{stage1[60]['ms_per_seq']:.2f} ms/seq (window 60); whole smoke {time.perf_counter() - t_start:.1f} s")
+        f"{stage1[60]['ms_per_seq']:.2f} ms/seq (window 60); whole smoke {time.perf_counter() - t_start:.1f} s; "
+        f"device times left by the profiler to CUDA events: {len(EVENT_TIMED)}")
     print(json.dumps({"kernels": kernels, "step": step_prof}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -82,19 +82,22 @@ def build_variants() -> dict[str, ctypes.CDLL]:
     return libs
 
 
-def device_ms(fn, reps: int = 20) -> float:
-    """torch.profiler's device time of one call of fn (one kernel a call)."""
+def device_ms(fn, reps: int = 20, tries: int = 3) -> float:
+    """torch.profiler's device time of one call of fn (one kernel a call).
+    CUPTI now and then delivers no device event for a run: it runs again,
+    up to `tries` times."""
     from torch.autograd import DeviceType
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    if not dev:
-        raise RuntimeError("torch.profiler saw no device time")
-    return sum(e.self_device_time_total for e in dev) / max(e.count for e in dev) / 1e3
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if dev:
+            return sum(e.self_device_time_total for e in dev) / max(e.count for e in dev) / 1e3
+    raise RuntimeError(f"torch.profiler saw no device time in {tries} runs")
 
 
 def main() -> int:
