@@ -5,24 +5,30 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit; build the CUDA kernels from csrc/;
-     their registers and spills, and the mha kernel's HMMA count (cuobjdump).
+     their registers and spills, the mha kernel's HMMA count and the HGMMA
+     count of each instantiation of the wgmma GEMM (cuobjdump).
   2. kernels: each of the three denoise-step wrappers (stem_layer,
      decoder_layer, layer_epilogue) on card tensors against its plain
      PyTorch version on the same inputs, at the main path's shapes (64
      windows of 121 tokens, and the 31-token tail window) in f32 and bf16
      mode; each call must add one to its wrapper's count and launch the
      expected C entries. layer_epilogue is checked on x0 alone (a1 = 1, no
-     inpaint) and on the update with the inpaint. Timed beside the plain
-     version and a PyTorch library yardstick.
-  3. main path A: ``eval_stage2.run`` on synthetic AMASS-layout records
-     (64 sequences x 120 frames), full release width, random weights from
-     a seed, DDPM-1000 in bf16.
+     inpaint) and on the update with the inpaint, which in bf16 also writes
+     bf16(x_next) into the stem's packed A (xa). Timed beside the plain
+     version and a PyTorch library yardstick; then each launch of a step
+     alone (device time beside cuBLAS and the bound), the stem's and the
+     update's GEMM also checked against their plain versions.
+  3. main path A: ``eval_stage2.run --fused_step`` on synthetic AMASS-layout
+     records (64 sequences x 120 frames), full release width, random weights
+     from a seed, DDPM-1000 in bf16.
   4. main path B: ``stage2_generate_batched`` on 64 head trajectories of
      140 frames (a 120-frame window plus a ragged 30-frame window with the
      overlap inpaint), DDPM-1000, then one DDIM-50 pass; each kernel's
      launch count, and each C entry's, must equal windows x steps x its
      launches per step.
-  5. chain parity: the f32 kernels on the card against the plain versions
+  5. f32: ``eval_stage2.run`` with no flag (the JAX CLI's f32 numerics),
+     DDIM-50 on 4 sequences: exact launch counts, f32 C entries only; then
+     chain parity: the f32 kernels on the card against the plain versions
      on the CPU, same weights and noise, DDIM-50 on a small batch.
   6. kernels of the --fused and stage-1 routes: fused_attention (csrc/mha.cu,
      f32 in and out, 3xTF32 tensor cores) at the HeadNet's shapes (blocks x
@@ -36,7 +42,7 @@ Phases (any failure exits non-zero; nothing is caught):
      the card's own mma.sync TF32 rate (a probe kernel built here).
   7. main path C: ``eval_stage2.run --fused`` (64 x 120 frames, DDPM-1000):
      exactly 4 x 1000 fused_decoder_layer launches and no step kernel.
-  8. main path D: ``eval_egoego.run --headnet_window 256`` on 4 synthetic
+  8. main path D: ``eval_egoego.run --headnet_window 256 --fused_step`` on 4 synthetic
      kinpoly-layout sequences of 300 frames (written here), full width,
      DDPM-1000: exactly 2 (HeadNet layers) x 4 fused_attention launches;
      then stage 1 alone per sequence, timed, at window 256 and at the
@@ -73,6 +79,7 @@ HEADNET_WINDOW_D = 256     # the HeadNet block from which its attention takes th
 TOL_F32 = 1e-4         # f32 kernel vs plain: summation order only
 TOL_BF16 = 2e-2        # bf16 kernel vs plain: a bf16 rounding may flip where sums differ in order
 UPDATE = (0.9, 0.1, 0.05)  # a1, a2, a3 of the epilogue's update check: x0 dominates
+WG_EPILOGUES = ("bias", "layer_norm", "stem", "step")  # csrc/gemm.cu WgEpilogue, in order
 
 
 def log(*a):
@@ -309,14 +316,23 @@ def main() -> int:
     log(f"phase 1: mha SASS: {len(hmma)} HMMA ({', '.join(sorted(set(hmma)))}), {len(ffma)} FFMA")
     if not hmma or any("TF32" not in x for x in hmma):
         raise AssertionError("mha: no TF32 tensor-core instruction in the built kernel")
-    # the layer products run on wgmma: its SASS form is HGMMA
+    # every bf16 product runs on wgmma (SASS: HGMMA), one instantiation of
+    # gemm_wgmma_kernel<BM, BN, STAGES, epilogue> per epilogue, and the library holds no HMMA
     sass = subprocess.run([cuobjdump, "-sass", str(ck.BUILD_DIR / "libegoego_gemm.so")],
                           capture_output=True, text=True, check=True).stdout
-    hgmma, hmma = re.findall(r"\bHGMMA\.[\w.]+", sass), re.findall(r"\bHMMA\.[\w.]+", sass)
-    log(f"phase 1: gemm SASS: {len(hgmma)} HGMMA ({', '.join(sorted(set(hgmma)))}), {len(hmma)} HMMA "
-        f"(the WMMA kernel of the stem and the update)")
-    if not hgmma:
-        raise AssertionError("gemm: no wgmma (HGMMA) instruction in the built kernels")
+    hmma = re.findall(r"\bHMMA\.[\w.]+", sass)
+    wg_kernels = {}
+    for fn in sass.split("Function : ")[1:]:
+        m = re.match(r"\S*gemm_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d)E", fn)
+        if m:
+            hg = re.findall(r"\bHGMMA\.[\w.]+", fn)
+            wg_kernels[WG_EPILOGUES[int(m.group(4))]] = (f"{m.group(1)}x{m.group(2)}, {m.group(3)} stages", hg)
+    for epi, (tile, hg) in sorted(wg_kernels.items()):
+        log(f"phase 1: gemm_wgmma_kernel {epi} ({tile}): {len(hg)} HGMMA ({', '.join(sorted(set(hg)))})")
+    log(f"phase 1: gemm SASS: {len(hmma)} HMMA")
+    if sorted(wg_kernels) != sorted(WG_EPILOGUES) or not all(hg for _, hg in wg_kernels.values()) or hmma:
+        raise AssertionError(f"gemm: want HGMMA in each of {WG_EPILOGUES} and no HMMA, got "
+                             f"{ {k: len(v[1]) for k, v in wg_kernels.items()} } and {len(hmma)} HMMA")
     if any("spill" in line and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line)
            for line in built["ptxas"].get("gemm", "").splitlines()):
         raise AssertionError("gemm: a kernel spills registers")
@@ -344,39 +360,47 @@ def main() -> int:
         }
 
     # kernel launches of one call of each wrapper: 4 GEMMs and one attention
-    # per layer (the GEMMs on the wgmma kernel in bf16), plus the stem's and
-    # the update's GEMM (WMMA in bf16)
+    # per layer, plus the stem's or the update's GEMM; every GEMM on the
+    # wgmma kernel in bf16, on the f32 kernel ("gemm") in f32
     def c_launches(name, bf16=True):
-        n_other = 0 if name in ("decoder_layer", "fused_decoder_layer") else 1
-        counts = {"gemm_wgmma": 4, "gemm": n_other} if bf16 else {"gemm": 4 + n_other}
-        return {k: v for k, v in {**counts, "attention": 1}.items() if v}
+        n_gemm = 4 if name in ("decoder_layer", "fused_decoder_layer") else 5
+        return {"gemm_wgmma" if bf16 else "gemm": n_gemm, "attention": 1}
 
     def calls(inp, bf16):
-        """[(name, check, wrapper, plain, args)]; the last case of each name
-        is the one timed."""
+        """[(name, check, wrapper, plain, args, kwargs of the wrapper alone)];
+        the last case of each name is the one timed. In bf16 the stem reads
+        the packed xa, and the update writes x_next's part of another."""
         p = prep[bf16]
+        xa = (lambda: fs.pack_xa(inp["x"], inp["xc"], p["wst"].shape[1])) if bf16 else (lambda: None)
         return [
             ("stem_layer", "", fs.stem_layer, fs.stem_layer_plain,
-             (inp["x"], inp["xc"], inp["emb"], inp["pos"], inp["mask"], p)),
-            ("decoder_layer", "", fl.decoder_layer, fl.decoder_layer_plain, (inp["h"], inp["mask"], p["layers"][1])),
+             (inp["x"], inp["xc"], inp["emb"], inp["pos"], inp["mask"], p), {"xa": xa()}),
+            ("decoder_layer", "", fl.decoder_layer, fl.decoder_layer_plain, (inp["h"], inp["mask"], p["layers"][1]),
+             {}),
             ("layer_epilogue", " x0", fs.layer_epilogue, fs.layer_epilogue_plain,
-             (inp["h"], inp["mask"], inp["x"], inp["noise"], (1.0, 0.0, 0.0), None, None, p)),
+             (inp["h"], inp["mask"], inp["x"], inp["noise"], (1.0, 0.0, 0.0), None, None, p), {}),
             ("layer_epilogue", " update+inpaint", fs.layer_epilogue, fs.layer_epilogue_plain,
-             (inp["h"], inp["mask"], inp["x"], inp["noise"], UPDATE, inp["ipv"], inp["ipm"], p)),
+             (inp["h"], inp["mask"], inp["x"], inp["noise"], UPDATE, inp["ipv"], inp["ipm"], p), {"xa": xa()}),
         ]
 
-    def check(name, what, wrapper, plain, args, bf16, t):
+    def check(name, what, wrapper, plain, args, extra, bf16, t):
         """The wrapper on card tensors against its plain version; the call
-        must count once and launch its C entries."""
+        must count once and launch its C entries. An update given xa must
+        write bf16(x_next) into its x part, bit for bit, and nothing else."""
         ck.launch_counts.clear()
         ck.kernel_launches.clear()
-        out_k = wrapper(*args, **kw)
+        xa0 = extra["xa"].clone() if extra.get("xa") is not None else None
+        out_k = wrapper(*args, **kw, **extra)
         counts = (dict(ck.launch_counts), dict(ck.kernel_launches))
         if counts != ({name: 1}, c_launches(name, bf16)):
             raise AssertionError(f"{name}: the wrapper counted/launched {counts}, want {name}: 1, "
                                  f"{c_launches(name, bf16)}")
         out_p = plain(*args, **kw)
         torch.cuda.synchronize()
+        if name == "layer_epilogue" and xa0 is not None and not (
+                torch.equal(extra["xa"][..., :d], out_k.to(torch.bfloat16))
+                and torch.equal(extra["xa"][..., d:], xa0[..., d:])):
+            raise AssertionError(f"{name}{what}: xa's x part is not bf16(x_next), or its x_cond part changed")
         if what == " x0" and float((out_p.abs() < 1).float().mean()) < 0.5:
             raise AssertionError("layer_epilogue x0 check: x0 is mostly clipped, the check has no teeth")
         err = float((out_k - out_p).abs().max())
@@ -410,7 +434,7 @@ def main() -> int:
         if name == "stem_layer":
             def run():
                 src = torch.cat([inp["x"], inp["xc"]], -1).to(torch.bfloat16)
-                stem = torch.matmul(src, p["wst"]).float() + p["bst"]
+                stem = torch.matmul(src, p["wst"][:, :2 * d].t()).float() + p["bst"]
                 h = torch.cat([inp["emb"].expand(BATCH, 1, dm), stem], 1) + inp["pos"]
                 return library_layer(h, inp["mask"], p["layers"][0])
             return run
@@ -418,7 +442,7 @@ def main() -> int:
         def run():
             t = inp["x"].shape[1]
             h = library_layer(inp["h"], inp["mask"], p["layers"][-1])
-            x0 = torch.clamp(torch.matmul(h[:, 1:t + 1].to(torch.bfloat16), p["lw"][:, :d]).float() + p["lb"], -1, 1)
+            x0 = torch.clamp(torch.matmul(h[:, 1:t + 1].to(torch.bfloat16), p["lw"][:d].t()).float() + p["lb"], -1, 1)
             a1, a2, a3 = UPDATE
             xn = a1 * x0 + a2 * inp["x"] + a3 * inp["noise"]
             return xn + inp["ipm"][..., None] * (inp["ipv"] - xn)
@@ -433,21 +457,23 @@ def main() -> int:
         wbytes = 2 * (dm * nh * (2 * dk + dv) + nh * dv * dm + 2 * dm * dm) + 4 * (nh * (2 * dk + dv) + 7 * dm)
         act = 4 * tok * dm
         nbytes = wbytes + 4 * tok  # weights + mask
-        if name == "stem_layer":
+        if name == "stem_layer":  # reads the packed bf16 xa (400 wide)
             flops += 2 * BATCH * t * 2 * d * dm
-            nbytes += 2 * 4 * BATCH * t * d + 4 * dm + 4 * (t + 1) * dm + 2 * 2 * d * dm + 4 * dm + act
+            nbytes += 2 * BATCH * t * 400 + 4 * dm + 4 * (t + 1) * dm + 2 * 2 * d * dm + 4 * dm + act
         elif name == "decoder_layer":
             nbytes += 2 * act
-        else:
+        else:  # and writes bf16(x_next) into xa
             flops += 2 * BATCH * t * dm * d
-            nbytes += act + 4 * 4 * BATCH * t * d + 4 * BATCH * t + 2 * dm * d + 4 * d
+            nbytes += act + 4 * 4 * BATCH * t * d + 4 * BATCH * t + 2 * dm * d + 4 * d + 2 * BATCH * t * d
         return flops, nbytes
 
     def launch_parts(inp):
         """The launches of one step, each alone on the operands the chain
         gives it: {name: (launch, (M, K, N) of its product or None, the
         tensors it reads, the tensors it writes)}. The five launches of a
-        layer, then the stem's and the update's GEMM."""
+        layer, then the stem's and the update's GEMM, which also carry a
+        check against their plain versions (2e-2 of max|launch - plain|, and
+        their bf16 copies bit for bit: inf otherwise)."""
         p = prep[True]
         lp = p["layers"][1]
         b, t1, _ = inp["h"].shape
@@ -463,8 +489,11 @@ def main() -> int:
         out, outb = torch.empty(rows, dm, device=dev), torch.empty(rows, dm, dtype=bf, device=dev)
         stem, stemb = torch.empty(rows, dm, device=dev), torch.empty(rows, dm, dtype=bf, device=dev)
         step = torch.empty(b * t, d, device=dev)
+        xa, xa_step = (fs.pack_xa(inp["x"], inp["xc"], p["wst"].shape[1]) for _ in range(2))
+        hb = inp["h"].to(bf)  # the last layer's bf16 copy
         ln1 = [x, lp["ln1s"], lp["ln1b"], m]
         ln2 = [h0, lp["ln2s"], lp["ln2b"], m]
+        # {name: (launch, (M, K, N) or None, reads, writes[, max|launch - plain| after a launch])}
         return {
             "qkv": (lambda: ck.gemm(ck.BIAS, xb, lp["wqkv"], lp["bqkv"], qkv, M=rows),
                     (rows, dm, n_qkv), [xb, lp["wqkv"], lp["bqkv"]], [qkv]),
@@ -477,14 +506,19 @@ def main() -> int:
             "w2_ln": (lambda: ck.gemm(ck.LAYER_NORM, h1, lp["w2"], lp["b2"], out, M=rows, res=h0,
                                       ln_s=lp["ln2s"], ln_b=lp["ln2b"], row_mask=m, out_b=outb),
                       (rows, dm, dm), [h1, lp["w2"], lp["b2"], *ln2], [out, outb]),
-            "stem": (lambda: ck.gemm(ck.STEM, inp["x"], p["wst"], p["bst"], stem, M=rows, a2=inp["xc"],
+            "stem": (lambda: ck.gemm(ck.STEM, xa.reshape(b * t, -1), p["wst"], p["bst"], stem, M=rows,
                                      pos=inp["pos"], emb=inp["emb"], t_data=t, out_b=stemb),
-                     (b * t, 2 * d, dm), [inp["x"], inp["xc"], p["wst"], p["bst"], inp["pos"], inp["emb"]],
-                     [stem, stemb]),
-            "step": (lambda: ck.gemm(ck.STEP, inp["h"], p["lw"], p["lb"], step, M=b * t,
-                                     x=inp["x"].reshape(b * t, d), noise=inp["noise"].reshape(b * t, d),
-                                     t_data=t, scal=UPDATE, n=d),
-                     (b * t, dm, d), [inp["h"][:, 1:], p["lw"], p["lb"], inp["x"], inp["noise"]], [step]),
+                     (b * t, 2 * d, dm), [xa, p["wst"], p["bst"], inp["pos"], inp["emb"]], [stem, stemb],
+                     lambda: max(float((stem.reshape(b, t1, dm) - fs.stem_tokens_plain(
+                         inp["x"], inp["xc"], inp["emb"], inp["pos"], p)).abs().max()),
+                         0.0 if torch.equal(stemb, stem.to(bf)) else math.inf)),
+            "step": (lambda: ck.gemm(ck.STEP, hb, p["lw"], p["lb"], step, M=b * t, x=inp["x"], noise=inp["noise"],
+                                     ipv=inp["ipv"], ipm=inp["ipm"], t_data=t, scal=UPDATE, out_b=xa_step),
+                     (b * t, dm, d), [hb[:, 1:], p["lw"][:d], p["lb"], inp["x"], inp["noise"], inp["ipv"], inp["ipm"]],
+                     [step, xa_step[..., :d]],
+                     lambda: max(float((step.reshape(b, t, d) - fs.step_update_plain(
+                         hb.float(), inp["x"], inp["noise"], UPDATE, inp["ipv"], inp["ipm"], p)).abs().max()),
+                         0.0 if torch.equal(xa_step[..., :d], step.reshape(b, t, d).to(bf)) else math.inf)),
         }
 
     def launch_table(inp):
@@ -496,7 +530,7 @@ def main() -> int:
         input read once and each output written once."""
         b, t1, _ = inp["h"].shape
         table = {}
-        for name, (fn, mkn, reads, writes) in launch_parts(inp).items():
+        for name, (fn, mkn, reads, writes, *err) in launch_parts(inp).items():
             if mkn is None:
                 flops = 2 * b * nh * t1 * t1 * (dk + dv)
                 q, k, v = (torch.randn(b, nh, t1, dk, generator=g, device=dev, dtype=torch.bfloat16)
@@ -518,6 +552,14 @@ def main() -> int:
             r["tflops"] = flops / r["device_ms"] / 1e9
             r["library_tflops"] = flops / r["library_device_ms"] / 1e9
             r["kernels"] = names
+            if err:
+                fn()
+                r["max_abs_err"] = err[0]()
+                if not r["max_abs_err"] <= TOL_BF16:
+                    raise AssertionError(f"launch {name} {BATCH}x{t1}: max|launch - plain| = {r['max_abs_err']} "
+                                         f"(inf: its bf16 copy is not the rounding of its f32 output)")
+                log(f"phase 2: launch {name} {BATCH}x{t1}: max|launch - plain| = {r['max_abs_err']:.3e} "
+                    f"(bound {TOL_BF16}), bf16 copy bit for bit")
             table[name] = r
             log(f"phase 2: launch {name} {BATCH}x{t1} tokens (M, K, N) = {mkn}: device {r['device_ms']:.4f} ms "
                 f"({r['tflops']:.1f} TFLOP/s), per call {r['ms']:.4f} ms (host {r['host_ms']:.4f}); "
@@ -550,20 +592,20 @@ def main() -> int:
     for t in (cfg.window, 30):
         inp = inputs(t)
         for bf16 in (False, True):
-            for name, what, wrapper, plain, args in calls(inp, bf16):
-                err = check(name, what, wrapper, plain, args, bf16, t)
+            for name, what, wrapper, plain, args, extra in calls(inp, bf16):
+                err = check(name, what, wrapper, plain, args, extra, bf16, t)
                 r = results.setdefault(name, {"max_abs_err": 0.0, "max_abs_err_f32": 0.0})
                 key = "max_abs_err" if bf16 else "max_abs_err_f32"
                 r[key] = max(r[key], err)
         if t == cfg.window:
-            timed = {name: (wrapper, plain, args) for name, _, wrapper, plain, args in calls(inp, True)}
-            for name, (wrapper, plain, args) in timed.items():
+            timed = {name: (wrapper, plain, args, extra) for name, _, wrapper, plain, args, extra in calls(inp, True)}
+            for name, (wrapper, plain, args, extra) in timed.items():
                 flops, nbytes = cost(name, t)
                 r = results[name]
-                r["ms"] = cuda_time_ms(lambda: wrapper(*args, **kw))
+                r["ms"] = cuda_time_ms(lambda: wrapper(*args, **kw, **extra))
                 r["plain_ms"] = cuda_time_ms(lambda: plain(*args, **kw))
                 r["library_ms"] = cuda_time_ms(library(name, inp))
-                r["device_ms"], _ = device_time_ms(lambda: wrapper(*args, **kw), chain=True)
+                r["device_ms"], _ = device_time_ms(lambda: wrapper(*args, **kw, **extra), chain=True)
                 r["library_device_ms"], _ = device_time_ms(library(name, inp), chain=True)
                 t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM_BYTES_S * 1e3
                 r["bound_ms"] = max(t_ops, t_bytes)
@@ -602,18 +644,19 @@ def main() -> int:
     np.save(rest_path, np.concatenate([np.zeros((1, 3)), rng.uniform(-0.2, 0.2, (21, 3))]).astype(np.float32))
     per_step = {"stem_layer": 1, "decoder_layer": cfg.n_dec_layers - 2, "layer_epilogue": 1}
 
-    c_per_step = {k: sum(n * c_launches(w).get(k, 0) for w, n in per_step.items())
-                  for k in ("gemm", "gemm_wgmma", "attention")}
+    def c_per_step(bf16=True):  # C-entry launches of one reverse step
+        return {k: sum(n * c_launches(w, bf16).get(k, 0) for w, n in per_step.items())
+                for k in ("gemm", "gemm_wgmma", "attention") if k in c_launches("stem_layer", bf16)}
 
     def clear_counts():
         ck.launch_counts.clear()
         ck.kernel_launches.clear()
 
-    def check_counts(windows, steps, what):
+    def check_counts(windows, steps, what, bf16=True):
         got = {k: ck.launch_counts[k] for k in per_step}
         want = {k: windows * steps * v for k, v in per_step.items()}
         got_c = dict(ck.kernel_launches)
-        want_c = {k: windows * steps * v for k, v in c_per_step.items()}
+        want_c = {k: windows * steps * v for k, v in c_per_step(bf16).items()}
         log(f"{what}: launches {got} (expected {want}); C entries {got_c} (expected {want_c})")
         if got != want or got_c != want_c:
             raise AssertionError(f"{what}: launch counts {got}, {got_c} != {want}, {want_c}")
@@ -622,7 +665,7 @@ def main() -> int:
     # -- phase 3: main path A, the eval_stage2 CLI --------------------------
     opt = eval_stage2.parse_opt([
         "--test_data_path", data_path, "--stats_path", stats_path, "--rest_offsets", rest_path,
-        "--batch_seqs", str(BATCH), "--out_dir", os.path.join(data_dir, "out"), "--device", "cuda"])
+        "--batch_seqs", str(BATCH), "--fused_step", "--out_dir", os.path.join(data_dir, "out"), "--device", "cuda"])
     clear_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -632,11 +675,11 @@ def main() -> int:
     check_counts(1, cfg.timesteps, "phase 3")
     if res["num_seqs"] != BATCH or not all(math.isfinite(v) for v in res["mean"].values()):
         raise AssertionError(f"phase 3: bad eval result {res['mean']}")
-    log(f"phase 3: eval_stage2 {BATCH} seqs x {cfg.window} frames DDPM-{cfg.timesteps} bf16 in {dt_a:.2f} s "
+    log(f"phase 3: eval_stage2 --fused_step {BATCH} seqs x {cfg.window} frames DDPM-{cfg.timesteps} bf16 in {dt_a:.2f} s "
         f"({BATCH / dt_a:.2f} seqs/s) [{card}]; mpjpe {res['mean']['mpjpe']:.1f} mm (random weights)")
 
     # -- phase 4: main path B, the two-window chain -------------------------
-    pipe = build_pipeline(stats_path=stats_path, rest_offsets_path=rest_path, device=dev)
+    pipe = build_pipeline(stats_path=stats_path, rest_offsets_path=rest_path, device=dev, compute_dtype="bfloat16")
     mo = motion(BATCH, 140)
     _, _, head = gt_from_smpl_params_batched(
         pipe, *(np.stack([mo[i][k] for i in range(BATCH)]) for k in ("trans", "root_orient", "body_pose")))
@@ -654,7 +697,8 @@ def main() -> int:
     log(f"phase 4: DDPM-{cfg.timesteps} chain, {BATCH} x 140 frames (2 windows) in {dt_b:.2f} s "
         f"({BATCH / dt_b:.2f} seqs/s, {dt_b / (2 * cfg.timesteps) * 1e3:.3f} ms/step) [{card}]")
 
-    pipe = build_pipeline(stats_path=stats_path, rest_offsets_path=rest_path, device=dev, sampler="ddim")
+    pipe = build_pipeline(stats_path=stats_path, rest_offsets_path=rest_path, device=dev, sampler="ddim",
+                          compute_dtype="bfloat16")
     clear_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -666,7 +710,18 @@ def main() -> int:
         raise AssertionError("phase 4 DDIM: non-finite output")
     log(f"phase 4: DDIM-{cfg.ddim_steps} chain in {dt_d:.2f} s ({BATCH / dt_d:.2f} seqs/s) [{card}]")
 
-    # -- phase 5: f32 kernels on the card vs plain versions on the CPU ------
+    # -- phase 5: f32, the CLI's default, and the f32 chain vs the CPU -------
+    seqs_f32 = 4
+    opt = eval_stage2.parse_opt([
+        "--test_data_path", data_path, "--stats_path", stats_path, "--rest_offsets", rest_path,
+        "--batch_seqs", str(seqs_f32), "--max_seqs", str(seqs_f32), "--ddim_steps", str(cfg.ddim_steps),
+        "--out_dir", os.path.join(data_dir, "out_f32"), "--device", "cuda"])
+    clear_counts()
+    res_f32 = eval_stage2.run(opt)
+    check_counts(1, cfg.ddim_steps, "phase 5 eval_stage2 (no flag: f32)", bf16=False)
+    if res_f32["num_seqs"] != seqs_f32 or not all(math.isfinite(v) for v in res_f32["mean"].values()):
+        raise AssertionError(f"phase 5: bad eval result {res_f32['mean']}")
+
     # both runs draw the same noise from a CPU generator; the sampler moves
     # each draw to its own device
     outs = {}
@@ -813,7 +868,7 @@ def main() -> int:
     gt_path = write_kinpoly_fixture(kin_root, np.random.RandomState(7), SEQS_D, FRAMES_D)
     opt = eval_egoego.parse_opt([
         "--data_root_folder", kin_root, "--full_body_gt_path", gt_path, "--stats_path", stats_path,
-        "--rest_offsets", rest_path, "--headnet_window", str(HEADNET_WINDOW_D),
+        "--rest_offsets", rest_path, "--headnet_window", str(HEADNET_WINDOW_D), "--fused_step",
         "--out_dir", os.path.join(data_dir, "out_egoego"), "--device", "cuda"])
     clear_counts()
     torch.cuda.synchronize()
@@ -828,9 +883,11 @@ def main() -> int:
     want = {"fused_attention": n_fa, "stem_layer": windows * cfg.timesteps,
             "decoder_layer": windows * cfg.timesteps * (cfg.n_dec_layers - 2),
             "layer_epilogue": windows * cfg.timesteps}
-    log(f"phase 8: launches {got} (expected {want}, {windows} windows); C entries {dict(ck.kernel_launches)}")
-    if got != want or ck.kernel_launches["mha"] != n_fa:
-        raise AssertionError(f"phase 8: launch counts {got} != {want}")
+    want_c = {"mha": n_fa, **{k: windows * cfg.timesteps * v for k, v in c_per_step().items()}}
+    log(f"phase 8: launches {got} (expected {want}, {windows} windows); C entries {dict(ck.kernel_launches)} "
+        f"(expected {want_c})")
+    if got != want or dict(ck.kernel_launches) != want_c:
+        raise AssertionError(f"phase 8: launch counts {got}, {dict(ck.kernel_launches)} != {want}, {want_c}")
     entries = res_d["per_seq"].values()
     if res_d["num_seqs"] != SEQS_D or not all(math.isfinite(v) for e in entries for v in e.values()):
         raise AssertionError(f"phase 8: bad eval result {res_d}")
@@ -918,6 +975,12 @@ def main() -> int:
     results["fused_attention"] = dict(fa, launches=n_fa)
     for name in per_step:
         results[name].update(launches=launches[name], shape=f"{BATCH} windows x {cfg.window + 1} tokens, bf16")
+    # the stem's and the update's GEMM launch (gemm_wgmma_kernel kStem / kStep) at both windows
+    tables = results["decoder_layer"]["launch_table"]
+    for name, part in (("stem_layer", "stem"), ("layer_epilogue", "step")):
+        results[name]["gemm_launch"] = {shape: {k: tab[part][k] for k in (
+            "mkn", "device_ms", "library_device_ms", "bound_ms", "bound_ops_ms", "bound_bytes_ms", "max_abs_err")}
+            for shape, tab in tables.items()}
     kernels = []
     for name, r in results.items():
         srcs = [csrc + "mha.cu"] if name == "fused_attention" else layer_srcs
@@ -930,7 +993,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "gflop": r["gflop"], "mbytes": r["mbytes"],
             "shape": r["shape"], "card": card,
             **{key: r[key] for key in ("device_ms", "library_device_ms", "bound_f32_core_ms", "per_shape",
-                                       "mma_sync_tf32_tflops", "launch_table") if key in r},
+                                       "mma_sync_tf32_tflops", "launch_table", "gemm_launch") if key in r},
         })
     log(f"main path: eval_stage2 {dt_a:.3f} s; DDPM chain {dt_b:.3f} s; DDIM chain {dt_d:.3f} s; "
         f"eval_stage2 --fused {dt_c:.3f} s; eval_egoego {dt_egoego:.3f} s; stage 1 "

@@ -72,12 +72,15 @@ def build_pipeline(*, stats_path: str, smplh_path: str | None = None,
                    headnet_layers: int = 2, gravitynet_window: int = 120,
                    gravitynet_d_model: int = 256, gravitynet_layers: int = 2, n_head: int = 4,
                    d_k: int = 256, d_v: int = 256, sampler: str = "ddpm", ddim_steps: int = 50,
-                   timesteps: int = 1000, compute_dtype: str = "bfloat16",
+                   timesteps: int = 1000, compute_dtype: str = "float32",
                    fused_transformer: bool = False, seed: int = 0, device="cuda") -> EgoEgoPipeline:
     """The pipeline on ``device`` (the card unless device="cpu" is passed).
     Models without a checkpoint are random-init: the denoiser from ``seed``,
     HeadNet from ``seed + 1`` and GravityNet from ``seed + 2``, as in JAX.
-    ``fused_transformer`` selects the ``--fused`` denoiser path."""
+    The step kernels compute in ``compute_dtype``: f32 by default, as JAX's
+    ``DiffusionConfig`` (its CLIs' default numerics); "bfloat16" is what the
+    CLIs' ``--fused_step`` selects. ``fused_transformer`` selects the
+    ``--fused`` denoiser path (bf16 layers whatever ``compute_dtype``)."""
     dev = resolve_device(device)
     cfg = DiffusionConfig(window=window, sampler=sampler, ddim_steps=ddim_steps,
                           timesteps=timesteps, compute_dtype=compute_dtype,

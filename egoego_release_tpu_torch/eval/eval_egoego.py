@@ -10,7 +10,9 @@ the plain versions of the kernels). Per test sequence:
   -> full metric suite -> JSON.
 
 Scene splits, "step"-sequence exclusion and the SLAM-failure blacklist
-follow the JAX CLI.
+follow the JAX CLI, and so do the numerics: f32 unless ``--fused_step``
+(the bf16 step kernels) or ``--fused`` (the bf16 fused_decoder_layer
+denoiser) is given.
 
     python -m egoego_release_tpu_torch.eval.eval_egoego \\
         --data_root_folder <root> --full_body_gt_path <mocap_annotations.p> \\
@@ -32,6 +34,7 @@ from egoego_release_tpu_torch.data.headpose import (
     RealWorldHeadPoseDataset,
 )
 from egoego_release_tpu_torch.eval.build import build_pipeline
+from egoego_release_tpu_torch.eval.eval_stage2 import compute_dtype
 from egoego_release_tpu_torch.eval.pipeline import HEAD_IDX, evaluate_sequence, stage1_metrics
 from egoego_release_tpu_torch.ops import fk as fk_mod
 from egoego_release_tpu_torch.ops import geometry
@@ -75,8 +78,8 @@ def run(opt) -> dict:
         stats_path=opt.stats_path, smplh_path=opt.smplh_path, rest_offsets_path=opt.rest_offsets,
         diffusion_ckpt=opt.diffusion_ckpt, headnet_ckpt=opt.headnet_ckpt,
         gravitynet_ckpt=opt.gravitynet_ckpt, window=opt.window, headnet_window=opt.headnet_window,
-        timesteps=opt.timesteps, fused_transformer=opt.fused and not opt.fused_step, seed=opt.seed,
-        device=opt.device)
+        timesteps=opt.timesteps, compute_dtype=compute_dtype(opt),
+        fused_transformer=opt.fused and not opt.fused_step, seed=opt.seed, device=opt.device)
     ds = select_dataset(opt)
     full_body_gt = load_motion_dict(opt.full_body_gt_path)
     bad_seqs: set = set()
@@ -162,9 +165,10 @@ def parse_opt(argv=None):
     p.add_argument("--sample_bs", type=int, default=1)
     p.add_argument("--batch_seqs", type=int, default=1, help="not ported (values above 1 raise)")
     p.add_argument("--fused", action="store_true",
-                   help="denoiser layers through fused_decoder_layer (bf16) instead of the step kernels")
+                   help="the denoiser layers through fused_decoder_layer in bf16 (default: the step kernels "
+                        "in f32, the JAX CLI's numerics)")
     p.add_argument("--fused_step", action="store_true",
-                   help="the step kernels (the default path); wins over --fused")
+                   help="the step kernels in bf16 (bf16-level drift; default: f32); wins over --fused")
     p.add_argument("--sample_microbatch", type=int, default=0, help="not ported (N > 0 raises)")
     p.add_argument("--of_bf16", action="store_true", help="not ported (raises)")
     p.add_argument("--of_int8", action="store_true", help="not ported (raises)")

@@ -5,7 +5,9 @@ Port of egoego_release_tpu/eval/eval_stage2.py with the same flags plus
 the kernels). For each test sequence (Transitions_mocap + HumanEva, first
 ``window`` frames) it runs FK on the GT, snaps it to the floor, conditions
 the diffusion model on the GT head pose, samples, and scores; it writes a
-JSON summary.
+JSON summary. As in JAX, it computes in f32 unless ``--fused_step`` (the
+bf16 step kernels) or ``--fused`` (the bf16 fused_decoder_layer denoiser)
+is given.
 
     python -m egoego_release_tpu_torch.eval.eval_stage2 \\
         --test_data_path <test_amass_smplh_motion.p> --stats_path <stats.p> \\
@@ -38,19 +40,27 @@ def _not_ported(flag: str) -> NotImplementedError:
     return NotImplementedError(f"{flag} is not ported to the PyTorch package yet (see ROADMAP.md)")
 
 
+def compute_dtype(opt) -> str:
+    """The step kernels' compute type that the flags select: bf16 under
+    --fused_step or --fused, else f32 (the JAX CLIs' flax default)."""
+    return "bfloat16" if opt.fused or opt.fused_step else "float32"
+
+
 def run(opt) -> dict:
     if opt.sample_microbatch > 0:
         raise _not_ported("--sample_microbatch")
     if opt.dp != 1 or opt.tp != 1:
         raise _not_ported("--dp/--tp")
-    # The step kernels are the default path; --fused selects the per-layer
-    # fused_decoder_layer denoiser, and --fused_step wins over it as in JAX.
+    # The JAX CLI's numerics: f32 without flags; --fused_step the bf16 step
+    # kernels, --fused the bf16 fused_decoder_layer denoiser, and
+    # --fused_step wins over --fused.
     pipeline = build_pipeline(
         stats_path=opt.stats_path, smplh_path=opt.smplh_path,
         rest_offsets_path=opt.rest_offsets, diffusion_ckpt=opt.checkpoint,
         window=opt.window, sampler="ddim" if opt.ddim_steps else "ddpm",
         ddim_steps=opt.ddim_steps or 50, timesteps=opt.timesteps, seed=opt.seed,
-        fused_transformer=opt.fused and not opt.fused_step, device=opt.device)
+        compute_dtype=compute_dtype(opt), fused_transformer=opt.fused and not opt.fused_step,
+        device=opt.device)
     data = load_motion_dict(opt.test_data_path)
     noise = TorchNoise(pipeline.device, seed=opt.seed)
 
@@ -129,9 +139,10 @@ def parse_opt(argv=None):
     p.add_argument("--ddim_steps", type=int, default=0,
                    help="use the fast DDIM sampler with N steps (0 = parity DDPM-1000)")
     p.add_argument("--fused", action="store_true",
-                   help="denoiser layers through fused_decoder_layer (bf16) instead of the step kernels")
+                   help="the denoiser layers through fused_decoder_layer in bf16 (default: the step kernels "
+                        "in f32, the JAX CLI's numerics)")
     p.add_argument("--fused_step", action="store_true",
-                   help="the step kernels (the default path); wins over --fused")
+                   help="the step kernels in bf16 (bf16-level drift; default: f32); wins over --fused")
     p.add_argument("--sample_microbatch", type=int, default=0, help="not ported (N > 0 raises)")
     p.add_argument("--dp", type=int, default=1, help="not ported (values other than 1 raise)")
     p.add_argument("--tp", type=int, default=1, help="not ported (values other than 1 raise)")

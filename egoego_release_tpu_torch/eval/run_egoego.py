@@ -4,7 +4,9 @@ Port of egoego_release_tpu/eval/run_egoego.py with ``--device`` (default
 ``cuda``; ``--device cpu`` runs the plain versions of the kernels): load
 the demo sequence, run stage 1 (HeadNet + GravityNet), condition the
 stage-2 diffusion on the predicted head pose, FK-decode, snap to the floor
-and write the per-frame predictions as an npz per sequence.
+and write the per-frame predictions as an npz per sequence. Stage 2 runs the
+step kernels in f32, as the JAX CLI runs the flax denoiser in f32 (neither
+has a flag for bf16).
 
     python -m egoego_release_tpu_torch.eval.run_egoego \\
         --data_root_folder test_data/ares \\

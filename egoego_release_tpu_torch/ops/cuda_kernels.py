@@ -36,14 +36,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel chain has been launched on the card.
 launch_counts: Counter = Counter()
 # Launches of each kernel of the C entries, counted once the entry has
-# returned without error: "gemm_wgmma" (the layer products in bf16) and
-# "gemm" (the others) as egoego_gemm reports its choice, "attention", "mha".
+# returned without error: "gemm_wgmma" (every product in bf16) and "gemm"
+# (f32) as egoego_gemm reports its choice, "attention", "mha".
 kernel_launches: Counter = Counter()
 
 # GEMM epilogue modes (csrc/gemm.cu GemmMode); the first three are the
-# products of a DecoderLayer, whose weights are (N, K)
+# products of a DecoderLayer
 BIAS, BIAS_RELU, LAYER_NORM, STEM, STEP = range(5)
-LAYER_MODES = (BIAS, BIAS_RELU, LAYER_NORM)
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -52,8 +51,8 @@ class GemmArgs(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "a", "a2", "w", "bias", "res", "ln_s", "ln_b", "row_mask", "pos", "emb",
         "x", "noise", "ipv", "ipm", "out", "out_b")] + [(name, ctypes.c_int) for name in (
-        "M", "N", "K", "lda", "ldw", "ldo", "k_split", "a_bf16", "out_bf16",
-        "compute_bf16", "mode", "t_data", "w_nk", "wgmma")] + [(name, ctypes.c_float) for name in (
+        "M", "N", "K", "lda", "ldw", "ldo", "ldb", "k_split", "a_bf16", "out_bf16",
+        "compute_bf16", "mode", "t_data", "wgmma")] + [(name, ctypes.c_float) for name in (
         "c1", "c2", "c3")]
 
 
@@ -161,79 +160,97 @@ def _need(t: torch.Tensor, dtype, shape=None, what="tensor") -> None:
 def gemm(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
          out: torch.Tensor, *, M: int, a2: torch.Tensor | None = None, res=None, ln_s=None, ln_b=None, row_mask=None,
          pos=None, emb=None, x=None, noise=None, ipv=None, ipm=None, out_b=None,
-         t_data: int = 0, scal=(0.0, 0.0, 0.0), n: int | None = None) -> torch.Tensor:
-    """out (M, N) = epilogue(A W + b) on the card, in W's dtype (bf16 ->
-    tensor cores, f32 -> CUDA cores).
+         t_data: int = 0, scal=(0.0, 0.0, 0.0)) -> torch.Tensor:
+    """out (M, N) = epilogue(A W^T + b) on the card, N = len(bias), in W's
+    dtype: bf16 on the wgmma kernel (tensor cores), f32 on the CUDA cores.
 
-    The layer modes (BIAS, BIAS_RELU, LAYER_NORM) take W as (N, K),
-    ``nn.Linear``'s layout; in bf16 they run the wgmma kernel, which reads A
-    as bf16 (the caller hands over the bf16 copy of an f32 activation) and
-    writes bf16 (f32 for LAYER_NORM), with K and N multiples of 8 and 16-byte
-    aligned A, W and out. STEM and STEP take W as (K, ldw) row-major, of
-    which the first N = ``n`` (default ldw) columns are used; bf16 there
-    needs ldw % 8 == 0. ``out_b`` (LAYER_NORM, STEM): a bf16 (M, N) tensor
-    that receives the f32 output rounded to bf16."""
+    W is (N_w, K), ``nn.Linear``'s layout, with N_w >= N rows (rows past N
+    are never read). A is (rows, K), except in the f32 stem, which reads x
+    (B, T, d) as ``a`` and x_cond as ``a2``, with 2 d <= K. In bf16, A is
+    bf16, K a multiple of 8, A, W and out 16-byte aligned, and out bf16 in
+    BIAS/BIAS_RELU, f32 in the other modes:
+
+    - BIAS, BIAS_RELU, LAYER_NORM: A (M, K); N a multiple of 8.
+    - STEM: A = xa (B T, K) (``fused_step.pack_xa``); out (B (T+1), N) and,
+      in bf16, its bf16 copy ``out_b`` (required); N a multiple of 8.
+    - STEP: A = the last layer's output (B (T+1), K) (its bf16 copy in
+      bf16); x, noise, ipv, out (B T, N) f32, 16-byte aligned; N even and
+      at most 208 in bf16; ``out_b`` (bf16 only, optional) receives
+      bf16(out) in the first N columns of its rows (xa).
+
+    ``out_b`` of LAYER_NORM: bf16 (M, N), the f32 output rounded. A layout
+    the kernels cannot take raises here or in the C entry; nothing falls
+    back to another kernel."""
     f32, bf16 = torch.float32, torch.bfloat16
     _need(w, (f32, bf16), what="w")
-    layer = mode in LAYER_MODES
-    if layer:
-        if n is not None:
-            raise ValueError("n: the layer modes use every row of w")
-        N, K = w.shape
-        ldw = K
-    else:
-        K, ldw = w.shape
-        N = ldw if n is None else n
-        if N > ldw or (w.dtype == bf16 and (ldw % 8 or w.data_ptr() % 16)):
-            raise ValueError(f"w: need N <= ldw and, in bf16, 16-byte rows; got N={N}, ldw={ldw}")
+    _need(bias, f32, what="bias")
+    is_bf16 = w.dtype == bf16
+    N = bias.numel()
+    n_w, K = w.shape
+    if n_w < N:
+        raise ValueError(f"w: need at least N = {N} rows, got {tuple(w.shape)}")
     _need(a, (f32, bf16), what="a")
-    _need(bias, f32, (N,), "bias")
     _need(out, (f32, bf16), what="out")
-    if layer and w.dtype == bf16 and (a.dtype != bf16 or (out.dtype == f32) != (mode == LAYER_NORM) or K % 8 or N % 8
-                                      or any(t.data_ptr() % 16 for t in (a, w, out))):
-        raise ValueError(f"the wgmma GEMM needs a bf16 A, a bf16 out (f32 for LAYER_NORM), K and N multiples of 8 "
-                         f"and 16-byte aligned A, W and out; got A {a.dtype}, out {out.dtype}, K={K}, N={N}")
     if out.numel() != M * N:
         raise ValueError(f"out: need {M}x{N} elements, got {tuple(out.shape)}")
-    if out_b is not None:
-        _need(out_b, bf16, what="out_b")
-        if mode not in (LAYER_NORM, STEM) or out.dtype != f32 or out_b.numel() != M * N or out_b.data_ptr() % 16:
-            raise ValueError("out_b: a 16-byte aligned bf16 copy of the f32 output of LAYER_NORM or STEM")
-    lda = a.shape[-1]
-    k_split = 0
-    if mode == STEM:
+    lda, k_split = a.shape[-1], 0
+    if mode == STEM and not is_bf16:
         _need(a2, a.dtype, a.shape, "a2")
+        K, k_split = 2 * lda, lda
+        if K > w.shape[1]:
+            raise ValueError(f"stem: need 2 d <= K, got d = {lda}, w {tuple(w.shape)}")
+    rows = M  # of A: the stem's product skips token 0, the update's includes it
+    if mode in (STEM, STEP):
+        if t_data <= 0 or M % (t_data + (mode == STEM)):
+            raise ValueError(f"stem/step: M = {M} is not a whole number of windows of {t_data} frames")
+        rows = M // (t_data + 1) * t_data if mode == STEM else M // t_data * (t_data + 1)
+    if a.numel() != rows * lda or (k_split == 0 and lda != K):
+        raise ValueError(f"a: need ({rows}, {K}), got {tuple(a.shape)}")
+    if mode == STEM:
         _need(pos, f32, (t_data + 1, N), "pos")
         _need(emb, f32, (N,), "emb")
-        if a.numel() != (M // (t_data + 1)) * t_data * lda or K != 2 * lda:
-            raise ValueError("stem: a/a2 must be (B, t_data, d) with K = 2 d")
-        k_split = lda
-    elif mode == STEP:
-        _need(x, f32, (M, N), "x")
-        _need(noise, f32, (M, N), "noise")
+    vecs = [("x", x), ("noise", noise)] + ([("ipv", ipv)] if ipv is not None else []) if mode == STEP else []
+    for name, t in vecs:
+        _need(t, f32, what=name)
+        if t.numel() != M * N:
+            raise ValueError(f"{name}: need {M}x{N} elements, got {tuple(t.shape)}")
+    if mode == STEP:
         if ipv is not None:
-            _need(ipv, f32, (M, N), "ipv")
-            _need(ipm, f32, (M,), "ipm")
-        if a.numel() != (M // t_data) * (t_data + 1) * K or lda != K:
-            raise ValueError("step: a must be (B, t_data + 1, K)")
-    else:
-        if a.numel() != M * K or lda != K:
-            raise ValueError(f"a: need {M}x{K} elements, got {tuple(a.shape)}")
-    if mode == LAYER_NORM:
+            _need(ipm, f32, what="ipm")
+            if ipm.numel() != M:
+                raise ValueError(f"ipm: need {M} elements, got {tuple(ipm.shape)}")
+    elif mode == LAYER_NORM:
         _need(res, f32, (M, N), "res")
         _need(ln_s, f32, (N,), "ln_s")
         _need(ln_b, f32, (N,), "ln_b")
         _need(row_mask, f32, (M,), "row_mask")
-        if out.dtype != f32 or N > 512:
-            raise ValueError("layer-norm epilogue: f32 output, N <= 512")
+        if N > 512:
+            raise ValueError("layer-norm epilogue: N <= 512")
+    ldb = N
+    if out_b is not None:
+        _need(out_b, bf16, what="out_b")
+        ldb = out_b.shape[-1]
+        if not is_bf16 or mode not in (LAYER_NORM, STEM, STEP) or out_b.numel() != M * ldb or ldb < N or (
+                mode != STEP and ldb != N):
+            raise ValueError("out_b: a bf16 copy (M, N) of the f32 output of LAYER_NORM or STEM in bf16, "
+                             "or the (M, >= N) x part of xa for STEP")
+    if is_bf16:
+        out_dt = bf16 if mode in (BIAS, BIAS_RELU) else f32
+        step_n = N % 2 == 0 and N <= 208 if mode == STEP else N % 8 == 0
+        if (a.dtype != bf16 or out.dtype != out_dt or K % 8 or not step_n or (mode == STEM and out_b is None)
+                or any(t is not None and t.data_ptr() % 16 for t in (a, w, out, out_b, *(t for _, t in vecs)))):
+            raise ValueError(f"the wgmma GEMM needs a bf16 A, a bf16 out (f32 for LAYER_NORM, STEM and STEP), K a "
+                             f"multiple of 8, N a multiple of 8 (STEP: even, <= 208), the stem's bf16 copy, and "
+                             f"16-byte aligned tensors; got A {a.dtype}, out {out.dtype}, K={K}, N={N}")
+    elif a.dtype != f32 or out.dtype != f32:
+        raise ValueError(f"f32 mode: need f32 A and out, got {a.dtype}, {out.dtype}")
     args = GemmArgs(
         a=_ptr(a), a2=_ptr(a2), w=_ptr(w), bias=_ptr(bias), res=_ptr(res),
         ln_s=_ptr(ln_s), ln_b=_ptr(ln_b), row_mask=_ptr(row_mask), pos=_ptr(pos),
         emb=_ptr(emb), x=_ptr(x), noise=_ptr(noise), ipv=_ptr(ipv), ipm=_ptr(ipm),
-        out=_ptr(out), out_b=_ptr(out_b), M=M, N=N, K=K, lda=lda, ldw=ldw, ldo=N, k_split=k_split,
-        a_bf16=int(a.dtype == bf16), out_bf16=int(out.dtype == bf16),
-        compute_bf16=int(w.dtype == bf16), mode=mode, t_data=t_data, w_nk=int(layer),
-        c1=scal[0], c2=scal[1], c3=scal[2],
+        out=_ptr(out), out_b=_ptr(out_b), M=M, N=N, K=K, lda=lda, ldw=w.shape[1], ldo=N, ldb=ldb,
+        k_split=k_split, a_bf16=int(a.dtype == bf16), out_bf16=int(out.dtype == bf16),
+        compute_bf16=int(is_bf16), mode=mode, t_data=t_data, c1=scal[0], c2=scal[1], c3=scal[2],
     )
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):

@@ -68,15 +68,10 @@ def round_bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).float()
 
 
-def matmul_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """A W with A rounded to W's dtype first, then an f32 product: the
-    arithmetic of a bf16 tensor-core product with f32 accumulation (or a
-    plain f32 product in f32 mode)."""
-    return a.to(w.dtype).float() @ w.float()
-
-
 def linear_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``matmul_plain`` with w as (N, K): A W^T."""
+    """A W^T for w (N, K), with A rounded to W's dtype first, then an f32
+    product: the arithmetic of a bf16 tensor-core product with f32
+    accumulation (or a plain f32 product in f32 mode)."""
     return a.to(w.dtype).float() @ w.float().t()
 
 

@@ -22,7 +22,12 @@ On the card each wrapper is a chain of launches (csrc/gemm.cu,
 csrc/attention.cu; see ops/fused_layer.py for why a layer is not one
 kernel there): the stem and the update ride in GEMM epilogues, so only
 the (B, T+1, d_model) activations cross device memory between layers, in
-f32 and, for the next layer's bf16 products, as a bf16 copy.
+f32 and, for the next layer's bf16 products, as a bf16 copy. In bf16 the
+stem's A is ``xa`` (B, T, 400) = [bf16(x) | bf16(x_cond) | 0] (``pack_xa``):
+``fused_p_sample_loop`` packs it once a window, and each step's update
+writes bf16(x_next) into its x part, so the stem reads one 16-byte aligned
+bf16 matrix (the round-to-nearest _stem_layer_kernel does at
+``x_ref[:].astype(cdt)``).
 
 The port pads nothing: a window of T frames is T + 1 tokens, every row is
 real, and every token is a key. The samplers
@@ -36,6 +41,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from egoego_release_tpu_torch.ops import cuda_kernels as ck
 from egoego_release_tpu_torch.ops.fused_layer import (
@@ -43,28 +49,40 @@ from egoego_release_tpu_torch.ops.fused_layer import (
     decoder_layer_cuda,
     decoder_layer_plain,
     layer_params,
-    matmul_plain,
+    linear_plain,
 )
 
 
 def prepare_step_params(model, bf16: bool) -> dict:
-    """Kernel operands of a ``TransformerDiffusionModel``: per-layer dicts
-    (fused_layer.layer_params), the stem weight (2 d, d_model), the output
-    projection (d_model, d) zero-padded to a multiple of 8 columns (16-byte
-    bf16 rows) in the compute dtype, f32 biases, and the position table."""
+    """Kernel operands of a ``TransformerDiffusionModel`` in the compute
+    dtype: per-layer dicts (fused_layer.layer_params); the stem weight
+    (d_model, 2 d) and the output projection (d, d_model), both (N, K) as
+    ``nn.Linear`` keeps them, the stem's K and linear_out's N zero-padded to
+    multiples of 8 (16-byte bf16 rows of xa; (512, 400) and (200, 512) at the
+    release widths); f32 biases and the position table."""
     wdt = torch.bfloat16 if bf16 else torch.float32
     mt = model.motion_transformer
     f = lambda t: t.detach().float().contiguous()
-    lw = model.linear_out.weight.detach().t()
-    lw = torch.nn.functional.pad(lw, (0, -lw.shape[1] % 8))
+    wst = mt.start_conv.weight.detach()[..., 0]
+    lw = model.linear_out.weight.detach()
     return {
         "layers": [layer_params(layer, bf16) for layer in mt.layer_stack],
-        "wst": mt.start_conv.weight.detach()[..., 0].t().contiguous().to(wdt),
+        "wst": F.pad(wst, (0, -wst.shape[1] % 8)).contiguous().to(wdt),
         "bst": f(mt.start_conv.bias),
-        "lw": lw.contiguous().to(wdt),
+        "lw": F.pad(lw, (0, 0, 0, -lw.shape[0] % 8)).contiguous().to(wdt),
         "lb": f(model.linear_out.bias),
         "pos_table": mt.position_table,
     }
+
+
+def pack_xa(x: torch.Tensor, xc: torch.Tensor, width: int | None = None) -> torch.Tensor:
+    """The stem's bf16 A: (B, T, width) = [bf16(x) | bf16(x_cond) | 0], width
+    2 d rounded up to a multiple of 8 by default (``prep["wst"].shape[1]``)."""
+    bsz, t, d = x.shape
+    xa = x.new_zeros(bsz, t, width or 2 * d + (-2 * d) % 8, dtype=torch.bfloat16)
+    xa[..., :d] = x
+    xa[..., d: 2 * d] = xc
+    return xa
 
 
 @torch.no_grad()
@@ -77,35 +95,51 @@ def noise_level_embeddings(model, ts) -> torch.Tensor:
 # -- stem + layer 0 -------------------------------------------------------
 
 
-def stem_layer_plain(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v):
+def stem_tokens_plain(x, xc, emb, pos, prep):
+    """The input of layer 0, (B, T+1, d_model): token 0 the noise level,
+    token t+1 the stem x[t] W_x + xc[t] W_c + b, plus the position rows."""
     bsz, t, d = x.shape
-    stem = (matmul_plain(x.reshape(bsz * t, d), prep["wst"][:d])
-            + matmul_plain(xc.reshape(bsz * t, d), prep["wst"][d:]) + prep["bst"])
+    wst = prep["wst"]
+    stem = (linear_plain(x.reshape(bsz * t, d), wst[:, :d]) + linear_plain(xc.reshape(bsz * t, d), wst[:, d: 2 * d])
+            + prep["bst"])
     dm = stem.shape[-1]
-    h = torch.cat([emb.reshape(1, 1, dm).expand(bsz, 1, dm), stem.reshape(bsz, t, dm)], 1) + pos
+    return torch.cat([emb.reshape(1, 1, dm).expand(bsz, 1, dm), stem.reshape(bsz, t, dm)], 1) + pos
+
+
+def stem_layer_plain(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v):
+    h = stem_tokens_plain(x, xc, emb, pos, prep)
     return decoder_layer_plain(h, mask, prep["layers"][0], n_head=n_head, d_k=d_k, d_v=d_v)
 
 
-def stem_layer_cuda(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v, with_copy=False):
-    """The stem's GEMM (which also writes the bf16 copy of its output in
-    bf16 mode), then layer 0; returns ``decoder_layer_cuda``'s pair."""
+def stem_layer_cuda(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v, with_copy=False, xa=None):
+    """The stem's GEMM, then layer 0; returns ``decoder_layer_cuda``'s pair.
+    In bf16 the GEMM reads ``xa`` (packed here when None) and also writes the
+    bf16 copy of its output, which layer 0's QKV product reads."""
     bsz, t, _ = x.shape
     dm = prep["bst"].shape[0]
     h = torch.empty(bsz, t + 1, dm, dtype=torch.float32, device=x.device)
-    hb = torch.empty_like(h, dtype=torch.bfloat16) if prep["wst"].dtype == torch.bfloat16 else None
-    ck.gemm(ck.STEM, x, prep["wst"], prep["bst"], h, M=bsz * (t + 1), a2=xc,
-            pos=pos, emb=emb, t_data=t, out_b=hb)
+    if prep["wst"].dtype == torch.bfloat16:
+        xa = pack_xa(x, xc, prep["wst"].shape[1]) if xa is None else xa
+        hb = torch.empty_like(h, dtype=torch.bfloat16)
+        ck.gemm(ck.STEM, xa.reshape(bsz * t, -1), prep["wst"], prep["bst"], h, M=bsz * (t + 1),
+                pos=pos, emb=emb, t_data=t, out_b=hb)
+    else:
+        hb = None
+        ck.gemm(ck.STEM, x, prep["wst"], prep["bst"], h, M=bsz * (t + 1), a2=xc, pos=pos, emb=emb, t_data=t)
     return decoder_layer_cuda(h, mask, prep["layers"][0], n_head=n_head, d_k=d_k, d_v=d_v, hb=hb,
                               with_copy=with_copy)
 
 
-def stem_layer(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v, with_copy=False):
+def stem_layer(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v, with_copy=False, xa=None):
     """x, xc (B, T, d) f32; emb (d_model,) the noise-level token; pos
-    (T+1, d_model) the position rows of tokens 0..T; mask (B, T+1).
-    Returns the (B, T+1, d_model) output of DecoderLayer 0, or with
-    ``with_copy`` (output, its bf16 copy on the card in bf16 mode, else None)."""
+    (T+1, d_model) the position rows of tokens 0..T; mask (B, T+1); ``xa``
+    on the card in bf16: ``pack_xa(x, xc)``, kept by the caller across steps
+    (made here when None). Returns the (B, T+1, d_model) output of
+    DecoderLayer 0, or with ``with_copy`` (output, its bf16 copy on the card
+    in bf16 mode, else None)."""
     if x.is_cuda:
-        out = stem_layer_cuda(x, xc, emb, pos, mask, prep, n_head=n_head, d_k=d_k, d_v=d_v, with_copy=with_copy)
+        out = stem_layer_cuda(x, xc, emb, pos, mask, prep, n_head=n_head, d_k=d_k, d_v=d_v, with_copy=with_copy,
+                              xa=xa)
         ck.launch_counts["stem_layer"] += 1
     else:
         out = stem_layer_plain(x, xc, emb, pos, mask, prep, n_head=n_head, d_k=d_k, d_v=d_v), None
@@ -115,11 +149,12 @@ def stem_layer(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v, with_copy=False
 # -- last layer + posterior update ---------------------------------------
 
 
-def layer_epilogue_plain(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v):
-    h = decoder_layer_plain(h, mask, prep["layers"][-1], n_head=n_head, d_k=d_k, d_v=d_v)
+def step_update_plain(h, x, noise, scal, ipv, ipm, prep):
+    """linear_out on tokens 1..T of h (B, T+1, d_model), x0 clipped to
+    [-1, 1], x_next = a1 x0 + a2 x + a3 noise, then the inpaint."""
     bsz, t, d = x.shape
     feat = h[:, 1: t + 1].reshape(bsz * t, -1)
-    x0 = torch.clamp(matmul_plain(feat, prep["lw"][:, :d]) + prep["lb"], -1.0, 1.0).reshape(bsz, t, d)
+    x0 = torch.clamp(linear_plain(feat, prep["lw"][:d]) + prep["lb"], -1.0, 1.0).reshape(bsz, t, d)
     a1, a2, a3 = scal
     xn = a1 * x0 + a2 * x + a3 * noise
     if ipv is not None:
@@ -127,39 +162,47 @@ def layer_epilogue_plain(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k
     return xn
 
 
-def layer_epilogue_cuda(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v, hb=None):
-    h, _ = decoder_layer_cuda(h, mask, prep["layers"][-1], n_head=n_head, d_k=d_k, d_v=d_v, hb=hb)
+def layer_epilogue_plain(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v):
+    h = decoder_layer_plain(h, mask, prep["layers"][-1], n_head=n_head, d_k=d_k, d_v=d_v)
+    return step_update_plain(h, x, noise, scal, ipv, ipm, prep)
+
+
+def layer_epilogue_cuda(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v, hb=None, xa=None):
+    """The last layer, then the update's GEMM, which in bf16 reads the
+    layer's bf16 copy and, when ``xa`` is given, writes bf16(x_next) into its
+    x part."""
+    bf16 = prep["lw"].dtype == torch.bfloat16
+    h, hb = decoder_layer_cuda(h, mask, prep["layers"][-1], n_head=n_head, d_k=d_k, d_v=d_v, hb=hb, with_copy=bf16)
     bsz, t, d = x.shape
     out = torch.empty(bsz, t, d, dtype=torch.float32, device=x.device)
-    ck.gemm(ck.STEP, h, prep["lw"], prep["lb"], out, M=bsz * t,
-            x=x.reshape(bsz * t, d), noise=noise.reshape(bsz * t, d),
-            ipv=None if ipv is None else ipv.reshape(bsz * t, d),
-            ipm=None if ipm is None else ipm.reshape(bsz * t),
-            t_data=t, scal=scal, n=d)
+    ck.gemm(ck.STEP, hb if bf16 else h, prep["lw"], prep["lb"], out, M=bsz * t, x=x, noise=noise,
+            ipv=ipv, ipm=ipm, t_data=t, scal=scal, out_b=xa)
     return out
 
 
-def layer_epilogue(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v, hb=None):
+def layer_epilogue(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v, hb=None, xa=None):
     """h (B, T+1, d_model); x, noise (B, T, d) f32; scal = (a1, a2, a3)
     host floats; ipv (B, T, d) and ipm (B, T) or both None; hb the bf16
-    copy of h on the card (made there when None). Returns x_next (B, T, d)
-    f32."""
+    copy of h on the card (made there when None); ``xa`` on the card in
+    bf16: the stem's packed A, whose x part receives bf16(x_next). Returns
+    x_next (B, T, d) f32."""
     if h.is_cuda:
         out = layer_epilogue_cuda(h, mask, x, noise, scal, ipv, ipm, prep,
-                                  n_head=n_head, d_k=d_k, d_v=d_v, hb=hb)
+                                  n_head=n_head, d_k=d_k, d_v=d_v, hb=hb, xa=xa)
         ck.launch_counts["layer_epilogue"] += 1
         return out
     return layer_epilogue_plain(h, mask, x, noise, scal, ipv, ipm, prep,
                                 n_head=n_head, d_k=d_k, d_v=d_v)
 
 
-def fused_denoise_step(x, xc, emb, pos, mask, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v):
-    """One reverse step: ``len(prep["layers"])`` kernel calls."""
+def fused_denoise_step(x, xc, emb, pos, mask, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v, xa=None):
+    """One reverse step: ``len(prep["layers"])`` kernel calls. ``xa`` (on
+    the card in bf16): ``pack_xa(x, xc)``, updated in place to x_next's."""
     kw = dict(n_head=n_head, d_k=d_k, d_v=d_v)
-    h, hb = stem_layer(x, xc, emb, pos, mask, prep, with_copy=True, **kw)
+    h, hb = stem_layer(x, xc, emb, pos, mask, prep, with_copy=True, xa=xa, **kw)
     for lp in prep["layers"][1:-1]:
         h, hb = decoder_layer(h, mask, lp, hb=hb, with_copy=True, **kw)
-    return layer_epilogue(h, mask, x, noise, scal, ipv, ipm, prep, hb=hb, **kw)
+    return layer_epilogue(h, mask, x, noise, scal, ipv, ipm, prep, hb=hb, xa=xa, **kw)
 
 
 # -- schedule scalars (host, f32) ----------------------------------------
@@ -250,7 +293,10 @@ def fused_p_sample_loop(diff, x_start, cond_mask, padding_mask=None, inpaint_val
         sched = ddim_scalars(diff.consts, cfg.timesteps, ddim_steps, eta)
     embs = noise_level_embeddings(diff.model, [s[0] for s in sched])
     kw = dict(n_head=cfg.n_head, d_k=cfg.d_k, d_v=cfg.d_v)
+    # the stem's bf16 A on the card, packed once a window; each step's update
+    # writes x_next's part
+    xa = pack_xa(x, x_cond, prep["wst"].shape[1]) if x.is_cuda and prep["wst"].dtype == torch.bfloat16 else None
     for i, (_, scal) in enumerate(sched):
         x = fused_denoise_step(x, x_cond, embs[i], pos, mask, draw(noise.step),
-                               scal, ipv, ipm, prep, **kw)
+                               scal, ipv, ipm, prep, xa=xa, **kw)
     return x

@@ -8,15 +8,17 @@ the kernel; they are skipped at run time), built into
 - ``kernel``: the source as it is;
 - ``mainloop_only``: the consumers skip the epilogue (TMA ring + wgmma, one
   launch, no stores);
-- ``no_stores``: the epilogue runs (and stages its outputs) but stores
-  none to device memory;
+- ``no_stores``: the epilogue runs (and stages its outputs; the update also
+  reads x, noise and the inpaint values) but stores none to device memory;
 - ``no_residual``: the LayerNorm epilogue reads zeros for the residual.
 
-Every layer product of a step (QKV, fc + LayerNorm, w1 + ReLU, w2 +
-LayerNorm; the LayerNorms with and without their bf16 copy) runs at 64 x 121
-and 64 x 31 tokens (release widths) on random bf16 operands; each variant's
+Every product of a step (QKV, fc + LayerNorm, w1 + ReLU, w2 + LayerNorm, the
+LayerNorms with and without their bf16 copy; the stem from the packed xa,
+and the update with the inpaint and its write into xa) runs at 64 x 121 and
+64 x 31 tokens (release widths) on random bf16 operands; each variant's
 device time (torch.profiler, over 20 calls) is printed beside
-``torch.matmul`` bf16 at the same (M, K, N). The variants' outputs are
+``torch.matmul`` bf16 at the same (M, K, N) (the stem's K without xa's
+padding). The variants' outputs are
 wrong by design: this times, it checks nothing (``chip_smoke.py`` and
 ``tests/test_torch_cuda.py`` do). Needs the card and nvcc:
 
@@ -36,22 +38,33 @@ import torch
 from egoego_release_tpu_torch.ops import cuda_kernels as ck
 
 OUT_DIR = ck.BUILD_DIR.parent / "gemm_variants"
-EPILOGUE_CALL = "      wgmma_epilogue<SPLIT_N>(p, acc, out_stage"
+EPILOGUE_CALL = "      wgmma_epilogue<T>(p, acc, out_stage"
 RESIDUAL_LOAD = "const float2 r = R[h] < p.M ? *reinterpret_cast<const float2*>(p.res"
 STORE = "      if (R < p.M && C < p.N) {\n        const uint4 v"  # store_block (bias/ReLU modes)
 LN_STORE = "        if (C < p.N && R[h] < p.M) {\n          const float2 g"  # the LayerNorm modes
+STEM_STORE = "      if (r < rows && C < p.N) {\n        const float4 a"  # store_block_f32 (kStem)
+STEM_TOKEN0 = "      if (C < p.N) {\n        const float2 e"  # kStem: token 0 of each window
+STEP_STORE = "          *reinterpret_cast<float4*>(out + f) ="  # kStep: x_next, 16-byte pieces
+STEP_STORE_1 = "            out[g] = o;"  # kStep: x_next at the span's ends
+STEP_XA = "    if (p.out_b != nullptr) {\n      const int pieces"  # kStep: bf16(x_next) into xa
+NO_STORE = lambda anchor, cond: (anchor, anchor.replace(cond, cond[:-3] + " && p.M < 0) {"))
 VARIANTS = {
     "kernel": [],
     "mainloop_only": [(EPILOGUE_CALL, EPILOGUE_CALL.replace("      wgmma", "      if (p.M < 0) wgmma"))],
     "no_residual": [(RESIDUAL_LOAD, RESIDUAL_LOAD.replace("R[h] < p.M ?", "R[h] < 0 ?"))],
-    "no_stores": [(STORE, STORE.replace("C < p.N) {", "C < p.N && p.M < 0) {")),
-                  (LN_STORE, LN_STORE.replace("R[h] < p.M) {", "R[h] < p.M && p.M < 0) {"))],
+    "no_stores": [NO_STORE(STORE, "C < p.N) {"), NO_STORE(LN_STORE, "R[h] < p.M) {"),
+                  NO_STORE(STEM_STORE, "C < p.N) {"), NO_STORE(STEM_TOKEN0, "C < p.N) {"),
+                  NO_STORE(STEP_XA, "nullptr) {"),
+                  (STEP_STORE, STEP_STORE.replace("*", "if (p.M < 0) *", 1)),
+                  (STEP_STORE_1, STEP_STORE_1.replace("out[g]", "if (p.M < 0) out[g]"))],
 }
-LN_ONLY = ("no_residual",)
-PRODUCTS = {  # name: (mode, K, N) at d_model 512, 4 heads of 256
+ONLY = {"no_residual": (ck.LAYER_NORM,)}  # variants that change one mode only
+PRODUCTS = {  # name: (mode, K, N) at d_model 512, 4 heads of 256, d = 198
     "qkv": (ck.BIAS, 512, 3072), "fc_ln": (ck.LAYER_NORM, 1024, 512),
     "w1_relu": (ck.BIAS_RELU, 512, 512), "w2_ln": (ck.LAYER_NORM, 512, 512),
+    "stem": (ck.STEM, 400, 512), "step": (ck.STEP, 512, 198),
 }
+D = 198  # features of a frame; the stem's K is 2 D padded to 400
 
 
 def build_variants() -> dict[str, ctypes.CDLL]:
@@ -114,31 +127,43 @@ def main() -> int:
                           capture_output=True, text=True).stdout.strip()
     table = []
     for tokens in (121, 31):
-        m = 64 * tokens
+        t = tokens - 1
         for name, (mode, k, n) in PRODUCTS.items():
-            a = torch.randn(m, k, generator=g, device=dev).to(bf)
-            w = (torch.randn(n, k, generator=g, device=dev) / k ** 0.5).to(bf)
+            # rows of A, of out; the stem multiplies data rows and writes tokens, the step the reverse
+            m_a, m = {ck.STEM: (64 * t, 64 * tokens), ck.STEP: (64 * tokens, 64 * t)}.get(mode, (64 * tokens,) * 2)
+            rn = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+            a = rn(m_a, k).to(bf)
+            w = (rn(n + n % 8, k) / k ** 0.5).to(bf)
             bias = torch.zeros(n, device=dev)
-            ln = mode == ck.LAYER_NORM
-            out = torch.empty(m, n, device=dev, dtype=torch.float32 if ln else bf)
-            res, ones, mask = torch.randn(m, n, generator=g, device=dev), torch.ones(n, device=dev), torch.ones(m, device=dev)
-            out_b = torch.empty(m, n, device=dev, dtype=bf)
-            lib_ms = device_ms(lambda: torch.matmul(a, w.t()))
+            ln, f32_out = mode == ck.LAYER_NORM, mode in (ck.LAYER_NORM, ck.STEM, ck.STEP)
+            out = torch.empty(m, n, device=dev, dtype=torch.float32 if f32_out else bf)
+            res, ones, mask = rn(m, n), torch.ones(n, device=dev), torch.ones(m, device=dev)
+            out_b = torch.empty(m, 400 if mode == ck.STEP else n, device=dev, dtype=bf)
+            x, noise, ipv, ipm = rn(m, n), rn(m, n), rn(m, n), (rn(m) > 0).float()
+            pos, emb = rn(tokens, n), rn(n)
+            k_lib = 2 * D if mode == ck.STEM else k
+            a_l = a[:, :k_lib].contiguous()
+            lib_ms = device_ms(lambda: torch.matmul(a_l, w[:n, :k_lib].t()))
             for copy in ((False, True) if ln else (False,)):
                 p = ck.GemmArgs(a=a.data_ptr(), w=w.data_ptr(), bias=bias.data_ptr(), out=out.data_ptr(), M=m, N=n,
-                                K=k, lda=k, ldw=k, ldo=n, a_bf16=1, out_bf16=int(not ln), compute_bf16=1, mode=mode,
-                                w_nk=1)
+                                K=k, lda=k, ldw=k, ldo=n, ldb=n, a_bf16=1, out_bf16=int(not f32_out),
+                                compute_bf16=1, mode=mode, t_data=t, c1=0.9, c2=0.1, c3=0.05)
                 if ln:
                     p.res, p.ln_s, p.ln_b, p.row_mask = res.data_ptr(), ones.data_ptr(), bias.data_ptr(), mask.data_ptr()
                     p.out_b = out_b.data_ptr() if copy else None
-                row = {"product": name + ("+copy" if copy else ""), "mkn": [m, k, n], "torch_matmul_ms": lib_ms}
+                elif mode == ck.STEM:
+                    p.pos, p.emb, p.out_b = pos.data_ptr(), emb.data_ptr(), out_b.data_ptr()
+                elif mode == ck.STEP:
+                    p.x, p.noise, p.ipv, p.ipm = x.data_ptr(), noise.data_ptr(), ipv.data_ptr(), ipm.data_ptr()
+                    p.out_b, p.ldb = out_b.data_ptr(), 400
+                row = {"product": name + ("+copy" if copy else ""), "mkn": [m_a, k_lib, n], "torch_matmul_ms": lib_ms}
                 for vname, lib in libs.items():
-                    if not ln and vname in LN_ONLY:
+                    if vname in ONLY and mode not in ONLY[vname]:
                         continue
                     call = lambda: ck._check(lib.egoego_gemm(ctypes.byref(p), stream), vname)
                     row[vname + "_ms"] = device_ms(call)
                 table.append(row)
-                print(f"gemm_variants {row['product']} {tokens} tokens (M, K, N) = ({m}, {k}, {n}): "
+                print(f"gemm_variants {row['product']} {tokens} tokens (M, K, N) = {tuple(row['mkn'])}: "
                       + ", ".join(f"{key[:-3]} {v:.4f}" for key, v in row.items() if key.endswith("_ms"))
                       + f" ms [{card}]", flush=True)
     if args.json:

@@ -80,9 +80,130 @@ def test_wrappers_count_and_route_to_kernels(card):
     out = diff.p_sample_loop(x, torch.ones_like(x), noise=fs.TorchNoise(card, seed=0))
     assert torch.isfinite(out).all()
     assert dict(ck.launch_counts) == {"stem_layer": 3, "decoder_layer": 3, "layer_epilogue": 3}
-    # per step: 4 GEMMs per layer on the wgmma kernel, plus the stem's and
-    # the update's on the WMMA kernel
-    assert dict(ck.kernel_launches) == {"gemm_wgmma": 3 * 4 * 3, "gemm": 3 * 2, "attention": 3 * 3}
+    # per step: 4 GEMMs per layer, the stem's and the update's, all on the
+    # wgmma kernel
+    assert dict(ck.kernel_launches) == {"gemm_wgmma": 3 * (4 * 3 + 2), "attention": 3 * 3}
+
+
+def _step_inputs(card, cfg, model, bsz, frames, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=g, device=card)
+    d = cfg.d_feats
+    ipm = torch.zeros(bsz, frames, device=card)
+    ipm[:, :cfg.overlap_frames] = 1.0
+    return dict(x=rn(bsz, frames, d), xc=rn(bsz, frames, d), noise=rn(bsz, frames, d), ipv=rn(bsz, frames, d),
+                ipm=ipm, h=rn(bsz, frames + 1, cfg.d_model), mask=torch.ones(bsz, frames + 1, device=card),
+                emb=fs.noise_level_embeddings(model, [700])[0])
+
+
+@pytest.fixture(scope="module")
+def release(card):
+    """The release-width denoiser and its bf16 step operands."""
+    cfg = DiffusionConfig()
+    diff = CondGaussianDiffusion(cfg, device=card, seed=0)
+    return cfg, diff.model, fs.prepare_step_params(diff.model, True)
+
+
+@pytest.mark.parametrize("inpaint", [False, True])
+@pytest.mark.parametrize("bsz,frames", [(64, 120), (64, 30), (3, 41)])
+def test_stem_and_update_on_wgmma_match_plain(release, card, bsz, frames, inpaint):
+    """stem_layer and layer_epilogue in bf16 against their plain versions at
+    the main path's windows (64 x 121 and the 64 x 31 tail) and at 3 windows
+    of 41 frames (123 stem rows and 126 update rows: ragged tiles that
+    straddle windows); each call launches 5 wgmma GEMMs and no other. With
+    ``xa`` the update also writes bf16(x_next) into xa's x part, bit for bit
+    the rounding of its f32 output, and leaves the x_cond part as it was."""
+    cfg, model, prep = release
+    inp = _step_inputs(card, cfg, model, bsz, frames, seed=frames + inpaint)
+    kw = dict(n_head=cfg.n_head, d_k=cfg.d_k, d_v=cfg.d_v)
+    pos = prep["pos_table"][1: frames + 2].contiguous()
+    ipv, ipm = (inp["ipv"], inp["ipm"]) if inpaint else (None, None)
+    xa = fs.pack_xa(inp["x"], inp["xc"], prep["wst"].shape[1])
+    xa0 = xa.clone()
+    cases = [
+        (fs.stem_layer, fs.stem_layer_plain, (inp["x"], inp["xc"], inp["emb"], pos, inp["mask"], prep),
+         {"xa": xa}),
+        (fs.layer_epilogue, fs.layer_epilogue_plain, (inp["h"], inp["mask"], inp["x"], inp["noise"], (0.9, 0.1, 0.05),
+                                                      ipv, ipm, prep), {"xa": xa}),
+    ]
+    for wrapper, plain, args, extra in cases:
+        ck.launch_counts.clear()
+        ck.kernel_launches.clear()
+        out_k = wrapper(*args, **kw, **extra)
+        assert dict(ck.launch_counts) == {wrapper.__name__: 1}
+        assert dict(ck.kernel_launches) == {"gemm_wgmma": 5, "attention": 1}
+        out_p = plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert out_k.shape == out_p.shape
+        assert float((out_k - out_p).abs().max()) < TOL[True]
+    d = cfg.d_feats
+    assert torch.equal(xa[..., :d], out_k.to(torch.bfloat16))
+    assert torch.equal(xa[..., d:], xa0[..., d:])
+
+
+@pytest.mark.parametrize("bsz,frames", [(64, 120), (64, 30), (3, 41), (2, 13)])
+def test_stem_and_step_launches_match_plain(release, card, bsz, frames):
+    """The kStem and kStep launches alone: the stem's f32 tokens against
+    stem_tokens_plain and its bf16 copy bit for bit their rounding; the
+    update's x_next against step_update_plain on the same bf16 copy of h."""
+    cfg, model, prep = release
+    inp = _step_inputs(card, cfg, model, bsz, frames, seed=3 * frames)
+    pos = prep["pos_table"][1: frames + 2].contiguous()
+    rows = bsz * (frames + 1)
+    h = torch.empty(bsz, frames + 1, cfg.d_model, device=card)
+    hb = torch.empty_like(h, dtype=torch.bfloat16)
+    xa = fs.pack_xa(inp["x"], inp["xc"], prep["wst"].shape[1])
+    ck.kernel_launches.clear()
+    ck.gemm(ck.STEM, xa.reshape(bsz * frames, -1), prep["wst"], prep["bst"], h, M=rows, pos=pos, emb=inp["emb"],
+            t_data=frames, out_b=hb)
+    want = fs.stem_tokens_plain(inp["x"], inp["xc"], inp["emb"], pos, prep)
+    torch.cuda.synchronize()
+    assert float((h - want).abs().max()) < TOL[True]
+    assert torch.equal(hb, h.to(torch.bfloat16))
+    hb = inp["h"].to(torch.bfloat16)
+    out = torch.empty_like(inp["x"])
+    scal = (0.9, 0.1, 0.05)
+    ck.gemm(ck.STEP, hb, prep["lw"], prep["lb"], out, M=bsz * frames, x=inp["x"], noise=inp["noise"],
+            ipv=inp["ipv"], ipm=inp["ipm"], t_data=frames, scal=scal, out_b=xa)
+    want = fs.step_update_plain(hb.float(), inp["x"], inp["noise"], scal, inp["ipv"], inp["ipm"], prep)
+    torch.cuda.synchronize()
+    assert dict(ck.kernel_launches) == {"gemm_wgmma": 2}
+    assert float((out - want).abs().max()) < TOL[True]
+    assert torch.equal(xa[..., :cfg.d_feats], out.to(torch.bfloat16))
+
+
+def test_stem_and_step_refuse_what_they_cannot_take(release, card):
+    """A misaligned or oversized operand of kStem or kStep raises in the
+    wrapper; nothing falls back to another kernel or to the plain version."""
+    cfg, model, prep = release
+    b, t, d, dm = 2, 16, cfg.d_feats, cfg.d_model
+    inp = _step_inputs(card, cfg, model, b, t, seed=5)
+    pos = prep["pos_table"][1: t + 2].contiguous()
+    h = torch.empty(b, t + 1, dm, device=card)
+    hb = torch.empty_like(h, dtype=torch.bfloat16)
+    xa = fs.pack_xa(inp["x"], inp["xc"], prep["wst"].shape[1])
+    stem = lambda a, w, out_b=hb: ck.gemm(ck.STEM, a, w, prep["bst"], h, M=b * (t + 1), pos=pos, emb=inp["emb"],
+                                         t_data=t, out_b=out_b)
+    with pytest.raises(ValueError, match="wgmma"):  # K = 396: rows of 792 bytes
+        stem(xa[..., :2 * d].contiguous().reshape(b * t, -1), prep["wst"][:, :2 * d].contiguous())
+    with pytest.raises(ValueError, match="wgmma"):  # no bf16 copy for QKV
+        stem(xa.reshape(b * t, -1), prep["wst"], None)
+    rows = b * (t + 1) - 1
+    with pytest.raises(ValueError, match="windows"):
+        ck.gemm(ck.STEM, xa.reshape(b * t, -1), prep["wst"], prep["bst"], h.reshape(-1, dm)[:rows], M=rows,
+                pos=pos, emb=inp["emb"], t_data=t, out_b=hb.reshape(-1, dm)[:rows])
+
+    def step(n, x=None):
+        w = torch.zeros(n + n % 8, dm, dtype=torch.bfloat16, device=card)
+        x = torch.zeros(b * t, n, device=card) if x is None else x
+        ck.gemm(ck.STEP, hb, w, torch.zeros(n, device=card), torch.empty(b * t, n, device=card), M=b * t, x=x,
+                noise=torch.zeros(b * t, n, device=card), t_data=t, scal=(1.0, 0.0, 0.0))
+
+    step(d)  # the release width passes
+    with pytest.raises(ValueError, match="wgmma"):  # x 8 bytes off 16-byte alignment
+        step(d, torch.zeros(b * t * d + 2, device=card)[2:])
+    with pytest.raises(ValueError, match="wgmma"):  # N = 256 > 208
+        step(256)
 
 
 @pytest.mark.parametrize("mode,m,n,k", [
