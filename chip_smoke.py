@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit; build the CUDA kernels from csrc/;
      their registers and spills, the mha kernel's HMMA count and the HGMMA
-     count of each instantiation of the wgmma GEMM (cuobjdump).
+     count of each instantiation of the wgmma GEMM and of the wgmma
+     attention (cuobjdump).
   2. kernels: each of the three denoise-step wrappers (stem_layer,
      decoder_layer, layer_epilogue) on card tensors against its plain
      PyTorch version on the same inputs, at the main path's shapes (64
@@ -17,7 +18,10 @@ Phases (any failure exits non-zero; nothing is caught):
      bf16(x_next) into the stem's packed A (xa). Timed beside the plain
      version and a PyTorch library yardstick; then each launch of a step
      alone (device time beside cuBLAS and the bound), the stem's and the
-     update's GEMM also checked against their plain versions.
+     update's GEMM and the attention also checked against their plain
+     versions; the layer's attention (attention_wgmma) at 64 x 121, 64 x 31
+     and 1 x 121 tokens beside the WMMA kernel it replaced there, SDPA bf16
+     and the bound.
   3. main path A: ``eval_stage2.run --fused_step`` on synthetic AMASS-layout
      records (64 sequences x 120 frames), full release width, random weights
      from a seed, DDPM-1000 in bf16.
@@ -55,6 +59,7 @@ Then one JSON line of per-kernel results, and as the last line
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -80,6 +85,8 @@ TOL_F32 = 1e-4         # f32 kernel vs plain: summation order only
 TOL_BF16 = 2e-2        # bf16 kernel vs plain: a bf16 rounding may flip where sums differ in order
 UPDATE = (0.9, 0.1, 0.05)  # a1, a2, a3 of the epilogue's update check: x0 dominates
 WG_EPILOGUES = ("bias", "layer_norm", "stem", "step")  # csrc/gemm.cu WgEpilogue, in order
+ATTN_KEY_TILES = (32, 64, 128)  # csrc/attention.cu attention_wgmma_kernel<NK>
+ATTN_SHAPES = ((BATCH, 121), (BATCH, 31), (1, 121))  # (windows, tokens) of the layer's attention timed in phase 2
 
 
 def log(*a):
@@ -336,6 +343,27 @@ def main() -> int:
     if any("spill" in line and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line)
            for line in built["ptxas"].get("gemm", "").splitlines()):
         raise AssertionError("gemm: a kernel spills registers")
+    # the layer's attention in bf16: attention_wgmma_kernel<key tile> (HGMMA
+    # for q k^T and p v), one instantiation per key tile, none spilling
+    sass = subprocess.run([cuobjdump, "-sass", str(ck.BUILD_DIR / "libegoego_attention.so")],
+                          capture_output=True, text=True, check=True).stdout
+    attn_wg = {}
+    for fn in sass.split("Function : ")[1:]:
+        m = re.match(r"\S*attention_wgmma_kernelILi(\d+)E", fn)
+        if m:
+            attn_wg[int(m.group(1))] = re.findall(r"\bHGMMA\.[\w.]+", fn)
+    for nk, hg in sorted(attn_wg.items()):
+        log(f"phase 1: attention_wgmma_kernel<{nk} keys>: {len(hg)} HGMMA ({', '.join(sorted(set(hg)))})")
+    if sorted(attn_wg) != list(ATTN_KEY_TILES) or not all(attn_wg.values()):
+        raise AssertionError(f"attention: want HGMMA in attention_wgmma_kernel<{ATTN_KEY_TILES}>, got "
+                             f"{ {k: len(v) for k, v in attn_wg.items()} }")
+    fn = ""
+    for line in built["ptxas"].get("attention", "").splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        fn = m.group(1) if m else fn
+        if ("spill" in line and "attention_wgmma_kernel" in fn
+                and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line)):
+            raise AssertionError(f"attention: {fn} spills registers: {line.strip()}")
 
     # -- phase 2: kernels against their plain versions ---------------------
     cfg = DiffusionConfig()
@@ -361,10 +389,12 @@ def main() -> int:
 
     # kernel launches of one call of each wrapper: 4 GEMMs and one attention
     # per layer, plus the stem's or the update's GEMM; every GEMM on the
-    # wgmma kernel in bf16, on the f32 kernel ("gemm") in f32
+    # wgmma kernel in bf16, on the f32 kernel ("gemm") in f32; the attention
+    # on the wgmma kernel in bf16 (head width 256, <= 128 tokens), on the
+    # CUDA cores ("attention") in f32
     def c_launches(name, bf16=True):
         n_gemm = 4 if name in ("decoder_layer", "fused_decoder_layer") else 5
-        return {"gemm_wgmma" if bf16 else "gemm": n_gemm, "attention": 1}
+        return {"gemm_wgmma": n_gemm, "attention_wgmma": 1} if bf16 else {"gemm": n_gemm, "attention": 1}
 
     def calls(inp, bf16):
         """[(name, check, wrapper, plain, args, kwargs of the wrapper alone)];
@@ -471,9 +501,11 @@ def main() -> int:
         """The launches of one step, each alone on the operands the chain
         gives it: {name: (launch, (M, K, N) of its product or None, the
         tensors it reads, the tensors it writes)}. The five launches of a
-        layer, then the stem's and the update's GEMM, which also carry a
-        check against their plain versions (2e-2 of max|launch - plain|, and
-        their bf16 copies bit for bit: inf otherwise)."""
+        layer, then the stem's and the update's GEMM; the attention (on the
+        QKV launch's output, whatever it holds) and the stem's and the
+        update's GEMM also carry a check against their plain versions (2e-2
+        of max|launch - plain|, and the GEMMs' bf16 copies bit for bit: inf
+        otherwise)."""
         p = prep[True]
         lp = p["layers"][1]
         b, t1, _ = inp["h"].shape
@@ -497,7 +529,9 @@ def main() -> int:
         return {
             "qkv": (lambda: ck.gemm(ck.BIAS, xb, lp["wqkv"], lp["bqkv"], qkv, M=rows),
                     (rows, dm, n_qkv), [xb, lp["wqkv"], lp["bqkv"]], [qkv]),
-            "attention": (lambda: ck.attention(qkv, ctx, B=b, T=t1, t_keys=t1, **kw), None, [qkv], [ctx]),
+            "attention": (lambda: ck.attention(qkv, ctx, B=b, T=t1, t_keys=t1, **kw), None, [qkv], [ctx],
+                          lambda: float((ctx.float() - fl.attention_plain(
+                              qkv, B=b, T=t1, t_keys=t1, **kw, bf16=True)).abs().max())),
             "fc_ln": (lambda: ck.gemm(ck.LAYER_NORM, ctx, lp["wfc"], lp["bfc"], h0, M=rows, res=x,
                                       ln_s=lp["ln1s"], ln_b=lp["ln1b"], row_mask=m, out_b=h0b),
                       (rows, nh * dv, dm), [ctx, lp["wfc"], lp["bfc"], *ln1], [h0, h0b]),
@@ -559,13 +593,69 @@ def main() -> int:
                     raise AssertionError(f"launch {name} {BATCH}x{t1}: max|launch - plain| = {r['max_abs_err']} "
                                          f"(inf: its bf16 copy is not the rounding of its f32 output)")
                 log(f"phase 2: launch {name} {BATCH}x{t1}: max|launch - plain| = {r['max_abs_err']:.3e} "
-                    f"(bound {TOL_BF16}), bf16 copy bit for bit")
+                    f"(bound {TOL_BF16}){'' if name == 'attention' else ', bf16 copy bit for bit'}")
             table[name] = r
             log(f"phase 2: launch {name} {BATCH}x{t1} tokens (M, K, N) = {mkn}: device {r['device_ms']:.4f} ms "
                 f"({r['tflops']:.1f} TFLOP/s), per call {r['ms']:.4f} ms (host {r['host_ms']:.4f}); "
                 f"{'SDPA' if mkn is None else 'torch.matmul'} bf16 device {r['library_device_ms']:.4f} ms "
                 f"({r['library_tflops']:.1f} TFLOP/s); bound {r['bound_ms']:.4f} ms (ops {r['bound_ops_ms']:.4f}, "
                 f"bytes {r['bound_bytes_ms']:.4f}; {r['gflop']:.2f} GFLOP, {r['mbytes']:.1f} MB); {names} [{card}]")
+        return table
+
+    def attention_table():
+        """The layer's attention launch alone at ATTN_SHAPES (bf16, head
+        width 256, t_keys = T, on a QKV launch's output): the wgmma kernel
+        and the WMMA kernel it replaced there, each against attention_plain,
+        and SDPA bf16 on the same q, k, v views; device ms (torch.profiler),
+        per-call ms and the bound, max(operations / 989 TFLOP/s, bytes /
+        3.35 TB/s) with qkv read once and ctx written once."""
+        lp = prep[True]["layers"][1]
+        table = {}
+        for b, t1 in ATTN_SHAPES:
+            h = torch.randn(b, t1, dm, generator=g, device=dev)
+            qkv = torch.empty(b * t1, lp["wqkv"].shape[0], dtype=torch.bfloat16, device=dev)
+            ck.gemm(ck.BIAS, h.reshape(b * t1, dm).to(torch.bfloat16), lp["wqkv"], lp["bqkv"], qkv, M=b * t1)
+            want = fl.attention_plain(qkv, B=b, T=t1, t_keys=t1, **kw, bf16=True)
+            q, k, v = (qkv[:, i * nh * dk:(i + 1) * nh * dk].reshape(b, t1, nh, dk).transpose(1, 2) for i in range(3))
+            flops = 2 * b * nh * t1 * t1 * (dk + dv)
+            nbytes = qkv.numel() * 2 + b * t1 * nh * dv * 2
+            r = {"gflop": flops / 1e9, "mbytes": nbytes / 1e6, "bound_ops_ms": flops / PEAK_BF16 * 1e3,
+                 "bound_bytes_ms": nbytes / HBM_BYTES_S * 1e3}
+            r["bound_ms"] = max(r["bound_ops_ms"], r["bound_bytes_ms"])
+            r["bound_by"] = "operations" if r["bound_ops_ms"] >= r["bound_bytes_ms"] else "bytes"
+            for kernel in ("attention_wgmma", "attention_wmma"):
+                ctx = torch.empty(b * t1, nh * dv, dtype=torch.bfloat16, device=dev)
+                if kernel == "attention_wgmma":  # the wrapper, as the path calls it
+                    run = lambda: ck.attention(qkv, ctx, B=b, T=t1, t_keys=t1, **kw)
+                else:  # the kernel it replaced at <= 128 tokens, by its C entry
+                    args = ck.attention_args(qkv, ctx, B=b, T=t1, t_keys=t1, **kw, kernel=kernel)
+                    run = lambda: ck._check(ck._lib("attention").egoego_attention(
+                        ctypes.byref(args), torch.cuda.current_stream().cuda_stream), kernel)
+                ck.kernel_launches.clear()
+                run()
+                torch.cuda.synchronize()
+                if dict(ck.kernel_launches) != ({kernel: 1} if kernel == "attention_wgmma" else {}):
+                    raise AssertionError(f"{kernel}: launched {dict(ck.kernel_launches)}")
+                err = float((ctx.float() - want).abs().max())
+                if not err <= TOL_BF16:
+                    raise AssertionError(f"{kernel} {b}x{t1}: max|launch - attention_plain| = {err} > {TOL_BF16}")
+                dms, names = device_time_ms(run)
+                r[kernel] = {"device_ms": dms, "ms": cuda_time_ms(run), "max_abs_err": err, "kernels": names}
+            sdpa = lambda: F.scaled_dot_product_attention(q, k, v)
+            r["sdpa_device_ms"], sdpa_names = device_time_ms(sdpa)
+            r["sdpa_max_abs_err"] = float((sdpa().transpose(1, 2).reshape(b * t1, -1).float() - want).abs().max())
+            r["plain_ms"] = cuda_time_ms(lambda: fl.attention_plain(qkv, B=b, T=t1, t_keys=t1, **kw, bf16=True))
+            wg, wm = r["attention_wgmma"], r["attention_wmma"]
+            table[f"{b}x{t1}"] = r
+            log(f"phase 2: attention {b}x{t1} tokens bf16: wgmma device {wg['device_ms']:.4f} ms (per call "
+                f"{wg['ms']:.4f}), WMMA device {wm['device_ms']:.4f} ms (per call {wm['ms']:.4f}), SDPA bf16 device "
+                f"{r['sdpa_device_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}; {r['gflop']:.2f} GFLOP, {r['mbytes']:.1f} MB); max|launch - plain| wgmma "
+                f"{wg['max_abs_err']:.3e}, WMMA {wm['max_abs_err']:.3e}, SDPA {r['sdpa_max_abs_err']:.3e} "
+                f"(bound {TOL_BF16}); {wg['kernels']} {wm['kernels']} {sdpa_names} [{card}]")
+        if not table[f"{BATCH}x121"]["attention_wgmma"]["device_ms"] <= table[f"{BATCH}x121"]["attention_wmma"][
+                "device_ms"]:
+            raise AssertionError("attention_wgmma is slower than the WMMA kernel it replaced at 64 x 121")
         return table
 
     def step_profile(inp, steps=20):
@@ -619,6 +709,7 @@ def main() -> int:
             step_prof = step_profile(inp)
             log(f"phase 2: one reverse step, bf16 {BATCH}x{t + 1} tokens: {step_prof} [{card}]")
         results["decoder_layer"].setdefault("launch_table", {})[f"{BATCH}x{t + 1}"] = launch_table(inp)
+    results["decoder_layer"]["attention_launch"] = attention_table()
     del prep, inp
 
     # synthetic AMASS-layout records, stats and rest offsets (seeded)
@@ -646,7 +737,7 @@ def main() -> int:
 
     def c_per_step(bf16=True):  # C-entry launches of one reverse step
         return {k: sum(n * c_launches(w, bf16).get(k, 0) for w, n in per_step.items())
-                for k in ("gemm", "gemm_wgmma", "attention") if k in c_launches("stem_layer", bf16)}
+                for k in c_launches("stem_layer", bf16)}
 
     def clear_counts():
         ck.launch_counts.clear()
@@ -971,10 +1062,12 @@ def main() -> int:
                 "fused_attention": "egoego_release_tpu/ops/attention.py:31"}
     csrc = "egoego_release_tpu_torch/csrc/"
     layer_srcs = [csrc + "gemm.cu", csrc + "attention.cu"]
-    results["fused_decoder_layer"] = dict(fdl, launches=n_fdl)
-    results["fused_attention"] = dict(fa, launches=n_fa)
+    results["fused_decoder_layer"] = dict(fdl, launches=n_fdl, c_kernels={
+        k: n_fdl * v for k, v in c_launches("fused_decoder_layer").items()})
+    results["fused_attention"] = dict(fa, launches=n_fa, c_kernels={"mha": n_fa})
     for name in per_step:
-        results[name].update(launches=launches[name], shape=f"{BATCH} windows x {cfg.window + 1} tokens, bf16")
+        results[name].update(launches=launches[name], shape=f"{BATCH} windows x {cfg.window + 1} tokens, bf16",
+                             c_kernels={k: launches[name] * v for k, v in c_launches(name).items()})
     # the stem's and the update's GEMM launch (gemm_wgmma_kernel kStem / kStep) at both windows
     tables = results["decoder_layer"]["launch_table"]
     for name, part in (("stem_layer", "stem"), ("layer_epilogue", "step")):
@@ -993,7 +1086,8 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "gflop": r["gflop"], "mbytes": r["mbytes"],
             "shape": r["shape"], "card": card,
             **{key: r[key] for key in ("device_ms", "library_device_ms", "bound_f32_core_ms", "per_shape",
-                                       "mma_sync_tf32_tflops", "launch_table", "gemm_launch") if key in r},
+                                       "mma_sync_tf32_tflops", "launch_table", "gemm_launch", "attention_launch",
+                                       "c_kernels") if key in r},
         })
     log(f"main path: eval_stage2 {dt_a:.3f} s; DDPM chain {dt_b:.3f} s; DDIM chain {dt_d:.3f} s; "
         f"eval_stage2 --fused {dt_c:.3f} s; eval_egoego {dt_egoego:.3f} s; stage 1 "

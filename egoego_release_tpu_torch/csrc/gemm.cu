@@ -78,12 +78,8 @@
 // only where the TPU kernel cast it (q/k/v, the ReLU hidden). LayerNorm
 // statistics, the carry and the posterior update stay f32.
 
-#include <cuda.h>
-#include <dlfcn.h>
-
-#include <cstdint>
-
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace egoego {
 
@@ -281,57 +277,6 @@ struct WgTile {
   static_assert(kSmem <= 227 * 1024, "shared memory of one block");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Returns once the barrier's phase of this parity has completed. A phase
-// that never completes (a fault in the ring's accounting) traps after ~2^34
-// cycles (~9 s) instead of holding the card forever.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const long long t0 = clock64();
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (!done && clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
-
-// TMA: the box at (inner coordinate c0, row c1) of the map into shared
-// memory; the barrier counts its bytes.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
-      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma descriptor of a K-major tile of 128-byte rows with the 128-byte
-// swizzle, at a 1024-byte aligned base (+ 32 bytes per k16 step): 8-row
-// groups 1024 bytes apart (SBO 64 x 16 B); LBO is not read for this layout.
-__device__ __forceinline__ uint64_t wg_desc(const void* tile) {
-  return ((smem_u32(tile) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
 // d (64 x 256 f32, the m64n256 fragment) += A (64 x 16) W^T (16 x 256), both from shared memory.
 __device__ __forceinline__ void wgmma_k16(float (&d)[128], uint64_t desc_a, uint64_t desc_w) {
   asm volatile(
@@ -385,13 +330,6 @@ __device__ __forceinline__ void wgmma_k16(float (&d)[52], uint64_t desc_a, uint6
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
       : "l"(desc_a), "l"(desc_w), "r"(1));  // scale-d 1: d += A W^T
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // barrier 1 over the two consumer warpgroups only (the producer has left)
@@ -874,33 +812,14 @@ static cudaError_t launch_f32(const GemmArgs& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled from libcuda.so.1, which the CUDA runtime has loaded
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib == nullptr ? nullptr : reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
-}
-
 // TMA map of a row-major bf16 (rows, cols) matrix with row stride ld,
 // boxes of box_rows x 64 columns with the 128-byte swizzle; out-of-bounds
 // elements read as zeros.
 static bool tma_map(CUtensorMap* map, const void* base, int rows, int cols, int ld, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
   const cuuint32_t box[2] = {(cuuint32_t)kWgBK, (cuuint32_t)box_rows};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
-                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tma_map_bf16(map, base, 2, dims, strides, box);
 }
 
 template <int BM, int BN, int STAGES, int EPI>

@@ -1,0 +1,117 @@
+// Hopper (sm_90a) building blocks shared by the wgmma kernels (gemm.cu,
+// attention.cu): mbarriers, TMA loads, wgmma shared-memory descriptors and
+// the wgmma fence/commit/wait, and on the host the TMA map encoder.
+#pragma once
+
+#include <cuda.h>
+#include <dlfcn.h>
+
+#include <cstdint>
+
+namespace egoego {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Returns once the barrier's phase of this parity has completed. A phase
+// that never completes (a fault in the ring's accounting) traps after ~2^34
+// cycles (~9 s) instead of holding the card forever.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+// TMA: the box at (inner coordinate c0, row c1) of the map into shared
+// memory; the barrier counts its bytes.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// TMA: the box at (c0, c1, c2) of a 3-D map, as tma_load_2d.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile of 128-byte rows with the 128-byte
+// swizzle, at a 1024-byte aligned base (+ 32 bytes per k16 step): 8-row
+// groups 1024 bytes apart (SBO 64 x 16 B); LBO is not read for this layout.
+__device__ __forceinline__ uint64_t wg_desc(const void* tile) {
+  return ((smem_u32(tile) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// wgmma descriptor of an MN-major operand with the 128-byte swizzle (B of
+// a product over its rows, read through the transpose-B immediate): each k
+// row holds 64 consecutive n values in 128 bytes, 8-row groups of k lie
+// 1024 bytes apart (SBO), and the next 64 values of n lie `lbo` bytes on
+// (LBO); the base is 1024-byte aligned (+ 2048 bytes per k16 step).
+__device__ __forceinline__ uint64_t wg_desc_mn(const void* tile, uint32_t lbo) {
+  return ((smem_u32(tile) & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// cuTensorMapEncodeTiled from libcuda.so.1, which the CUDA runtime has loaded
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib == nullptr ? nullptr : reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+// TMA map of a bf16 tensor of `rank` dimensions (dims[0] innermost, byte
+// strides of dims 1.. in strides), boxes of box[] elements with the 128-byte
+// swizzle (box[0] = 64); out-of-bounds elements read as zeros.
+static bool tma_map_bf16(CUtensorMap* map, const void* base, cuuint32_t rank, const cuuint64_t* dims,
+                         const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides, box,
+                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace egoego

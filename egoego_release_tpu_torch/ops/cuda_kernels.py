@@ -37,8 +37,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 launch_counts: Counter = Counter()
 # Launches of each kernel of the C entries, counted once the entry has
 # returned without error: "gemm_wgmma" (every product in bf16) and "gemm"
-# (f32) as egoego_gemm reports its choice, "attention", "mha".
+# (f32) as egoego_gemm reports its choice; the attention kernel that
+# ``attention`` picks (ATTENTION_KERNELS); "mha".
 kernel_launches: Counter = Counter()
+
+# csrc/attention.cu AttnKernel, by launch name: the CUDA-core kernel (f32
+# mode, other head widths), the WMMA kernel (bf16 at head width 256 past
+# WGMMA_MAX_TOKENS tokens) and the wgmma kernel (bf16 at head width 256)
+ATTENTION_KERNELS = {"attention": 0, "attention_wmma": 1, "attention_wgmma": 2}
+WGMMA_MAX_TOKENS = 128  # keys in one m64n128 score accumulator, K and V in shared memory
 
 # GEMM epilogue modes (csrc/gemm.cu GemmMode); the first three are the
 # products of a DecoderLayer
@@ -60,7 +67,7 @@ class AttnArgs(ctypes.Structure):
     _fields_ = [("qkv", ctypes.c_void_p), ("ctx", ctypes.c_void_p)] + [
         (name, ctypes.c_int) for name in (
             "B", "T", "t_keys", "n_head", "d_k", "d_v", "ld_qkv", "ld_ctx",
-            "is_bf16")] + [("scale", ctypes.c_float)]
+            "is_bf16", "kernel")] + [("scale", ctypes.c_float)]
 
 
 class MhaArgs(ctypes.Structure):
@@ -259,22 +266,46 @@ def gemm(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return out
 
 
-def attention(qkv: torch.Tensor, ctx: torch.Tensor, *, B: int, T: int,
-              t_keys: int, n_head: int, d_k: int, d_v: int) -> torch.Tensor:
-    """ctx (B*T, H*dv) = softmax(q k^T / sqrt(dk), keys < t_keys) v per head."""
+def attention_route(dtype: torch.dtype, T: int, d_k: int, d_v: int) -> str:
+    """The attention kernel for a layout, by launch name: the wgmma kernel
+    in bf16 at head width 256 up to WGMMA_MAX_TOKENS tokens (every path at
+    the release window), the WMMA kernel there past it, the CUDA-core
+    kernel otherwise."""
+    if dtype == torch.bfloat16 and d_k == d_v == 256:
+        return "attention_wgmma" if T <= WGMMA_MAX_TOKENS else "attention_wmma"
+    return "attention"
+
+
+def attention_args(qkv: torch.Tensor, ctx: torch.Tensor, *, B: int, T: int, t_keys: int, n_head: int, d_k: int,
+                   d_v: int, kernel: str) -> AttnArgs:
+    """The argument struct of one launch of the named attention kernel."""
+    return AttnArgs(qkv=_ptr(qkv), ctx=_ptr(ctx), B=B, T=T, t_keys=t_keys, n_head=n_head, d_k=d_k, d_v=d_v,
+                    ld_qkv=qkv.shape[1], ld_ctx=ctx.shape[1], is_bf16=int(qkv.dtype == torch.bfloat16),
+                    kernel=ATTENTION_KERNELS[kernel], scale=1.0 / d_k ** 0.5)
+
+
+def attention(qkv: torch.Tensor, ctx: torch.Tensor, *, B: int, T: int, t_keys: int, n_head: int, d_k: int,
+              d_v: int) -> torch.Tensor:
+    """ctx (B*T, H*dv) = softmax(q k^T / sqrt(dk), keys < t_keys) v per
+    head, from the packed qkv (B*T, H (2 dk + dv)); the function of
+    ``fused_layer.attention_plain``, on the kernel ``attention_route``
+    picks. The tensor-core kernels need 16-byte aligned qkv and ctx; a
+    layout the picked kernel cannot take raises, and nothing falls back to
+    another kernel."""
     dt = qkv.dtype
     _need(qkv, (torch.float32, torch.bfloat16), (B * T, n_head * (2 * d_k + d_v)), "qkv")
     _need(ctx, dt, (B * T, n_head * d_v), "ctx")
     if d_v > 256 or not 0 < t_keys <= T:
         raise ValueError(f"attention: need d_v <= 256 and 0 < t_keys <= T, got {d_v}, {t_keys}, {T}")
-    args = AttnArgs(qkv=_ptr(qkv), ctx=_ptr(ctx), B=B, T=T, t_keys=t_keys,
-                    n_head=n_head, d_k=d_k, d_v=d_v, ld_qkv=qkv.shape[1],
-                    ld_ctx=ctx.shape[1], is_bf16=int(dt == torch.bfloat16),
-                    scale=1.0 / d_k ** 0.5)
+    kernel = attention_route(dt, T, d_k, d_v)
+    if kernel != "attention" and (qkv.data_ptr() % 16 or ctx.data_ptr() % 16):
+        raise ValueError(f"{kernel}: need 16-byte aligned qkv and ctx, got them at {qkv.data_ptr() % 16} and "
+                         f"{ctx.data_ptr() % 16} bytes past 16")
+    args = attention_args(qkv, ctx, B=B, T=T, t_keys=t_keys, n_head=n_head, d_k=d_k, d_v=d_v, kernel=kernel)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     with torch.cuda.device(qkv.device):
-        _check(_lib("attention").egoego_attention(ctypes.byref(args), stream), "attention")
-    kernel_launches["attention"] += 1
+        _check(_lib("attention").egoego_attention(ctypes.byref(args), stream), kernel)
+    kernel_launches[kernel] += 1
     return ctx
 
 

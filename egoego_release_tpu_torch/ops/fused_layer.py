@@ -10,8 +10,9 @@ launches for every middle layer of a denoise step):
 On the TPU the whole layer was one kernel with its ~5 MB of bf16 weights
 resident in VMEM. An H100 SM has 227 KB of shared memory, so on the card
 the layer is five launches (csrc/gemm.cu, csrc/attention.cu): the fused
-QKV product, attention, fc with the residual + LayerNorm + mask epilogue,
-w1 with bias + ReLU, and w2 with the residual + LayerNorm + mask epilogue.
+QKV product, attention (``attention_plain`` is its plain version), fc
+with the residual + LayerNorm + mask epilogue, w1 with bias + ReLU, and w2
+with the residual + LayerNorm + mask epilogue.
 The layer is compute-bound at the main path's shapes (~47 GFLOP against
 ~40 MB), so the products run on the tensor cores in bf16 mode, on the
 wgmma kernel, which reads both operands as bf16 in device memory: the
@@ -81,6 +82,24 @@ def layer_norm_plain(y: torch.Tensor, s: torch.Tensor, b: torch.Tensor) -> torch
     return (y - mu) * torch.rsqrt(var + LN_EPS) * s + b
 
 
+def attention_plain(qkv, *, B, T, t_keys, n_head, d_k, d_v, bf16=False):
+    """Plain PyTorch version of the attention launch (csrc/attention.cu):
+    qkv (B*T, H (2 dk + dv)) packed as q | k | v, head h at columns h d of
+    each; ctx (B*T, H*dv) f32 = softmax(q k^T / sqrt(dk)) v per (batch,
+    head), keys at or past t_keys at -inf, in f32; ``bf16`` rounds p before
+    p v and ctx after it, as ``_layer_body`` does in bf16 mode."""
+    rnd = round_bf16 if bf16 else (lambda a: a)
+    hk = n_head * d_k
+    qkv = qkv.float()
+    heads = lambda a, d: a.reshape(B, T, n_head, d).transpose(1, 2)
+    q, k, v = heads(qkv[:, :hk], d_k), heads(qkv[:, hk:2 * hk], d_k), heads(qkv[:, 2 * hk:], d_v)
+    s = (q @ k.transpose(-1, -2)) * (1.0 / d_k ** 0.5)
+    if t_keys < T:
+        s[..., t_keys:] = float("-inf")
+    p = rnd(torch.softmax(s, dim=-1))
+    return rnd((p @ v).transpose(1, 2).reshape(B * T, n_head * d_v))
+
+
 def decoder_layer_plain(h, mask, lp, *, n_head, d_k, d_v):
     """Plain PyTorch version of the kernel chain: h (B, T, dm) f32, mask
     (B, T) f32. The mask scales output rows only; every token is a key."""
@@ -89,12 +108,7 @@ def decoder_layer_plain(h, mask, lp, *, n_head, d_k, d_v):
     rnd = round_bf16 if bf16 else (lambda a: a)
     x = h.reshape(bsz * t, dm)
     qkv = rnd(linear_plain(x, lp["wqkv"]) + lp["bqkv"])
-    hk = n_head * d_k
-    heads = lambda a, d: a.reshape(bsz, t, n_head, d).transpose(1, 2)
-    q, k, v = heads(qkv[:, :hk], d_k), heads(qkv[:, hk:2 * hk], d_k), heads(qkv[:, 2 * hk:], d_v)
-    s = (q @ k.transpose(-1, -2)) * (1.0 / d_k ** 0.5)
-    p = rnd(torch.softmax(s, dim=-1))
-    ctx = rnd((p @ v).transpose(1, 2).reshape(bsz * t, n_head * d_v))
+    ctx = attention_plain(qkv, B=bsz, T=t, t_keys=t, n_head=n_head, d_k=d_k, d_v=d_v, bf16=bf16)
     m = mask.reshape(bsz * t, 1).float()
     h0 = layer_norm_plain(linear_plain(ctx, lp["wfc"]) + lp["bfc"] + x, lp["ln1s"], lp["ln1b"]) * m
     h1 = rnd(torch.relu(linear_plain(h0, lp["w1"]) + lp["b1"]))

@@ -3,7 +3,8 @@
 Each variant is ``csrc/gemm.cu`` with one part of ``gemm_wgmma_kernel``
 switched off by a guard the compiler cannot fold (the instructions stay in
 the kernel; they are skipped at run time), built into
-``build/gemm_variants/`` with the flags of ``ops/cuda_kernels.py``:
+``build/gemm_variants/`` with the flags of ``ops/cuda_kernels.py``
+(``tools/attention_variants.py`` does the same for the layer's attention):
 
 - ``kernel``: the source as it is;
 - ``mainloop_only``: the consumers skip the epilogue (TMA ring + wgmma, one
@@ -37,7 +38,6 @@ import torch
 
 from egoego_release_tpu_torch.ops import cuda_kernels as ck
 
-OUT_DIR = ck.BUILD_DIR.parent / "gemm_variants"
 EPILOGUE_CALL = "      wgmma_epilogue<T>(p, acc, out_stage"
 RESIDUAL_LOAD = "const float2 r = R[h] < p.M ? *reinterpret_cast<const float2*>(p.res"
 STORE = "      if (R < p.M && C < p.N) {\n        const uint4 v"  # store_block (bias/ReLU modes)
@@ -67,30 +67,36 @@ PRODUCTS = {  # name: (mode, K, N) at d_model 512, 4 heads of 256, d = 198
 D = 198  # features of a frame; the stem's K is 2 D padded to 400
 
 
-def build_variants() -> dict[str, ctypes.CDLL]:
-    src = (ck.CSRC / "gemm.cu").read_text()
+def build_variants(source: str = "gemm", variants: dict = VARIANTS) -> dict[str, ctypes.CDLL]:
+    """Each variant of ``csrc/{source}.cu`` (its edits: (anchor, new text)
+    pairs, each anchor once in the source) built into its own library under
+    ``build/{source}_variants/``; returns {variant: its loaded library}."""
+    src = (ck.CSRC / f"{source}.cu").read_text()
+    out_dir = ck.BUILD_DIR.parent / f"{source}_variants"
     procs = {}
-    for name, edits in VARIANTS.items():
+    for name, edits in variants.items():
         text = src
         for old, new in edits:
             if text.count(old) != 1:
-                raise RuntimeError(f"{name}: the edit's anchor is not in csrc/gemm.cu once: {old!r}")
+                raise RuntimeError(f"{name}: the edit's anchor is not in csrc/{source}.cu once: {old!r}")
             text = text.replace(old, new)
-        d = OUT_DIR / name
+        d = out_dir / name
         d.mkdir(parents=True, exist_ok=True)
-        (d / "gemm.cu").write_text(text)
+        (d / f"{source}.cu").write_text(text)
         for h in ck.CSRC.glob("*.cuh"):
             shutil.copy(h, d / h.name)
-        procs[name] = subprocess.Popen([ck._nvcc(), *ck.NVCC_FLAGS, "-o", str(d / "libgemm.so"), str(d / "gemm.cu")],
-                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        procs[name] = subprocess.Popen(
+            [ck._nvcc(), *ck.NVCC_FLAGS, "-o", str(d / f"lib{source}.so"), str(d / f"{source}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
         out, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{out}")
-        lib = ctypes.CDLL(str(OUT_DIR / name / "libgemm.so"))
-        lib.egoego_gemm.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        lib.egoego_gemm.restype = ctypes.c_int
+        lib = ctypes.CDLL(str(out_dir / name / f"lib{source}.so"))
+        entry = getattr(lib, f"egoego_{source}")
+        entry.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        entry.restype = ctypes.c_int
         libs[name] = lib
     return libs
 

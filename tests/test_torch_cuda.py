@@ -71,8 +71,9 @@ def test_step_kernels_match_plain(card, bf16, frames, d_head):
 
 
 def test_wrappers_count_and_route_to_kernels(card):
-    """On CUDA tensors the wrappers launch the kernels (and count them)."""
-    cfg = DiffusionConfig(d_model=64, n_head=2, d_k=32, d_v=32, n_dec_layers=3, window=24, timesteps=3)
+    """On CUDA tensors the wrappers launch the kernels (and count them); at
+    head width 256 in bf16 the attention is the wgmma kernel."""
+    cfg = DiffusionConfig(d_model=64, n_head=2, d_k=256, d_v=256, n_dec_layers=3, window=24, timesteps=3)
     diff = CondGaussianDiffusion(cfg, device=card)
     x = torch.zeros(2, 24, cfg.d_feats, device=card)
     ck.launch_counts.clear()
@@ -81,8 +82,8 @@ def test_wrappers_count_and_route_to_kernels(card):
     assert torch.isfinite(out).all()
     assert dict(ck.launch_counts) == {"stem_layer": 3, "decoder_layer": 3, "layer_epilogue": 3}
     # per step: 4 GEMMs per layer, the stem's and the update's, all on the
-    # wgmma kernel
-    assert dict(ck.kernel_launches) == {"gemm_wgmma": 3 * (4 * 3 + 2), "attention": 3 * 3}
+    # wgmma kernel, and one attention per layer
+    assert dict(ck.kernel_launches) == {"gemm_wgmma": 3 * (4 * 3 + 2), "attention_wgmma": 3 * 3}
 
 
 def _step_inputs(card, cfg, model, bsz, frames, seed):
@@ -131,7 +132,7 @@ def test_stem_and_update_on_wgmma_match_plain(release, card, bsz, frames, inpain
         ck.kernel_launches.clear()
         out_k = wrapper(*args, **kw, **extra)
         assert dict(ck.launch_counts) == {wrapper.__name__: 1}
-        assert dict(ck.kernel_launches) == {"gemm_wgmma": 5, "attention": 1}
+        assert dict(ck.kernel_launches) == {"gemm_wgmma": 5, "attention_wgmma": 1}
         out_p = plain(*args, **kw)
         torch.cuda.synchronize()
         assert out_k.shape == out_p.shape
@@ -252,6 +253,53 @@ def test_wgmma_gemm_refuses_what_it_cannot_read(card):
         ck.gemm(ck.BIAS, torch.zeros(8, 60, dtype=bf, device=card), w[:, :60].contiguous(), bias, out, M=8)
     with pytest.raises(ValueError, match="bf16 out"):
         ck.gemm(ck.BIAS, torch.zeros(8, 64, dtype=bf, device=card), w, bias, torch.empty(8, 256, device=card), M=8)
+
+
+def _packed_qkv(card, b, t, seed, n_head=4, d=256):
+    """A bf16 qkv (B T, 3 H d) from a seed; V's columns carry a ramp, so a
+    V read transposed or with its 64-column boxes swapped cannot pass."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    qkv = torch.randn(b * t, 3 * n_head * d, generator=g, device=card)
+    qkv[:, 2 * n_head * d:] += torch.linspace(-2, 2, n_head * d, device=card)
+    return qkv.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,t,t_keys,kernel", [
+    (64, 121, 121, "attention_wgmma"), (64, 31, 31, "attention_wgmma"), (1, 121, 121, "attention_wgmma"),
+    (3, 41, 41, "attention_wgmma"), (5, 100, 37, "attention_wgmma"), (2, 128, 65, "attention_wgmma"),
+    (2, 64, 64, "attention_wgmma"), (2, 200, 200, "attention_wmma")])
+def test_layer_attention_matches_plain(card, b, t, t_keys, kernel):
+    """The layer's attention launch at head width 256 in bf16 against
+    attention_plain (bf16 rounding of p and ctx) on the same packed qkv:
+    the main path's 64 x 121 and 64 x 31 tokens, batch 1 (eval_egoego's
+    per-sequence chain), 3 x 41 (one query block, a 64-key tile), keys cut at
+    t_keys < T (37 of 100: a 64-key tile over 100 queries; 65 of 128), and
+    past 128 tokens, where the wrapper takes the WMMA kernel. The launch
+    counts under its kernel's name."""
+    qkv = _packed_qkv(card, b, t, seed=b + t + t_keys)
+    ctx = torch.full((b * t, 4 * 256), float("nan"), dtype=torch.bfloat16, device=card)
+    ck.kernel_launches.clear()
+    ck.attention(qkv, ctx, B=b, T=t, t_keys=t_keys, n_head=4, d_k=256, d_v=256)
+    assert dict(ck.kernel_launches) == {kernel: 1}
+    want = fl.attention_plain(qkv, B=b, T=t, t_keys=t_keys, n_head=4, d_k=256, d_v=256, bf16=True)
+    torch.cuda.synchronize()
+    assert float((ctx.float() - want).abs().max()) < TOL[True]
+
+
+def test_layer_attention_refuses_what_it_cannot_take(card):
+    """A qkv or ctx off 16-byte alignment raises in the wrapper; nothing
+    falls back to another kernel."""
+    b, t, n = 2, 121, 3 * 4 * 256
+    flat = torch.zeros(b * t * n + 8, dtype=torch.bfloat16, device=card)
+    ctx = torch.empty(b * t, 4 * 256, dtype=torch.bfloat16, device=card)
+    kw = dict(B=b, T=t, t_keys=t, n_head=4, d_k=256, d_v=256)
+    ck.kernel_launches.clear()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ck.attention(flat[1: 1 + b * t * n].view(b * t, n), ctx, **kw)
+    ctx_off = torch.empty(b * t * 4 * 256 + 8, dtype=torch.bfloat16, device=card)[4: 4 + b * t * 4 * 256]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ck.attention(flat[: b * t * n].view(b * t, n), ctx_off.view(b * t, -1), **kw)
+    assert not ck.kernel_launches
 
 
 @pytest.mark.parametrize("b,t,d_head", [(8, 256, 256), (4, 300, 256), (1, 1024, 256), (3, 37, 24),
