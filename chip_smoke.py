@@ -23,8 +23,9 @@ Phases (any failure exits non-zero; nothing is caught):
      and 1 x 121 tokens beside the WMMA kernel it replaced there, SDPA bf16
      and the bound.
   3. main path A: ``eval_stage2.run --fused_step`` on synthetic AMASS-layout
-     records (64 sequences x 120 frames), full release width, random weights
-     from a seed, DDPM-1000 in bf16.
+     records (64 sequences x 120 frames, one batch of
+     run_batches_pipelined), full release width, random weights from a seed, DDPM-1000 in
+     bf16.
   4. main path B: ``stage2_generate_batched`` on 64 head trajectories of
      140 frames (a 120-frame window plus a ragged 30-frame window with the
      overlap inpaint), DDPM-1000, then one DDIM-50 pass; each kernel's
@@ -53,6 +54,20 @@ Phases (any failure exits non-zero; nothing is caught):
      release window 60 (no fused_attention launch).
   9. stage-1 parity: stage1_head_pose at window 256 on the card (the mha
      kernel) against the CPU (its plain version), same weights.
+ 10. main path E: ``eval_egoego.run --batch_seqs 4 --headnet_window 256
+     --fused_step`` on 16 kinpoly-layout sequences (8 of 300 frames, 8 of
+     240: two length buckets, four batches of 3 stage-2 windows) through
+     ``run_batches_pipelined``, DDPM-1000: exact launch counts (one
+     fused_attention call per HeadNet layer per batch); its s/seq beside
+     phase 8's at batch 1; before it, each wrapper of the path at the
+     path's own shapes against its plain version (fused_attention on the
+     batched HeadNet's q, k, v: 8 and 4 blocks of 256, padded; the step
+     wrappers at 4 windows of 120, 80 and 20 frames, f32 and bf16), counted
+     once per call; the same path at DDPM-50 under the profiler for
+     the card's idle time between consecutive chains; then on the card, in
+     f32 with DDIM-50, run_batches_pipelined against the sequential
+     composition (2 batches of 2), the batched stage 1 against the
+     per-record one, and the bf16 and int8 OF uploads against f32.
 Then one JSON line of per-kernel results, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -60,6 +75,7 @@ Then one JSON line of per-kernel results, and as the last line
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -80,6 +96,9 @@ PEAK_TF32 = 495e12     # H100 SXM dense TF32 FLOP/s (tensor cores; NVIDIA data s
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 bytes/s
 BATCH = 64             # windows per chain: the eval batch of the release runs
 SEQS_D, FRAMES_D = 4, 300  # path D: kinpoly-layout sequences and their OF frames
+FRAMES_E = (300,) * 8 + (240,) * 8  # path E: two length buckets of 8 sequences
+BATCH_E = 4                # path E: --batch_seqs
+GAP_TIMESTEPS = 50         # path E again under the profiler, DDPM-50, for the gaps between chains
 HEADNET_WINDOW_D = 256     # the HeadNet block from which its attention takes the mha kernel
 TOL_F32 = 1e-4         # f32 kernel vs plain: summation order only
 TOL_BF16 = 2e-2        # bf16 kernel vs plain: a bf16 rounding may flip where sums differ in order
@@ -240,17 +259,18 @@ def smooth_quats(rng, n):
     return np.concatenate([np.cos(ang / 2), np.sin(ang / 2) * axis], -1).astype(np.float32)
 
 
-def write_kinpoly_fixture(root, rng, n_seqs, frames):
+def write_kinpoly_fixture(root, rng, lengths):
     """The layout the kinpoly-mocap eval reads (RealWorldHeadPoseDataset with
     eval_on_kinpoly_mocap): kinpoly-mocap/mocap_annotations.p, DROID-SLAM
     npys under kinpoly/droid_slam_res/{scene}/{take}.npy, one OF feature npy
-    per frame; plus the qpos GT pickle. Plain pickles (no joblib)."""
+    per frame; plus the qpos GT pickle. Plain pickles (no joblib). One
+    sequence per entry of ``lengths``, of that many OF frames."""
     feat_dir = os.path.join(root, "feats")
     slam_dir = os.path.join(root, "kinpoly", "droid_slam_res", "subj")
     for d in (feat_dir, slam_dir, os.path.join(root, "kinpoly-mocap")):
         os.makedirs(d, exist_ok=True)
     recs, gt = {}, {}
-    for si in range(n_seqs):
+    for si, frames in enumerate(lengths):
         name = f"subj-take{si + 1}"
         of_files = []
         for i in range(frames):
@@ -277,6 +297,41 @@ def write_kinpoly_fixture(root, rng, n_seqs, frames):
     return gt_path
 
 
+def union_us(spans, lo, hi):
+    """Microseconds of [lo, hi] covered by the (start, end) spans."""
+    total, cur = 0.0, lo
+    for a, b in spans:
+        a, b = max(a, cur), min(b, hi)
+        if b > a:
+            total += b - a
+            cur = b
+    return total
+
+
+def chain_boundaries(prof, n_chains, per_chain, per_step):
+    """The card's timeline around each boundary between consecutive chains
+    of a pipelined run, from the profiler's kernel spans: the interval from
+    the last step kernel of chain k to the first of chain k+1, the idle time
+    within it, and the busy share over the window from chain k's last 10
+    steps to chain k+1's first 10. None when the profiler did not see every
+    step kernel (it drops events now and then)."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    chain = [sp for sp in spans if "gemm_wgmma" in sp[2] or "attention_wgmma" in sp[2]]
+    if len(chain) != n_chains * per_chain:
+        return None, len(chain)
+    every = [(a, b) for a, b, _ in spans]
+    out = []
+    for k in range(1, n_chains):
+        last, first = chain[k * per_chain - 1], chain[k * per_chain]
+        lo, hi = chain[k * per_chain - 10 * per_step][0], chain[k * per_chain + 10 * per_step - 1][1]
+        gap = first[0] - last[1]
+        out.append({"interval_ms": gap / 1e3, "idle_ms": (gap - union_us(every, last[1], first[0])) / 1e3,
+                    "window_ms": (hi - lo) / 1e3, "busy_share": union_us(every, lo, hi) / (hi - lo)})
+    return out, len(chain)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -289,7 +344,8 @@ def main() -> int:
         CondGaussianDiffusion, DiffusionConfig)
     from egoego_release_tpu_torch.eval import eval_egoego, eval_stage2
     from egoego_release_tpu_torch.eval.build import build_pipeline
-    from egoego_release_tpu_torch.eval.pipeline import gt_from_smpl_params_batched
+    from egoego_release_tpu_torch.eval import pipeline as pl
+    from egoego_release_tpu_torch.models import transformer as tf_mod
     from egoego_release_tpu_torch.models.headnet import va2rot
     from egoego_release_tpu_torch.ops import attention as attn
     from egoego_release_tpu_torch.ops import cuda_kernels as ck
@@ -374,17 +430,17 @@ def main() -> int:
     nh, dk, dv, dm, d = cfg.n_head, cfg.d_k, cfg.d_v, cfg.d_model, cfg.d_feats
     kw = dict(n_head=nh, d_k=dk, d_v=dv)
 
-    def inputs(t):
+    def inputs(t, b=BATCH):
         rn = lambda *s: torch.randn(*s, generator=g, device=dev)
-        mask = torch.ones(BATCH, t + 1, device=dev)
-        ipm = torch.zeros(BATCH, t, device=dev)
+        mask = torch.ones(b, t + 1, device=dev)
+        ipm = torch.zeros(b, t, device=dev)
         ipm[:, :cfg.overlap_frames] = 1.0
         return {
-            "x": rn(BATCH, t, d), "xc": rn(BATCH, t, d), "noise": rn(BATCH, t, d),
-            "h": rn(BATCH, t + 1, dm), "mask": mask,
+            "x": rn(b, t, d), "xc": rn(b, t, d), "noise": rn(b, t, d),
+            "h": rn(b, t + 1, dm), "mask": mask,
             "emb": fs.noise_level_embeddings(model, [999])[0],
             "pos": prep[True]["pos_table"][1: t + 2].contiguous(),
-            "ipv": rn(BATCH, t, d), "ipm": ipm,
+            "ipv": rn(b, t, d), "ipm": ipm,
         }
 
     # kernel launches of one call of each wrapper: 4 GEMMs and one attention
@@ -413,7 +469,7 @@ def main() -> int:
              (inp["h"], inp["mask"], inp["x"], inp["noise"], UPDATE, inp["ipv"], inp["ipm"], p), {"xa": xa()}),
         ]
 
-    def check(name, what, wrapper, plain, args, extra, bf16, t):
+    def check(name, what, wrapper, plain, args, extra, bf16, t, phase="phase 2"):
         """The wrapper on card tensors against its plain version; the call
         must count once and launch its C entries. An update given xa must
         write bf16(x_next) into its x part, bit for bit, and nothing else."""
@@ -435,7 +491,7 @@ def main() -> int:
             raise AssertionError("layer_epilogue x0 check: x0 is mostly clipped, the check has no teeth")
         err = float((out_k - out_p).abs().max())
         tol = TOL_BF16 if bf16 else TOL_F32
-        log(f"phase 2: {name}{what} tokens={t + 1} {'bf16' if bf16 else 'f32'}: "
+        log(f"{phase}: {name}{what} {args[0].shape[0]} x {t + 1} tokens {'bf16' if bf16 else 'f32'}: "
             f"max|kernel - plain| = {err:.3e} (bound {tol})")
         if out_k.shape != out_p.shape or not math.isfinite(err) or err > tol:
             raise AssertionError(f"{name}{what} disagrees with its plain version: {err} > {tol}")
@@ -772,7 +828,7 @@ def main() -> int:
     # -- phase 4: main path B, the two-window chain -------------------------
     pipe = build_pipeline(stats_path=stats_path, rest_offsets_path=rest_path, device=dev, compute_dtype="bfloat16")
     mo = motion(BATCH, 140)
-    _, _, head = gt_from_smpl_params_batched(
+    _, _, head = pl.gt_from_smpl_params_batched(
         pipe, *(np.stack([mo[i][k] for i in range(BATCH)]) for k in ("trans", "root_orient", "body_pose")))
     clear_counts()
     torch.cuda.synchronize()
@@ -956,7 +1012,7 @@ def main() -> int:
 
     # -- phase 8: main path D, eval_egoego with HeadNet blocks of 256 --------
     kin_root = os.path.join(data_dir, "kinpoly")
-    gt_path = write_kinpoly_fixture(kin_root, np.random.RandomState(7), SEQS_D, FRAMES_D)
+    gt_path = write_kinpoly_fixture(kin_root, np.random.RandomState(7), [FRAMES_D] * SEQS_D)
     opt = eval_egoego.parse_opt([
         "--data_root_folder", kin_root, "--full_body_gt_path", gt_path, "--stats_path", stats_path,
         "--rest_offsets", rest_path, "--headnet_window", str(HEADNET_WINDOW_D), "--fused_step",
@@ -1055,6 +1111,174 @@ def main() -> int:
     if not (err_t < 1e-3 and err_q < 1e-4):
         raise AssertionError(f"phase 9: card and CPU stage 1 disagree: {err_t} m, {err_q}")
 
+
+    # -- phase 10: main path E, eval_egoego --batch_seqs 4 --fused_step ------
+    kin_e = os.path.join(data_dir, "kinpoly_e")
+    gt_path_e = write_kinpoly_fixture(kin_e, np.random.RandomState(11), FRAMES_E)
+    argv_e = ["--data_root_folder", kin_e, "--full_body_gt_path", gt_path_e, "--stats_path", stats_path,
+              "--rest_offsets", rest_path, "--headnet_window", str(HEADNET_WINDOW_D), "--fused_step",
+              "--batch_seqs", str(BATCH_E), "--out_dir", os.path.join(data_dir, "out_egoego_e"), "--device", "cuda"]
+    n_e = len(FRAMES_E)
+    batches_e = sum(math.ceil(FRAMES_E.count(f) / BATCH_E) for f in set(FRAMES_E))
+    win_e = {f: 1 + math.ceil((f - cfg.window) / (cfg.window - cfg.overlap_frames)) for f in set(FRAMES_E)}
+    if len(set(win_e.values())) != 1:
+        raise AssertionError(f"phase 10: the buckets' window counts differ: {win_e}")
+    windows_e = batches_e * win_e[FRAMES_E[0]]  # chains x windows a chain (batch_size rows each)
+
+    # the kernels at path E's own shapes, each wrapper on card tensors
+    # against its plain version: fused_attention on the q, k, v that the
+    # batched HeadNet gives it for 4 sequences of each length (8 or 4
+    # blocks of 256, the last of each sequence padded), then the step
+    # wrappers at BATCH_E windows of each window length the two buckets'
+    # chains run (the first window, the next, the ragged tail)
+    ds_e = eval_egoego.select_dataset(eval_egoego.parse_opt(argv_e))
+    recs_all = [ds_e[i] for i in range(len(ds_e))]
+    pipe = build_pipeline(stats_path=stats_path, rest_offsets_path=rest_path, headnet_window=HEADNET_WINDOW_D,
+                          device=dev)
+    seen_fa, fa_e = [], {"max_abs_err": 0.0}
+    real_fa = tf_mod.fused_attention
+    tf_mod.fused_attention = lambda q, k, v: seen_fa.append((q, k, v)) or real_fa(q, k, v)
+    t_windows = set()
+    try:
+        for f in sorted(set(FRAMES_E)):
+            recs_f = [r for r in recs_all if r["of"].shape[0] == f][:BATCH_E]
+            s1_f = pipe.stage1_head_pose_batched(recs_f)
+            t_chain = min(s1_f["head_pose"].shape[1], f)  # trimmed to the GT's f frames
+            for t_idx in range(0, t_chain, cfg.window - cfg.overlap_frames):
+                tw = min(cfg.window, t_chain - t_idx)
+                if tw > cfg.overlap_frames:
+                    t_windows.add(tw)
+    finally:
+        tf_mod.fused_attention = real_fa
+    if len(seen_fa) != 2 * len(set(FRAMES_E)):
+        raise AssertionError(f"phase 10: {len(seen_fa)} fused_attention calls in the batched stage 1, want "
+                             f"{2 * len(set(FRAMES_E))}")
+    for q, k, v in seen_fa:
+        out_k = check_once("fused_attention", lambda: attn.fused_attention(q, k, v),
+                           ({"fused_attention": 1}, {"mha": 1}))
+        out_p = attn.fused_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        err = float((out_k - out_p).abs().max())
+        log(f"phase 10: fused_attention f32 {tuple(q.shape[:3]) + (v.shape[-1],)} (the batched HeadNet's own "
+            f"q, k, v): max|kernel - plain| = {err:.3e} (bound {TOL_F32})")
+        if out_k.shape != out_p.shape or not math.isfinite(err) or err > TOL_F32:
+            raise AssertionError(f"phase 10: fused_attention {tuple(q.shape)} disagrees with its plain version: {err}")
+        fa_e["max_abs_err"] = max(fa_e["max_abs_err"], err)
+    del seen_fa, q, k, v, out_k, out_p
+    prep = {True: fs.prepare_step_params(model, True), False: fs.prepare_step_params(model, False)}
+    step_e = {}
+    for tw in sorted(t_windows, reverse=True):
+        inp = inputs(tw, BATCH_E)
+        for bf16 in (False, True):
+            for name, what, wrapper, plain, args, extra in calls(inp, bf16):
+                err = check(name, what, wrapper, plain, args, extra, bf16, tw, phase="phase 10")
+                key = "max_abs_err" if bf16 else "max_abs_err_f32"
+                step_e.setdefault(name, {}).setdefault(key, 0.0)
+                step_e[name][key] = max(step_e[name][key], err)
+    log(f"phase 10: step wrappers at {BATCH_E} windows of {sorted(t_windows, reverse=True)} frames, f32 and bf16: "
+        f"{step_e}")
+    del prep, inp
+    clear_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_e = eval_egoego.run(eval_egoego.parse_opt(argv_e))
+    torch.cuda.synchronize()
+    dt_e = time.perf_counter() - t0
+    got = dict(ck.launch_counts)
+    n_fa_e = 2 * batches_e  # HeadNet layers x batches: one call a layer over the batch's 2N or N blocks
+    want = {"fused_attention": n_fa_e, "stem_layer": windows_e * cfg.timesteps,
+            "decoder_layer": windows_e * cfg.timesteps * (cfg.n_dec_layers - 2),
+            "layer_epilogue": windows_e * cfg.timesteps}
+    want_c = {"mha": n_fa_e, **{k: windows_e * cfg.timesteps * v for k, v in c_per_step().items()}}
+    log(f"phase 10: launches {got} (expected {want}: {batches_e} batches x {win_e[FRAMES_E[0]]} windows); "
+        f"C entries {dict(ck.kernel_launches)} (expected {want_c})")
+    if got != want or dict(ck.kernel_launches) != want_c:
+        raise AssertionError(f"phase 10: launch counts {got}, {dict(ck.kernel_launches)} != {want}, {want_c}")
+    launches_e = got
+    entries = list(res_e["per_seq"].values())
+    if res_e["num_seqs"] != n_e or not all(math.isfinite(v) for e in entries for v in e.values()):
+        raise AssertionError(f"phase 10: bad eval result {res_e}")
+    if not all(e["s1_t_head"] > 0 for e in entries):
+        raise AssertionError("phase 10: a stage-1 triple is missing")
+    s_seq_d, s_seq_e = dt_egoego / SEQS_D, dt_e / n_e
+    log(f"phase 10: eval_egoego --batch_seqs {BATCH_E} --fused_step, {n_e} seqs ({FRAMES_E.count(300)} x 300, "
+        f"{FRAMES_E.count(240)} x 240 frames), HeadNet window {HEADNET_WINDOW_D}, DDPM-{cfg.timesteps}: {dt_e:.2f} s, "
+        f"{s_seq_e:.3f} s/seq ({n_e / dt_e:.3f} seqs/s) against phase 8's {s_seq_d:.3f} s/seq at batch 1 "
+        f"({s_seq_d / s_seq_e:.2f}x) [{card}]; s1_t_head {res_e['mean']['s1_t_head']:.1f} mm, mpjpe "
+        f"{res_e['mean']['mpjpe']:.1f} mm (random weights)")
+
+    # the same path under the profiler at DDPM-GAP_TIMESTEPS: the card's
+    # timeline at each boundary between consecutive chains
+    argv_gap = argv_e[:-4] + ["--timesteps", str(GAP_TIMESTEPS), "--out_dir", os.path.join(data_dir, "out_gap"),
+                              "--device", "cuda"]
+    step_kernels = sum(c_per_step().values())
+    gaps, seen = None, 0
+    for _ in range(PROFILER_TRIES):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            eval_egoego.run(eval_egoego.parse_opt(argv_gap))
+            torch.cuda.synchronize()
+        gaps, seen = chain_boundaries(prof, batches_e, win_e[FRAMES_E[0]] * GAP_TIMESTEPS * step_kernels,
+                                      step_kernels)
+        if gaps is not None:
+            break
+    if gaps is None:
+        log(f"phase 10: gaps between chains not measured (the profiler saw {seen} step kernels, want "
+            f"{batches_e * win_e[FRAMES_E[0]] * GAP_TIMESTEPS * step_kernels})")
+    else:
+        for k, gp_k in enumerate(gaps, 1):
+            log(f"phase 10: chain {k - 1} -> {k} (DDPM-{GAP_TIMESTEPS}, profiled): {gp_k['interval_ms']:.3f} ms from "
+                f"the last step kernel to the next chain's first, {gp_k['idle_ms']:.3f} ms of it idle; busy share "
+                f"{gp_k['busy_share']:.3f} over the {gp_k['window_ms']:.2f} ms from 10 steps before to 10 after [{card}]")
+
+    # parity on the card: f32 step kernels, DDIM-50, 2 batches of 2 sequences
+    with open(gt_path_e, "rb") as f:
+        gt_e = pickle.load(f)
+    recs_e = recs_all[:4]  # the first 4: 300 frames each
+    batches_p = [{"records": recs_e[i:i + 2],
+                  "gt_qpos": np.stack([gt_e[r["seq_name"]]["qpos"] for r in recs_e[i:i + 2]]),
+                  "gt_head_pose": np.stack([gt_e[r["seq_name"]]["head_pose"] for r in recs_e[i:i + 2]])}
+                 for i in (0, 2)]
+    pipe = build_pipeline(stats_path=stats_path, rest_offsets_path=rest_path, headnet_window=HEADNET_WINDOW_D,
+                          sampler="ddim", device=dev)
+    got_p = pl.run_batches_pipelined(pipe, batches_p, fs.TorchNoise(dev, seed=12))
+    err_m = 0.0
+    for k, (b, noise_k) in enumerate(zip(batches_p, fs.TorchNoise(dev, seed=12).split(2))):
+        gq, gp, _ = pl.gt_from_qpos_batched(pipe, b["gt_qpos"])
+        s1 = pipe.stage1_head_pose_batched(b["records"])
+        hp = s1["head_pose"][:, :b["gt_head_pose"].shape[1]]
+        hp = torch.cat([hp[..., :3] + (gp[:, 0:1, pl.HEAD_IDX] - hp[:, 0:1, :3]), hp[..., 3:]], -1)
+        for g_md, w_md in zip(got_p[k]["metrics"], pl.evaluate_batch(pipe, hp, gq, gp, noise_k)):
+            for name, w in w_md.items():
+                err_m = max(err_m, float(np.max(np.abs(g_md[name] - w) / np.maximum(1.0, np.abs(w)))))
+    log(f"phase 10: run_batches_pipelined vs the sequential composition, f32 DDIM-{cfg.ddim_steps}, 2 x 2 seqs: "
+        f"max metric error {err_m:.3e} (relative above 1, absolute below; bound 1e-5)")
+    if not err_m <= 1e-5:
+        raise AssertionError(f"phase 10: run_batches_pipelined and the sequential composition disagree: {err_m}")
+    s1_b = pipe.stage1_head_pose_batched(recs_e)
+    err_hp = err_sc = 0.0
+    for i, rec in enumerate(recs_e):
+        one = pipe.stage1_head_pose(rec)
+        err_hp = max(err_hp, float((s1_b["head_pose"][i] - one["head_pose"]).abs().max()))
+        err_sc = max(err_sc, float(abs(s1_b["pred_scale"][i] - one["pred_scale"]) / abs(one["pred_scale"])))
+    log(f"phase 10: stage1_head_pose_batched vs stage1_head_pose per record, 4 x 300 frames: head pose "
+        f"{err_hp:.3e} (bound 2e-4), pred_scale relative {err_sc:.3e} (bound 1e-4)")
+    if not (err_hp <= 2e-4 and err_sc <= 1e-4):
+        raise AssertionError(f"phase 10: batched and per-record stage 1 disagree: {err_hp}, {err_sc}")
+    for mode, hp_tol, rtol, atol in (("of_bf16", 2e-2, 2e-2, 5e-3), ("of_int8", 5e-2, 5e-2, 1e-2)):
+        out = dataclasses.replace(pipe, **{mode: True}).stage1_head_pose_batched(recs_e)
+        e_hp = float((out["head_pose"] - s1_b["head_pose"]).abs().max())
+        e_sc = float(((out["pred_scale"] - s1_b["pred_scale"]).abs() - rtol * s1_b["pred_scale"].abs()).max())
+        log(f"phase 10: --{mode} stage 1 vs f32: head pose {e_hp:.3e} (bound {hp_tol}); pred_scale excess over "
+            f"rtol {rtol}: {e_sc:.3e} (bound atol {atol})")
+        if not (torch.isfinite(out["head_pose"]).all() and e_hp <= hp_tol and e_sc <= atol):
+            raise AssertionError(f"phase 10: --{mode} stage 1 is off: {e_hp}, {e_sc}")
+    of_e = torch.randn(4, FRAMES_D, 512, generator=g, device=dev).cpu()
+    pinned = of_e.pin_memory()
+    copy_ms = cuda_time_ms(lambda: pinned.to(dev, non_blocking=True), warmup=2, reps=10)
+    up_ms = cuda_time_ms(lambda: pipe._upload(of_e), warmup=2, reps=10)
+    log(f"phase 10: OF upload 4 x {FRAMES_D} x 512 f32 ({of_e.numel() * 4 / 1e6:.2f} MB): the copy from pinned "
+        f"memory {copy_ms:.3f} ms, with the pinning (EgoEgoPipeline._upload) {up_ms:.3f} ms [{card}]")
+
     replaces = {"stem_layer": "egoego_release_tpu/ops/fused_step.py:126",
                 "decoder_layer": "egoego_release_tpu/ops/fused_layer.py:113",
                 "layer_epilogue": "egoego_release_tpu/ops/fused_step.py:160",
@@ -1064,9 +1288,12 @@ def main() -> int:
     layer_srcs = [csrc + "gemm.cu", csrc + "attention.cu"]
     results["fused_decoder_layer"] = dict(fdl, launches=n_fdl, c_kernels={
         k: n_fdl * v for k, v in c_launches("fused_decoder_layer").items()})
-    results["fused_attention"] = dict(fa, launches=n_fa, c_kernels={"mha": n_fa})
+    results["fused_attention"] = dict(fa, launches=n_fa, c_kernels={"mha": n_fa},
+                                      launches_path_e=launches_e["fused_attention"],
+                                      max_abs_err_path_e=fa_e["max_abs_err"])
     for name in per_step:
-        results[name].update(launches=launches[name], shape=f"{BATCH} windows x {cfg.window + 1} tokens, bf16",
+        results[name].update(launches=launches[name], launches_path_e=launches_e[name],
+                             max_abs_err_path_e=step_e[name], shape=f"{BATCH} windows x {cfg.window + 1} tokens, bf16",
                              c_kernels={k: launches[name] * v for k, v in c_launches(name).items()})
     # the stem's and the update's GEMM launch (gemm_wgmma_kernel kStem / kStep) at both windows
     tables = results["decoder_layer"]["launch_table"]
@@ -1087,10 +1314,11 @@ def main() -> int:
             "shape": r["shape"], "card": card,
             **{key: r[key] for key in ("device_ms", "library_device_ms", "bound_f32_core_ms", "per_shape",
                                        "mma_sync_tf32_tflops", "launch_table", "gemm_launch", "attention_launch",
-                                       "c_kernels") if key in r},
+                                       "c_kernels", "launches_path_e", "max_abs_err_path_e") if key in r},
         })
     log(f"main path: eval_stage2 {dt_a:.3f} s; DDPM chain {dt_b:.3f} s; DDIM chain {dt_d:.3f} s; "
-        f"eval_stage2 --fused {dt_c:.3f} s; eval_egoego {dt_egoego:.3f} s; stage 1 "
+        f"eval_stage2 --fused {dt_c:.3f} s; eval_egoego {dt_egoego:.3f} s; eval_egoego --batch_seqs {BATCH_E} "
+        f"{dt_e:.3f} s ({s_seq_e:.3f} s/seq against {s_seq_d:.3f}); stage 1 "
         f"{stage1[HEADNET_WINDOW_D]['ms_per_seq']:.2f} ms/seq (window {HEADNET_WINDOW_D}), "
         f"{stage1[60]['ms_per_seq']:.2f} ms/seq (window 60); whole smoke {time.perf_counter() - t_start:.1f} s; "
         f"device times left by the profiler to CUDA events: {len(EVENT_TIMED)}")

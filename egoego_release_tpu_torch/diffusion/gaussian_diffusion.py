@@ -64,6 +64,9 @@ class DiffusionConfig:
     # the --fused denoiser (fused_decoder_layer per layer, bf16) instead of
     # the step kernels; the CLIs give --fused_step precedence, as JAX does
     fused_transformer: bool = False
+    # --sample_microbatch N: a reverse chain over more than N rows runs as
+    # chunks of N in sequence, each with its own noise source; 0 = off
+    sample_microbatch: int = 0
 
 
 class NormStats(NamedTuple):
@@ -158,18 +161,37 @@ class CondGaussianDiffusion:
 
     # -- reverse process ---------------------------------------------------
 
+    def _loop(self, x_start, cond_mask, padding_mask, inpaint_value, inpaint_mask, *, noise, **kw):
+        """The reverse chain of the configured route. With
+        ``sample_microbatch`` N below the batch, the batch is padded to a
+        multiple of N by repeating its last row (rows are independent
+        through the denoiser), run as chunks of N in sequence, each with
+        its own source from ``noise.split`` (JAX: ``jax.random.split(key,
+        k)``), and sliced back."""
+        loop = fused_layer_p_sample_loop if self.cfg.fused_transformer else fused_p_sample_loop
+        mb = self.cfg.sample_microbatch
+        bs = x_start.shape[0]
+        if not mb or bs <= mb:
+            return loop(self, x_start, cond_mask, padding_mask, inpaint_value, inpaint_mask, noise=noise, **kw)
+        pad = (-bs) % mb
+        arrays = [x_start, cond_mask, padding_mask, inpaint_value, inpaint_mask]
+        if pad:
+            arrays = [None if a is None else torch.cat([a, a[-1:].expand(pad, *a.shape[1:])]) for a in arrays]
+        chunks = noise.split((bs + pad) // mb)
+        out = [loop(self, *(None if a is None else a[i * mb:(i + 1) * mb] for a in arrays), noise=src, **kw)
+               for i, src in enumerate(chunks)]
+        return torch.cat(out)[:bs]
+
     def p_sample_loop(self, x_start, cond_mask, padding_mask=None, inpaint_value=None,
                       inpaint_mask=None, *, noise):
         """DDPM over every timestep (inpaint_mask (B, T, 1), 1 = force)."""
-        loop = fused_layer_p_sample_loop if self.cfg.fused_transformer else fused_p_sample_loop
-        return loop(self, x_start, cond_mask, padding_mask, inpaint_value, inpaint_mask, noise=noise)
+        return self._loop(x_start, cond_mask, padding_mask, inpaint_value, inpaint_mask, noise=noise)
 
     def p_sample_loop_ddim(self, x_start, cond_mask, num_steps: int = 50, eta: float = 0.0,
                            padding_mask=None, inpaint_value=None, inpaint_mask=None, *, noise):
         """DDIM over ``num_steps`` strided timesteps (eta 0: deterministic)."""
-        loop = fused_layer_p_sample_loop if self.cfg.fused_transformer else fused_p_sample_loop
-        return loop(self, x_start, cond_mask, padding_mask, inpaint_value, inpaint_mask,
-                    noise=noise, ddim_steps=num_steps, eta=eta)
+        return self._loop(x_start, cond_mask, padding_mask, inpaint_value, inpaint_mask, noise=noise,
+                          ddim_steps=num_steps, eta=eta)
 
     # -- canonical sliding-window sampling ---------------------------------
 

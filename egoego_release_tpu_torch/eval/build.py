@@ -16,7 +16,7 @@ from egoego_release_tpu_torch.diffusion.gaussian_diffusion import (
     DiffusionConfig,
     new_denoiser,
 )
-from egoego_release_tpu_torch.eval.pipeline import EgoEgoPipeline
+from egoego_release_tpu_torch.eval.pipeline import EgoEgoPipeline, check_of_upload
 from egoego_release_tpu_torch.models.denoiser import init_weights_
 from egoego_release_tpu_torch.models.gravitynet import HeadNormalFormer
 from egoego_release_tpu_torch.models.headnet import HeadFormer
@@ -73,18 +73,23 @@ def build_pipeline(*, stats_path: str, smplh_path: str | None = None,
                    gravitynet_d_model: int = 256, gravitynet_layers: int = 2, n_head: int = 4,
                    d_k: int = 256, d_v: int = 256, sampler: str = "ddpm", ddim_steps: int = 50,
                    timesteps: int = 1000, compute_dtype: str = "float32",
-                   fused_transformer: bool = False, seed: int = 0, device="cuda") -> EgoEgoPipeline:
+                   fused_transformer: bool = False, sample_microbatch: int = 0, of_bf16: bool = False,
+                   of_int8: bool = False, seed: int = 0, device="cuda") -> EgoEgoPipeline:
     """The pipeline on ``device`` (the card unless device="cpu" is passed).
     Models without a checkpoint are random-init: the denoiser from ``seed``,
     HeadNet from ``seed + 1`` and GravityNet from ``seed + 2``, as in JAX.
     The step kernels compute in ``compute_dtype``: f32 by default, as JAX's
     ``DiffusionConfig`` (its CLIs' default numerics); "bfloat16" is what the
     CLIs' ``--fused_step`` selects. ``fused_transformer`` selects the
-    ``--fused`` denoiser path (bf16 layers whatever ``compute_dtype``)."""
+    ``--fused`` denoiser path (bf16 layers whatever ``compute_dtype``),
+    ``sample_microbatch`` the chunk of the reverse chain, and ``of_bf16`` /
+    ``of_int8`` the batched stage 1's OF upload; asking for both raises
+    ValueError before any model is built."""
+    check_of_upload(of_bf16, of_int8)
     dev = resolve_device(device)
     cfg = DiffusionConfig(window=window, sampler=sampler, ddim_steps=ddim_steps,
                           timesteps=timesteps, compute_dtype=compute_dtype,
-                          fused_transformer=fused_transformer)
+                          fused_transformer=fused_transformer, sample_microbatch=sample_microbatch)
     model = None
     if diffusion_ckpt and os.path.isfile(diffusion_ckpt):
         sd, _ = load_stage2_diffusion_ckpt(diffusion_ckpt)
@@ -107,4 +112,5 @@ def build_pipeline(*, stats_path: str, smplh_path: str | None = None,
     rest = load_rest_offsets(smplh_path, rest_offsets_path)
     return EgoEgoPipeline(diffusion=diffusion, stats=load_norm_stats(stats_path, device=dev),
                           rest_offsets=torch.as_tensor(rest, device=dev),
-                          headnet=headnet.to(dev).eval(), gravitynet=gravitynet.to(dev).eval())
+                          headnet=headnet.to(dev).eval(), gravitynet=gravitynet.to(dev).eval(),
+                          of_bf16=of_bf16, of_int8=of_int8)

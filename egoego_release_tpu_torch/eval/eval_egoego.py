@@ -1,8 +1,8 @@
 """Full-pipeline eval on ARES / GIMO / Kinpoly-MoCap, on the card.
 
-Port of egoego_release_tpu/eval/eval_egoego.py (the per-sequence path) with
-the same flags plus ``--device`` (default ``cuda``; ``--device cpu`` runs
-the plain versions of the kernels). Per test sequence:
+Port of egoego_release_tpu/eval/eval_egoego.py with the same flags plus
+``--device`` (default ``cuda``; ``--device cpu`` runs the plain versions of
+the kernels). Per test sequence:
 
   stage 1 (HeadNet + GravityNet) -> stage-1 head metrics
   -> qpos GT -> FK -> floor snap -> head-pose floor alignment
@@ -12,7 +12,9 @@ the plain versions of the kernels). Per test sequence:
 Scene splits, "step"-sequence exclusion and the SLAM-failure blacklist
 follow the JAX CLI, and so do the numerics: f32 unless ``--fused_step``
 (the bf16 step kernels) or ``--fused`` (the bf16 fused_decoder_layer
-denoiser) is given.
+denoiser) is given. ``--batch_seqs N`` evaluates same-length sequences N
+at a time through ``pipeline.run_batches_pipelined`` (device floor, one
+chain per chunk); ``--of_bf16`` / ``--of_int8`` set that path's OF upload.
 
     python -m egoego_release_tpu_torch.eval.eval_egoego \\
         --data_root_folder <root> --full_body_gt_path <mocap_annotations.p> \\
@@ -24,6 +26,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import time
+import warnings
 
 import numpy as np
 
@@ -35,7 +39,12 @@ from egoego_release_tpu_torch.data.headpose import (
 )
 from egoego_release_tpu_torch.eval.build import build_pipeline
 from egoego_release_tpu_torch.eval.eval_stage2 import compute_dtype
-from egoego_release_tpu_torch.eval.pipeline import HEAD_IDX, evaluate_sequence, stage1_metrics
+from egoego_release_tpu_torch.eval.pipeline import (
+    HEAD_IDX,
+    evaluate_sequence,
+    run_batches_pipelined,
+    stage1_metrics,
+)
 from egoego_release_tpu_torch.ops import fk as fk_mod
 from egoego_release_tpu_torch.ops import geometry
 from egoego_release_tpu_torch.ops.fused_step import TorchNoise
@@ -67,19 +76,89 @@ def keep_sequence(opt, seq_name: str, bad_seqs: set) -> bool:
     return "step" not in seq_name
 
 
+def bucket_key(rec: dict, gt_rec: dict) -> tuple:
+    """Every stacked array's length: SLAM results may be truncated and the GT
+    head pose may be shorter than the qpos (the per-sequence path trims to
+    the shorter; stacking cannot)."""
+    return (np.asarray(rec["of"]).shape[0], np.asarray(rec["head_pose"]).shape[0],
+            np.asarray(rec["aligned_slam_trans"]).shape[0], np.asarray(rec["ori_slam_trans"]).shape[0],
+            np.asarray(gt_rec["qpos"]).shape[0], np.asarray(gt_rec["head_pose"]).shape[0])
+
+
+def run_batched(opt, pipeline, eligible, noise):
+    """--batch_seqs N > 1: same-length sequences in chunks of N through
+    ``run_batches_pipelined`` (qpos GT decode, stage 1, chain and metrics
+    on the device). Yields (seq_name, metric dict, (s1_e, s1_o, s1_t)); the
+    stage-1 triple is exact zeros with --use_gt_head_pose, as the
+    per-sequence path's self-comparison."""
+    buckets: dict = {}
+    for item in eligible:
+        buckets.setdefault(bucket_key(item[1], item[2]), []).append(item)
+    chunks = [items[s: s + opt.batch_seqs] for items in buckets.values()
+              for s in range(0, len(items), opt.batch_seqs)]
+    batches = [{
+        "records": None if opt.use_gt_head_pose else [rec for _, rec, _ in chunk],
+        "gt_qpos": np.stack([np.asarray(gt["qpos"], np.float32) for _, _, gt in chunk]),
+        "gt_head_pose": np.stack([np.asarray(gt["head_pose"], np.float32) for _, _, gt in chunk]),
+    } for chunk in chunks]
+    t0 = time.perf_counter()
+    res = run_batches_pipelined(pipeline, batches, noise, sample_bs=opt.sample_bs)
+    dt = time.perf_counter() - t0
+    n = sum(len(c) for c in chunks)
+    print(f"batched eval: {n} seqs in {dt:.1f}s ({n / dt:.2f} seqs/sec on {pipeline.device})")
+    for chunk, b in zip(chunks, res):
+        for j, ((seq_name, _, _), md) in enumerate(zip(chunk, b["metrics"])):
+            s1 = (0.0, 0.0, 0.0) if b["s1"] is None else tuple(float(v[j]) for v in b["s1"])
+            yield seq_name, md, s1
+
+
+def run_per_sequence(opt, pipeline, eligible, noise):
+    """--batch_seqs 1: stage 1, GT and stage 2 one sequence at a time, with
+    the host DBSCAN floor; the same yields as ``run_batched``."""
+    for seq_name, rec, gt_rec in eligible:
+        # ---- stage 1 ----
+        if opt.use_gt_head_pose:
+            head_pose = np.asarray(gt_rec["head_pose"], np.float32)
+        else:
+            head_pose = pipeline.stage1_head_pose(rec)["head_pose"].cpu().numpy()
+        head_pose = head_pose[:gt_rec["head_pose"].shape[0]]
+        s1 = stage1_metrics(head_pose, gt_rec["head_pose"])
+        print(f"{seq_name}: stage1 E={s1[0]:.4f} O={s1[1]:.4f} T={s1[2]:.1f}mm")
+
+        # ---- GT body: qpos codec + FK, snapped to the floor ----
+        gt_trans, gt_aa24 = geometry.qpos_to_smpl(pipeline._as_tensor(gt_rec["qpos"]))
+        gt_jrot, gt_jpos = fk_mod.fk_smpl(gt_trans, gt_aa24[:, :22], pipeline.rest_offsets)
+        floor, _, _ = geometry.determine_floor_height_and_contacts(gt_jpos.cpu().numpy(), 30)
+        gt_jpos = gt_jpos.clone()
+        gt_jpos[:, :, 2] -= float(np.float32(floor))
+
+        # align the predicted head pose to the floor-snapped GT start
+        gt_head = gt_jpos[:, HEAD_IDX].cpu().numpy()
+        head_pose = head_pose.copy()
+        head_pose[:, :3] += gt_head[0] - head_pose[0, :3]
+        if opt.use_gt_head_pose:
+            head_pose = np.concatenate([gt_head, gt_jrot[:, HEAD_IDX].cpu().numpy()], -1)
+
+        # ---- stage 2 + metrics ----
+        md, _ = evaluate_sequence(pipeline, head_pose, gt_jrot, gt_jpos, noise, sample_bs=opt.sample_bs)
+        yield seq_name, md, s1
+
+
 def run(opt) -> dict:
-    for flag, on in (("--batch_seqs > 1", opt.batch_seqs > 1), ("--of_bf16", opt.of_bf16),
-                     ("--of_int8", opt.of_int8), ("--mujoco_xml", bool(opt.mujoco_xml)),
-                     ("--save_html_vis", opt.save_html_vis), ("--sample_microbatch", opt.sample_microbatch > 0),
+    for flag, on in (("--mujoco_xml", bool(opt.mujoco_xml)), ("--save_html_vis", opt.save_html_vis),
                      ("--dp/--tp", opt.dp != 1 or opt.tp != 1)):
         if on:
             raise _not_ported(flag)
+    if opt.batch_seqs <= 1 and (opt.of_bf16 or opt.of_int8):
+        warnings.warn("--of_bf16/--of_int8 apply to the batched stage 1 only (--batch_seqs > 1); "
+                      "the per-sequence path uploads f32", stacklevel=2)
     pipeline = build_pipeline(
         stats_path=opt.stats_path, smplh_path=opt.smplh_path, rest_offsets_path=opt.rest_offsets,
         diffusion_ckpt=opt.diffusion_ckpt, headnet_ckpt=opt.headnet_ckpt,
         gravitynet_ckpt=opt.gravitynet_ckpt, window=opt.window, headnet_window=opt.headnet_window,
         timesteps=opt.timesteps, compute_dtype=compute_dtype(opt),
-        fused_transformer=opt.fused and not opt.fused_step, seed=opt.seed, device=opt.device)
+        fused_transformer=opt.fused and not opt.fused_step, sample_microbatch=opt.sample_microbatch,
+        of_bf16=opt.of_bf16, of_int8=opt.of_int8, seed=opt.seed, device=opt.device)
     ds = select_dataset(opt)
     full_body_gt = load_motion_dict(opt.full_body_gt_path)
     bad_seqs: set = set()
@@ -102,38 +181,14 @@ def run(opt) -> dict:
 
     agg: dict[str, list] = {}
     per_seq = {}
-    for seq_name, rec, gt_rec in eligible:
-        # ---- stage 1 ----
-        if opt.use_gt_head_pose:
-            head_pose = np.asarray(gt_rec["head_pose"], np.float32)
-        else:
-            head_pose = pipeline.stage1_head_pose(rec)["head_pose"].cpu().numpy()
-        head_pose = head_pose[:gt_rec["head_pose"].shape[0]]
-        s1_e, s1_o, s1_t = stage1_metrics(head_pose, gt_rec["head_pose"])
-        print(f"{seq_name}: stage1 E={s1_e:.4f} O={s1_o:.4f} T={s1_t:.1f}mm")
-
-        # ---- GT body: qpos codec + FK, snapped to the floor ----
-        gt_trans, gt_aa24 = geometry.qpos_to_smpl(pipeline._as_tensor(gt_rec["qpos"]))
-        gt_jrot, gt_jpos = fk_mod.fk_smpl(gt_trans, gt_aa24[:, :22], pipeline.rest_offsets)
-        floor, _, _ = geometry.determine_floor_height_and_contacts(gt_jpos.cpu().numpy(), 30)
-        gt_jpos = gt_jpos.clone()
-        gt_jpos[:, :, 2] -= float(np.float32(floor))
-
-        # align the predicted head pose to the floor-snapped GT start
-        gt_head = gt_jpos[:, HEAD_IDX].cpu().numpy()
-        head_pose = head_pose.copy()
-        head_pose[:, :3] += gt_head[0] - head_pose[0, :3]
-        if opt.use_gt_head_pose:
-            head_pose = np.concatenate([gt_head, gt_jrot[:, HEAD_IDX].cpu().numpy()], -1)
-
-        # ---- stage 2 + metrics ----
-        md, _ = evaluate_sequence(pipeline, head_pose, gt_jrot, gt_jpos, noise, sample_bs=opt.sample_bs)
+    evaluate = run_batched if opt.batch_seqs > 1 else run_per_sequence
+    for seq_name, md, (s1_e, s1_o, s1_t) in evaluate(opt, pipeline, eligible, noise):
         entry = {k: float(np.mean(v)) for k, v in md.items() if k != "single_jpe"}
         entry.update({"s1_e_head": s1_e, "s1_o_head": s1_o, "s1_t_head": s1_t})
         per_seq[seq_name] = entry
         for k, v in entry.items():
             agg.setdefault(k, []).append(v)
-        print(f"  mpjpe={entry['mpjpe']:.2f}mm head_dist={entry['head_dist']:.4f}")
+        print(f"  {seq_name}: mpjpe={entry['mpjpe']:.2f}mm head_dist={entry['head_dist']:.4f}")
 
     summary = {k: float(np.mean(v)) for k, v in agg.items()}
     result = {"mean": summary, "per_seq": per_seq, "num_seqs": len(per_seq)}
@@ -163,15 +218,21 @@ def parse_opt(argv=None):
     p.add_argument("--timesteps", type=int, default=1000,
                    help="DDPM steps (1000 = reference; lower for smoke runs)")
     p.add_argument("--sample_bs", type=int, default=1)
-    p.add_argument("--batch_seqs", type=int, default=1, help="not ported (values above 1 raise)")
+    p.add_argument("--batch_seqs", type=int, default=1,
+                   help="bucket same-length sequences and run N per pipelined diffusion chain (composes with "
+                        "--sample_bs)")
     p.add_argument("--fused", action="store_true",
                    help="the denoiser layers through fused_decoder_layer in bf16 (default: the step kernels "
                         "in f32, the JAX CLI's numerics)")
     p.add_argument("--fused_step", action="store_true",
                    help="the step kernels in bf16 (bf16-level drift; default: f32); wins over --fused")
-    p.add_argument("--sample_microbatch", type=int, default=0, help="not ported (N > 0 raises)")
-    p.add_argument("--of_bf16", action="store_true", help="not ported (raises)")
-    p.add_argument("--of_int8", action="store_true", help="not ported (raises)")
+    p.add_argument("--sample_microbatch", type=int, default=0,
+                   help="run the reverse chain in sequential chunks of N rows (0 = off)")
+    p.add_argument("--of_bf16", action="store_true",
+                   help="batched stage 1: upload the OF features in bf16, cast back to f32 on the device")
+    p.add_argument("--of_int8", action="store_true",
+                   help="batched stage 1: upload the OF features in int8 with per-frame absmax scales, "
+                        "dequantized on the device (coarser than bf16 for small features)")
     p.add_argument("--dp", type=int, default=1, help="not ported (values other than 1 raise)")
     p.add_argument("--tp", type=int, default=1, help="not ported (values other than 1 raise)")
     p.add_argument("--max_seqs", type=int, default=0)

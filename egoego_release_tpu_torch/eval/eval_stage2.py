@@ -26,10 +26,9 @@ import numpy as np
 from egoego_release_tpu_torch.data.formats import load_motion_dict
 from egoego_release_tpu_torch.eval.build import build_pipeline
 from egoego_release_tpu_torch.eval.pipeline import (
-    evaluate_batch,
     evaluate_sequence,
     gt_from_smpl_params,
-    gt_from_smpl_params_batched,
+    run_batches_pipelined,
 )
 from egoego_release_tpu_torch.ops.fused_step import TorchNoise
 
@@ -47,8 +46,6 @@ def compute_dtype(opt) -> str:
 
 
 def run(opt) -> dict:
-    if opt.sample_microbatch > 0:
-        raise _not_ported("--sample_microbatch")
     if opt.dp != 1 or opt.tp != 1:
         raise _not_ported("--dp/--tp")
     # The JAX CLI's numerics: f32 without flags; --fused_step the bf16 step
@@ -60,7 +57,7 @@ def run(opt) -> dict:
         window=opt.window, sampler="ddim" if opt.ddim_steps else "ddpm",
         ddim_steps=opt.ddim_steps or 50, timesteps=opt.timesteps, seed=opt.seed,
         compute_dtype=compute_dtype(opt), fused_transformer=opt.fused and not opt.fused_step,
-        device=opt.device)
+        sample_microbatch=opt.sample_microbatch, device=opt.device)
     data = load_motion_dict(opt.test_data_path)
     noise = TorchNoise(pipeline.device, seed=opt.seed)
 
@@ -95,18 +92,18 @@ def run(opt) -> dict:
                                       sample_bs=opt.sample_bs)
             record_result(seq_name, md)
     else:
+        # chunks of --batch_seqs through run_batches_pipelined, one noise
+        # source per chunk: GT prep and metrics on the device, each chunk's
+        # host work overlapping the previous chunk's chain
+        chunks = [eligible[s: s + opt.batch_seqs] for s in range(0, len(eligible), opt.batch_seqs)]
+        batches = [{f"gt_{key}": np.stack([rec[key][:t] for _, rec in chunk])
+                    for key in ("trans", "root_orient", "body_pose")} for chunk in chunks]
         t0 = time.perf_counter()
-        for s in range(0, len(eligible), opt.batch_seqs):
-            chunk = eligible[s: s + opt.batch_seqs]
-            gq, gp, head = gt_from_smpl_params_batched(
-                pipeline,
-                np.stack([rec["trans"][:t] for _, rec in chunk]),
-                np.stack([rec["root_orient"][:t] for _, rec in chunk]),
-                np.stack([rec["body_pose"][:t] for _, rec in chunk]))
-            mds = evaluate_batch(pipeline, head, gq, gp, noise, sample_bs=opt.sample_bs)
-            for (seq_name, _), md in zip(chunk, mds):
-                record_result(seq_name, md)
+        res = run_batches_pipelined(pipeline, batches, noise, sample_bs=opt.sample_bs)
         dt = time.perf_counter() - t0
+        for chunk, b in zip(chunks, res):
+            for (seq_name, _), md in zip(chunk, b["metrics"]):
+                record_result(seq_name, md)
         if eligible:
             print(f"batched eval: {len(eligible)} seqs in {dt:.1f}s "
                   f"({len(eligible) / dt:.2f} seqs/sec on {pipeline.device})")
@@ -143,7 +140,8 @@ def parse_opt(argv=None):
                         "in f32, the JAX CLI's numerics)")
     p.add_argument("--fused_step", action="store_true",
                    help="the step kernels in bf16 (bf16-level drift; default: f32); wins over --fused")
-    p.add_argument("--sample_microbatch", type=int, default=0, help="not ported (N > 0 raises)")
+    p.add_argument("--sample_microbatch", type=int, default=0,
+                   help="run the reverse chain in sequential chunks of N rows (0 = off)")
     p.add_argument("--dp", type=int, default=1, help="not ported (values other than 1 raise)")
     p.add_argument("--tp", type=int, default=1, help="not ported (values other than 1 raise)")
     p.add_argument("--max_seqs", type=int, default=0)

@@ -109,17 +109,17 @@ def compute_metrics_for_smpl(gt_global_quat, gt_global_jpos, gt_floor_height,
 
 
 def compute_head_pose_metrics(head_trans, head_rot, gt_head_trans, gt_head_rot):
-    """Stage-1 head metrics: head_trans (T, 3) and head_rot (T, 3, 3)
-    against the GT -> (mean ||I - P G^-1||_F over the 4x4 poses, the same
-    over the rotations, mean translation error in mm)."""
+    """Stage-1 head metrics: head_trans (..., T, 3) and head_rot (..., T, 3,
+    3) against the GT -> (mean ||I - P G^-1||_F over the 4x4 poses, the same
+    over the rotations, mean translation error in mm), each (...)."""
     def mat4(trans, rot_m):
-        m = trans.new_zeros(trans.shape[0], 4, 4)
-        m[:, :3, :3] = rot_m
-        m[:, :3, 3] = trans
-        m[:, 3, 3] = 1.0
+        m = trans.new_zeros(trans.shape[:-1] + (4, 4))
+        m[..., :3, :3] = rot_m
+        m[..., :3, 3] = trans
+        m[..., 3, 3] = 1.0
         return m
 
     head_dist = frobenius_norm_4x4(mat4(head_trans, head_rot), mat4(gt_head_trans, gt_head_rot))
     head_rot_dist = frobenius_norm_rot(head_rot, gt_head_rot)
-    head_trans_err = torch.linalg.norm(head_trans - gt_head_trans, dim=-1).mean() * 1000.0
+    head_trans_err = torch.linalg.norm(head_trans - gt_head_trans, dim=-1).mean(-1) * 1000.0
     return head_dist, head_rot_dist, head_trans_err

@@ -58,28 +58,33 @@ def prep_gravitynet_input(slam_rot_mat: torch.Tensor, slam_trans: torch.Tensor, 
 def gravitynet_eval_transform(pred_normal: torch.Tensor, slam_rot_mat: torch.Tensor,
                               slam_trans: torch.Tensor, scale: torch.Tensor,
                               gt_head_pose: torch.Tensor) -> dict:
-    """Gravity-align and rescale a SLAM trajectory (T, 3, 3) + (T, 3), then
-    remove the heading ambiguity by an xy-plane Umeyama alignment against
-    the GT head pose (T_ref, 7). Returns head_pose (T, 7), head_trans,
-    head_rot_mat and the GT pass-throughs."""
+    """Gravity-align and rescale SLAM trajectories (..., T, 3, 3) +
+    (..., T, 3), then remove the heading ambiguity by an xy-plane Umeyama
+    alignment against the GT head pose (..., T_ref, 7); pred_normal
+    (..., 3), scale (...). One sequence, or N with a leading N (one batched
+    host solve). Returns head_pose (..., T, 7), head_trans, head_rot_mat and
+    the GT pass-throughs."""
     aligned_rot = alignment.rotation_from_floor_normal(pred_normal)
-    trans_diff = slam_trans[1:] - slam_trans[:-1]
-    diff_rs = torch.einsum("ij,tj->ti", aligned_rot, trans_diff) * scale
-    trans_rs = slam_trans[0] + torch.cat([diff_rs.new_zeros(1, 3), torch.cumsum(diff_rs, dim=0)])
-    slam_rot_aligned = torch.einsum("ij,tjk->tik", aligned_rot, slam_rot_mat)
+    scale = torch.as_tensor(scale, dtype=slam_trans.dtype, device=slam_trans.device)
+    trans_diff = slam_trans[..., 1:, :] - slam_trans[..., :-1, :]
+    diff_rs = torch.einsum("...ij,...tj->...ti", aligned_rot, trans_diff) * scale[..., None, None]
+    trans_rs = slam_trans[..., 0:1, :] + torch.cat(
+        [diff_rs.new_zeros(diff_rs.shape[:-2] + (1, 3)), torch.cumsum(diff_rs, dim=-2)], dim=-2)
+    slam_rot_aligned = torch.einsum("...ij,...tjk->...tik", aligned_rot, slam_rot_mat)
     slam_quat_aligned = rot.matrix_to_quat(slam_rot_aligned)
 
-    t_ref = gt_head_pose.shape[0]
-    traj_est = torch.cat([trans_rs, slam_quat_aligned], dim=-1)[:t_ref]
+    t_ref = gt_head_pose.shape[-2]
+    traj_est = torch.cat([trans_rs, slam_quat_aligned], dim=-1)[..., :t_ref, :]
     r_xy, _, _ = alignment.align_xy_plane_traj(traj_est, gt_head_pose)
 
-    de_rot = torch.einsum("ij,tjk->tik", r_xy, slam_rot_aligned)
-    de_trans = torch.einsum("ij,tj->ti", r_xy, trans_rs - trans_rs[0:1]) + gt_head_pose[0:1, :3]
+    de_rot = torch.einsum("...ij,...tjk->...tik", r_xy, slam_rot_aligned)
+    de_trans = (torch.einsum("...ij,...tj->...ti", r_xy, trans_rs - trans_rs[..., 0:1, :])
+                + gt_head_pose[..., 0:1, :3])
     return {
         "head_trans": de_trans,
         "head_rot_mat": de_rot,
         "head_pose": torch.cat([de_trans, rot.matrix_to_quat(de_rot)], dim=-1),
-        "gt_head_trans": gt_head_pose[:, :3],
-        "gt_head_rot_mat": rot.quat_to_matrix(gt_head_pose[:, 3:]),
+        "gt_head_trans": gt_head_pose[..., :3],
+        "gt_head_rot_mat": rot.quat_to_matrix(gt_head_pose[..., 3:]),
         "gt_head_pose": gt_head_pose,
     }

@@ -4,10 +4,11 @@
 ``HeadFormer`` keeps the reference's module names (``action_transformer``,
 ``action_va_mlp``, ``action_va_fc``, ``action_dist_mlp``,
 ``action_dist_fc``), so released ``state_dict``s load as they are.
-``headformer_forward_for_eval`` runs all blocks of a sequence through the
-transformer as one batch, the last block ragged and padding-masked, then
-integrates the angular velocities over the whole sequence, as the JAX
-package does; that sequential integration runs on the host.
+``headformer_forward_for_eval`` runs all blocks of N sequences through the
+transformer as one batch, the last block of each ragged and
+padding-masked, then integrates the angular velocities over each whole
+sequence, as the JAX package does (under ``jax.vmap`` for N > 1); that
+sequential integration runs on the host, once for the batch.
 """
 
 from __future__ import annotations
@@ -61,14 +62,15 @@ def va2rot(init_quat: torch.Tensor, head_vels: torch.Tensor, dt: float = 1.0 / 3
 
 
 def rescale_slam_trans(slam_trans: torch.Tensor, dist_scalar: torch.Tensor):
-    """Rescale a SLAM trajectory (T, 3) to metric scale from the predicted
-    per-frame displacement lengths (T',); entries past T-1 are ignored.
-    Returns (rescaled (T, 3), scale)."""
-    diffs = slam_trans[1:] - slam_trans[:-1]
+    """Rescale SLAM trajectories (..., T, 3) to metric scale from the
+    predicted per-frame displacement lengths (..., T'); entries past T-1
+    are ignored. Returns (rescaled (..., T, 3), scale (...))."""
+    diffs = slam_trans[..., 1:, :] - slam_trans[..., :-1, :]
     slam_abs_len = torch.linalg.norm(diffs, dim=-1)
-    n = min(slam_abs_len.shape[0], dist_scalar.shape[0])
-    scale = dist_scalar[:n].mean() / slam_abs_len[:n].mean()
-    rescaled = slam_trans[0] + torch.cat([diffs.new_zeros(1, 3), torch.cumsum(scale * diffs, dim=0)])
+    n = min(slam_abs_len.shape[-1], dist_scalar.shape[-1])
+    scale = dist_scalar[..., :n].mean(-1) / slam_abs_len[..., :n].mean(-1)
+    steps = torch.cumsum(scale[..., None, None] * diffs, dim=-2)
+    rescaled = slam_trans[..., 0:1, :] + torch.cat([diffs.new_zeros(diffs.shape[:-2] + (1, 3)), steps], dim=-2)
     return rescaled, scale
 
 
@@ -79,24 +81,26 @@ def padding_mask_from_len(seq_len: torch.Tensor, window: int) -> torch.Tensor:
 
 def headformer_forward_for_eval(model: HeadFormer, of_feats: torch.Tensor, init_head_quat: torch.Tensor,
                                 aligned_slam_trans: torch.Tensor, dist_scale: float = 10.0) -> dict:
-    """Whole-sequence eval: of_feats (1, T, 512), init_head_quat (1, 4),
-    aligned_slam_trans (T', 3). All ceil(T / window) blocks go through the
-    transformer as one batch, the last one ragged. Returns head_pose
-    (1, T'', 7) and pred_scale."""
-    t_total = of_feats.shape[1]
+    """Whole-sequence eval of N sequences: of_feats (N, T, 512),
+    init_head_quat (N, 4), aligned_slam_trans (N, T', 3) (JAX: one
+    sequence, vmapped). All N x ceil(T / window) blocks go through the
+    transformer as one batch, the last block of each sequence ragged; the N
+    integrations run in one host loop. Returns head_pose (N, T'', 7) and
+    pred_scale (N,)."""
+    n, t_total = of_feats.shape[:2]
     w = model.window
     num_blocks = -(-t_total // w)
     pad = num_blocks * w - t_total
-    blocks = torch.nn.functional.pad(of_feats[0], (0, 0, 0, pad)).reshape(num_blocks, w, -1)
-    lens = torch.clamp(t_total - torch.arange(num_blocks, device=of_feats.device) * w, max=w)
+    blocks = torch.nn.functional.pad(of_feats, (0, 0, 0, pad)).reshape(n * num_blocks, w, -1)
+    lens = torch.clamp(t_total - torch.arange(num_blocks, device=of_feats.device) * w, max=w).repeat(n)
     va, dist = model(blocks, padding_mask_from_len(lens, w))
-    va = va.reshape(-1, 3)[:t_total][None]
-    dist = dist.reshape(-1)[:t_total] / dist_scale
+    va = va.reshape(n, -1, 3)[:, :t_total]
+    dist = dist.reshape(n, -1)[:, :t_total] / dist_scale
     # The integration is a chain of T dependent steps of ~55 tiny ops each:
     # on the card every op is a kernel launch, so it runs on the host CPU,
     # where each op costs less (chip_smoke.py phase 8 times both; PERF.md).
     head_quat = va2rot(init_head_quat.cpu(), va.cpu()).to(va.device)
     rescaled_trans, scale = rescale_slam_trans(aligned_slam_trans, dist)
-    t_out = rescaled_trans.shape[0]
-    head_pose = torch.cat([rescaled_trans[None], head_quat[:, :t_out]], dim=-1)
+    t_out = rescaled_trans.shape[1]
+    head_pose = torch.cat([rescaled_trans, head_quat[:, :t_out]], dim=-1)
     return {"head_pose": head_pose, "pred_scale": scale}

@@ -246,10 +246,20 @@ class TorchNoise:
 
     def __init__(self, device, seed: int = 0):
         self.device = torch.device(device)
+        self.seed = seed
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._splits = 0
 
     def window(self) -> "TorchNoise":
         return self
+
+    def split(self, k: int) -> list["TorchNoise"]:
+        """k independent sources (the counterpart of ``jax.random.split(key,
+        k)``), seeded on the host from this source's seed and the number of
+        earlier splits, so no draw waits on the device."""
+        self._splits += 1
+        seeds = np.random.SeedSequence([self.seed, self._splits]).generate_state(k, np.uint64)
+        return [TorchNoise(self.device, seed=int(s) >> 1) for s in seeds]
 
     def _draw(self, shape) -> torch.Tensor:
         return torch.randn(shape, generator=self.generator, device=self.device)

@@ -173,14 +173,27 @@ def test_eval_stage2_cli_on_cpu(tmp_path, batch_seqs):
         assert all(np.isfinite(v) for v in entry.values())
 
 
-@pytest.mark.parametrize("flag", [["--fused", "--sample_microbatch", "2"], ["--sample_microbatch", "2"],
-                                  ["--dp", "2"], ["--tp", "2"]])
+@pytest.mark.parametrize("flag", [["--dp", "2"], ["--tp", "2"]])
 def test_eval_stage2_unported_flags_raise(tmp_path, flag):
     paths = _amass(tmp_path, np.random.RandomState(3), n=1)
     opt = eval_stage2.parse_opt(["--test_data_path", paths["data.p"], "--stats_path", paths["stats.p"],
                                  "--rest_offsets", paths["rest.npy"], "--device", "cpu", *flag])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eval_stage2.run(opt)
+
+
+@pytest.mark.parametrize("route", [[], ["--fused"]])
+def test_eval_stage2_sample_microbatch_on_cpu(tmp_path, route):
+    """--sample_microbatch 2 on both routes, 5 sequences in chunks of 3: the
+    first chain's 3 rows are padded to 4 and run as two chunks of 2, the
+    second's 2 rows run whole; finite metrics for every sequence."""
+    paths = _amass(tmp_path, np.random.RandomState(4))
+    result = eval_stage2.run(eval_stage2.parse_opt([
+        "--test_data_path", paths["data.p"], "--stats_path", paths["stats.p"],
+        "--rest_offsets", paths["rest.npy"], "--window", "16", "--timesteps", "3", "--batch_seqs", "3",
+        "--sample_microbatch", "2", *route, "--out_dir", paths["out"], "--device", "cpu"]))
+    assert result["num_seqs"] == 5
+    assert all(np.isfinite(v) for e in result["per_seq"].values() for v in e.values())
 
 
 def test_rest_offsets_from_smplh_npz_match_jax(tmp_path):

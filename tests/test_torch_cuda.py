@@ -385,3 +385,80 @@ def test_headformer_routes_long_windows_to_the_kernel(card):
         assert ck.launch_counts["fused_attention"] == launches
         for a, b in zip(got, want):
             assert float((a.cpu() - b).abs().max()) < TOL[False]
+
+
+def _stage1_records(n, frames, seed):
+    """n stage-1 eval records of a slowly turning, walking head."""
+    import numpy as np
+
+    from egoego_release_tpu_torch.ops import alignment
+    from egoego_release_tpu_torch.ops import rotations as rot
+
+    rng = np.random.RandomState(seed)
+
+    def quats():
+        aa = np.cumsum(rng.randn(frames + 1, 3) * 0.02, 0)
+        ang = np.linalg.norm(aa, axis=-1, keepdims=True)
+        return np.concatenate([np.cos(ang / 2), np.sin(ang / 2) * aa / np.maximum(ang, 1e-9)], -1).astype(np.float32)
+
+    out = []
+    for _ in range(n):
+        walk = np.cumsum(rng.uniform(-0.02, 0.02, (frames + 1, 3)), 0)
+        head = np.concatenate([walk + [0, 0, 1.5], quats()], -1).astype(np.float32)
+        slam_q = quats()
+        slam_t = (0.3 * walk + rng.randn(frames + 1, 3) * 1e-3).astype(np.float32)
+        aligned, _, _ = alignment.align_slam_to_first_frame_np(slam_t, slam_q, head[0])
+        out.append({"of": rng.randn(frames, 512).astype(np.float32), "head_pose": head,
+                    "aligned_slam_trans": aligned, "ori_slam_trans": slam_t,
+                    "ori_slam_rot_mat": rot.quat_to_matrix_np(slam_q).astype(np.float32)})
+    return out
+
+
+def _stage1_pipeline(device, window=256):
+    """The release-width stage-1 models (random weights from a seed) in a
+    pipeline on ``device``."""
+    from types import SimpleNamespace
+
+    from egoego_release_tpu_torch.eval.pipeline import EgoEgoPipeline
+    from egoego_release_tpu_torch.models.denoiser import init_weights_
+    from egoego_release_tpu_torch.models.gravitynet import HeadNormalFormer
+    from egoego_release_tpu_torch.models.headnet import HeadFormer
+
+    hn = init_weights_(HeadFormer(window=window), torch.Generator().manual_seed(1))
+    gn = init_weights_(HeadNormalFormer(), torch.Generator().manual_seed(2))
+    return EgoEgoPipeline(diffusion=SimpleNamespace(device=torch.device(device)), stats=None, rest_offsets=None,
+                          headnet=hn.to(device).eval(), gravitynet=gn.to(device).eval())
+
+
+def test_batched_headformer_launches_mha_once_per_layer(card):
+    """headformer_forward_for_eval over 4 sequences of 300 frames at window
+    256: all 8 blocks go through fused_attention as one call a layer (2
+    calls, 2 mha launches), not one a sequence."""
+    from egoego_release_tpu_torch.models.headnet import HeadFormer, headformer_forward_for_eval
+    from egoego_release_tpu_torch.models.denoiser import init_weights_
+
+    model = init_weights_(HeadFormer(window=256), torch.Generator().manual_seed(1)).to(card).eval()
+    g = torch.Generator(device=card).manual_seed(3)
+    of = torch.randn(4, 300, 512, generator=g, device=card)
+    init = torch.nn.functional.normalize(torch.randn(4, 4, generator=g, device=card), dim=-1)
+    slam = torch.cumsum(torch.randn(4, 301, 3, generator=g, device=card) * 0.02, 1)
+    ck.launch_counts.clear()
+    ck.kernel_launches.clear()
+    with torch.no_grad():
+        out = headformer_forward_for_eval(model, of, init, slam)
+    torch.cuda.synchronize()
+    assert dict(ck.launch_counts) == {"fused_attention": 2} and dict(ck.kernel_launches) == {"mha": 2}
+    assert out["head_pose"].shape == (4, 301, 7) and torch.isfinite(out["head_pose"]).all()
+
+
+def test_stage1_batched_on_card_matches_cpu(card):
+    """stage1_head_pose_batched at window 256 on the card (the mha kernel)
+    against the same pipeline on the CPU (the plain attention), 4 records
+    of 300 frames: translation within 1e-3 m and quaternions within 1e-4,
+    the bounds of chip_smoke.py phase 9."""
+    records = _stage1_records(4, 300, seed=5)
+    got = _stage1_pipeline(card).stage1_head_pose_batched(records)["head_pose"].cpu()
+    want = _stage1_pipeline("cpu").stage1_head_pose_batched(records)["head_pose"]
+    assert got.shape == want.shape == (4, 301, 7)
+    assert float((got[..., :3] - want[..., :3]).abs().max()) < 1e-3
+    assert float((got[..., 3:] - want[..., 3:]).abs().max()) < 1e-4

@@ -1,11 +1,13 @@
 """The port's full-pipeline CLIs on the CPU (``--device cpu``): eval_egoego
-on a synthetic kinpoly-layout fixture, eval_stage2 with ``--fused``, and
-run_egoego on a synthetic demo fixture. Full release widths, random
-weights, a few diffusion steps; the results must be finite and carry the
-JAX CLIs' keys."""
+on a synthetic kinpoly-layout fixture, per sequence and with
+``--batch_seqs``, eval_stage2 with ``--fused``, and run_egoego on a
+synthetic demo fixture. Full release widths, random weights, a few
+diffusion steps; the results must be finite and carry the JAX CLIs'
+keys."""
 
 import json
 import pickle
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -46,11 +48,12 @@ def _slam_npy(rng, path, t=T):
     np.save(path, slam)
 
 
-def make_kinpoly_fixture(tmp_path, n_seqs=2):
+def make_kinpoly_fixture(tmp_path, n_seqs=2, lengths=None):
     """The layout RealWorldHeadPoseDataset(eval_on_kinpoly_mocap=True)
     reads: kinpoly-mocap/mocap_annotations.p, kinpoly/droid_slam_res/{scene}/
     {take}.npy, per-frame OF feature npys; plus the qpos GT pickle (written
-    with joblib, read back without it)."""
+    with joblib, read back without it). ``lengths``: frames per sequence
+    (default T each)."""
     import joblib
 
     rng = np.random.RandomState(0)
@@ -60,22 +63,22 @@ def make_kinpoly_fixture(tmp_path, n_seqs=2):
     for d in (feat_dir, slam_dir, root / "kinpoly-mocap"):
         d.mkdir(parents=True)
     recs, gt = {}, {}
-    for si in range(n_seqs):
+    for si, t in enumerate(lengths or [T] * n_seqs):
         name = f"subj-take{si + 1}"
-        recs[si] = _head_record(rng, name, feat_dir)
-        _slam_npy(rng, slam_dir / f"take{si + 1}.npy")
-        qpos = np.zeros((T, 76), np.float32)
+        recs[si] = _head_record(rng, name, feat_dir, t=t)
+        _slam_npy(rng, slam_dir / f"take{si + 1}.npy", t=t)
+        qpos = np.zeros((t, 76), np.float32)
         qpos[:, 2] = 0.92
         qpos[:, 3:7] = [0.7071, 0.7071, 0, 0]
-        qpos[:, :2] = np.cumsum(rng.uniform(-0.01, 0.01, (T, 2)), 0)
+        qpos[:, :2] = np.cumsum(rng.uniform(-0.01, 0.01, (t, 2)), 0)
         qpos[:, 7:] = rng.uniform(-0.2, 0.2, 69)
-        gt[name] = {"qpos": qpos, "head_pose": recs[si]["head_qpos"][:T]}
+        gt[name] = {"qpos": qpos, "head_pose": recs[si]["head_qpos"][:t]}
     joblib.dump(recs, root / "kinpoly-mocap" / "mocap_annotations.p")
     gt_path = tmp_path / "full_body_gt.p"
     joblib.dump(gt, gt_path)
     stats, rest = _stats_and_rest(tmp_path, rng)
     return {"root": str(root), "gt": str(gt_path), "stats": stats, "rest": rest,
-            "names": [f"subj-take{i + 1}" for i in range(n_seqs)]}
+            "names": [f"subj-take{i + 1}" for i in range(len(recs))]}
 
 
 @pytest.fixture()
@@ -119,11 +122,55 @@ def test_eval_egoego_gt_head_pose(kinpoly, tmp_path):
     assert entry["s1_t_head"] < 1e-3 and entry["s1_e_head"] < 1e-3
 
 
-@pytest.mark.parametrize("flag", [["--batch_seqs", "2"], ["--of_bf16"], ["--of_int8"], ["--mujoco_xml", "h.xml"],
-                                  ["--save_html_vis"], ["--dp", "2"], ["--tp", "2"]])
+@pytest.mark.parametrize("flag", [["--mujoco_xml", "h.xml"], ["--save_html_vis"], ["--dp", "2"], ["--tp", "2"]])
 def test_eval_egoego_unported_flags_raise(kinpoly, tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eval_egoego.run(eval_egoego.parse_opt(_egoego_argv(kinpoly, tmp_path / "out", *flag)))
+
+
+@pytest.mark.parametrize("extra", [[], ["--use_gt_head_pose"], ["--of_int8"]])
+def test_eval_egoego_batched_cli_on_cpu(tmp_path, extra):
+    """--batch_seqs 2 over sequences of two lengths (20, 20, 16, 20 frames:
+    buckets of 3 and 1, so three chunks, one of them short) through the
+    pipelined loop: every entry finite with the JAX CLI's keys; in
+    --use_gt_head_pose mode the s1_* columns are exact zeros."""
+    fx = make_kinpoly_fixture(tmp_path, lengths=[T, T, 16, T])
+    result = eval_egoego.run(eval_egoego.parse_opt(
+        _egoego_argv(fx, tmp_path / "out", "--batch_seqs", "2", *extra)))
+    want = _metric_keys() | {"s1_e_head", "s1_o_head", "s1_t_head"}
+    saved = json.load(open(tmp_path / "out" / "egoego_pipeline_res_on_kinpoly.json"))
+    assert saved["num_seqs"] == result["num_seqs"] == 4 and set(saved["per_seq"]) == set(fx["names"])
+    for entry in saved["per_seq"].values():
+        assert set(entry) == want and all(np.isfinite(v) for v in entry.values())
+        s1 = [entry[k] for k in ("s1_e_head", "s1_o_head", "s1_t_head")]
+        assert s1 == [0.0, 0.0, 0.0] if "--use_gt_head_pose" in extra else min(s1) > 0.0
+
+
+def test_eval_egoego_of_bf16_with_of_int8_raises_before_building(kinpoly, tmp_path, monkeypatch):
+    """The two upload modes exclude each other: build_pipeline refuses the
+    pair before it builds any model (JAX checks only when stage 1 runs)."""
+    from egoego_release_tpu_torch.eval import build
+
+    def no_model(*a, **k):
+        raise AssertionError("a model was built")
+
+    monkeypatch.setattr(build, "CondGaussianDiffusion", no_model)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        eval_egoego.run(eval_egoego.parse_opt(_egoego_argv(
+            kinpoly, tmp_path / "out", "--batch_seqs", "2", "--of_bf16", "--of_int8")))
+
+
+@pytest.mark.parametrize("flag", ["--of_bf16", "--of_int8"])
+def test_eval_egoego_per_sequence_warns_once_on_upload_flags(kinpoly, tmp_path, flag):
+    """--batch_seqs 1 with an upload flag: one warning for the run, and
+    JAX's f32 numerics (the same result as without the flag)."""
+    plain = eval_egoego.run(eval_egoego.parse_opt(_egoego_argv(kinpoly, tmp_path / "a")))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        flagged = eval_egoego.run(eval_egoego.parse_opt(_egoego_argv(kinpoly, tmp_path / "b", flag)))
+    said = [w for w in caught if "--of_bf16/--of_int8" in str(w.message)]
+    assert len(said) == 1
+    assert flagged["per_seq"] == plain["per_seq"]
 
 
 def test_eval_stage2_fused_on_cpu(tmp_path):

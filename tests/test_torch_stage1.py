@@ -88,10 +88,10 @@ def test_headformer_forward_for_eval_matches_jax():
     slam = np.cumsum(rng.randn(14, 3) * 0.05, 0).astype(np.float32)
     out_j = jhn.headformer_forward_for_eval(jh, hp, jnp.asarray(of), jnp.asarray(init), jnp.asarray(slam))
     with torch.no_grad():
-        out_t = thn.headformer_forward_for_eval(th, t_(of), t_(init), t_(slam))
-    assert out_t["head_pose"].shape == (1, 14, 7)
+        out_t = thn.headformer_forward_for_eval(th, t_(of), t_(init), t_(slam)[None])
+    assert out_t["head_pose"].shape == (1, 14, 7) and out_t["pred_scale"].shape == (1,)
     _close(out_t["head_pose"], out_j["head_pose"])
-    _close(out_t["pred_scale"], out_j["pred_scale"])
+    _close(out_t["pred_scale"][0], out_j["pred_scale"])
 
 
 def _slam(rng, t):
