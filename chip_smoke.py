@@ -68,8 +68,22 @@ Phases (any failure exits non-zero; nothing is caught):
      f32 with DDIM-50, run_batches_pipelined against the sequential
      composition (2 batches of 2), the batched stage 1 against the
      per-record one, and the bf16 and int8 OF uploads against f32.
-Then one JSON line of per-kernel results, and as the last line
-{"ok": true, "device": {...}}.
+ 11. stage-2 training at the release widths (f32, micro-batch 32 x
+     grad-accum 2) on a synthetic AMASS-layout pickle written here (65
+     smooth sequences, ~500 windows, some padded): ``train_diffusion.run``
+     for 300 steps on the device-resident bank (finite losses, nan_count
+     0, the mean loss of the last 50 steps below the first 50's, the
+     checkpoints), resumed for 20 more, 50 steps on the iterator +
+     prefetch path; the step's ms (CUDA events), window-grads/s, busy
+     share, host ms of both data paths, peak memory with remat off and on
+     and the f32 bound; one step on the card against the CPU (the card's
+     ReLU and l1 branches replayed on the CPU and in a float64
+     reference: train_step_agreement, STEP_BOUNDS); then
+     ``train_diffusion --sample`` (DDPM-1000, f32 step kernels) and
+     ``eval_stage2 --checkpoint`` (DDIM-50) on the trained ``.pt``, with
+     exact launch counts.
+Then one JSON line of per-kernel results (with the training summary), and
+as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -330,6 +344,422 @@ def chain_boundaries(prof, n_chains, per_chain, per_step):
         out.append({"interval_ms": gap / 1e3, "idle_ms": (gap - union_us(every, last[1], first[0])) / 1e3,
                     "window_ms": (hi - lo) / 1e3, "busy_share": union_us(every, lo, hi) / (hi - lo)})
     return out, len(chain)
+
+
+TRAIN_STEPS, TRAIN_RESUME_STEPS, TRAIN_ITER_STEPS = 300, 20, 50  # phase 11's three runs
+
+
+def smooth_motion_pickle(path, rng, n_seqs):
+    """An AMASS-layout motion pickle of smooth synthetic sequences: a root
+    that walks a smooth curve at a steady height, a slowly turning yaw, and
+    body joints swinging as sinusoids; lengths 150-700 frames, so the
+    windows of each sequence's tail are padded."""
+    data = {}
+    for i in range(n_seqs):
+        t = int(rng.randint(150, 700))
+        s = np.arange(t)[:, None] / 30.0
+        f, ph = rng.uniform(0.05, 0.3, (1, 3)), rng.uniform(0, 2 * np.pi, (1, 3))
+        trans = np.sin(2 * np.pi * f * s + ph) * [1.0, 1.0, 0.02] + [0.0, 0.0, 0.9]
+        yaw = rng.uniform(-np.pi, np.pi) + 0.3 * np.sin(2 * np.pi * rng.uniform(0.05, 0.2) * s[:, 0])
+        root = np.stack([np.full(t, np.pi / 2) + 0.05 * np.sin(s[:, 0]), np.zeros(t), yaw], -1)
+        fb, pb = rng.uniform(0.2, 1.0, (1, 63)), rng.uniform(0, 2 * np.pi, (1, 63))
+        body = rng.uniform(0.05, 0.4, (1, 63)) * np.sin(2 * np.pi * fb * s + pb)
+        data[i] = {"seq_name": f"synthetic-train{i}", "trans": trans.astype(np.float32),
+                   "root_orient": root.astype(np.float32), "body_pose": body.astype(np.float32)}
+    with open(path, "wb") as fh:
+        pickle.dump(data, fh)
+
+
+def train_step_flops(s2, windows):
+    """f32 operations of one optimizer step over `windows` windows: the
+    forward's products (stem, per layer QKV, scores, p v, fc, w1, w2, then
+    linear_out and the noise-level MLP) times 3 for forward and backward."""
+    t, t1, dm, d = s2.window, s2.window + 1, s2.d_model, 198
+    hk, hv = s2.n_head * s2.d_k, s2.n_head * s2.d_v
+    layer = 2 * t1 * dm * (2 * hk + hv) + 2 * t1 * t1 * (hk + hv) + 2 * t1 * hv * dm + 4 * t1 * dm * dm
+    fwd = 2 * t * 2 * d * dm + s2.n_dec_layers * layer + 2 * t * dm * d + 2 * (64 * 256 + 256 * dm)
+    return 3 * fwd * windows
+
+
+# one optimizer step, card against CPU (train_step_agreement): the loss
+# (relative); each gradient entry's distance from the float64 reference,
+# of its tensor's max|.|, at most 1e-5 or twice the CPU's float32 distance
+# in that tensor (grad64_excess, the ratio to that allowance); w_k.bias
+# against the CPU (of the largest gradient); each parameter entry (of its
+# tensor's max|.|); the inputs of the branches that the two sides took
+# differently (of their call's max|.|); the free run's L2 distances over
+# all gradients and in the worst tensor
+STEP_BOUNDS = {"loss": 1e-5, "grad64_excess": 1.0, "wk_bias": 1e-6, "param": 1e-5, "adam": 1e-5,
+               "flip_input": 1e-5, "grad_l2_all": 1e-4, "grad_l2": 1e-3}
+
+
+def branch_mode(replay=None):
+    """A torch function mode over a training step that records, in call
+    order, the input of each torch.relu and Tensor.abs and the branch it
+    takes (relu: input > 0; abs: the input's sign). Given the branches of
+    another run (``replay``), each call takes those instead (x * s, whose
+    gradient is s): two devices' steps then differ by rounding alone."""
+    import torch
+
+    class Branches(torch.overrides.TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.signs, self.inputs, self.kinds = [], [], []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is not torch.relu and func is not torch.Tensor.abs:
+                return func(*args, **(kwargs or {}))
+            x = args[0]
+            s = (x > 0).to(x.dtype) if func is torch.relu else torch.sign(x)
+            self.kinds.append(func.__name__)
+            self.signs.append(s.detach().cpu())
+            self.inputs.append(x.detach().cpu())
+            if replay is None:
+                return func(*args, **(kwargs or {}))
+            return x * replay[len(self.signs) - 1].to(x.device, x.dtype)
+
+    return Branches()
+
+
+def float64_mode():
+    """A torch function mode in which Tensor.float and a float32 dtype
+    argument mean float64: the port's modules, which cast to float32 in
+    places, then run a float64 forward and backward."""
+    import torch
+
+    class Float64(torch.overrides.TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.Tensor.float:
+                return args[0].double()
+            f64 = lambda a: torch.float64 if a is torch.float32 else a
+            return func(*map(f64, args), **{k: f64(v) for k, v in (kwargs or {}).items()})
+
+    return Float64()
+
+
+def float64_gradients(make_state, batch, seed, replay):
+    """The loss and the gradients of a trainer step (the mean over its
+    micro-batches, the padding mask with the noise token) computed in
+    float64 on the CPU from ``make_state``'s weights, with the draws of
+    ``TorchNoise("cpu", seed)`` and the branches ``replay``: the reference
+    both float32 sides are held to."""
+    import torch
+
+    from egoego_release_tpu_torch.diffusion.gaussian_diffusion import head_condition_mask
+    from egoego_release_tpu_torch.ops.fused_step import TorchNoise
+
+    trainer, state = make_state(torch.device("cpu"))
+    model = state.model.double()
+    motion = torch.as_tensor(batch["motion"]).double()
+    seq_len = torch.as_tensor(batch["seq_len"])
+    window, micro = motion.shape[1], trainer.grad_accum
+    mb = motion.shape[0] // micro
+    pad = (torch.arange(window + 1)[None, :] < (seq_len + 1)[:, None]).double()[:, None, :]
+    cond = head_condition_mask(mb, window).double()
+    loss = 0.0
+    with branch_mode(replay), float64_mode():
+        for i, src in enumerate(TorchNoise("cpu", seed).split(micro)):
+            sl = slice(i * mb, (i + 1) * mb)
+            li = trainer.diffusion.p_losses(model, motion[sl], cond, pad[sl], noise=src, train=True) / micro
+            li.backward()
+            loss += float(li.detach())
+    return loss, [p.grad.detach() for p in model.parameters()]
+
+
+def train_step_agreement(make_state, batch, seed, card):
+    """One optimizer step from ``make_state(device)`` -> (trainer, state)
+    (one weight set, dropout off) on ``batch`` with the draws of
+    ``TorchNoise("cpu", seed)``, three times: on the card and on the CPU as
+    each runs, and on the CPU again taking the card's branches; and its
+    gradients in float64 on the CPU with the card's branches. A ReLU (or
+    l1) input within rounding of 0 may take the other branch on the CPU,
+    which moves whole gradient rows; with the card's branches the card's
+    gradients must lie as close to the float64 ones as the CPU's float32
+    gradients do, and its parameters agree entry by entry with the CPU's
+    where the step does not hang on the gradient's rounding. Returns the
+    measures named in STEP_BOUNDS and more."""
+    import torch
+
+    from egoego_release_tpu_torch.ops.fused_step import TorchNoise
+
+    cpu = torch.device("cpu")
+    runs = {}
+    for side, where, replay in (("card", card, None), ("cpu", cpu, None), ("replay", cpu, "card")):
+        trainer, state = make_state(where)
+        p0 = {n: p.detach().cpu().double() for n, p in state.model.named_parameters()}
+        with branch_mode(runs[replay]["mode"].signs if replay else None) as mode:
+            state, loss = trainer.train_step(state, batch, TorchNoise("cpu", seed))
+        runs[side] = {"mode": mode, "state": state, "loss": float(loss), "p0": p0, "lr": trainer.lr}
+    c, h, r = runs["card"], runs["cpu"], runs["replay"]
+    if [s.shape for s in c["mode"].signs] != [s.shape for s in r["mode"].signs]:
+        raise AssertionError("card and CPU steps call relu / abs differently")
+    m = {"loss": abs(c["loss"] - r["loss"]) / abs(r["loss"]), "loss_free": abs(c["loss"] - h["loss"]) / abs(h["loss"]),
+         "branch_calls": len(c["mode"].signs), "flips": 0, "forced": 0, "flip_input": 0.0, "flip_calls": []}
+    for i, s_c in enumerate(c["mode"].signs):
+        free, forced = s_c != h["mode"].signs[i], s_c != r["mode"].signs[i]
+        m["flips"] += int(free.sum())
+        m["forced"] += int(forced.sum())
+        if (free | forced).any():  # per micro-batch: each layer's relu in order, then the l1 loss's abs
+            m["flip_calls"].append(f"{c['mode'].kinds[i]} call {i}")
+        top = float(c["mode"].inputs[i].abs().max())
+        for run, at in ((c, free | forced), (h, free), (r, forced)):
+            if at.any():
+                m["flip_input"] = max(m["flip_input"], float(run["mode"].inputs[i][at].abs().max()) / top)
+    for run in runs.values():
+        run["params"] = list(run["state"].model.parameters())
+        run["g"] = [p.grad.detach().cpu().double() for p in run["params"]]
+    loss64, g64 = float64_gradients(make_state, batch, seed, c["mode"].signs)
+    m.update(loss64=abs(c["loss"] - loss64) / abs(loss64), loss64_cpu=abs(r["loss"] - loss64) / abs(loss64),
+             grad64=0.0, grad64_worst="", grad64_cpu=0.0, grad64_cpu_worst="", grad64_excess=0.0)
+    g_top = max(float(g.abs().max()) for g in r["g"])
+    upd = lambda lr, mo, v: lr * (mo / 0.1) / (torch.sqrt(v / 1e-3) + 1e-8)  # Adam's first step
+    m.update(grad=0.0, grad_worst="", wk_bias=0.0, grad_free=0.0, grad_free_worst="", grad_l2=0.0,
+             param=0.0, adam=0.0)
+    num = den = covered = total = 0.0
+    for k, (name, _) in enumerate(c["state"].model.named_parameters()):
+        g_c, g_h, g_r = c["g"][k], h["g"][k], r["g"][k]
+        if name.endswith("self_attn.w_k.bias"):  # its gradient is rounding noise (the softmax cancels it)
+            m["wk_bias"] = max(m["wk_bias"], float((g_c - g_r).abs().max()) / g_top)
+        else:
+            e = {}
+            for key, a, b in (("grad", g_c, g_r), ("grad_free", g_c, g_h), ("grad64", g_c, g64[k]),
+                              ("grad64_cpu", g_r, g64[k])):
+                e[key] = float((a - b).abs().max()) / float(b.abs().max())
+                if e[key] > m[key]:
+                    m[key], m[key + "_worst"] = e[key], name
+            m["grad64_excess"] = max(m["grad64_excess"], e["grad64"] / max(1e-5, 2 * e["grad64_cpu"]))
+            m["grad_l2"] = max(m["grad_l2"], float((g_c - g_h).norm() / g_h.norm()))
+            num, den = num + float((g_c - g_h).norm()) ** 2, den + float(g_h.norm()) ** 2
+        p_c, p_r = (run["params"][k].detach().cpu().double() for run in (c, r))
+        p_top = float(p_r.abs().max())
+        # where |g| is well above Adam's eps and its rounding, the first step
+        # lr g / (|g| + 1e-8) does not depend on the rounding: compare there
+        big = (g_r.abs() >= 1e-3 * float(g_r.abs().max())) & (g_r.abs() >= 1e-6)
+        covered, total = covered + int(big.sum()), total + big.numel()
+        if big.any():
+            m["param"] = max(m["param"], float((p_c - p_r)[big].abs().max()) / p_top)
+        for run, p in ((c, p_c), (r, p_r)):  # each side's Adam applied its own moments
+            st = run["state"].optimizer.state[run["params"][k]]
+            own = run["p0"][name] - upd(run["lr"], st["exp_avg"].cpu().double(), st["exp_avg_sq"].cpu().double())
+            m["adam"] = max(m["adam"], float((p - own).abs().max()) / p_top)
+    m["grad_l2_all"], m["param_share"] = math.sqrt(num / den), covered / total
+    return m
+
+
+def train_phase(card, data_dir, eval_data_path, rest_path, check_counts, clear_counts):
+    """Phase 11: stage-2 training at the release widths through
+    train_diffusion.run, resumed, on the iterator path, card against CPU,
+    then --sample and eval_stage2 on the trained checkpoint; the step's
+    times, busy share and peak memory. Returns the summary."""
+    import torch
+
+    from egoego_release_tpu_torch.data.amass import AMASSWindowDataset
+    from egoego_release_tpu_torch.data.prefetch import prefetch_to_device
+    from egoego_release_tpu_torch.diffusion.gaussian_diffusion import CondGaussianDiffusion
+    from egoego_release_tpu_torch.eval import eval_stage2
+    from egoego_release_tpu_torch.models.transformer import set_dropout_rate
+    from egoego_release_tpu_torch.ops import cuda_kernels as ck
+    from egoego_release_tpu_torch.ops.fused_step import TorchNoise
+    from egoego_release_tpu_torch.training import train_diffusion as td
+    from egoego_release_tpu_torch.training.trainer_diffusion import DiffusionTrainer
+    from egoego_release_tpu_torch.utils.config import load_config
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    root = os.path.join(data_dir, "train")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    train_path = os.path.join(root, "train_amass.p")
+    smooth_motion_pickle(train_path, np.random.RandomState(13), 65)
+    base = {"data": {"rest_offsets": rest_path, "stats_path": os.path.join(root, "stats.p")},
+            "logging": {"save_dir": root, "exp_name": "release", "log_every": 50}}
+    sets = [f"train.num_steps={TRAIN_STEPS}", "train.save_every=200", "train.seed=0"]
+    cfg = load_config(base, overrides=sets)
+    s2, n_batch = cfg.stage2, cfg.data.batch_size * cfg.train.grad_accum
+    weights = os.path.join(root, "release", "weights")
+
+    # 1. train_diffusion.run on the device-resident bank
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = td.run(cfg, train_path, device="cuda")
+    torch.cuda.synchronize()
+    dt_run = time.perf_counter() - t0
+    logged = [json.loads(line) for line in open(os.path.join(root, "release", "metrics.jsonl"))]
+    means = [r["loss_mean"] for r in logged]
+    if state.step != TRAIN_STEPS or int(state.nan_count) != 0 or len(logged) != TRAIN_STEPS // 50:
+        raise AssertionError(f"phase 11: step {state.step}, nan_count {int(state.nan_count)}, {len(logged)} log lines")
+    if not (all(map(math.isfinite, means + [r["loss"] for r in logged])) and means[-1] < means[0]):
+        raise AssertionError(f"phase 11: loss means per 50 steps {means}")
+    ckpts = sorted(os.listdir(weights))
+    if ckpts != ["model-200.pt", f"model-{TRAIN_STEPS}.pt"]:
+        raise AssertionError(f"phase 11: checkpoints {ckpts}")
+    log(f"phase 11: train_diffusion.run, release widths, micro-batch {cfg.data.batch_size} x grad-accum "
+        f"{cfg.train.grad_accum}, {TRAIN_STEPS} steps on the device-resident bank in {dt_run:.2f} s (data build "
+        f"included); mean loss of steps 1-50 {means[0]:.4f}, of steps {TRAIN_STEPS - 49}-{TRAIN_STEPS} "
+        f"{means[-1]:.4f}; per 50 steps {[round(m, 4) for m in means]}; checkpoints {ckpts} [{card}]")
+
+    # 2. resume from the newest checkpoint
+    state = td.run(load_config(base, overrides=sets + [f"train.num_steps={TRAIN_RESUME_STEPS}"]), train_path,
+                   device="cuda")
+    if state.step != TRAIN_STEPS + TRAIN_RESUME_STEPS or int(state.nan_count) != 0:
+        raise AssertionError(f"phase 11: resumed run ended at step {state.step}")
+    ckpt = td.latest_checkpoint(weights)
+    log(f"phase 11: resumed from model-{TRAIN_STEPS}.pt, {TRAIN_RESUME_STEPS} more steps: step {state.step}, "
+        f"newest checkpoint {os.path.basename(ckpt)}")
+
+    # 3. the iterator + prefetch path
+    state_it = td.run(load_config(base, overrides=sets + [
+        f"train.num_steps={TRAIN_ITER_STEPS}", "data.device_resident=false", "data.prefetch=2",
+        "logging.exp_name=iterator", "logging.log_every=10"]), train_path, device="cuda")
+    logged_it = [json.loads(line) for line in open(os.path.join(root, "iterator", "metrics.jsonl"))]
+    if state_it.step != TRAIN_ITER_STEPS or not all(math.isfinite(r["loss_mean"]) for r in logged_it):
+        raise AssertionError(f"phase 11: iterator run: step {state_it.step}, {logged_it}")
+    log(f"phase 11: iterator + prefetch 2, {TRAIN_ITER_STEPS} steps: loss means per 10 steps "
+        f"{[round(r['loss_mean'], 4) for r in logged_it]}")
+
+    # the step: ms (CUDA events, after 20 warm-up steps), busy share, host ms
+    # per step of both data paths, peak memory with remat off and on
+    ds = AMASSWindowDataset(train_path, np.load(rest_path), window=cfg.data.window,
+                            stats_path=cfg.data.stats_path)
+    bank, seq_lens = (torch.as_tensor(a, device=dev) for a in ds.materialize_windows())
+    n_padded = int((seq_lens < cfg.data.window).sum())
+
+    def trainer_and_state(remat=False):
+        tr = DiffusionTrainer(CondGaussianDiffusion(dataclasses.replace(td.diffusion_config(s2), remat=remat),
+                                                       device=dev))
+        return tr, tr.init_state(torch.Generator().manual_seed(1))
+
+    trainer, st = trainer_and_state()
+    noise = TorchNoise(dev, seed=7)
+    box = [st]
+
+    def step():
+        box[0], _ = trainer._train_step_device(box[0], bank, seq_lens, noise, n_batch)
+
+    for _ in range(20):
+        step()
+    times = []
+    for _ in range(30):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        step()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    step_ms = statistics.median(times)
+
+    def wall_ms(fn, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    wall_dev = wall_ms(step, 20)
+    dev_ms, kernels = device_time_ms(step, reps=20, chain=True)
+    busy = dev_ms / wall_dev
+    launches = sum(kernels.values()) / 20
+    batches = prefetch_to_device(ds.batch_iterator(n_batch, seed=0), prefetch=2, device=dev)
+    it_step = lambda: trainer.train_step(box[0], next(batches), noise)
+    for _ in range(5):
+        it_step()
+    wall_it = wall_ms(it_step, 20)
+    flops = train_step_flops(s2, n_batch)
+    bound_ms = flops / PEAK_F32 * 1e3
+    peak = {}
+    for remat in (False, True):
+        box.clear()
+        trainer = st = None
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        trainer, st = trainer_and_state(remat)
+        box.append(st)
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        peak[remat] = torch.cuda.max_memory_allocated() / 2**20
+    log(f"phase 11: optimizer step (release widths, {n_batch} windows of {cfg.data.window} frames, f32, "
+        f"{len(ds)} windows in the bank, {n_padded} padded): {step_ms:.3f} ms (median of 30 CUDA-event timings "
+        f"after 20 warm-up steps), {n_batch / step_ms * 1e3:.0f} window-grads/s; bound {bound_ms:.3f} ms "
+        f"({flops / 1e9:.1f} GFLOP at {PEAK_F32 / 1e12:.0f} TFLOP/s f32) [{card}]")
+    log(f"phase 11: device-busy share over 20 steps {busy:.3f} (device {dev_ms:.3f} ms of {wall_dev:.3f} ms "
+        f"wall a step; {launches:.0f} device kernels and copies a step); host ms per step: device-resident "
+        f"{wall_dev:.3f}, iterator + prefetch {wall_it:.3f} "
+        f"({wall_it / wall_dev:.2f}x) [{card}]")
+    log(f"phase 11: torch.cuda.max_memory_allocated over 3 steps: remat off {peak[False]:.1f} MiB, remat on "
+        f"{peak[True]:.1f} MiB [{card}]")
+    box.clear()
+    trainer = st = None
+
+    # 4. one step on the card against the CPU: same weights, batch and
+    # draws (t, noise and condition noise from one CPU generator), dropout off
+    batch = ds.materialize_windows()
+    pick = np.random.RandomState(3).choice(len(ds), 16, replace=False)
+    batch = {"motion": batch[0][pick], "seq_len": batch[1][pick]}
+
+    def make_state(where):
+        tr = DiffusionTrainer(CondGaussianDiffusion(td.diffusion_config(s2), device=where), lr=cfg.train.learning_rate)
+        st = tr.init_state(torch.Generator().manual_seed(2))
+        set_dropout_rate(st.model, 0.0)
+        return tr, st
+
+    errs = train_step_agreement(make_state, batch, 4, dev)
+    log(f"phase 11: one step, card vs CPU, 16 windows, release widths (bounds in brackets): loss "
+        f"{errs['loss']:.3e} relative [{STEP_BOUNDS['loss']}]; {errs['branch_calls']} relu / l1 calls, "
+        f"{errs['flips']} entries where the CPU took the other branch, {errs['forced']} where the CPU replay "
+        f"was made to take the card's ({', '.join(errs['flip_calls']) or 'none'}), their inputs within "
+        f"{errs['flip_input']:.3e} of their call's max|x| "
+        f"[{STEP_BOUNDS['flip_input']}]; with the card's branches, gradients against float64: card "
+        f"{errs['grad64']:.3e} of each tensor's max in the worst entry ({errs['grad64_worst']}), CPU "
+        f"{errs['grad64_cpu']:.3e} ({errs['grad64_cpu_worst']}), the card's largest ratio to max(1e-5, twice "
+        f"the CPU's) {errs['grad64_excess']:.3f} [{STEP_BOUNDS['grad64_excess']}]; card vs CPU: gradients "
+        f"{errs['grad']:.3e} ({errs['grad_worst']}), w_k.bias {errs['wk_bias']:.3e} of the largest gradient "
+        f"[{STEP_BOUNDS['wk_bias']}], parameters {errs['param']:.3e} of max|p| in the worst entry where |g| >= "
+        f"1e-3 of its tensor's max and >= 1e-6 ({errs['param_share']:.4f} of the entries) "
+        f"[{STEP_BOUNDS['param']}], each side's Adam from its own moments {errs['adam']:.3e} "
+        f"[{STEP_BOUNDS['adam']}]; as each side runs: loss {errs['loss_free']:.3e}, gradients "
+        f"{errs['grad_l2_all']:.3e} relative L2 over all tensors [{STEP_BOUNDS['grad_l2_all']}], "
+        f"{errs['grad_l2']:.3e} in the worst tensor [{STEP_BOUNDS['grad_l2']}], {errs['grad_free']:.3e} of its max "
+        f"in the worst entry ({errs['grad_free_worst']})")
+    bad = {k: errs[k] for k, bound in STEP_BOUNDS.items() if not errs[k] <= bound}
+    if bad:
+        raise AssertionError(f"phase 11: card and CPU steps disagree: {bad}")
+
+    # 5. --sample on the trained checkpoint: DDPM-1000, f32 step kernels
+    sample_sets = sets + [f"data.rest_offsets={rest_path}", f"logging.save_dir={root}", "logging.exp_name=release"]
+    clear_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = td.main(["--sample", "--device", "cuda", "--set", *sample_sets])
+    torch.cuda.synchronize()
+    dt_sample = time.perf_counter() - t0
+    check_counts(1, s2.timesteps, "phase 11 --sample (f32)", bf16=False)
+    if tuple(out.shape) != (4, s2.window, 198) or not torch.isfinite(out).all():
+        raise AssertionError(f"phase 11: --sample gave {tuple(out.shape)}")
+    log(f"phase 11: train_diffusion --sample from {os.path.basename(ckpt)}: 4 windows, DDPM-{s2.timesteps} f32 in "
+        f"{dt_sample:.2f} s [{card}]")
+
+    # 6. eval_stage2 on the trained checkpoint
+    clear_counts()
+    res = eval_stage2.run(eval_stage2.parse_opt([
+        "--test_data_path", eval_data_path, "--stats_path", cfg.data.stats_path, "--rest_offsets", rest_path,
+        "--checkpoint", ckpt, "--ddim_steps", "50", "--batch_seqs", "4", "--max_seqs", "4",
+        "--out_dir", os.path.join(root, "eval"), "--device", "cuda"]))
+    check_counts(1, 50, "phase 11 eval_stage2 --checkpoint (f32 DDIM-50)", bf16=False)
+    if res["num_seqs"] != 4 or not all(math.isfinite(v) for v in res["mean"].values()):
+        raise AssertionError(f"phase 11: eval_stage2 on the trained checkpoint: {res['mean']}")
+    log(f"phase 11: eval_stage2 --checkpoint {os.path.basename(ckpt)} --ddim_steps 50, 4 sequences: mpjpe "
+        f"{res['mean']['mpjpe']:.1f} mm; phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    ck.launch_counts.clear()
+    return {"step_ms": step_ms, "window_grads_per_s": n_batch / step_ms * 1e3, "bound_ms": bound_ms,
+            "gflop": flops / 1e9, "device_busy_share": busy, "device_ms": dev_ms, "launches_per_step": launches,
+            "host_ms_device_resident": wall_dev,
+            "host_ms_iterator": wall_it, "peak_mib_remat_off": peak[False], "peak_mib_remat_on": peak[True],
+            "loss_mean_first_50": means[0], "loss_mean_last_50": means[-1], "run_s": dt_run,
+            "card_vs_cpu": errs, "sample_s": dt_sample, "windows": len(ds),
+            "padded_windows": n_padded, "card": card}
 
 
 def main() -> int:
@@ -1279,6 +1709,9 @@ def main() -> int:
     log(f"phase 10: OF upload 4 x {FRAMES_D} x 512 f32 ({of_e.numel() * 4 / 1e6:.2f} MB): the copy from pinned "
         f"memory {copy_ms:.3f} ms, with the pinning (EgoEgoPipeline._upload) {up_ms:.3f} ms [{card}]")
 
+    # -- phase 11: stage-2 training on the card ---------------------------
+    training = train_phase(card, data_dir, data_path, rest_path, check_counts, clear_counts)
+
     replaces = {"stem_layer": "egoego_release_tpu/ops/fused_step.py:126",
                 "decoder_layer": "egoego_release_tpu/ops/fused_layer.py:113",
                 "layer_epilogue": "egoego_release_tpu/ops/fused_step.py:160",
@@ -1322,7 +1755,7 @@ def main() -> int:
         f"{stage1[HEADNET_WINDOW_D]['ms_per_seq']:.2f} ms/seq (window {HEADNET_WINDOW_D}), "
         f"{stage1[60]['ms_per_seq']:.2f} ms/seq (window 60); whole smoke {time.perf_counter() - t_start:.1f} s; "
         f"device times left by the profiler to CUDA events: {len(EVENT_TIMED)}")
-    print(json.dumps({"kernels": kernels, "step": step_prof}))
+    print(json.dumps({"kernels": kernels, "step": step_prof, "training": training}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,5 +1,9 @@
 """Head-pose-conditioned Gaussian diffusion, stage 2 (port of
-egoego_release_tpu/diffusion/gaussian_diffusion.py, inference part).
+egoego_release_tpu/diffusion/gaussian_diffusion.py): the training loss
+(``q_sample``, ``p_losses``) and the samplers.
+
+``p_losses`` runs the denoiser ``nn.Module`` forward with autograd, as JAX
+trains through the flax path: no kernel of this package has a backward.
 
 By default every reverse step runs through the three step kernels of
 ops/fused_step.py: on the card the hand-written CUDA kernels, on the CPU
@@ -57,6 +61,11 @@ class DiffusionConfig:
     d_v: int = 256
     window: int = 120
     timesteps: int = 1000
+    objective: str = "pred_x0"       # training target; the samplers take pred_x0 only
+    beta_schedule: str = "cosine"
+    loss_type: str = "l1"
+    # recompute each decoder layer in the backward pass (training memory)
+    remat: bool = False
     overlap_frames: int = 10
     compute_dtype: str = "bfloat16"  # "float32" = exact f32 parity mode
     sampler: str = "ddpm"            # "ddim" = strided fast sampler
@@ -97,7 +106,7 @@ def head_condition_mask(bs: int, t: int, joint_idx: int = HEAD_IDX, device="cpu"
 def new_denoiser(cfg: DiffusionConfig) -> TransformerDiffusionModel:
     """An uninitialized denoiser of the configured shape, on the CPU."""
     return TransformerDiffusionModel(cfg.d_feats, cfg.d_model, cfg.n_dec_layers, cfg.n_head,
-                                     cfg.d_k, cfg.d_v, max_timesteps=cfg.window + 1)
+                                     cfg.d_k, cfg.d_v, max_timesteps=cfg.window + 1, remat=cfg.remat)
 
 
 @torch.no_grad()
@@ -139,7 +148,9 @@ class CondGaussianDiffusion:
             raise ValueError(f"compute_dtype must be bfloat16 or float32, got {cfg.compute_dtype!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.consts = make_diffusion_constants(cfg.timesteps)
+        self.consts = make_diffusion_constants(cfg.timesteps, cfg.beta_schedule)
+        self._loss_consts = {k: torch.as_tensor(getattr(self.consts, k), device=self.device) for k in (
+            "sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod", "p2_loss_weight")}
         if model is None:
             model = init_weights_(new_denoiser(cfg), torch.Generator().manual_seed(seed))
         self.model = model.to(self.device).eval()
@@ -159,6 +170,57 @@ class CondGaussianDiffusion:
                                   for layer in self.model.motion_transformer.layer_stack]
         return self._fused_layers
 
+    # -- forward process / training ---------------------------------------
+
+    def q_sample(self, x_start: torch.Tensor, t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        c = self._loss_consts
+        shape = (-1,) + (1,) * (x_start.ndim - 1)
+        return (c["sqrt_alphas_cumprod"][t].reshape(shape) * x_start
+                + c["sqrt_one_minus_alphas_cumprod"][t].reshape(shape) * noise)
+
+    def p_losses(self, model: TransformerDiffusionModel, x_start: torch.Tensor, cond_mask: torch.Tensor,
+                 padding_mask: torch.Tensor | None = None, *, noise, train: bool = False) -> torch.Tensor:
+        """The training loss of ``model`` (JAX: ``p_losses(params, key, ...)``).
+        x_start (B, T, D) in [-1, 1]; cond_mask (B, T, D), 1 = to generate;
+        padding_mask (B, 1, T+1), 1 = real, whose frame part ``[:, 0, 1:]``
+        zeroes the loss of padded frames before the mean over all T x D.
+        ``noise`` gives t (``randint``), the forward noise (``step``), the
+        condition noise (``cond``) and, with ``train``, the dropout seed
+        (``dropout_seed``; the global RNG is forked around the forward, so
+        nothing else sees it). ``train`` puts ``model`` in train mode
+        (dropout on), else in eval mode. Returns the scalar loss."""
+        bs = x_start.shape[0]
+        dev = x_start.device
+        t = noise.randint(bs, self.cfg.timesteps).to(dev)
+        eps = noise.step(x_start.shape).to(dev, x_start.dtype)
+        x = self.q_sample(x_start, t, eps)
+        cond_noise = noise.cond(x_start.shape).to(dev, x_start.dtype)
+        x_all = torch.cat([x, x_start * (1.0 - cond_mask) + cond_mask * cond_noise], dim=-1)
+        model.train(train)
+        if train:
+            with torch.random.fork_rng(devices=[dev.index] if dev.type == "cuda" else []):
+                torch.manual_seed(noise.dropout_seed())
+                model_out = model(x_all, t, padding_mask)
+        else:
+            model_out = model(x_all, t, padding_mask)
+
+        if self.cfg.objective == "pred_x0":
+            target = x_start
+        elif self.cfg.objective == "pred_noise":
+            target = eps
+        else:
+            raise ValueError(self.cfg.objective)
+        if self.cfg.loss_type == "l1":
+            loss = (model_out - target).abs()
+        elif self.cfg.loss_type == "l2":
+            loss = (model_out - target) ** 2
+        else:
+            raise ValueError(self.cfg.loss_type)
+        if padding_mask is not None:
+            loss = loss * padding_mask[:, 0, 1:, None]
+        loss = loss.reshape(bs, -1).mean(dim=-1) * self._loss_consts["p2_loss_weight"][t]
+        return loss.mean()
+
     # -- reverse process ---------------------------------------------------
 
     def _loop(self, x_start, cond_mask, padding_mask, inpaint_value, inpaint_mask, *, noise, **kw):
@@ -168,6 +230,8 @@ class CondGaussianDiffusion:
         through the denoiser), run as chunks of N in sequence, each with
         its own source from ``noise.split`` (JAX: ``jax.random.split(key,
         k)``), and sliced back."""
+        if self.cfg.objective != "pred_x0":
+            raise NotImplementedError(f"the samplers take pred_x0 models only, not {self.cfg.objective!r}")
         loop = fused_layer_p_sample_loop if self.cfg.fused_transformer else fused_p_sample_loop
         mb = self.cfg.sample_microbatch
         bs = x_start.shape[0]

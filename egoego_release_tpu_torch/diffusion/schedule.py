@@ -30,9 +30,12 @@ class DiffusionConstants(NamedTuple):
     betas: np.ndarray
     alphas_cumprod: np.ndarray
     alphas_cumprod_prev: np.ndarray
+    sqrt_alphas_cumprod: np.ndarray
+    sqrt_one_minus_alphas_cumprod: np.ndarray
     posterior_log_variance_clipped: np.ndarray
     posterior_mean_coef1: np.ndarray
     posterior_mean_coef2: np.ndarray
+    p2_loss_weight: np.ndarray
 
 
 def make_diffusion_constants(timesteps: int = 1000, beta_schedule: str = "cosine") -> DiffusionConstants:
@@ -51,7 +54,11 @@ def make_diffusion_constants(timesteps: int = 1000, beta_schedule: str = "cosine
         betas=f32(betas),
         alphas_cumprod=f32(alphas_cumprod),
         alphas_cumprod_prev=f32(alphas_cumprod_prev),
+        sqrt_alphas_cumprod=f32(np.sqrt(alphas_cumprod)),
+        sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - alphas_cumprod)),
         posterior_log_variance_clipped=f32(np.log(np.clip(posterior_variance, 1e-20, None))),
         posterior_mean_coef1=f32(betas * np.sqrt(alphas_cumprod_prev) / (1.0 - alphas_cumprod)),
         posterior_mean_coef2=f32((1.0 - alphas_cumprod_prev) * np.sqrt(alphas) / (1.0 - alphas_cumprod)),
+        # the reference's default p2 gamma of 0: (k + snr) ** -0 = 1 at every t
+        p2_loss_weight=np.ones(timesteps, dtype=np.float32),
     )

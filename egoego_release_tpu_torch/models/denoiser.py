@@ -31,7 +31,7 @@ class SinusoidalPosEmb(nn.Module):
 
 class TransformerDiffusionModel(nn.Module):
     def __init__(self, d_feats: int, d_model: int, n_dec_layers: int, n_head: int,
-                 d_k: int, d_v: int, max_timesteps: int):
+                 d_k: int, d_v: int, max_timesteps: int, remat: bool = False):
         super().__init__()
         dim = 64
         # time_mlp.1 / time_mlp.3 are the reference's keys; GELU is the exact
@@ -39,7 +39,7 @@ class TransformerDiffusionModel(nn.Module):
         self.time_mlp = nn.Sequential(
             SinusoidalPosEmb(dim), nn.Linear(dim, dim * 4), nn.GELU(), nn.Linear(dim * 4, d_model))
         self.motion_transformer = Decoder(2 * d_feats, d_model, n_dec_layers, n_head, d_k, d_v,
-                                          max_timesteps)
+                                          max_timesteps, remat=remat)
         self.linear_out = nn.Linear(d_model, d_feats)
 
     def forward(self, src: torch.Tensor, noise_t: torch.Tensor,

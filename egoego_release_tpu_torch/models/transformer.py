@@ -15,6 +15,17 @@ the card in the TPU's place: 256 or more query tokens and no mask go to
 ``ops.attention.fused_attention`` (the hand-written kernel on CUDA tensors,
 its plain version on CPU tensors); everything else runs the einsum path.
 The stage-2 step path (ops/fused_step.py) does not use these forwards.
+
+Training (as the flax modules): dropout at rate 0.1 on the attention
+probabilities, after ``fc`` and after ``w_2``, active only in ``train()``
+mode. The dropout modules are built in eval mode, as flax defaults to
+``deterministic=True``, so a module nobody put in ``train()`` computes
+exactly as before; ``model.train()`` turns them on. In train mode with
+dropout, attention never goes to ``fused_attention``, which has no
+backward (the JAX guard at egoego_release_tpu/models/transformer.py:95-97).
+``Decoder(remat=True)`` recomputes each layer in the backward pass
+(``torch.utils.checkpoint``, which replays the RNG state, so the dropout
+masks of the recompute are the forward's).
 """
 
 from __future__ import annotations
@@ -23,10 +34,12 @@ import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from egoego_release_tpu_torch.ops.attention import fused_attention
 
 LN_EPS = 1e-5
+DROPOUT_RATE = 0.1  # egoego_release_tpu/models/transformer.py:69,134
 # query tokens from which an unmasked attention goes to the fused kernel
 # (egoego_release_tpu/models/transformer.py:93)
 FUSED_ATTENTION_MIN_TOKENS = 256
@@ -46,6 +59,20 @@ def sinusoid_position_table(n_position: int, d_hid: int, padding_idx: int | None
     return table.astype(np.float32)
 
 
+def _dropout(p: float) -> nn.Dropout:
+    """Off until the owning model is put in ``train()`` mode."""
+    return nn.Dropout(p).eval()
+
+
+def set_dropout_rate(model: nn.Module, p: float) -> nn.Module:
+    """Set the rate of every dropout in ``model`` (0 = train mode computes
+    exactly as eval mode)."""
+    for mod in model.modules():
+        if isinstance(mod, nn.Dropout):
+            mod.p = p
+    return model
+
+
 def _post_ln(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, LN_EPS)
 
@@ -59,6 +86,8 @@ class MultiHeadAttention(nn.Module):
         self.w_v = nn.Linear(d_model, n_head * d_v)
         self.fc = nn.Linear(n_head * d_v, d_model)
         self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.attn_dropout = _dropout(DROPOUT_RATE)
+        self.dropout = _dropout(DROPOUT_RATE)
 
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -70,14 +99,15 @@ class MultiHeadAttention(nn.Module):
         wq = self.w_q(q).view(bs, n_q, h, self.d_k).transpose(1, 2)
         wk = self.w_k(k).view(bs, n_k, h, self.d_k).transpose(1, 2)
         wv = self.w_v(v).view(bs, n_k, h, self.d_v).transpose(1, 2)
-        if mask is None and n_q >= FUSED_ATTENTION_MIN_TOKENS:
+        dropout_on = self.attn_dropout.training and self.attn_dropout.p > 0
+        if mask is None and n_q >= FUSED_ATTENTION_MIN_TOKENS and not dropout_on:
             out = fused_attention(wq, wk, wv)
         else:
             attn = torch.matmul(wq, wk.transpose(-1, -2)) / np.sqrt(self.d_k)
             if mask is not None:
                 attn = attn.masked_fill(mask[:, None], float("-inf"))
-            out = torch.matmul(torch.softmax(attn.float(), dim=-1), wv)
-        out = self.fc(out.transpose(1, 2).reshape(bs, n_q, h * self.d_v))
+            out = torch.matmul(self.attn_dropout(torch.softmax(attn.float(), dim=-1)), wv)
+        out = self.dropout(self.fc(out.transpose(1, 2).reshape(bs, n_q, h * self.d_v)))
         return _post_ln(self.layer_norm, out + q)
 
 
@@ -87,12 +117,13 @@ class PositionwiseFeedForward(nn.Module):
         self.w_1 = nn.Conv1d(d_in, d_hid, 1)
         self.w_2 = nn.Conv1d(d_hid, d_in, 1)
         self.layer_norm = nn.LayerNorm(d_in, eps=LN_EPS)
+        self.dropout = _dropout(DROPOUT_RATE)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Dense-ReLU-Dense over the features of x (B, T, d_in), post-LN."""
         out = F.linear(torch.relu(F.linear(x, self.w_1.weight[..., 0], self.w_1.bias)),
                        self.w_2.weight[..., 0], self.w_2.bias)
-        return _post_ln(self.layer_norm, out + x)
+        return _post_ln(self.layer_norm, self.dropout(out) + x)
 
 
 class DecoderLayer(nn.Module):
@@ -112,9 +143,11 @@ class DecoderLayer(nn.Module):
 
 class Decoder(nn.Module):
     def __init__(self, d_feats: int, d_model: int, n_layers: int, n_head: int,
-                 d_k: int, d_v: int, max_timesteps: int, use_full_attention: bool = True):
+                 d_k: int, d_v: int, max_timesteps: int, use_full_attention: bool = True,
+                 remat: bool = False):
         super().__init__()
         self.use_full_attention = use_full_attention
+        self.remat = remat
         self.start_conv = nn.Conv1d(d_feats, d_model, 1)
         self.layer_stack = nn.ModuleList(
             [DecoderLayer(d_model, n_head, d_k, d_v) for _ in range(n_layers)])
@@ -138,5 +171,8 @@ class Decoder(nn.Module):
             time_mask = time_mask[None].expand(bs, -1, -1)
         x = x + self.position_table[1: t_total + 1]
         for layer in self.layer_stack:
-            x = layer(x, time_mask, padding_mask)
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(layer, x, time_mask, padding_mask, use_reentrant=False)
+            else:
+                x = layer(x, time_mask, padding_mask)
         return x

@@ -54,6 +54,17 @@ def ik_to_local_quat(global_quat: torch.Tensor) -> torch.Tensor:
     return torch.cat([global_quat[..., :1, :], child_local], dim=-2)
 
 
+def local_to_global_matrix(local_mat: torch.Tensor) -> torch.Tensor:
+    """Local rotation matrices (..., 22, 3, 3) -> global, one tree level at
+    a time (each joint's parent is final before the joint's level runs)."""
+    g = local_mat.clone()
+    for js, ps in _LEVELS:
+        js_t = torch.as_tensor(js, device=g.device)
+        ps_t = torch.as_tensor(ps, device=g.device)
+        g[..., js_t, :, :] = torch.matmul(g[..., ps_t, :, :], local_mat[..., js_t, :, :])
+    return g
+
+
 def fk_smpl(root_trans: torch.Tensor, local_aa: torch.Tensor, rest_offsets: torch.Tensor):
     """root_trans (..., 3), local_aa (..., 22, 3), rest_offsets (22, 3) ->
     (global_quat (..., 22, 4), global_jpos (..., 22, 3))."""

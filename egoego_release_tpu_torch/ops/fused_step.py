@@ -241,13 +241,16 @@ def ddim_scalars(consts, timesteps: int, n_steps: int, eta: float = 0.0):
 
 
 class TorchNoise:
-    """The samplers' default noise source: every draw comes from one
-    ``torch.Generator`` on ``device`` (no host round trip)."""
+    """The samplers' and the trainer's default noise source: every draw
+    comes from one ``torch.Generator`` on ``device`` (no host round trip),
+    except ``dropout_seed``, which the host needs and draws from a host
+    generator of the same seed."""
 
     def __init__(self, device, seed: int = 0):
         self.device = torch.device(device)
         self.seed = seed
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._host = torch.Generator().manual_seed(seed)
         self._splits = 0
 
     def window(self) -> "TorchNoise":
@@ -265,6 +268,13 @@ class TorchNoise:
         return torch.randn(shape, generator=self.generator, device=self.device)
 
     initial = cond = step = _draw
+
+    def randint(self, n: int, high: int) -> torch.Tensor:
+        """n integers uniform in [0, high) (timesteps, window indices)."""
+        return torch.randint(high, (n,), generator=self.generator, device=self.device)
+
+    def dropout_seed(self) -> int:
+        return int(torch.randint(2**62, (1,), generator=self._host))
 
 
 @torch.no_grad()

@@ -10,6 +10,8 @@
 * ``load_stage1_ckpt``: a released ``stage1_headnet_*.pt`` or
   ``stage1_gravitynet_*.pt``, checked against the target widths and
   layer count before it is used.
+* ``trainer_state_from_jax``: the JAX stage-2 trainer's ``TrainState`` ->
+  the dict of a ``training.trainer_diffusion`` checkpoint.
 """
 
 from __future__ import annotations
@@ -92,7 +94,27 @@ def gravitynet_state_dict_from_jax(params) -> dict[str, torch.Tensor]:
     return sd
 
 
-def _strip(sd: dict, prefix: str) -> dict:
+def trainer_state_from_jax(state) -> dict:
+    """A JAX ``TrainState`` (params, optax.adam state, EMA, step, nan_count)
+    -> the checkpoint dict of the port's trainer (``DiffusionTrainer.
+    state_from_dict`` takes it): params and EMA through
+    ``denoiser_state_dict_from_jax`` under the reference's prefixes, the
+    ScaleByAdamState's mu / nu / count as Adam's exp_avg / exp_avg_sq /
+    step by parameter name."""
+    adam = next(s for s in state.opt_state if hasattr(s, "mu"))
+    return {
+        "step": int(np.asarray(state.step)),
+        "model": {"denoise_fn." + k: v for k, v in denoiser_state_dict_from_jax(state.params).items()},
+        "ema": {"ema_model.denoise_fn." + k: v
+                for k, v in denoiser_state_dict_from_jax(state.ema_params).items()},
+        "adam": {"step": int(np.asarray(adam.count)),
+                 "exp_avg": denoiser_state_dict_from_jax(adam.mu),
+                 "exp_avg_sq": denoiser_state_dict_from_jax(adam.nu)},
+        "nan_count": int(np.asarray(state.nan_count)),
+    }
+
+
+def strip_prefix(sd: dict, prefix: str) -> dict:
     return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
 
 
@@ -104,10 +126,10 @@ def load_stage2_diffusion_ckpt(path: str, use_ema: bool = True):
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = {}
     if use_ema and "ema" in ckpt:
-        sd = _strip(ckpt["ema"], "ema_model.")
+        sd = strip_prefix(ckpt["ema"], "ema_model.")
     if not sd:
         sd = ckpt["model"] if "model" in ckpt else ckpt
-    sd = _strip(sd, "denoise_fn.")
+    sd = strip_prefix(sd, "denoise_fn.")
     if not sd:
         raise ValueError(f"{path}: no denoise_fn.* weights found")
     return sd, int(ckpt.get("step", 0))

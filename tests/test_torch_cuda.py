@@ -10,6 +10,9 @@ Tolerances: 1e-4 absolute in f32 mode (summation order only: no TF32, or
 the two sum in other orders; outputs are O(1) LayerNorm values).
 """
 
+import math
+import os
+
 import pytest
 import torch
 
@@ -462,3 +465,66 @@ def test_stage1_batched_on_card_matches_cpu(card):
     assert got.shape == want.shape == (4, 301, 7)
     assert float((got[..., :3] - want[..., :3]).abs().max()) < 1e-3
     assert float((got[..., 3:] - want[..., 3:]).abs().max()) < 1e-4
+
+
+def _train_state(device):
+    """A trainer at the release widths (window 24) and its state, weights
+    from seed 0, dropout off."""
+    from egoego_release_tpu_torch.models.transformer import set_dropout_rate
+    from egoego_release_tpu_torch.training.trainer_diffusion import DiffusionTrainer
+
+    trainer = DiffusionTrainer(CondGaussianDiffusion(DiffusionConfig(window=24, compute_dtype="float32"),
+                                                     device=device), lr=1e-4)
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    set_dropout_rate(state.model, 0.0)
+    return trainer, state
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """The same step on the card and on the CPU (chip_smoke.py's
+    train_step_agreement, its bounds): loss within 1e-5 relative; with the
+    card's ReLU and l1 branches replayed on the CPU and in a float64
+    reference, each gradient entry as close to float64 as the CPU's f32
+    ones (1e-5 of the tensor's max, or twice the CPU's distance) and every
+    parameter entry where the step does not hang on the gradient's
+    rounding within 1e-5 of max|p| of the CPU's; the branches the CPU took
+    otherwise sit on inputs within 1e-5 of their call's max; as each side
+    runs, gradients within 1e-4 relative L2 over all tensors and 1e-3 in
+    each."""
+    import importlib.util
+    import pathlib
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    rng = torch.Generator().manual_seed(2)
+    batch = {"motion": torch.rand(4, 24, 198, generator=rng) * 2 - 1, "seq_len": torch.tensor([24, 20, 9, 24])}
+    m = cs.train_step_agreement(_train_state, batch, 1, card)
+    bad = {k: m[k] for k, bound in cs.STEP_BOUNDS.items() if not m[k] <= bound}
+    assert not bad, f"{bad} of {m}"
+
+
+def test_fit_device_bf16_bank_on_card(card):
+    """fit_device with the bank in bf16 on the card: on a bank whose values
+    are bf16 already, the same steps as the f32 bank, bit for bit (the step
+    casts the gathered batch back to f32); finite losses, one checkpoint."""
+    import tempfile
+
+    from egoego_release_tpu_torch.training.trainer_diffusion import DiffusionTrainer
+
+    data = (torch.rand(16, 24, 198, generator=torch.Generator().manual_seed(3)) * 2 - 1).bfloat16().float()
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        trainer = DiffusionTrainer(CondGaussianDiffusion(DiffusionConfig(window=24, compute_dtype="float32"),
+                                                         device=card), lr=1e-4)
+        with tempfile.TemporaryDirectory() as d:
+            state, losses = trainer.fit_device(
+                trainer.init_state(torch.Generator().manual_seed(0)), data, torch.full((16,), 24), num_steps=4,
+                batch_size=8, noise=fs.TorchNoise(card, 5), log_every=2, ckpt_dir=d, save_every=4,
+                data_dtype=dtype)
+            assert os.listdir(d) == ["model-4.pt"]
+        assert state.step == 4 and len(losses) == 2 and all(map(math.isfinite, losses))
+        out.append([p.detach().clone() for p in state.model.parameters()])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)

@@ -194,7 +194,7 @@ def test_port_imports_no_jax():
             assert root not in ("jax", "jaxlib", "flax", "optax", "egoego_release_tpu"), (f, mod)
 
 
-@pytest.mark.parametrize("entry", ["diffusion", "build", "cli"])
+@pytest.mark.parametrize("entry", ["diffusion", "build", "cli", "train"])
 def test_entry_points_need_cuda_unless_cpu(entry, tmp_path, monkeypatch):
     """Without CUDA the entry points raise on their default device and run
     when the caller passes device='cpu'."""
@@ -215,12 +215,25 @@ def test_entry_points_need_cuda_unless_cpu(entry, tmp_path, monkeypatch):
         make = lambda **kw: CondGaussianDiffusion(cfg, **kw)
     elif entry == "build":
         make = lambda **kw: build_pipeline(stats_path=str(stats), rest_offsets_path=str(rest), **kw)
-    else:
+    elif entry == "cli":
         def make(**kw):
             argv = ["--test_data_path", str(tmp_path / "none.p"), "--stats_path", str(stats),
                     "--rest_offsets", str(rest)] + (["--device", kw["device"]] if kw else [])
             joblib.dump({}, tmp_path / "none.p")
             return eval_stage2.run(eval_stage2.parse_opt(argv + ["--out_dir", str(tmp_path)]))
+    else:
+        from egoego_release_tpu_torch.training import train_diffusion
+
+        motion = np.random.RandomState(0).uniform(-0.2, 0.2, (40, 69)).astype(np.float32)
+        joblib.dump({0: {"trans": motion[:, :3], "root_orient": motion[:, 3:6], "body_pose": motion[:, 6:]}},
+                    tmp_path / "train.p")
+
+        def make(**kw):
+            return train_diffusion.main(
+                ["--train_data_path", str(tmp_path / "train.p"), "--set", "stage2.d_model=16",
+                 "stage2.d_k=8", "stage2.d_v=8", "stage2.n_dec_layers=2", "stage2.timesteps=2",
+                 "data.batch_size=2", "train.num_steps=1", f"data.rest_offsets={rest}",
+                 f"logging.save_dir={tmp_path / 'runs'}"] + (["--device", kw["device"]] if kw else []))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make()
     assert make(device="cpu") is not None
