@@ -82,7 +82,27 @@ Phases (any failure exits non-zero; nothing is caught):
      ``train_diffusion --sample`` (DDPM-1000, f32 step kernels) and
      ``eval_stage2 --checkpoint`` (DDIM-50) on the trained ``.pt``, with
      exact launch counts.
-Then one JSON line of per-kernel results (with the training summary), and
+ 12. the step kernels with bf16 inter-layer activations (``act_bf16``,
+     ``DiffusionConfig.fused_step_act_bf16``): each wrapper against its
+     plain version at 64 windows of 121 and 31 tokens in bf16 and f32
+     compute, counted once per call; the LayerNorm launches with a bf16
+     residual and a bf16 output alone, bit for bit against their f32 forms
+     on equal inputs, and their device ms; each wrapper's and the step's
+     device ms (and the step's wall ms and busy share) with and without the
+     flag; the two-window DDPM-1000 chain with and without it, exact launch
+     counts, each reverse chain within JAX's 0.08 of the other on the same
+     inputs.
+ 13. stage-1 training at the release widths (f32, batch 32) on fixtures
+     written here (ARES-layout records with per-frame OF feature npys, a
+     pickle of smooth head tracks): ``train_stage1 headnet`` and
+     ``train_stage1 gravitynet`` for 200 steps each (a falling mean loss,
+     no NaN, a checkpoint per epoch, reloaded; every OF batch read by the
+     native loader); each step's ms, busy share, peak memory and f32 bound,
+     and va2rot's share of the HeadNet step; one step of each, card against
+     CPU (train_step_agreement); then ``eval_egoego --headnet_ckpt
+     --gravitynet_ckpt --headnet_window 256 --fused_step`` on the trained
+     checkpoints with exact launch counts.
+Then one JSON line of per-kernel results (with the training summaries), and
 as the last line {"ok": true, "device": {...}}.
 """
 
@@ -117,7 +137,8 @@ HEADNET_WINDOW_D = 256     # the HeadNet block from which its attention takes th
 TOL_F32 = 1e-4         # f32 kernel vs plain: summation order only
 TOL_BF16 = 2e-2        # bf16 kernel vs plain: a bf16 rounding may flip where sums differ in order
 UPDATE = (0.9, 0.1, 0.05)  # a1, a2, a3 of the epilogue's update check: x0 dominates
-WG_EPILOGUES = ("bias", "layer_norm", "stem", "step")  # csrc/gemm.cu WgEpilogue, in order
+WG_EPILOGUES = ("bias", "layer_norm", "stem", "step", "layer_norm res_bf16", "layer_norm bf16_out",
+                "layer_norm bf16")  # csrc/gemm.cu WgEpilogue, in order
 ATTN_KEY_TILES = (32, 64, 128)  # csrc/attention.cu attention_wgmma_kernel<NK>
 ATTN_SHAPES = ((BATCH, 121), (BATCH, 31), (1, 121))  # (windows, tokens) of the layer's attention timed in phase 2
 
@@ -170,7 +191,10 @@ def device_time_ms(fn, reps=20, chain=False):
             # call; a chain launches some kernel several times a call, so it
             # divides by reps
             calls = reps if chain else max(e.count for e in dev)
-            return us / calls / 1e3, {e.key[:60]: e.count for e in dev}
+            names = {}
+            for e in dev:  # kernels whose names share their first 60 characters count together
+                names[e.key[:60]] = names.get(e.key[:60], 0) + e.count
+            return us / calls / 1e3, names
     ms = held_events_ms(fn, reps)
     EVENT_TIMED.append(ms)
     log(f"device_time_ms: torch.profiler saw no device time in {PROFILER_TRIES} runs; "
@@ -466,7 +490,7 @@ def float64_gradients(make_state, batch, seed, replay):
     return loss, [p.grad.detach() for p in model.parameters()]
 
 
-def train_step_agreement(make_state, batch, seed, card):
+def train_step_agreement(make_state, batch, seed, card, gradients64=None, adam=None):
     """One optimizer step from ``make_state(device)`` -> (trainer, state)
     (one weight set, dropout off) on ``batch`` with the draws of
     ``TorchNoise("cpu", seed)``, three times: on the card and on the CPU as
@@ -477,7 +501,10 @@ def train_step_agreement(make_state, batch, seed, card):
     gradients must lie as close to the float64 ones as the CPU's float32
     gradients do, and its parameters agree entry by entry with the CPU's
     where the step does not hang on the gradient's rounding. Returns the
-    measures named in STEP_BOUNDS and more."""
+    measures named in STEP_BOUNDS and more. ``gradients64`` (the float64
+    reference, by default the stage-2 trainer's float64_gradients) and
+    ``adam(trainer)`` -> (lr, weight decay) of the first step (by default
+    (trainer.lr, 0)) let it hold other trainers."""
     import torch
 
     from egoego_release_tpu_torch.ops.fused_step import TorchNoise
@@ -488,8 +515,9 @@ def train_step_agreement(make_state, batch, seed, card):
         trainer, state = make_state(where)
         p0 = {n: p.detach().cpu().double() for n, p in state.model.named_parameters()}
         with branch_mode(runs[replay]["mode"].signs if replay else None) as mode:
-            state, loss = trainer.train_step(state, batch, TorchNoise("cpu", seed))
-        runs[side] = {"mode": mode, "state": state, "loss": float(loss), "p0": p0, "lr": trainer.lr}
+            state, loss, *_ = trainer.train_step(state, batch, TorchNoise("cpu", seed))
+        lr, wd = adam(trainer) if adam else (trainer.lr, 0.0)
+        runs[side] = {"mode": mode, "state": state, "loss": float(loss), "p0": p0, "lr": lr, "wd": wd}
     c, h, r = runs["card"], runs["cpu"], runs["replay"]
     if [s.shape for s in c["mode"].signs] != [s.shape for s in r["mode"].signs]:
         raise AssertionError("card and CPU steps call relu / abs differently")
@@ -508,7 +536,7 @@ def train_step_agreement(make_state, batch, seed, card):
     for run in runs.values():
         run["params"] = list(run["state"].model.parameters())
         run["g"] = [p.grad.detach().cpu().double() for p in run["params"]]
-    loss64, g64 = float64_gradients(make_state, batch, seed, c["mode"].signs)
+    loss64, g64 = (gradients64 or float64_gradients)(make_state, batch, seed, c["mode"].signs)
     m.update(loss64=abs(c["loss"] - loss64) / abs(loss64), loss64_cpu=abs(r["loss"] - loss64) / abs(loss64),
              grad64=0.0, grad64_worst="", grad64_cpu=0.0, grad64_cpu_worst="", grad64_excess=0.0)
     g_top = max(float(g.abs().max()) for g in r["g"])
@@ -538,9 +566,10 @@ def train_step_agreement(make_state, batch, seed, card):
         covered, total = covered + int(big.sum()), total + big.numel()
         if big.any():
             m["param"] = max(m["param"], float((p_c - p_r)[big].abs().max()) / p_top)
-        for run, p in ((c, p_c), (r, p_r)):  # each side's Adam applied its own moments
+        for run, p in ((c, p_c), (r, p_r)):  # each side's Adam(W) applied its own moments
             st = run["state"].optimizer.state[run["params"][k]]
-            own = run["p0"][name] - upd(run["lr"], st["exp_avg"].cpu().double(), st["exp_avg_sq"].cpu().double())
+            own = (run["p0"][name] * (1 - run["lr"] * run["wd"])
+                   - upd(run["lr"], st["exp_avg"].cpu().double(), st["exp_avg_sq"].cpu().double()))
             m["adam"] = max(m["adam"], float((p - own).abs().max()) / p_top)
     m["grad_l2_all"], m["param_share"] = math.sqrt(num / den), covered / total
     return m
@@ -760,6 +789,631 @@ def train_phase(card, data_dir, eval_data_path, rest_path, check_counts, clear_c
             "loss_mean_first_50": means[0], "loss_mean_last_50": means[-1], "run_s": dt_run,
             "card_vs_cpu": errs, "sample_s": dt_sample, "windows": len(ds),
             "padded_windows": n_padded, "card": card}
+
+
+STAGE1_SEQS, STAGE1_FRAMES, STAGE1_EPOCHS = 320, 62, 20  # phase 13: sequences, OF frames each, epochs
+STAGE1_BATCH = 32  # the reference's stage-1 batch
+ARES_ROOT = "/viscam/u/jiamanli/datasets/egomotion_syn_dataset"  # the OF paths' root in the reference's pickles
+
+
+def quat_mul_np(a, b):
+    aw, ax, ay, az = np.moveaxis(a, -1, 0)
+    bw, bx, by, bz = np.moveaxis(b, -1, 0)
+    return np.stack([aw * bw - ax * bx - ay * by - az * bz, aw * bx + ax * bw + ay * bz - az * by,
+                     aw * by - ax * bz + ay * bw + az * bx, aw * bz + ax * by - ay * bx + az * bw], -1)
+
+
+def integrate_head(q0, va, dt=1.0 / 30.0):
+    """numpy twin of models.headnet.va2rot for one sequence: q0 (4,) wxyz,
+    va (T, 3) the angular velocities (rad/s) as va2rot reads them -> (T+1, 4)."""
+    out = [q0]
+    for v in va:
+        q = out[-1]
+        u, w = q[1:], q[0]
+        angv = v + 2.0 * (w * np.cross(u, v) + np.cross(u, np.cross(u, v)))
+        ang = np.linalg.norm(angv * dt)
+        half = np.concatenate([[np.cos(ang / 2)], np.sin(ang / 2) * angv * dt / max(ang, 1e-12)])
+        new = quat_mul_np(half, q)
+        new = -new if new[0] < 0 else new
+        out.append(new / np.linalg.norm(new))
+    return np.stack(out).astype(np.float32)
+
+
+def smooth_head_track(rng, frames):
+    """(frames + 1, 7) head poses and (frames, 6) velocities of a walking
+    head that turns smoothly: translation from sinusoids, angular velocity
+    (rad/s) from sinusoids integrated as va2rot integrates it."""
+    s = np.arange(frames + 1)[:, None] / 30.0
+    f, ph = rng.uniform(0.1, 0.5, (1, 3)), rng.uniform(0, 2 * np.pi, (1, 3))
+    trans = np.sin(2 * np.pi * f * s + ph) * [0.8, 0.8, 0.03] + [0.0, 0.0, 1.6]
+    fa, pa = rng.uniform(0.1, 0.6, (1, 3)), rng.uniform(0, 2 * np.pi, (1, 3))
+    va = (rng.uniform(0.2, 1.0, (1, 3)) * np.sin(2 * np.pi * fa * s[:-1] + pa)).astype(np.float32)
+    quats = integrate_head(smooth_quats(rng, 1)[0], va)
+    vel = np.concatenate([np.diff(trans, axis=0) * 30.0, va], -1).astype(np.float32)
+    return np.concatenate([trans, quats], -1).astype(np.float32), vel
+
+
+def write_ares_fixture(root, rng, n_seqs, frames, feat_dim=512):
+    """The ARES training layout that ``ARESHeadPoseDataset(train=True)``
+    reads: ares_egoego_processed/train_ares_smplh_motion.p (head_qpos
+    (frames + 1, 7), head_vels (frames + 1, 6), of_files, seq_name; plain
+    pickle), one OF feature npy of ``feat_dim`` floats per frame under
+    ares/<scene>/<take>/raft_of_feats/ (the pickle holds the reference's
+    authors' paths to raft_flows, which the dataset rewrites), DROID-SLAM
+    npys ares/droid_slam_res/<scene>/<take>.npy. A frame's features are a
+    fixed random projection of its velocities and step length, plus noise,
+    so HeadNet has something to learn."""
+    proj = rng.randn(feat_dim, 7).astype(np.float32)
+    os.makedirs(os.path.join(root, "ares_egoego_processed"), exist_ok=True)
+    recs = {}
+    for si in range(n_seqs):
+        scene, take = f"scene{si % 4}", f"take{si}"
+        head, vel = smooth_head_track(rng, frames)
+        step = np.linalg.norm(np.diff(head[:, :3], axis=0), axis=-1, keepdims=True) * 10.0
+        feats = np.concatenate([vel, step], -1) @ proj.T + 0.1 * rng.randn(frames, feat_dim)
+        feat_dir = os.path.join(root, "ares", scene, take, "raft_of_feats")
+        os.makedirs(feat_dir, exist_ok=True)
+        for i in range(frames):
+            np.save(os.path.join(feat_dir, f"{i:05d}.npy"), feats[i].astype(np.float32))
+        recs[si] = {"seq_name": f"{scene}-{take}", "head_qpos": head,
+                    "head_vels": np.concatenate([vel, vel[-1:]]),
+                    "of_files": [f"{ARES_ROOT}/{scene}/{take}/raft_flows/{i:05d}.npy" for i in range(frames)]}
+        slam_dir = os.path.join(root, "ares", "droid_slam_res", scene)
+        os.makedirs(slam_dir, exist_ok=True)
+        slam = np.concatenate([0.3 * head[:, :3] + rng.randn(frames + 1, 3) * 1e-3, head[:, 3:]], -1)
+        np.save(os.path.join(slam_dir, f"{take}.npy"), slam.astype(np.float32))
+    with open(os.path.join(root, "ares_egoego_processed", "train_ares_smplh_motion.p"), "wb") as fh:
+        pickle.dump(recs, fh)
+
+
+def write_head_motion(path, rng, n_seqs, lengths=(125, 300)):
+    """GravityNet's training pickle: {"CMU-synthetic<i>": {"head_pose":
+    (T, 7)}} of smooth head tracks, T uniform in ``lengths``."""
+    data = {f"CMU-synthetic{i}": {"head_pose": smooth_head_track(rng, int(rng.randint(*lengths)) - 1)[0]}
+            for i in range(n_seqs)}
+    with open(path, "wb") as fh:
+        pickle.dump(data, fh)
+
+
+def stage1_gradients64(make_state, batch, seed, replay):
+    """train_step_agreement's float64 reference for a stage-1 trainer: the
+    loss and the clipped gradients of ``make_state``'s weights in float64 on
+    the CPU, taking the branches ``replay`` (dropout off: ``seed`` unused)."""
+    import torch
+
+    trainer, state = make_state(torch.device("cpu"))
+    model = state.model.double().train()
+    b = {k: torch.as_tensor(v).long() if k == "seq_len" else torch.as_tensor(v).double() for k, v in batch.items()}
+    with branch_mode(replay), float64_mode():
+        loss, _ = trainer.loss_fn(model, b)
+        loss.backward()
+        grads = [p.grad for p in model.parameters()]
+        trainer.optimizer.clip_(grads)
+    return float(loss.detach()), [g.detach() for g in grads]
+
+
+def stage1_step_flops(kind, m, batch):
+    """f32 operations of one stage-1 optimizer step: the forward's products
+    (the stem, per layer QKV, scores, p v, fc and the FFN, the MLP heads)
+    times 3 for forward and backward."""
+    t, dm, hk, hv = m.window, m.d_model, m.n_head * m.d_k, m.n_head * m.d_v
+    layer = 2 * t * dm * (2 * hk + hv) + 2 * t * t * (hk + hv) + 2 * t * hv * dm + 4 * t * dm * dm
+    if kind == "headnet":  # two heads (1024, 512, 256) over every frame, from 512 OF features
+        heads = 2 * t * 2 * (dm * 1024 + 1024 * 512 + 512 * 256) + 2 * t * 256 * 4
+        fwd = 2 * t * 512 * dm + m.n_dec_layers * layer + heads
+    else:  # one head (512, 256) on token 0, from 18 trajectory features
+        fwd = 2 * t * 18 * dm + m.n_dec_layers * layer + 2 * (dm * 512 + 512 * 256 + 256 * 3)
+    return 3 * fwd * batch
+
+
+def stage1_phase(card, data_dir, stats_path, rest_path, per_step, c_per_step, clear_counts):
+    """Phase 13: stage-1 training at the release widths (Stage1ModelConfig
+    defaults, batch 32, HeadNet window 60, GravityNet window 120, f32) on
+    synthetic fixtures written here: ``train_stage1 headnet`` (ARES layout,
+    per-frame OF feature npys read by the native loader) and
+    ``train_stage1 gravitynet`` (a pickle of smooth head tracks) for
+    STAGE1_EPOCHS epochs each (a falling mean loss, no NaN, a checkpoint
+    each epoch, the last reloaded); one step of each, card against CPU
+    (train_step_agreement); ms per step, busy share, va2rot's share of the
+    HeadNet step, peak memory and the f32 bound; then ``eval_egoego
+    --headnet_ckpt --gravitynet_ckpt --headnet_window 256 --fused_step`` on
+    the trained checkpoints with exact launch counts. Returns the summary."""
+    import torch
+
+    from egoego_release_tpu_torch.data import native_loader
+    from egoego_release_tpu_torch.data.amass_headpose import AMASSHeadPoseDataset
+    from egoego_release_tpu_torch.data.formats import load_motion_dict
+    from egoego_release_tpu_torch.data.headpose import ARESHeadPoseDataset
+    from egoego_release_tpu_torch.eval import eval_egoego
+    from egoego_release_tpu_torch.models.denoiser import init_weights_
+    from egoego_release_tpu_torch.models.gravitynet import HeadNormalFormer
+    from egoego_release_tpu_torch.models.headnet import HeadFormer, va2rot
+    from egoego_release_tpu_torch.models.transformer import set_dropout_rate
+    from egoego_release_tpu_torch.ops import cuda_kernels as ck
+    from egoego_release_tpu_torch.ops.fused_step import TorchNoise
+    from egoego_release_tpu_torch.training import train_stage1 as ts
+    from egoego_release_tpu_torch.training.trainer_stage1 import (
+        Stage1Trainer, gravitynet_loss_fn, headnet_loss_fn, make_optimizer)
+    from egoego_release_tpu_torch.utils.config import load_config
+    from egoego_release_tpu_torch.utils.convert import load_denoiser_weights, load_stage1_ckpt
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    root = os.path.join(data_dir, "stage1")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ares_root, motion_path = os.path.join(root, "ares_root"), os.path.join(root, "head_motion.p")
+    write_ares_fixture(ares_root, np.random.RandomState(17), STAGE1_SEQS, STAGE1_FRAMES)
+    write_head_motion(motion_path, np.random.RandomState(19), STAGE1_SEQS)
+    log(f"phase 13: fixtures: {STAGE1_SEQS} ARES-layout sequences of {STAGE1_FRAMES} OF frames "
+        f"({STAGE1_SEQS * STAGE1_FRAMES} feature npys), {STAGE1_SEQS} head tracks of 125-299 frames, in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    sets = ["logging.log_every=10", "train.seed=0", f"data.batch_size={STAGE1_BATCH}", f"logging.save_dir={root}"]
+    cfg = load_config(None, overrides=sets)
+    kinds = {"headnet": (HeadFormer, cfg.headnet, headnet_loss_fn, cfg.train.lr_step_size,
+                         ["headnet", "--dataset", "ares", "--data_root_folder", ares_root]),
+             "gravitynet": (HeadNormalFormer, cfg.gravitynet, gravitynet_loss_fn, ts.GRAVITYNET_LR_STEP_EPOCHS,
+                            ["gravitynet", "--motion_path", motion_path])}
+    native_loader.counts.clear()
+    out, ckpts = {}, {}
+    for kind, (cls, m, loss_fn, lr_step, argv) in kinds.items():
+        # 1. the CLI, release widths, on the card
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = ts.main(argv + ["--epochs", str(STAGE1_EPOCHS), "--device", "cuda", "--set", *sets,
+                                f"logging.exp_name={kind}"])
+        torch.cuda.synchronize()
+        dt_run = time.perf_counter() - t0
+        logged = [json.loads(line) for line in open(os.path.join(root, kind, "metrics.jsonl"))]
+        losses = [r["loss"] for r in logged]
+        tenth = max(1, len(losses) // 10)
+        first, last = statistics.mean(losses[:tenth]), statistics.mean(losses[-tenth:])
+        weights = os.path.join(root, kind, "weights")
+        names = sorted(os.listdir(weights), key=lambda n: int(re.sub(r"\D", "", n)))
+        if (state.epoch != STAGE1_EPOCHS or len(logged) != state.step // 10 or not all(map(math.isfinite, losses))
+                or not last < first or names != [f"epoch-{i}.pt" for i in range(STAGE1_EPOCHS)]):
+            raise AssertionError(f"phase 13 {kind}: epoch {state.epoch}, step {state.step}, {len(logged)} log lines, "
+                                 f"mean loss first {first} last {last}, checkpoints {names}")
+        ckpts[kind] = os.path.join(weights, names[-1])
+        reloaded = load_denoiser_weights(cls(window=m.window), load_stage1_ckpt(ckpts[kind], kind, m.n_dec_layers))
+        same = all(torch.equal(v, state.model.state_dict()[k].cpu()) for k, v in reloaded.state_dict().items())
+        if not same:
+            raise AssertionError(f"phase 13 {kind}: {names[-1]} does not reload the trained weights")
+        log(f"phase 13: train_stage1 {kind}, release widths, batch {STAGE1_BATCH}, window {m.window}, "
+            f"{STAGE1_EPOCHS} epochs = {state.step} steps in {dt_run:.2f} s (data and checkpoints included); mean "
+            f"loss of the first {tenth} logged steps {first:.4f}, of the last {tenth} {last:.4f}; {len(names)} "
+            f"checkpoints, {names[-1]} reloaded bit for bit [{card}]")
+        r = out[kind] = {"run_s": dt_run, "steps": state.step, "loss_first": first, "loss_last": last}
+
+        # 2. the step: ms, busy share, peak memory, the f32 bound
+        if kind == "headnet":
+            ds = ARESHeadPoseDataset(ares_root, train=True, window=m.window)
+            items = [ds[i] for i in range(STAGE1_BATCH)]
+            batch = {k: np.stack([it[k] for it in items]) for k in ("of", "head_pose", "head_vels", "seq_len")}
+        else:
+            batch = next(AMASSHeadPoseDataset(load_motion_dict(motion_path), train=True, window=m.window,
+                                              seed=1).batch_iterator(STAGE1_BATCH))
+        batch_dev = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+        def trainer_state(where, dropout=True):
+            tr = Stage1Trainer(loss_fn, make_optimizer(cfg.train.learning_rate, lr_step, cfg.train.lr_gamma, 10))
+            model = cls(d_model=m.d_model, n_layers=m.n_dec_layers, n_head=m.n_head, d_k=m.d_k, d_v=m.d_v,
+                        window=m.window)
+            st = tr.init_state(init_weights_(model, torch.Generator().manual_seed(1)).to(where))
+            if not dropout:
+                set_dropout_rate(st.model, 0.0)
+            return tr, st
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()  # what earlier phases still hold
+        torch.cuda.reset_peak_memory_stats()
+        tr, st = trainer_state(dev)
+        noise = TorchNoise(dev, seed=7)
+        step = lambda: tr.train_step(st, batch_dev, noise)
+        for _ in range(10):
+            step()
+        times = []
+        for _ in range(30):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            step()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        r["step_ms"] = statistics.median(times)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            step()
+        torch.cuda.synchronize()
+        r["wall_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+        r["device_ms"], kernels = device_time_ms(step, reps=20, chain=True)
+        r["device_busy_share"] = r["device_ms"] / r["wall_ms"]
+        r["launches_per_step"] = sum(kernels.values()) / 20
+        r["peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20  # model, AdamW, the steps' activations
+        r["gflop"] = stage1_step_flops(kind, m, STAGE1_BATCH) / 1e9
+        r["bound_ms"] = r["gflop"] * 1e9 / PEAK_F32 * 1e3
+        extra = ""
+        if kind == "headnet":  # va2rot forward and backward at the step's shapes, alone
+            va = torch.randn(STAGE1_BATCH, m.window, 3, device=dev, requires_grad=True)
+            q0 = torch.as_tensor(batch["head_pose"][:, 0, 3:], device=dev)
+
+            def integrate():
+                va2rot(q0, va).sum().backward()
+
+            def wall(fn):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) * 1e3
+
+            integrate()
+            pairs = [(wall(step), wall(integrate)) for _ in range(15)]  # in turns, on one host's load
+            r["va2rot_ms"] = statistics.median(v for _, v in pairs)
+            r["va2rot_share"] = statistics.median(v / s for s, v in pairs)
+            r["va2rot_device_ms"], vk = device_time_ms(integrate, reps=5, chain=True)
+            r["va2rot_launches"] = sum(vk.values()) / 5
+            extra = (f"; va2rot forward + backward alone {r['va2rot_ms']:.3f} ms wall ({r['va2rot_launches']:.0f} "
+                     f"launches, device {r['va2rot_device_ms']:.3f} ms), {r['va2rot_share']:.3f} of the step (median "
+                     f"over 15 pairs timed in turns)")
+        log(f"phase 13: {kind} optimizer step (batch {STAGE1_BATCH}, window {m.window}, f32, dropout on): "
+            f"{r['step_ms']:.3f} ms (median of 30 CUDA-event timings after 10 warm-up steps), wall "
+            f"{r['wall_ms']:.3f} ms "
+            f"over 20; device {r['device_ms']:.3f} ms, busy share {r['device_busy_share']:.3f}, "
+            f"{r['launches_per_step']:.0f} device kernels and copies a step; peak {r['peak_mib']:.1f} MiB; bound "
+            f"{r['bound_ms']:.3f} ms ({r['gflop']:.2f} GFLOP at {PEAK_F32 / 1e12:.0f} TFLOP/s f32){extra} [{card}]")
+        del tr, st, step
+
+        # 3. one step, card against CPU, dropout off
+        pick = {k: v[:8] for k, v in batch.items()}
+        errs = train_step_agreement(lambda where: trainer_state(where, dropout=False), pick, 4, dev,
+                                    gradients64=stage1_gradients64,
+                                    adam=lambda tr: (tr.optimizer.learning_rate(0), tr.optimizer.weight_decay))
+        log(f"phase 13: {kind} one step, card vs CPU, 8 sequences (bounds in brackets): loss {errs['loss']:.3e} "
+            f"[{STEP_BOUNDS['loss']}]; {errs['branch_calls']} relu / abs calls, {errs['flips']} entries where the CPU "
+            f"took the other branch, {errs['forced']} forced ({', '.join(errs['flip_calls']) or 'none'}), inputs "
+            f"within {errs['flip_input']:.3e} of their call's max|x| [{STEP_BOUNDS['flip_input']}]; clipped gradients "
+            f"against float64: card {errs['grad64']:.3e} ({errs['grad64_worst']}), CPU {errs['grad64_cpu']:.3e}, ratio "
+            f"{errs['grad64_excess']:.3f} [{STEP_BOUNDS['grad64_excess']}]; card vs CPU gradients {errs['grad']:.3e}, "
+            f"w_k.bias {errs['wk_bias']:.3e} [{STEP_BOUNDS['wk_bias']}], parameters {errs['param']:.3e} over "
+            f"{errs['param_share']:.4f} of the entries [{STEP_BOUNDS['param']}], each side's AdamW from its own "
+            f"moments "
+            f"{errs['adam']:.3e} [{STEP_BOUNDS['adam']}]; as each side runs: gradients {errs['grad_l2_all']:.3e} "
+            f"relative L2 [{STEP_BOUNDS['grad_l2_all']}], {errs['grad_l2']:.3e} in the worst tensor "
+            f"[{STEP_BOUNDS['grad_l2']}] (held when no branch flipped)")
+        # the free run's L2 distances are held only where both sides took the
+        # same branches: a unit whose input lies within rounding of 0
+        # (flip_input) moves its gradient row whole, and then the replayed
+        # measures hold the step
+        free = ("grad_l2_all", "grad_l2") if errs["flips"] else ()
+        bad = {k: errs[k] for k, bound in STEP_BOUNDS.items() if not errs[k] <= bound and k not in free}
+        if bad:
+            raise AssertionError(f"phase 13 {kind}: card and CPU steps disagree: {bad}")
+        r["card_vs_cpu"] = errs
+    if native_loader.counts["numpy"] or not native_loader.counts["native"]:
+        raise AssertionError(f"phase 13: OF batches read by {dict(native_loader.counts)}, want the native loader only")
+    log(f"phase 13: OF feature batches read by the native loader: {dict(native_loader.counts)}")
+
+    # 4. eval_egoego on the trained checkpoints, HeadNet blocks of 256
+    kin_root = os.path.join(root, "kinpoly")
+    seqs, frames = 2, FRAMES_D
+    gt_path = write_kinpoly_fixture(kin_root, np.random.RandomState(23), [frames] * seqs)
+    opt = eval_egoego.parse_opt([
+        "--data_root_folder", kin_root, "--full_body_gt_path", gt_path, "--stats_path", stats_path,
+        "--rest_offsets", rest_path, "--headnet_ckpt", ckpts["headnet"], "--gravitynet_ckpt", ckpts["gravitynet"],
+        "--headnet_window", str(HEADNET_WINDOW_D), "--fused_step", "--out_dir", os.path.join(root, "out_egoego"),
+        "--device", "cuda"])
+    clear_counts()
+    t0 = time.perf_counter()
+    res = eval_egoego.run(opt)
+    torch.cuda.synchronize()
+    dt_eval = time.perf_counter() - t0
+    timesteps, window, overlap = 1000, 120, 10
+    windows = seqs * (1 + math.ceil((frames - window) / (window - overlap)))
+    want = {"fused_attention": cfg.headnet.n_dec_layers * seqs,
+            **{k: windows * timesteps * v for k, v in per_step.items()}}
+    want_c = {"mha": want["fused_attention"], **{k: windows * timesteps * v for k, v in c_per_step().items()}}
+    got, got_c = dict(ck.launch_counts), dict(ck.kernel_launches)
+    log(f"phase 13: eval_egoego --headnet_ckpt {os.path.basename(ckpts['headnet'])} --gravitynet_ckpt "
+        f"{os.path.basename(ckpts['gravitynet'])} --headnet_window {HEADNET_WINDOW_D} --fused_step, {seqs} seqs x "
+        f"{frames} frames in {dt_eval:.2f} s: launches {got} (expected {want}); C entries {got_c} (expected {want_c})")
+    if got != want or got_c != want_c:
+        raise AssertionError(f"phase 13: eval_egoego launch counts {got}, {got_c} != {want}, {want_c}")
+    entries = res["per_seq"].values()
+    if res["num_seqs"] != seqs or not all(math.isfinite(v) for e in entries for v in e.values()):
+        raise AssertionError(f"phase 13: bad eval result {res}")
+    log(f"phase 13: eval_egoego on the trained stage 1: s1_t_head {res['mean']['s1_t_head']:.1f} mm, mpjpe "
+        f"{res['mean']['mpjpe']:.1f} mm (stage 2 random); phase 13 took {time.perf_counter() - t_phase:.1f} s [{card}]")
+    ck.launch_counts.clear()
+    out["eval_egoego_s"] = dt_eval
+    out["card"] = card
+    return out
+
+
+ACT_WRAPPERS = ("stem_layer", "decoder_layer", "layer_epilogue")
+
+
+def bf16_flips(got, want, tol, max_share=1.0):
+    """(ok, flips) for a bf16 output: each entry within tol plus one bf16
+    ulp (2^-7 of its magnitude) of want, the ulp that rounding both sides
+    to bf16 may add to a difference of tol, and at most ``max_share`` of
+    the entries past tol (flips: the count past tol)."""
+    diff = (got.float() - want.float()).abs()
+    far = diff > tol
+    ok = bool((diff <= tol + 2.0 ** -7 * want.float().abs()).all()) and float(far.float().mean()) <= max_share
+    return ok, int(far.sum())
+
+
+def act_bf16_phase(card, head, stats_path, rest_path, check_counts, clear_counts):
+    """Phase 12: the step kernels with bf16 inter-layer activations
+    (``act_bf16``, ``DiffusionConfig.fused_step_act_bf16``) at the release
+    widths: each wrapper against its plain version at 64 windows of 121
+    and 31 tokens, in bf16 and in f32 compute; the LayerNorm launches with
+    a bf16 residual and a bf16 output alone against their f32 forms (bit
+    for bit on equal inputs) and their device ms; the step's and each
+    wrapper's device ms in both modes; the two-window DDPM-1000 chain
+    (64 x 140 frames) with and without the flag, exact launch counts, and
+    its drift against JAX's bound. Returns the summary."""
+    import torch
+
+    from egoego_release_tpu_torch.diffusion.gaussian_diffusion import CondGaussianDiffusion
+    from egoego_release_tpu_torch.eval.build import build_pipeline
+    from egoego_release_tpu_torch.ops import cuda_kernels as ck
+    from egoego_release_tpu_torch.ops import fused_layer as fl
+    from egoego_release_tpu_torch.ops import fused_step as fs
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    t_phase = time.perf_counter()
+    pipe = build_pipeline(stats_path=stats_path, rest_offsets_path=rest_path, device=dev, compute_dtype="bfloat16")
+    cfg, model = pipe.diffusion.cfg, pipe.diffusion.model
+    prep = {b: fs.prepare_step_params(model, b) for b in (False, True)}
+    kw = dict(n_head=cfg.n_head, d_k=cfg.d_k, d_v=cfg.d_v)
+    nh, dk, dv, dm, d = cfg.n_head, cfg.d_k, cfg.d_v, cfg.d_model, cfg.d_feats
+    g = torch.Generator(device=dev).manual_seed(12)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)
+    out = {name: {"max_abs_err": 0.0, "max_abs_err_f32": 0.0, "flips_f32": 0} for name in ACT_WRAPPERS}
+
+    def c_launches(name, bf16):
+        n_gemm = 4 if name == "decoder_layer" else 5
+        return {"gemm_wgmma": n_gemm, "attention_wgmma": 1} if bf16 else {"gemm": n_gemm, "attention": 1}
+
+    def bound(name, t, act_bf16):
+        """max(operations / 989 TFLOP/s, bytes / 3.35 TB/s) of one call at
+        BATCH windows of t frames, bf16 weights: each input read once, each
+        output written once; the activations between layers in f32 (with
+        their bf16 copy written beside them) or, with act_bf16, in bf16."""
+        tok = BATCH * (t + 1)
+        flops = (2 * tok * dm * nh * (2 * dk + dv) + 2 * BATCH * nh * (t + 1) ** 2 * (dk + dv)
+                 + 2 * tok * nh * dv * dm + 4 * tok * dm * dm)
+        nbytes = 2 * (dm * nh * (2 * dk + dv) + nh * dv * dm + 2 * dm * dm) + 4 * (nh * (2 * dk + dv) + 7 * dm)
+        nbytes += 4 * tok  # mask
+        act_in, act_out = (2, 2) if act_bf16 else (4 + 2, 4 + 2)  # f32 and its bf16 copy
+        if name == "stem_layer":
+            flops += 2 * BATCH * t * 2 * d * dm
+            nbytes += 2 * BATCH * t * 400 + 4 * (t + 1) * dm + 2 * 2 * d * dm + 8 * dm + act_out * tok * dm
+        elif name == "decoder_layer":
+            nbytes += (act_in + act_out) * tok * dm
+        else:
+            flops += 2 * BATCH * t * dm * d
+            nbytes += act_in * tok * dm + 4 * 4 * BATCH * t * d + 4 * BATCH * t + 2 * dm * d + 4 * d + 2 * BATCH * t * d
+        return max(flops / PEAK_BF16, nbytes / HBM_BYTES_S) * 1e3, nbytes / 1e6
+
+    step_prof = {}
+    for t in (cfg.window, 30):
+        x, xc, noise, ipv = (rn(BATCH, t, d) for _ in range(4))
+        h = rn(BATCH, t + 1, dm)
+        hb = h.to(bf)
+        mask = torch.ones(BATCH, t + 1, device=dev)
+        ipm = torch.zeros(BATCH, t, device=dev)
+        ipm[:, :cfg.overlap_frames] = 1.0
+        emb = fs.noise_level_embeddings(model, [999])[0]
+        pos = prep[True]["pos_table"][1: t + 2].contiguous()
+        # 1. each wrapper against its plain version, bf16 and f32 compute
+        for bf16 in (False, True):
+            p = prep[bf16]
+            cases = {
+                "stem_layer": (fs.stem_layer, fs.stem_layer_plain, (x, xc, emb, pos, mask, p), {"act_bf16": True}),
+                "decoder_layer": (fl.decoder_layer, fl.decoder_layer_plain, (hb, mask, p["layers"][1]),
+                                  {"act_bf16": True}),
+                "layer_epilogue": (fs.layer_epilogue, fs.layer_epilogue_plain,
+                                   (hb, mask, x, noise, UPDATE, ipv, ipm, p), {}),
+            }
+            for name, (wrapper, plain, args, extra) in cases.items():
+                clear_counts()
+                got = wrapper(*args, **kw, **extra)
+                counts = (dict(ck.launch_counts), dict(ck.kernel_launches))
+                if counts != ({name: 1}, c_launches(name, bf16)):
+                    raise AssertionError(f"phase 12: {name} act_bf16 counted/launched {counts}")
+                want = plain(*args, **kw, **extra)
+                torch.cuda.synchronize()
+                if got.shape != want.shape or got.dtype != want.dtype or got.dtype != (bf if extra else torch.float32):
+                    raise AssertionError(f"phase 12: {name} gave {got.dtype} {tuple(got.shape)}, plain "
+                                         f"{want.dtype} {tuple(want.shape)}")
+                err = float((got.float() - want.float()).abs().max())
+                flips = 0
+                tol = TOL_BF16 if bf16 else TOL_F32
+                if got.dtype == torch.float32:
+                    ok, tol_s = err <= tol, f"{tol}"
+                elif bf16:
+                    (ok, flips), tol_s = bf16_flips(got, want, tol), f"{tol} + one bf16 ulp"
+                else:
+                    (ok, flips), tol_s = bf16_flips(got, want, tol, 0.01), f"{tol} + one bf16 ulp at <= 1% of entries"
+                r = out[name]
+                key = "max_abs_err" if bf16 else "max_abs_err_f32"
+                r[key] = max(r[key], err)
+                r["flips_f32"] += flips
+                log(f"phase 12: {name} act_bf16 {BATCH} x {t + 1} tokens, {'bf16' if bf16 else 'f32'} compute: "
+                    f"max|kernel - plain| = {err:.3e}, {flips} entries past {tol} (bound {tol_s})")
+                if not (ok and math.isfinite(err)):
+                    raise AssertionError(f"phase 12: {name} act_bf16 disagrees with its plain version: {err}")
+        # 2. each wrapper's device ms in both modes (bf16 compute), as the
+        # chain calls it. Phase 12 times the device with CUDA events behind a
+        # held stream throughout: torch.profiler dropped launches of such a
+        # chain in one run, and the modes differ by a few percent
+        p = prep[True]
+        xa = fs.pack_xa(x, xc, p["wst"].shape[1])
+        modes = {
+            False: {"stem_layer": lambda: fs.stem_layer(x, xc, emb, pos, mask, p, with_copy=True, xa=xa, **kw),
+                    "decoder_layer": lambda: fl.decoder_layer(h, mask, p["layers"][1], hb=hb, with_copy=True, **kw),
+                    "layer_epilogue": lambda: fs.layer_epilogue(h, mask, x, noise, UPDATE, ipv, ipm, p, hb=hb,
+                                                                xa=xa, **kw)},
+            True: {"stem_layer": lambda: fs.stem_layer(x, xc, emb, pos, mask, p, with_copy=True, xa=xa,
+                                                       act_bf16=True, **kw),
+                   "decoder_layer": lambda: fl.decoder_layer(hb, mask, p["layers"][1], with_copy=True, act_bf16=True,
+                                                             **kw),
+                   "layer_epilogue": lambda: fs.layer_epilogue(hb, mask, x, noise, UPDATE, ipv, ipm, p, xa=xa, **kw)},
+        }
+        for name in ACT_WRAPPERS:
+            r = out[name].setdefault(f"{BATCH}x{t + 1}", {})
+            for act in (False, True):
+                tag = "act_bf16" if act else "act_f32"
+                r[f"device_ms_{tag}"] = held_events_ms(modes[act][name], 20)
+                r[f"ms_{tag}"] = cuda_time_ms(modes[act][name])
+                r[f"bound_ms_{tag}"], r[f"mbytes_{tag}"] = bound(name, t, act)
+            log(f"phase 12: {name} bf16 {BATCH} x {t + 1} tokens, device ms a call (held-stream events): f32 "
+                f"activations "
+                f"{r['device_ms_act_f32']:.4f} (per call {r['ms_act_f32']:.4f}), bf16 activations "
+                f"{r['device_ms_act_bf16']:.4f} (per call {r['ms_act_bf16']:.4f}); bound {r['bound_ms_act_f32']:.4f} / "
+                f"{r['bound_ms_act_bf16']:.4f} ms ({r['mbytes_act_f32']:.1f} / {r['mbytes_act_bf16']:.1f} MB) [{card}]")
+        # the epilogue as it ran before this change: the last layer writes its
+        # f32 output beside the bf16 copy that the update reads
+        xa_old, x_old = fs.pack_xa(x, xc, p["wst"].shape[1]), torch.empty_like(x)
+
+        def epilogue_f32_write():
+            _, hl = fl.decoder_layer_cuda(h, mask, p["layers"][-1], hb=hb, with_copy=True, **kw)
+            ck.gemm(ck.STEP, hl, p["lw"], p["lb"], x_old, M=BATCH * t, x=x, noise=noise, ipv=ipv, ipm=ipm,
+                    t_data=t, scal=UPDATE, out_b=xa_old)
+
+        epilogue_f32_write()
+        x_new = modes[False]["layer_epilogue"]()
+        r = out["layer_epilogue"][f"{BATCH}x{t + 1}"]
+        r["same_without_f32_write"] = torch.equal(x_new, x_old) and torch.equal(xa, xa_old)
+        r["device_ms_f32_write"] = held_events_ms(epilogue_f32_write, 20)
+        log(f"phase 12: layer_epilogue bf16 {BATCH} x {t + 1} tokens, f32 activations, with the last layer's f32 "
+            f"write (before this change) device {r['device_ms_f32_write']:.4f} ms, without it "
+            f"{r['device_ms_act_f32']:.4f}; x_next and xa bit for bit: {r['same_without_f32_write']} [{card}]")
+        if not r["same_without_f32_write"]:
+            raise AssertionError("phase 12: layer_epilogue without the f32 write changed x_next or xa")
+        # 3. the step in both modes: wall ms over 20 steps, busy share, device ms
+        for act in (False, True):
+            step = lambda: fs.fused_denoise_step(x, xc, emb, pos, mask, noise, UPDATE, None, None, p, xa=xa,
+                                                 act_bf16=act, **kw)
+            step()
+            torch.cuda.synchronize()
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    step()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            busy_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
+            s = step_prof.setdefault(f"{BATCH}x{t + 1}", {})[("act_bf16" if act else "act_f32")] = {
+                "step_ms": wall / 20 * 1e3,
+                "device_busy_share": busy_us * 1e-6 / wall if busy_us > 0 else "not measured"}
+            s["device_ms"] = held_events_ms(step, 20)
+            log(f"phase 12: one reverse step bf16 {BATCH} x {t + 1} tokens, {'bf16' if act else 'f32'} activations: "
+                f"{s['step_ms']:.3f} ms wall (20 steps), busy share {s['device_busy_share']}, device "
+                f"{s['device_ms']:.4f} ms (held-stream events) [{card}]")
+
+    # 4. the LayerNorm launches: a bf16 residual, a bf16 output alone
+    lp = prep[True]["layers"][1]
+    rows = BATCH * (cfg.window + 1)
+    x = rn(rows, dm)
+    xb = x.to(bf)
+    x_r = xb.float()  # the bf16 residual's values, in f32
+    ctx, h1 = rn(rows, nh * dv).to(bf), rn(rows, dm).to(bf)
+    m = torch.ones(rows, device=dev)
+    h0, h0_r = torch.empty(rows, dm, device=dev), torch.empty(rows, dm, device=dev)
+    h0b, h0b_r = (torch.empty(rows, dm, dtype=bf, device=dev) for _ in range(2))
+    o = torch.empty(rows, dm, device=dev)
+    ob, ob_alone = (torch.empty(rows, dm, dtype=bf, device=dev) for _ in range(2))
+    ln1 = dict(ln_s=lp["ln1s"], ln_b=lp["ln1b"], row_mask=m)
+    ln2 = dict(ln_s=lp["ln2s"], ln_b=lp["ln2b"], row_mask=m)
+    launches = {
+        "fc_ln f32 residual": lambda: ck.gemm(ck.LAYER_NORM, ctx, lp["wfc"], lp["bfc"], h0_r, M=rows, res=x_r,
+                                              out_b=h0b_r, **ln1),
+        "fc_ln bf16 residual": lambda: ck.gemm(ck.LAYER_NORM, ctx, lp["wfc"], lp["bfc"], h0, M=rows, res=xb,
+                                               out_b=h0b, **ln1),
+        "w2_ln f32 out + bf16 copy": lambda: ck.gemm(ck.LAYER_NORM, h1, lp["w2"], lp["b2"], o, M=rows, res=h0,
+                                                     out_b=ob, **ln2),
+        "w2_ln bf16 out alone": lambda: ck.gemm(ck.LAYER_NORM, h1, lp["w2"], lp["b2"], None, M=rows, res=h0,
+                                                out_b=ob_alone, **ln2),
+    }
+    ln = {}
+    for name, fn in launches.items():
+        clear_counts()
+        fn()
+        if dict(ck.kernel_launches) != {"gemm_wgmma": 1}:
+            raise AssertionError(f"phase 12: {name} launched {dict(ck.kernel_launches)}")
+        ln[name] = held_events_ms(fn, 20)
+    torch.cuda.synchronize()
+    same = {"fc_ln": torch.equal(h0, h0_r) and torch.equal(h0b, h0b_r), "w2_ln": torch.equal(ob_alone, ob)}
+    # the f32 kernel: the same equalities against its f32 forms
+    lp32 = prep[False]["layers"][1]
+    ctx32, h132 = ctx.float(), h1.float()
+    h0f, h0f_r = torch.empty(rows, dm, device=dev), torch.empty(rows, dm, device=dev)
+    of, ofb = torch.empty(rows, dm, device=dev), torch.empty(rows, dm, dtype=bf, device=dev)
+    clear_counts()
+    ck.gemm(ck.LAYER_NORM, ctx32, lp32["wfc"], lp32["bfc"], h0f, M=rows, res=xb, **ln1)
+    ck.gemm(ck.LAYER_NORM, ctx32, lp32["wfc"], lp32["bfc"], h0f_r, M=rows, res=x_r, **ln1)
+    ck.gemm(ck.LAYER_NORM, h132, lp32["w2"], lp32["b2"], of, M=rows, res=h0f, **ln2)
+    ck.gemm(ck.LAYER_NORM, h132, lp32["w2"], lp32["b2"], None, M=rows, res=h0f, out_b=ofb, **ln2)
+    torch.cuda.synchronize()
+    if dict(ck.kernel_launches) != {"gemm": 4}:
+        raise AssertionError(f"phase 12: the f32 LayerNorm launches launched {dict(ck.kernel_launches)}")
+    same["fc_ln f32"] = torch.equal(h0f, h0f_r)
+    same["w2_ln f32"] = torch.equal(ofb, of.to(bf))
+    log(f"phase 12: LayerNorm launches {BATCH} x {cfg.window + 1} tokens, device ms (held-stream events): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in ln.items()) + f"; bit for bit on equal inputs: {same} [{card}]")
+    if not all(same.values()):
+        raise AssertionError(f"phase 12: a bf16 residual or bf16-only output changed a result: {same}")
+
+    # 5. the two-window chain, DDPM-1000, with and without the flag. The
+    # second window's inputs come from the first's decoded output (the
+    # overlap inpaint, the canonical frame), so the two chains' second
+    # windows sample from different inputs; JAX's bound holds each reverse
+    # chain on the same inputs: window 0 of both chains, and window 1 of
+    # the f32-activation chain sampled again in both modes
+    diffs = {False: pipe.diffusion, True: CondGaussianDiffusion(
+        dataclasses.replace(cfg, fused_step_act_bf16=True), device=dev, model=model)}
+    loops, calls, outs, chain_s = {}, {}, {}, {}
+    for act, diff in diffs.items():
+        loops[act], calls[act] = diff._loop, []
+
+        def record(*a, _loop=loops[act], _calls=calls[act], **k):
+            _calls.append((a, _loop(*a, **k)))
+            return _calls[-1][1]
+
+        diff._loop = record
+        pipe.diffusion = diff
+        clear_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[act] = pipe.stage2_generate_batched(head, fs.TorchNoise(dev, seed=3))
+        torch.cuda.synchronize()
+        chain_s[act] = time.perf_counter() - t0
+        check_counts(2, cfg.timesteps, f"phase 12 chain, {'bf16' if act else 'f32'} activations")
+        diff._loop = loops[act]
+    pipe.diffusion = diffs[False]
+    drift_w = [float((calls[True][i][1] - calls[False][i][1]).abs().max()) for i in range(2)]
+    tail = {act: loops[act](*calls[False][1][0], noise=fs.TorchNoise(dev, seed=9)) for act in (False, True)}
+    drift = {"window 0": drift_w[0], "window 1 on the same inputs": float((tail[True] - tail[False]).abs().max())}
+    drift_aa, drift_root = (float((a - b).abs().max()) for a, b in zip(outs[True], outs[False]))
+    finite = all(bool(torch.isfinite(o).all()) for o in (*outs[True], tail[True]))
+    log(f"phase 12: DDPM-{cfg.timesteps} chain {BATCH} x 140 frames (2 windows), bf16 compute: f32 activations "
+        f"{chain_s[False]:.2f} s, bf16 activations {chain_s[True]:.2f} s; max|x bf16 act - x f32 act| of each reverse "
+        f"chain on the same inputs {drift} (JAX's bound 0.08); along the two chains: window 1 {drift_w[1]:.4e}, "
+        f"decoded local_aa {drift_aa:.4e} rad, root {drift_root:.4e} m; phase 12 took "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    if not (finite and all(0 < v < 0.08 for v in drift.values())):
+        raise AssertionError(f"phase 12: bf16-activation drift {drift} (finite: {finite})")
+    return {"wrappers": out, "step": step_prof, "layer_norm_launch_device_ms": ln, "bit_for_bit": same,
+            "chain_s": {"act_f32": chain_s[False], "act_bf16": chain_s[True]}, "drift": drift,
+            "chain_drift_window_1": drift_w[1], "chain_drift_local_aa": drift_aa, "chain_drift_root": drift_root,
+            "card": card}
 
 
 def main() -> int:
@@ -1712,6 +2366,14 @@ def main() -> int:
     # -- phase 11: stage-2 training on the card ---------------------------
     training = train_phase(card, data_dir, data_path, rest_path, check_counts, clear_counts)
 
+    # -- phase 12: bf16 inter-layer activations of the step kernels ----------
+    act = act_bf16_phase(card, head, stats_path, rest_path, check_counts, clear_counts)
+    for name in ACT_WRAPPERS:
+        results[name]["act_bf16"] = act["wrappers"][name]
+
+    # -- phase 13: stage-1 training on the card ------------------------------
+    stage1_training = stage1_phase(card, data_dir, stats_path, rest_path, per_step, c_per_step, clear_counts)
+
     replaces = {"stem_layer": "egoego_release_tpu/ops/fused_step.py:126",
                 "decoder_layer": "egoego_release_tpu/ops/fused_layer.py:113",
                 "layer_epilogue": "egoego_release_tpu/ops/fused_step.py:160",
@@ -1747,7 +2409,7 @@ def main() -> int:
             "shape": r["shape"], "card": card,
             **{key: r[key] for key in ("device_ms", "library_device_ms", "bound_f32_core_ms", "per_shape",
                                        "mma_sync_tf32_tflops", "launch_table", "gemm_launch", "attention_launch",
-                                       "c_kernels", "launches_path_e", "max_abs_err_path_e") if key in r},
+                                       "c_kernels", "launches_path_e", "max_abs_err_path_e", "act_bf16") if key in r},
         })
     log(f"main path: eval_stage2 {dt_a:.3f} s; DDPM chain {dt_b:.3f} s; DDIM chain {dt_d:.3f} s; "
         f"eval_stage2 --fused {dt_c:.3f} s; eval_egoego {dt_egoego:.3f} s; eval_egoego --batch_seqs {BATCH_E} "
@@ -1755,7 +2417,9 @@ def main() -> int:
         f"{stage1[HEADNET_WINDOW_D]['ms_per_seq']:.2f} ms/seq (window {HEADNET_WINDOW_D}), "
         f"{stage1[60]['ms_per_seq']:.2f} ms/seq (window 60); whole smoke {time.perf_counter() - t_start:.1f} s; "
         f"device times left by the profiler to CUDA events: {len(EVENT_TIMED)}")
-    print(json.dumps({"kernels": kernels, "step": step_prof, "training": training}))
+    print(json.dumps({"kernels": kernels, "step": step_prof, "training": training,
+                      "act_bf16": {k: v for k, v in act.items() if k != "wrappers"},
+                      "stage1_training": stage1_training}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -39,7 +39,13 @@
 //  - kLayerNorm (fc, w2): whole rows, so 64 x 512 tiles (each warpgroup one
 //    256-column half), 3 stages of 72 KB; f32 out and its bf16 copy; the row
 //    statistics cross the two warpgroups through 1 KB of shared memory.
-//    Bound by bytes.
+//    Bound by bytes. With bf16 inter-layer activations (the TPU kernels'
+//    act dtype, fused_step_act_bf16) fc reads its residual, the layer input,
+//    as bf16 (res_bf16; the add stays f32) and w2 writes the layer output
+//    as bf16 alone (out null, out_b), as the f32 kernel does too. Each of
+//    these layouts is an instantiation of its own (kEpiLnResBf16,
+//    kEpiLnBf16Out, kEpiLnBf16), so the f32-activation epilogue carries no
+//    branch for them.
 //  - kStem (the stem of _stem_layer_kernel). Bound by bytes: 3.1 GFLOP
 //    against ~30 MB at 64 x 121 tokens. Its A on the TPU was two f32 tensors
 //    of 198-wide rows (792 bytes, no TMA box). Here it is one packed bf16
@@ -75,8 +81,9 @@
 //
 // Rounding points follow _layer_body: A is rounded to bf16 before the
 // product, the epilogue adds the f32 bias and rounds the output to bf16
-// only where the TPU kernel cast it (q/k/v, the ReLU hidden). LayerNorm
-// statistics, the carry and the posterior update stay f32.
+// only where the TPU kernel cast it (q/k/v, the ReLU hidden; with bf16
+// activations the layer output, out_shape dtype adt). LayerNorm statistics,
+// the carry and the posterior update stay f32.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -96,7 +103,7 @@ struct GemmArgs {
   const void* a2;         // kStem in f32: x_cond, laid out like a
   const void* w;          // (N or more rows, ldw), K-major as nn.Linear; bf16 in bf16 mode, f32 in f32 mode
   const float* bias;      // (N,)
-  const float* res;       // kLayerNorm: residual (M, N)
+  const void* res;        // kLayerNorm: residual (M, N), f32 or (res_bf16) bf16
   const float* ln_s;      // kLayerNorm: (N,)
   const float* ln_b;      // kLayerNorm: (N,)
   const float* row_mask;  // kLayerNorm: (M,) padding mask
@@ -106,12 +113,13 @@ struct GemmArgs {
   const float* noise;     // kStep: (M, N)
   const float* ipv;       // kStep: (M, N) inpaint values, or null
   const float* ipm;       // kStep: (M,) inpaint row mask, or null
-  void* out;              // (M, ldo)
+  void* out;              // (M, ldo); kLayerNorm: null when out_b takes the output alone (bf16 activations)
   void* out_b;            // bf16 (M, ldb): kLayerNorm/kStem the f32 out rounded; kStep the x part of xa; or null
   int M, N, K;            // M: rows of out
   int lda, ldw, ldo, ldb;
   int k_split;            // kStem in f32: columns taken from a; the rest come from a2
   int a_bf16, out_bf16, compute_bf16;
+  int res_bf16;           // kLayerNorm: the residual is bf16 (read as f32, the add stays f32)
   int mode;
   int t_data;             // kStem/kStep: frames per window (tokens = t_data + 1)
   int wgmma;              // set by egoego_gemm: 1 if it launched gemm_wgmma_kernel
@@ -168,9 +176,28 @@ __device__ __forceinline__ float epilogue_value(const GemmArgs& p, float v, int 
   }
 }
 
+// The epilogues of gemm_wgmma_kernel, one instantiation each. kLayerNorm
+// takes one of four, by its residual's and its output's types:
+// kEpiLayerNorm an f32 residual and an f32 out (with its bf16 copy when
+// out_b is given); with bf16 activations kEpiLnResBf16 a bf16 residual,
+// kEpiLnBf16Out an output that leaves as out_b alone, kEpiLnBf16 both. The
+// f32 kernel takes the same choice as a template argument.
+enum WgEpilogue : int { kEpiBias, kEpiLayerNorm, kEpiStem, kEpiStep, kEpiLnResBf16, kEpiLnBf16Out, kEpiLnBf16 };
+
+__host__ __device__ constexpr bool ln_epilogue(int e) { return e == kEpiLayerNorm || e >= kEpiLnResBf16; }
+__host__ __device__ constexpr bool ln_res_bf16(int e) { return e == kEpiLnResBf16 || e == kEpiLnBf16; }
+__host__ __device__ constexpr bool ln_f32_out(int e) { return e == kEpiLayerNorm || e == kEpiLnResBf16; }
+
+// kLayerNorm's epilogue for the layout of p (see WgEpilogue).
+inline int ln_epilogue_of(const GemmArgs& p) {
+  return p.res_bf16 ? (p.out != nullptr ? kEpiLnResBf16 : kEpiLnBf16)
+                    : (p.out != nullptr ? kEpiLayerNorm : kEpiLnBf16Out);
+}
+
 // The f32 kernel's epilogue on its f32 accumulator tile Cs (BM x BN, row
-// stride LDC); f32 out.
-template <int BM, int BN, int LDC>
+// stride LDC); f32 out. LN (a kLayerNorm epilogue of WgEpilogue) fixes
+// kLayerNorm's residual and output types.
+template <int BM, int BN, int LDC, int LN>
 __device__ __forceinline__ void epilogue(const GemmArgs& p, const float* Cs, int m0, int n0) {
   const int tid = threadIdx.x;
   float* out = static_cast<float*>(p.out);
@@ -186,7 +213,7 @@ __device__ __forceinline__ void epilogue(const GemmArgs& p, const float* Cs, int
 #pragma unroll
       for (int j = 0; j < PER_LANE; ++j) {
         const int c = lane + 32 * j;
-        y[j] = c < p.N ? (Cs[r * LDC + c] + p.bias[c]) + p.res[(size_t)R * p.N + c] : 0.f;
+        y[j] = c < p.N ? (Cs[r * LDC + c] + p.bias[c]) + load_f(p.res, (size_t)R * p.N + c, ln_res_bf16(LN)) : 0.f;
         s += y[j];
       }
       const float mean = warp_sum(s) / p.N;
@@ -202,7 +229,13 @@ __device__ __forceinline__ void epilogue(const GemmArgs& p, const float* Cs, int
 #pragma unroll
       for (int j = 0; j < PER_LANE; ++j) {
         const int c = lane + 32 * j;
-        if (c < p.N) out[(size_t)R * p.ldo + c] = ((y[j] - mean) * inv * p.ln_s[c] + p.ln_b[c]) * m;
+        if (c >= p.N) continue;
+        const float o = ((y[j] - mean) * inv * p.ln_s[c] + p.ln_b[c]) * m;
+        if constexpr (ln_f32_out(LN)) {
+          out[(size_t)R * p.ldo + c] = o;
+        } else {
+          static_cast<__nv_bfloat16*>(p.out_b)[(size_t)R * p.ldb + c] = __float2bfloat16(o);
+        }
       }
     }
     return;
@@ -241,8 +274,6 @@ __device__ __forceinline__ void epilogue(const GemmArgs& p, const float* Cs, int
 constexpr int kWgBK = 64;         // k-tile depth: 64 bf16 = one 128-byte swizzle row
 constexpr int kWgThreads = 384;   // consumer warpgroups 0 and 1 (threads 0-255), producer 2
 
-enum WgEpilogue : int { kEpiBias, kEpiLayerNorm, kEpiStem, kEpiStep };
-
 // Staging rows of one consumer warpgroup: in the bias/ReLU modes 64 rows of
 // 128 bytes of bf16 (64 columns), padded to 144 bytes so that the fragment's
 // bf16x2 stores hit every bank once; in kStem 64 rows of 32 floats, padded
@@ -256,13 +287,13 @@ struct F32Stage {
   static constexpr int kBytes = 64 * kRow;
 };
 
-// BM x BN tile, STAGES-deep ring, epilogue EPI. kSplitN (kLayerNorm, kStep):
+// BM x BN tile, STAGES-deep ring, epilogue EPI. kSplitN (kLayerNorm's, kStep):
 // the two consumer warpgroups take the two column halves of BM = 64 rows;
 // otherwise each takes 64 of BM = 128 rows across all BN columns.
 template <int BM, int BN, int STAGES, int EPI>
 struct WgTile {
   static constexpr int kEpi = EPI;
-  static constexpr bool kSplitN = EPI == kEpiLayerNorm || EPI == kEpiStep;
+  static constexpr bool kSplitN = ln_epilogue(EPI) || EPI == kEpiStep;
   static constexpr int kWN = kSplitN ? BN / 2 : BN;  // columns of one warpgroup's m64nWNk16
   static constexpr int kWBox = BN > 256 ? 256 : BN;  // rows of W in one TMA box
   static_assert(BM == (kSplitN ? 64 : 128) && kWN % 8 == 0 && kWN <= 256 && BN % kWBox == 0,
@@ -469,7 +500,7 @@ __device__ __forceinline__ void wgmma_epilogue(const GemmArgs& p, float (&acc)[T
       }
     }
     store_block(p, acc, stage, m0 + row0, n0 + col0);
-  } else if constexpr (T::kEpi == kEpiLayerNorm) {  // the two warpgroups hold the two column halves of 64 rows
+  } else if constexpr (ln_epilogue(T::kEpi)) {  // the two warpgroups hold the two column halves of 64 rows
     __shared__ float part[2][2][64];  // [statistic][warpgroup][row]: row sums over each half
     const int wg = threadIdx.x / 128;
     const int R[2] = {m0 + row0 + rl, m0 + row0 + rl + 8};
@@ -482,8 +513,15 @@ __device__ __forceinline__ void wgmma_epilogue(const GemmArgs& p, float (&acc)[T
         const float2 b = *reinterpret_cast<const float2*>(p.bias + C);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const float2 r = R[h] < p.M ? *reinterpret_cast<const float2*>(p.res + (size_t)R[h] * p.N + C)
-                                      : make_float2(0.f, 0.f);
+          float2 r = make_float2(0.f, 0.f);
+          if (R[h] < p.M) {
+            const size_t e = (size_t)R[h] * p.N + C;
+            if constexpr (ln_res_bf16(T::kEpi))
+              r = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(static_cast<const __nv_bfloat16*>(p.res) + e));
+            else
+              r = *reinterpret_cast<const float2*>(static_cast<const float*>(p.res) + e);
+          }
           float& y0 = acc[4 * j + 2 * h];
           float& y1 = acc[4 * j + 2 * h + 1];
           y0 = (y0 + b.x) + r.x;
@@ -529,8 +567,9 @@ __device__ __forceinline__ void wgmma_epilogue(const GemmArgs& p, float (&acc)[T
           const float2 b = *reinterpret_cast<const float2*>(p.ln_b + C);
           const float o0 = ((acc[4 * j + 2 * h] - mean[h]) * inv * g.x + b.x) * m;
           const float o1 = ((acc[4 * j + 2 * h + 1] - mean[h]) * inv * g.y + b.y) * m;
-          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + (size_t)R[h] * p.ldo + C) = make_float2(o0, o1);
-          if (p.out_b != nullptr)
+          if constexpr (ln_f32_out(T::kEpi))
+            *reinterpret_cast<float2*>(static_cast<float*>(p.out) + (size_t)R[h] * p.ldo + C) = make_float2(o0, o1);
+          if (!ln_f32_out(T::kEpi) || p.out_b != nullptr)
             *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out_b) + (size_t)R[h] * p.ldb + C) =
                 __floats2bfloat162_rn(o0, o1);
         }
@@ -746,7 +785,7 @@ struct F32Tile {
   static constexpr size_t kSmem = kMain > kEpi ? kMain : kEpi;
 };
 
-template <int BM, int BN>
+template <int BM, int BN, int LN>
 __global__ void __launch_bounds__(kThreads) gemm_f32_kernel(const GemmArgs p) {
   using T = F32Tile<BM, BN>;
   constexpr int RM = BM / 8, RN = BN / 32;
@@ -798,12 +837,12 @@ __global__ void __launch_bounds__(kThreads) gemm_f32_kernel(const GemmArgs p) {
 #pragma unroll
     for (int j = 0; j < RN; ++j) Cs[(ty + 8 * i) * T::LDC + tx + 32 * j] = acc[i][j];
   __syncthreads();
-  epilogue<BM, BN, T::LDC>(p, Cs, m0, n0);
+  epilogue<BM, BN, T::LDC, LN>(p, Cs, m0, n0);
 }
 
-template <int BM, int BN>
+template <int BM, int BN, int LN = kEpiLayerNorm>
 static cudaError_t launch_f32(const GemmArgs& p, cudaStream_t stream) {
-  auto kernel = gemm_f32_kernel<BM, BN>;
+  auto kernel = gemm_f32_kernel<BM, BN, LN>;
   const size_t smem = F32Tile<BM, BN>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -857,13 +896,24 @@ extern "C" int egoego_gemm(egoego::GemmArgs* p, void* stream) {
   if (p->M <= 0 || p->N <= 0 || p->K <= 0 || p->mode < kBias || p->mode > kStep ||
       ((p->mode == kStem || p->mode == kStep) && p->t_data <= 0))
     return invalid;
-  if (!p->compute_bf16) {  // f32 A, W and out, no bf16 copy
-    if (p->a_bf16 || p->out_bf16 || p->out_b != nullptr || (p->mode == kLayerNorm && p->N > 512)) return invalid;
-    return (int)(p->mode == kLayerNorm ? launch_f32<32, 512>(*p, s) : launch_f32<64, 128>(*p, s));
+  // a bf16 residual, and an output that leaves as its bf16 copy alone, only in kLayerNorm
+  if ((p->res_bf16 && p->mode != kLayerNorm) || (p->out == nullptr && (p->mode != kLayerNorm || p->out_b == nullptr)))
+    return invalid;
+  if (!p->compute_bf16) {  // f32 A and W; f32 out, or in kLayerNorm with bf16 activations a bf16 out_b alone
+    if (p->a_bf16 || p->out_bf16 || (p->out_b != nullptr && p->out != nullptr) ||
+        (p->mode == kLayerNorm && p->N > 512))
+      return invalid;
+    if (p->mode != kLayerNorm) return (int)launch_f32<64, 128>(*p, s);
+    switch (ln_epilogue_of(*p)) {
+      case kEpiLayerNorm: return (int)launch_f32<32, 512, kEpiLayerNorm>(*p, s);
+      case kEpiLnResBf16: return (int)launch_f32<32, 512, kEpiLnResBf16>(*p, s);
+      case kEpiLnBf16Out: return (int)launch_f32<32, 512, kEpiLnBf16Out>(*p, s);
+      default: return (int)launch_f32<32, 512, kEpiLnBf16>(*p, s);
+    }
   }
   // bf16: A (rows, K) and W (N, K), K-major, 16-byte rows and bases
   bool ok = p->a_bf16 && p->K % 8 == 0 && p->lda % 8 == 0 && p->ldw % 8 == 0 && aligned16(p->a) &&
-            aligned16(p->w) && aligned16(p->out) && (p->out_b == nullptr || (aligned16(p->out_b) && p->ldb % 8 == 0));
+            aligned16(p->w) && aligned16(p->out) && aligned16(p->res) && (p->out_b == nullptr || (aligned16(p->out_b) && p->ldb % 8 == 0));
   cudaError_t err;
   switch (p->mode) {
     case kBias:
@@ -871,9 +921,14 @@ extern "C" int egoego_gemm(egoego::GemmArgs* p, void* stream) {
       if (!(ok && p->out_bf16 && p->N % 8 == 0 && p->ldo % 8 == 0)) return invalid;
       err = launch_wgmma<128, 256, 4, kEpiBias>(*p, s);
       break;
-    case kLayerNorm:  // f32 out (and its bf16 copy), whole rows in one tile
+    case kLayerNorm:  // f32 out (and its bf16 copy) or the bf16 out alone, whole rows in one tile
       if (!(ok && !p->out_bf16 && p->N % 8 == 0 && p->N <= 512 && p->ldo % 8 == 0)) return invalid;
-      err = launch_wgmma<64, 512, 3, kEpiLayerNorm>(*p, s);
+      switch (ln_epilogue_of(*p)) {
+        case kEpiLayerNorm: err = launch_wgmma<64, 512, 3, kEpiLayerNorm>(*p, s); break;
+        case kEpiLnResBf16: err = launch_wgmma<64, 512, 3, kEpiLnResBf16>(*p, s); break;
+        case kEpiLnBf16Out: err = launch_wgmma<64, 512, 3, kEpiLnBf16Out>(*p, s); break;
+        default: err = launch_wgmma<64, 512, 3, kEpiLnBf16>(*p, s);
+      }
       break;
     case kStem:  // A = xa (B t_data, K); f32 out (B (t_data + 1), N) and its bf16 copy
       if (!(ok && !p->out_bf16 && p->out_b != nullptr && p->N % 8 == 0 && p->ldo % 8 == 0 &&

@@ -2,7 +2,8 @@
 record} with trans (T,3), root_orient (T,3), body_pose (T,63), seq_name,
 ...), the min/max normalization stats pickle, DROID-SLAM trajectories
 ((T, 7) npy, trans + quat wxyz) and the per-frame optical-flow feature npys
-(loaders copied from egoego_release_tpu/data/formats.py).
+(loaders copied from egoego_release_tpu/data/formats.py; the features
+through the native loader, as there).
 
 The reference writes these files with joblib, which stores numpy arrays as
 raw bytes between pickle opcodes. ``load_pickle`` reads both that layout
@@ -18,6 +19,7 @@ import pickle
 import numpy as np
 import torch
 
+from egoego_release_tpu_torch.data.native_loader import load_npy_batch
 from egoego_release_tpu_torch.diffusion.gaussian_diffusion import NormStats
 from egoego_release_tpu_torch.ops.rotations import quat_to_matrix_np
 
@@ -97,13 +99,14 @@ def load_of_feats(of_files: list[str], rewrite: tuple[str, str] | None = None,
     """Stack per-frame optical-flow feature npys -> (T, feat_dim) f32.
     ``rewrite`` maps the absolute paths stored in the pickles onto the local
     data root; flow paths (raft_flows) are read as feature paths
-    (raft_of_feats)."""
-    out = np.empty((len(of_files), feat_dim), np.float32)
-    for i, f in enumerate(of_files):
+    (raft_of_feats). Read by the native multithreaded loader
+    (data/native_loader.py), or numpy where it is missing."""
+    paths = []
+    for f in of_files:
         if rewrite is not None:
             f = f.replace(rewrite[0], rewrite[1])
-        out[i] = np.load(f.replace("raft_flows", "raft_of_feats")).reshape(-1)
-    return out
+        paths.append(f.replace("raft_flows", "raft_of_feats"))
+    return load_npy_batch(paths, feat_dim)
 
 
 def find_slam_npy(slam_res_folder: str, seq_name: str) -> str | None:

@@ -22,6 +22,7 @@ noise, so a test can replay another framework's draws.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -73,6 +74,11 @@ class DiffusionConfig:
     # the --fused denoiser (fused_decoder_layer per layer, bf16) instead of
     # the step kernels; the CLIs give --fused_step precedence, as JAX does
     fused_transformer: bool = False
+    # the step kernels hand their inter-layer activations over in bf16 (the
+    # TPU kernels' act dtype); LayerNorm and softmax statistics, the carry
+    # and the update stay f32. The step path only: --fused ignores it, as
+    # in JAX, and no CLI flag sets it
+    fused_step_act_bf16: bool = False
     # --sample_microbatch N: a reverse chain over more than N rows runs as
     # chunks of N in sequence, each with its own noise source; 0 = off
     sample_microbatch: int = 0
@@ -232,7 +238,10 @@ class CondGaussianDiffusion:
         k)``), and sliced back."""
         if self.cfg.objective != "pred_x0":
             raise NotImplementedError(f"the samplers take pred_x0 models only, not {self.cfg.objective!r}")
-        loop = fused_layer_p_sample_loop if self.cfg.fused_transformer else fused_p_sample_loop
+        if self.cfg.fused_transformer:
+            loop = fused_layer_p_sample_loop
+        else:
+            loop = functools.partial(fused_p_sample_loop, act_bf16=self.cfg.fused_step_act_bf16)
         mb = self.cfg.sample_microbatch
         bs = x_start.shape[0]
         if not mb or bs <= mb:

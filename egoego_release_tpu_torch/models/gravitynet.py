@@ -1,7 +1,7 @@
 """GravityNet, stage 1: SLAM trajectory -> floor normal (port of
-egoego_release_tpu/models/gravitynet.py, eval part). ``HeadNormalFormer``
-keeps the reference's module names (``action_transformer``,
-``action_normal_mlp``, ``action_normal_fc``)."""
+egoego_release_tpu/models/gravitynet.py). ``HeadNormalFormer`` keeps the
+reference's module names (``action_transformer``, ``action_normal_mlp``,
+``action_normal_fc``)."""
 
 from __future__ import annotations
 
@@ -88,3 +88,25 @@ def gravitynet_eval_transform(pred_normal: torch.Tensor, slam_rot_mat: torch.Ten
         "gt_head_rot_mat": rot.quat_to_matrix(gt_head_pose[..., 3:]),
         "gt_head_pose": gt_head_pose,
     }
+
+
+def gravitynet_eval_upper_bound(gt_aligned_rot_mat: torch.Tensor, slam_rot_mat: torch.Tensor,
+                                slam_trans: torch.Tensor, gt_scale, gt_head_trans0: torch.Tensor) -> dict:
+    """The oracle upper bound: the GT gravity rotation (3, 3) and GT inverse
+    scale applied to a SLAM trajectory (T, 3, 3) + (T, 3), from the GT
+    first-frame head translation (3,): how much error comes from
+    GravityNet's predictions and how much from SLAM itself."""
+    trans_diff = slam_trans[1:] - slam_trans[:-1]
+    diff_rs = torch.einsum("ij,tj->ti", gt_aligned_rot_mat, trans_diff) * gt_scale
+    trans_rs = gt_head_trans0 + torch.cat([diff_rs.new_zeros(1, 3), torch.cumsum(diff_rs, dim=0)])
+    rot_aligned = torch.einsum("ij,tjk->tik", gt_aligned_rot_mat, slam_rot_mat)
+    return {
+        "head_trans": trans_rs,
+        "head_rot_mat": rot_aligned,
+        "head_pose": torch.cat([trans_rs, rot.matrix_to_quat(rot_aligned)], dim=-1),
+    }
+
+
+def gravitynet_loss(pred_normal: torch.Tensor, gt_normal: torch.Tensor) -> torch.Tensor:
+    """The L1 normal loss: |gt - pred| summed over xyz, then the mean."""
+    return (gt_normal - pred_normal).abs().sum(-1).mean()

@@ -1,5 +1,5 @@
 """HeadNet, stage 1: optical-flow features -> head rotation and SLAM scale
-(port of egoego_release_tpu/models/headnet.py, eval part).
+(port of egoego_release_tpu/models/headnet.py).
 
 ``HeadFormer`` keeps the reference's module names (``action_transformer``,
 ``action_va_mlp``, ``action_va_fc``, ``action_dist_mlp``,
@@ -9,6 +9,8 @@ transformer as one batch, the last block of each ragged and
 padding-masked, then integrates the angular velocities over each whole
 sequence, as the JAX package does (under ``jax.vmap`` for N > 1); that
 sequential integration runs on the host, once for the batch.
+``headformer_loss`` is the training loss; it integrates the predicted
+velocities with ``va2rot`` on the tensors' own device, under autograd.
 """
 
 from __future__ import annotations
@@ -104,3 +106,23 @@ def headformer_forward_for_eval(model: HeadFormer, of_feats: torch.Tensor, init_
     t_out = rescaled_trans.shape[1]
     head_pose = torch.cat([rescaled_trans, head_quat[:, :t_out]], dim=-1)
     return {"head_pose": head_pose, "pred_scale": scale}
+
+
+def headformer_loss(va_pred: torch.Tensor, dist_pred: torch.Tensor, init_quat: torch.Tensor,
+                    gt_head_vels: torch.Tensor, gt_head_quat: torch.Tensor, gt_head_trans: torch.Tensor,
+                    w_rotation: float = 1.0, w_va: float = 1.0, w_dist: float = 1.0, dist_scale: float = 10.0):
+    """The training loss (JAX: ``headformer_loss``): va_pred (B, T, 3),
+    dist_pred (B, T, 1), init_quat (B, 4), gt_head_vels (B, T, 3) (angular
+    part), gt_head_quat (B, T+1, 4), gt_head_trans (B, T+1, 3). The
+    predicted velocities are integrated by ``va2rot`` where they lie (on
+    the card: ~55 small launches a frame, forward and backward). Returns
+    (loss, (orient, va, dist))."""
+    pred_quat = va2rot(init_quat, va_pred)[:, 1:]
+    va_loss = ((gt_head_vels - va_pred) ** 2).sum(-1).mean()
+    diff = rot.quat_multiply(gt_head_quat[:, 1:], rot.quat_invert(pred_quat))
+    iden = diff.new_tensor([1.0, 0.0, 0.0, 0.0])
+    orient_loss = ((diff.abs() - iden) ** 2).sum(-1).mean()
+    gt_dist = torch.linalg.norm(gt_head_trans[:, 1:] - gt_head_trans[:, :-1], dim=-1) * dist_scale
+    dist_loss = ((dist_pred[..., 0] - gt_dist) ** 2).mean()
+    loss = w_rotation * orient_loss + w_va * va_loss + w_dist * dist_loss
+    return loss, (orient_loss, va_loss, dist_loss)

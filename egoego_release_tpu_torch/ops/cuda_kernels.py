@@ -59,7 +59,7 @@ class GemmArgs(ctypes.Structure):
         "a", "a2", "w", "bias", "res", "ln_s", "ln_b", "row_mask", "pos", "emb",
         "x", "noise", "ipv", "ipm", "out", "out_b")] + [(name, ctypes.c_int) for name in (
         "M", "N", "K", "lda", "ldw", "ldo", "ldb", "k_split", "a_bf16", "out_bf16",
-        "compute_bf16", "mode", "t_data", "wgmma")] + [(name, ctypes.c_float) for name in (
+        "compute_bf16", "res_bf16", "mode", "t_data", "wgmma")] + [(name, ctypes.c_float) for name in (
         "c1", "c2", "c3")]
 
 
@@ -155,18 +155,27 @@ def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def _need(t: torch.Tensor, dtype, shape=None, what="tensor") -> None:
-    if not t.is_cuda or not t.is_contiguous() or t.dtype not in (
-            dtype if isinstance(dtype, tuple) else (dtype,)):
-        raise ValueError(f"{what}: need a contiguous CUDA tensor of {dtype}, "
-                         f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+def _layout(t: torch.Tensor, dtype, shape=None, what="tensor") -> None:
+    """Raise unless t is contiguous, of ``dtype`` (or one of a tuple) and of
+    ``shape`` when given, on any device (gemm checks a layout first and the
+    device last, so that the CPU tests reach its refusals)."""
+    if not t.is_contiguous() or t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
+        raise ValueError(f"{what}: need a contiguous tensor of {dtype}, "
+                         f"got {t.dtype} (contiguous={t.is_contiguous()})")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what}: need shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
+def _need(t: torch.Tensor, dtype, shape=None, what="tensor") -> None:
+    """``_layout``'s checks, on the card."""
+    if not t.is_cuda:
+        raise ValueError(f"{what}: need a CUDA tensor, got one on {t.device}")
+    _layout(t, dtype, shape, what)
+
+
 def gemm(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-         out: torch.Tensor, *, M: int, a2: torch.Tensor | None = None, res=None, ln_s=None, ln_b=None, row_mask=None,
-         pos=None, emb=None, x=None, noise=None, ipv=None, ipm=None, out_b=None,
+         out: torch.Tensor | None, *, M: int, a2: torch.Tensor | None = None, res=None, ln_s=None, ln_b=None,
+         row_mask=None, pos=None, emb=None, x=None, noise=None, ipv=None, ipm=None, out_b=None,
          t_data: int = 0, scal=(0.0, 0.0, 0.0)) -> torch.Tensor:
     """out (M, N) = epilogue(A W^T + b) on the card, N = len(bias), in W's
     dtype: bf16 on the wgmma kernel (tensor cores), f32 on the CUDA cores.
@@ -185,24 +194,32 @@ def gemm(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
       at most 208 in bf16; ``out_b`` (bf16 only, optional) receives
       bf16(out) in the first N columns of its rows (xa).
 
-    ``out_b`` of LAYER_NORM: bf16 (M, N), the f32 output rounded. A layout
-    the kernels cannot take raises here or in the C entry; nothing falls
-    back to another kernel."""
+    ``out_b`` of LAYER_NORM: bf16 (M, N), the f32 output rounded. With bf16
+    inter-layer activations LAYER_NORM's residual ``res`` may be bf16 (read
+    as f32; the add stays f32) and ``out`` None, so that the output leaves
+    as ``out_b`` alone, in either compute type (in f32 compute that is the
+    only ``out_b`` taken). Returns ``out``, or ``out_b`` when ``out`` is
+    None. A layout the kernels cannot take raises here or in the C entry;
+    nothing falls back to another kernel."""
     f32, bf16 = torch.float32, torch.bfloat16
-    _need(w, (f32, bf16), what="w")
-    _need(bias, f32, what="bias")
+    _layout(w, (f32, bf16), what="w")
+    _layout(bias, f32, what="bias")
     is_bf16 = w.dtype == bf16
     N = bias.numel()
     n_w, K = w.shape
     if n_w < N:
         raise ValueError(f"w: need at least N = {N} rows, got {tuple(w.shape)}")
-    _need(a, (f32, bf16), what="a")
-    _need(out, (f32, bf16), what="out")
-    if out.numel() != M * N:
-        raise ValueError(f"out: need {M}x{N} elements, got {tuple(out.shape)}")
+    _layout(a, (f32, bf16), what="a")
+    if out is None:
+        if mode != LAYER_NORM or out_b is None:
+            raise ValueError("out: only LAYER_NORM may leave out to its bf16 copy out_b")
+    else:
+        _layout(out, (f32, bf16), what="out")
+        if out.numel() != M * N:
+            raise ValueError(f"out: need {M}x{N} elements, got {tuple(out.shape)}")
     lda, k_split = a.shape[-1], 0
     if mode == STEM and not is_bf16:
-        _need(a2, a.dtype, a.shape, "a2")
+        _layout(a2, a.dtype, a.shape, "a2")
         K, k_split = 2 * lda, lda
         if K > w.shape[1]:
             raise ValueError(f"stem: need 2 d <= K, got d = {lda}, w {tuple(w.shape)}")
@@ -214,56 +231,63 @@ def gemm(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     if a.numel() != rows * lda or (k_split == 0 and lda != K):
         raise ValueError(f"a: need ({rows}, {K}), got {tuple(a.shape)}")
     if mode == STEM:
-        _need(pos, f32, (t_data + 1, N), "pos")
-        _need(emb, f32, (N,), "emb")
+        _layout(pos, f32, (t_data + 1, N), "pos")
+        _layout(emb, f32, (N,), "emb")
     vecs = [("x", x), ("noise", noise)] + ([("ipv", ipv)] if ipv is not None else []) if mode == STEP else []
     for name, t in vecs:
-        _need(t, f32, what=name)
+        _layout(t, f32, what=name)
         if t.numel() != M * N:
             raise ValueError(f"{name}: need {M}x{N} elements, got {tuple(t.shape)}")
     if mode == STEP:
         if ipv is not None:
-            _need(ipm, f32, what="ipm")
+            _layout(ipm, f32, what="ipm")
             if ipm.numel() != M:
                 raise ValueError(f"ipm: need {M} elements, got {tuple(ipm.shape)}")
     elif mode == LAYER_NORM:
-        _need(res, f32, (M, N), "res")
-        _need(ln_s, f32, (N,), "ln_s")
-        _need(ln_b, f32, (N,), "ln_b")
-        _need(row_mask, f32, (M,), "row_mask")
+        _layout(res, (f32, bf16), (M, N), "res")
+        _layout(ln_s, f32, (N,), "ln_s")
+        _layout(ln_b, f32, (N,), "ln_b")
+        _layout(row_mask, f32, (M,), "row_mask")
         if N > 512:
             raise ValueError("layer-norm epilogue: N <= 512")
     ldb = N
     if out_b is not None:
-        _need(out_b, bf16, what="out_b")
+        _layout(out_b, bf16, what="out_b")
         ldb = out_b.shape[-1]
-        if not is_bf16 or mode not in (LAYER_NORM, STEM, STEP) or out_b.numel() != M * ldb or ldb < N or (
-                mode != STEP and ldb != N):
-            raise ValueError("out_b: a bf16 copy (M, N) of the f32 output of LAYER_NORM or STEM in bf16, "
-                             "or the (M, >= N) x part of xa for STEP")
+        if (mode not in (LAYER_NORM, STEM, STEP) or (not is_bf16 and out is not None) or out_b.numel() != M * ldb
+                or ldb < N or (mode != STEP and ldb != N)):
+            raise ValueError("out_b: a bf16 copy (M, N) of the f32 output of LAYER_NORM or STEM in bf16, the "
+                             "(M, N) bf16 output of LAYER_NORM alone (out None), or the (M, >= N) x part of xa "
+                             "for STEP")
     if is_bf16:
         out_dt = bf16 if mode in (BIAS, BIAS_RELU) else f32
         step_n = N % 2 == 0 and N <= 208 if mode == STEP else N % 8 == 0
-        if (a.dtype != bf16 or out.dtype != out_dt or K % 8 or not step_n or (mode == STEM and out_b is None)
-                or any(t is not None and t.data_ptr() % 16 for t in (a, w, out, out_b, *(t for _, t in vecs)))):
+        if (a.dtype != bf16 or (out is not None and out.dtype != out_dt) or K % 8 or not step_n
+                or (mode == STEM and out_b is None)
+                or any(t is not None and t.data_ptr() % 16 for t in (a, w, out, out_b, res, *(t for _, t in vecs)))):
             raise ValueError(f"the wgmma GEMM needs a bf16 A, a bf16 out (f32 for LAYER_NORM, STEM and STEP), K a "
                              f"multiple of 8, N a multiple of 8 (STEP: even, <= 208), the stem's bf16 copy, and "
-                             f"16-byte aligned tensors; got A {a.dtype}, out {out.dtype}, K={K}, N={N}")
-    elif a.dtype != f32 or out.dtype != f32:
-        raise ValueError(f"f32 mode: need f32 A and out, got {a.dtype}, {out.dtype}")
+                             f"16-byte aligned tensors; got A {a.dtype}, out {None if out is None else out.dtype}, "
+                             f"K={K}, N={N}")
+    elif a.dtype != f32 or (out is not None and out.dtype != f32):
+        raise ValueError(f"f32 mode: need f32 A and out, got {a.dtype}, {None if out is None else out.dtype}")
+    if not all(t.is_cuda for t in (a, a2, w, bias, res, ln_s, ln_b, row_mask, pos, emb, x, noise, ipv, ipm, out, out_b)
+               if t is not None):
+        raise ValueError("gemm: need CUDA tensors (the plain versions take CPU tensors)")
     args = GemmArgs(
         a=_ptr(a), a2=_ptr(a2), w=_ptr(w), bias=_ptr(bias), res=_ptr(res),
         ln_s=_ptr(ln_s), ln_b=_ptr(ln_b), row_mask=_ptr(row_mask), pos=_ptr(pos),
         emb=_ptr(emb), x=_ptr(x), noise=_ptr(noise), ipv=_ptr(ipv), ipm=_ptr(ipm),
         out=_ptr(out), out_b=_ptr(out_b), M=M, N=N, K=K, lda=lda, ldw=w.shape[1], ldo=N, ldb=ldb,
-        k_split=k_split, a_bf16=int(a.dtype == bf16), out_bf16=int(out.dtype == bf16),
-        compute_bf16=int(is_bf16), mode=mode, t_data=t_data, c1=scal[0], c2=scal[1], c3=scal[2],
+        k_split=k_split, a_bf16=int(a.dtype == bf16), out_bf16=int(out is not None and out.dtype == bf16),
+        compute_bf16=int(is_bf16), res_bf16=int(res is not None and res.dtype == bf16), mode=mode, t_data=t_data,
+        c1=scal[0], c2=scal[1], c3=scal[2],
     )
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
         _check(_lib("gemm").egoego_gemm(ctypes.byref(args), stream), "gemm")
     kernel_launches["gemm_wgmma" if args.wgmma else "gemm"] += 1
-    return out
+    return out_b if out is None else out
 
 
 def attention_route(dtype: torch.dtype, T: int, d_k: int, d_v: int) -> str:

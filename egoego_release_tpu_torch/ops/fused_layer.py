@@ -25,8 +25,17 @@ Rounding points in bf16 mode are those of ``_layer_body``: the layer input
 is rounded to bf16 for the QKV product, q/k/v after their bias, p before
 p v, ctx before fc, h0 before w1 and h1 before w2 (rounding the input or h0
 where it is written is the same round-to-nearest as rounding it at the
-product). LayerNorm statistics and the inter-layer activations stay f32.
-``bf16=False`` is the f32 parity mode (no TF32 anywhere).
+product). LayerNorm statistics stay f32. ``bf16=False`` is the f32 parity
+mode (no TF32 anywhere).
+
+The inter-layer activations are f32, or bf16 with ``act_bf16``: the TPU
+kernels' ``adt`` (their out_shape dtype; ``DiffusionConfig.
+fused_step_act_bf16``), independent of the compute dtype. Then the layer's
+output leaves as bf16 alone (w2's LayerNorm epilogue writes no f32
+output), and a layer whose input arrives as bf16 reads it as f32: fc's
+residual add promotes it, as ``attn + x`` does in ``_layer_body``. ``h0``
+stays f32 (with its bf16 copy in bf16 compute): the TPU kernel keeps it in
+VMEM.
 
 ``decoder_layer`` (a middle layer of the step path) and
 ``fused_decoder_layer`` (every layer of the ``--fused`` denoiser, port of
@@ -100,34 +109,41 @@ def attention_plain(qkv, *, B, T, t_keys, n_head, d_k, d_v, bf16=False):
     return rnd((p @ v).transpose(1, 2).reshape(B * T, n_head * d_v))
 
 
-def decoder_layer_plain(h, mask, lp, *, n_head, d_k, d_v):
-    """Plain PyTorch version of the kernel chain: h (B, T, dm) f32, mask
-    (B, T) f32. The mask scales output rows only; every token is a key."""
+def decoder_layer_plain(h, mask, lp, *, n_head, d_k, d_v, act_bf16=False):
+    """Plain PyTorch version of the kernel chain: h (B, T, dm) f32 or bf16,
+    mask (B, T) f32. The mask scales output rows only; every token is a
+    key. ``act_bf16`` returns the output rounded to a bf16 tensor."""
     bsz, t, dm = h.shape
     bf16 = lp["wqkv"].dtype == torch.bfloat16
     rnd = round_bf16 if bf16 else (lambda a: a)
-    x = h.reshape(bsz * t, dm)
+    x = h.reshape(bsz * t, dm).float()
     qkv = rnd(linear_plain(x, lp["wqkv"]) + lp["bqkv"])
     ctx = attention_plain(qkv, B=bsz, T=t, t_keys=t, n_head=n_head, d_k=d_k, d_v=d_v, bf16=bf16)
     m = mask.reshape(bsz * t, 1).float()
     h0 = layer_norm_plain(linear_plain(ctx, lp["wfc"]) + lp["bfc"] + x, lp["ln1s"], lp["ln1b"]) * m
     h1 = rnd(torch.relu(linear_plain(h0, lp["w1"]) + lp["b1"]))
     out = layer_norm_plain(linear_plain(h1, lp["w2"]) + lp["b2"] + h0, lp["ln2s"], lp["ln2b"]) * m
-    return out.reshape(bsz, t, dm)
+    return out.reshape(bsz, t, dm).to(torch.bfloat16 if act_bf16 else torch.float32)
 
 
-def decoder_layer_cuda(h, mask, lp, *, n_head, d_k, d_v, hb=None, with_copy=False):
+def decoder_layer_cuda(h, mask, lp, *, n_head, d_k, d_v, hb=None, with_copy=False, act_bf16=False):
     """The layer as five launches on the card; same contract as the plain
     version, and returns (out, its bf16 copy or None). ``mask`` must be a
     contiguous f32 (B, T) tensor. In bf16 mode ``hb`` is h's bf16 copy (made
-    here when None) and ``with_copy`` has the last LayerNorm write out's."""
+    here when None) and ``with_copy`` has the last LayerNorm write out's. A
+    bf16 ``h`` is its own copy, and fc's LayerNorm reads it as its residual.
+    ``act_bf16``: the last LayerNorm writes the bf16 output alone, returned
+    as (out, None)."""
     bsz, t, dm = h.shape
     m_rows = bsz * t
     cdt = lp["wqkv"].dtype
     bf16 = cdt == torch.bfloat16
     dev = h.device
     x = h.reshape(m_rows, dm)
-    xb = (x.to(torch.bfloat16) if hb is None else hb.reshape(m_rows, dm)) if bf16 else x
+    if x.dtype == torch.bfloat16:
+        xb = x if bf16 else x.float()  # f32 compute reads A in f32
+    else:
+        xb = (x.to(torch.bfloat16) if hb is None else hb.reshape(m_rows, dm)) if bf16 else x
     mask = mask.reshape(m_rows)
     copy = lambda: torch.empty(m_rows, dm, dtype=torch.bfloat16, device=dev) if bf16 else None
     qkv = torch.empty(m_rows, lp["wqkv"].shape[0], dtype=cdt, device=dev)
@@ -140,6 +156,11 @@ def decoder_layer_cuda(h, mask, lp, *, n_head, d_k, d_v, hb=None, with_copy=Fals
             ln_s=lp["ln1s"], ln_b=lp["ln1b"], row_mask=mask, out_b=h0b)
     h1 = torch.empty(m_rows, lp["w1"].shape[0], dtype=cdt, device=dev)
     ck.gemm(ck.BIAS_RELU, h0 if h0b is None else h0b, lp["w1"], lp["b1"], h1, M=m_rows)
+    if act_bf16:
+        out = torch.empty(m_rows, dm, dtype=torch.bfloat16, device=dev)
+        ck.gemm(ck.LAYER_NORM, h1, lp["w2"], lp["b2"], None, M=m_rows, res=h0,
+                ln_s=lp["ln2s"], ln_b=lp["ln2b"], row_mask=mask, out_b=out)
+        return out.reshape(bsz, t, dm), None
     out = torch.empty(m_rows, dm, dtype=torch.float32, device=dev)
     outb = copy() if with_copy else None
     ck.gemm(ck.LAYER_NORM, h1, lp["w2"], lp["b2"], out, M=m_rows, res=h0,
@@ -147,17 +168,19 @@ def decoder_layer_cuda(h, mask, lp, *, n_head, d_k, d_v, hb=None, with_copy=Fals
     return out.reshape(bsz, t, dm), None if outb is None else outb.reshape(bsz, t, dm)
 
 
-def decoder_layer(h, mask, lp, *, n_head, d_k, d_v, hb=None, with_copy=False):
+def decoder_layer(h, mask, lp, *, n_head, d_k, d_v, hb=None, with_copy=False, act_bf16=False):
     """One DecoderLayer: the kernel chain for CUDA tensors (counted in
     ``cuda_kernels.launch_counts["decoder_layer"]`` once its launches have
-    returned), the plain version for CPU tensors. ``hb`` and ``with_copy``
-    are ``decoder_layer_cuda``'s (the step chain's bf16 copies); with_copy
-    returns (out, its bf16 copy or None) instead of out."""
+    returned), the plain version for CPU tensors. ``hb``, ``with_copy`` and
+    ``act_bf16`` are ``decoder_layer_cuda``'s (the step chain's bf16
+    copies, its bf16 activations); with_copy returns (out, its bf16 copy or
+    None) instead of out."""
     if h.is_cuda:
-        out = decoder_layer_cuda(h, mask, lp, n_head=n_head, d_k=d_k, d_v=d_v, hb=hb, with_copy=with_copy)
+        out = decoder_layer_cuda(h, mask, lp, n_head=n_head, d_k=d_k, d_v=d_v, hb=hb, with_copy=with_copy,
+                                 act_bf16=act_bf16)
         ck.launch_counts["decoder_layer"] += 1
     else:
-        out = decoder_layer_plain(h, mask, lp, n_head=n_head, d_k=d_k, d_v=d_v), None
+        out = decoder_layer_plain(h, mask, lp, n_head=n_head, d_k=d_k, d_v=d_v, act_bf16=act_bf16), None
     return out if with_copy else out[0]
 
 

@@ -22,7 +22,11 @@ On the card each wrapper is a chain of launches (csrc/gemm.cu,
 csrc/attention.cu; see ops/fused_layer.py for why a layer is not one
 kernel there): the stem and the update ride in GEMM epilogues, so only
 the (B, T+1, d_model) activations cross device memory between layers, in
-f32 and, for the next layer's bf16 products, as a bf16 copy. In bf16 the
+f32 and, for the next layer's bf16 products, as a bf16 copy; with
+``act_bf16`` (the TPU kernels' bf16 ``adt``) as one bf16 tensor alone.
+The stem's tokens (layer 0's input) stay f32, as they stay in the TPU
+kernel's VMEM, and so does the last layer's output, which linear_out reads
+in the compute dtype (in bf16 compute as a bf16 tensor alone). In bf16 the
 stem's A is ``xa`` (B, T, 400) = [bf16(x) | bf16(x_cond) | 0] (``pack_xa``):
 ``fused_p_sample_loop`` packs it once a window, and each step's update
 writes bf16(x_next) into its x part, so the stem reads one 16-byte aligned
@@ -106,12 +110,12 @@ def stem_tokens_plain(x, xc, emb, pos, prep):
     return torch.cat([emb.reshape(1, 1, dm).expand(bsz, 1, dm), stem.reshape(bsz, t, dm)], 1) + pos
 
 
-def stem_layer_plain(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v):
+def stem_layer_plain(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v, act_bf16=False):
     h = stem_tokens_plain(x, xc, emb, pos, prep)
-    return decoder_layer_plain(h, mask, prep["layers"][0], n_head=n_head, d_k=d_k, d_v=d_v)
+    return decoder_layer_plain(h, mask, prep["layers"][0], n_head=n_head, d_k=d_k, d_v=d_v, act_bf16=act_bf16)
 
 
-def stem_layer_cuda(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v, with_copy=False, xa=None):
+def stem_layer_cuda(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v, with_copy=False, xa=None, act_bf16=False):
     """The stem's GEMM, then layer 0; returns ``decoder_layer_cuda``'s pair.
     In bf16 the GEMM reads ``xa`` (packed here when None) and also writes the
     bf16 copy of its output, which layer 0's QKV product reads."""
@@ -127,22 +131,23 @@ def stem_layer_cuda(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v, with_copy=
         hb = None
         ck.gemm(ck.STEM, x, prep["wst"], prep["bst"], h, M=bsz * (t + 1), a2=xc, pos=pos, emb=emb, t_data=t)
     return decoder_layer_cuda(h, mask, prep["layers"][0], n_head=n_head, d_k=d_k, d_v=d_v, hb=hb,
-                              with_copy=with_copy)
+                              with_copy=with_copy, act_bf16=act_bf16)
 
 
-def stem_layer(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v, with_copy=False, xa=None):
+def stem_layer(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v, with_copy=False, xa=None, act_bf16=False):
     """x, xc (B, T, d) f32; emb (d_model,) the noise-level token; pos
     (T+1, d_model) the position rows of tokens 0..T; mask (B, T+1); ``xa``
     on the card in bf16: ``pack_xa(x, xc)``, kept by the caller across steps
     (made here when None). Returns the (B, T+1, d_model) output of
     DecoderLayer 0, or with ``with_copy`` (output, its bf16 copy on the card
-    in bf16 mode, else None)."""
+    in bf16 mode, else None); ``act_bf16``: the output as a bf16 tensor
+    (copy None)."""
     if x.is_cuda:
         out = stem_layer_cuda(x, xc, emb, pos, mask, prep, n_head=n_head, d_k=d_k, d_v=d_v, with_copy=with_copy,
-                              xa=xa)
+                              xa=xa, act_bf16=act_bf16)
         ck.launch_counts["stem_layer"] += 1
     else:
-        out = stem_layer_plain(x, xc, emb, pos, mask, prep, n_head=n_head, d_k=d_k, d_v=d_v), None
+        out = stem_layer_plain(x, xc, emb, pos, mask, prep, n_head=n_head, d_k=d_k, d_v=d_v, act_bf16=act_bf16), None
     return out if with_copy else out[0]
 
 
@@ -169,21 +174,23 @@ def layer_epilogue_plain(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k
 
 def layer_epilogue_cuda(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v, hb=None, xa=None):
     """The last layer, then the update's GEMM, which in bf16 reads the
-    layer's bf16 copy and, when ``xa`` is given, writes bf16(x_next) into its
-    x part."""
+    layer's output as bf16 alone (its only reader: the layer writes no f32
+    output) and, when ``xa`` is given, writes bf16(x_next) into its x
+    part."""
     bf16 = prep["lw"].dtype == torch.bfloat16
-    h, hb = decoder_layer_cuda(h, mask, prep["layers"][-1], n_head=n_head, d_k=d_k, d_v=d_v, hb=hb, with_copy=bf16)
+    h, _ = decoder_layer_cuda(h, mask, prep["layers"][-1], n_head=n_head, d_k=d_k, d_v=d_v, hb=hb, act_bf16=bf16)
     bsz, t, d = x.shape
     out = torch.empty(bsz, t, d, dtype=torch.float32, device=x.device)
-    ck.gemm(ck.STEP, hb if bf16 else h, prep["lw"], prep["lb"], out, M=bsz * t, x=x, noise=noise,
+    ck.gemm(ck.STEP, h, prep["lw"], prep["lb"], out, M=bsz * t, x=x, noise=noise,
             ipv=ipv, ipm=ipm, t_data=t, scal=scal, out_b=xa)
     return out
 
 
 def layer_epilogue(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v, hb=None, xa=None):
-    """h (B, T+1, d_model); x, noise (B, T, d) f32; scal = (a1, a2, a3)
+    """h (B, T+1, d_model) f32, or bf16 (the bf16 activations of the
+    ``act_bf16`` chain); x, noise (B, T, d) f32; scal = (a1, a2, a3)
     host floats; ipv (B, T, d) and ipm (B, T) or both None; hb the bf16
-    copy of h on the card (made there when None); ``xa`` on the card in
+    copy of an f32 h on the card (made there when None); ``xa`` on the card in
     bf16: the stem's packed A, whose x part receives bf16(x_next). Returns
     x_next (B, T, d) f32."""
     if h.is_cuda:
@@ -195,13 +202,16 @@ def layer_epilogue(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v,
                                 n_head=n_head, d_k=d_k, d_v=d_v)
 
 
-def fused_denoise_step(x, xc, emb, pos, mask, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v, xa=None):
+def fused_denoise_step(x, xc, emb, pos, mask, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v, xa=None,
+                       act_bf16=False):
     """One reverse step: ``len(prep["layers"])`` kernel calls. ``xa`` (on
-    the card in bf16): ``pack_xa(x, xc)``, updated in place to x_next's."""
+    the card in bf16): ``pack_xa(x, xc)``, updated in place to x_next's.
+    ``act_bf16``: the outputs of layers 0 .. L-2 cross between the calls as
+    bf16 tensors alone."""
     kw = dict(n_head=n_head, d_k=d_k, d_v=d_v)
-    h, hb = stem_layer(x, xc, emb, pos, mask, prep, with_copy=True, xa=xa, **kw)
+    h, hb = stem_layer(x, xc, emb, pos, mask, prep, with_copy=True, xa=xa, act_bf16=act_bf16, **kw)
     for lp in prep["layers"][1:-1]:
-        h, hb = decoder_layer(h, mask, lp, hb=hb, with_copy=True, **kw)
+        h, hb = decoder_layer(h, mask, lp, hb=hb, with_copy=True, act_bf16=act_bf16, **kw)
     return layer_epilogue(h, mask, x, noise, scal, ipv, ipm, prep, hb=hb, xa=xa, **kw)
 
 
@@ -280,13 +290,14 @@ class TorchNoise:
 @torch.no_grad()
 def fused_p_sample_loop(diff, x_start, cond_mask, padding_mask=None, inpaint_value=None,
                         inpaint_mask=None, *, noise, ddim_steps: int | None = None,
-                        eta: float = 0.0) -> torch.Tensor:
+                        eta: float = 0.0, act_bf16: bool = False) -> torch.Tensor:
     """The reverse chain on ``fused_denoise_step``. x_start, cond_mask
     (B, T, d); padding_mask (B, 1, T+1) or None; inpaint_value (B, T, d)
     with inpaint_mask (B, T, 1) (1 = force), or None. ``noise`` supplies
     ``initial(shape)``, ``cond(shape)`` and one ``step(shape)`` per step, in
     that order, on any device (they are moved to x_start's). ddim_steps
-    None = DDPM over every timestep."""
+    None = DDPM over every timestep. ``act_bf16``: bf16 inter-layer
+    activations (JAX: ``act_dtype=jnp.bfloat16``)."""
     cfg = diff.cfg
     if cfg.n_dec_layers < 2:
         raise ValueError("the fused step needs n_dec_layers >= 2")
@@ -318,5 +329,5 @@ def fused_p_sample_loop(diff, x_start, cond_mask, padding_mask=None, inpaint_val
     xa = pack_xa(x, x_cond, prep["wst"].shape[1]) if x.is_cuda and prep["wst"].dtype == torch.bfloat16 else None
     for i, (_, scal) in enumerate(sched):
         x = fused_denoise_step(x, x_cond, embs[i], pos, mask, draw(noise.step),
-                               scal, ipv, ipm, prep, xa=xa, **kw)
+                               scal, ipv, ipm, prep, xa=xa, act_bf16=act_bf16, **kw)
     return x

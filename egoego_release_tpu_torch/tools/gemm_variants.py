@@ -39,7 +39,7 @@ import torch
 from egoego_release_tpu_torch.ops import cuda_kernels as ck
 
 EPILOGUE_CALL = "      wgmma_epilogue<T>(p, acc, out_stage"
-RESIDUAL_LOAD = "const float2 r = R[h] < p.M ? *reinterpret_cast<const float2*>(p.res"
+RESIDUAL_LOAD = "if (R[h] < p.M) {\n            const size_t e"  # the LayerNorm modes' residual
 STORE = "      if (R < p.M && C < p.N) {\n        const uint4 v"  # store_block (bias/ReLU modes)
 LN_STORE = "        if (C < p.N && R[h] < p.M) {\n          const float2 g"  # the LayerNorm modes
 STEM_STORE = "      if (r < rows && C < p.N) {\n        const float4 a"  # store_block_f32 (kStem)
@@ -51,7 +51,7 @@ NO_STORE = lambda anchor, cond: (anchor, anchor.replace(cond, cond[:-3] + " && p
 VARIANTS = {
     "kernel": [],
     "mainloop_only": [(EPILOGUE_CALL, EPILOGUE_CALL.replace("      wgmma", "      if (p.M < 0) wgmma"))],
-    "no_residual": [(RESIDUAL_LOAD, RESIDUAL_LOAD.replace("R[h] < p.M ?", "R[h] < 0 ?"))],
+    "no_residual": [(RESIDUAL_LOAD, RESIDUAL_LOAD.replace("R[h] < p.M", "R[h] < 0"))],
     "no_stores": [NO_STORE(STORE, "C < p.N) {"), NO_STORE(LN_STORE, "R[h] < p.M) {"),
                   NO_STORE(STEM_STORE, "C < p.N) {"), NO_STORE(STEM_TOKEN0, "C < p.N) {"),
                   NO_STORE(STEP_XA, "nullptr) {"),

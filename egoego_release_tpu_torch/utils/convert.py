@@ -12,6 +12,8 @@
   layer count before it is used.
 * ``trainer_state_from_jax``: the JAX stage-2 trainer's ``TrainState`` ->
   the dict of a ``training.trainer_diffusion`` checkpoint.
+* ``stage1_state_from_jax``: the JAX ``Stage1State`` -> the dict that
+  ``training.trainer_stage1.Stage1Trainer.state_from_dict`` takes.
 """
 
 from __future__ import annotations
@@ -112,6 +114,31 @@ def trainer_state_from_jax(state) -> dict:
                  "exp_avg_sq": denoiser_state_dict_from_jax(adam.nu)},
         "nan_count": int(np.asarray(state.nan_count)),
     }
+
+
+def stage1_state_from_jax(state, kind: str) -> dict:
+    """A JAX ``Stage1State`` (flax params, the optax state of
+    ``chain(clip_by_global_norm, adamw)``, epoch) of a ``kind`` model
+    ("headnet" or "gravitynet") -> {"model", "adam", "epoch"}: the params
+    and the ScaleByAdamState's mu / nu / count as AdamW's exp_avg /
+    exp_avg_sq / step by parameter name."""
+    to_sd = {"headnet": headformer_state_dict_from_jax, "gravitynet": gravitynet_state_dict_from_jax}[kind]
+    adam = _find_adam_state(state.opt_state)
+    return {"model": to_sd(state.params),
+            "adam": {"step": int(np.asarray(adam.count)), "exp_avg": to_sd(adam.mu), "exp_avg_sq": to_sd(adam.nu)},
+            "epoch": int(np.asarray(state.epoch))}
+
+
+def _find_adam_state(opt_state):
+    """The ScaleByAdamState (the one with ``mu``) inside nested optax chain states."""
+    if hasattr(opt_state, "mu"):
+        return opt_state
+    if isinstance(opt_state, tuple):
+        for s in opt_state:
+            found = _find_adam_state(s)
+            if found is not None:
+                return found
+    return None
 
 
 def strip_prefix(sd: dict, prefix: str) -> dict:

@@ -176,6 +176,120 @@ def test_stem_and_step_launches_match_plain(release, card, bsz, frames):
     assert torch.equal(xa[..., :cfg.d_feats], out.to(torch.bfloat16))
 
 
+def _chip_smoke():
+    """chip_smoke.py as a module (its phases run only under __main__)."""
+    import importlib.util
+    import pathlib
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def _bf16_flips_only(got, want, tol, max_share=0.01):
+    """A bf16 output within ``tol`` plus the one bf16 ulp its rounding may
+    add, at most ``max_share`` of the entries past tol (chip_smoke.bf16_flips)."""
+    return _chip_smoke().bf16_flips(got, want, tol, max_share)[0]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("bsz,frames", [(64, 120), (64, 30), (3, 41)])
+def test_act_bf16_wrappers_match_plain(release, card, bf16, bsz, frames):
+    """stem_layer, decoder_layer and layer_epilogue with bf16 inter-layer
+    activations against their plain versions: the stem's and the middle
+    layer's outputs are bf16 tensors alone (their w2 LayerNorm writes no f32
+    output), the middle layer and the epilogue read a bf16 input (fc's
+    residual in bf16). f32 outputs within 2e-2 in bf16 compute and 1e-4 in
+    f32 compute; bf16 outputs within those plus the one bf16 ulp their
+    rounding may add, and in f32 compute at most 1% of the entries past
+    1e-4. Each call counts once and launches the chain's C entries."""
+    cfg, model, _ = release
+    prep = fs.prepare_step_params(model, bf16)
+    inp = _step_inputs(card, cfg, model, bsz, frames, seed=7 * frames + bf16)
+    kw = dict(n_head=cfg.n_head, d_k=cfg.d_k, d_v=cfg.d_v)
+    pos = prep["pos_table"][1: frames + 2].contiguous()
+    hb = inp["h"].to(torch.bfloat16)
+    n_gemm, n_attn = ("gemm_wgmma", "attention_wgmma") if bf16 else ("gemm", "attention")
+    cases = [
+        (fs.stem_layer, fs.stem_layer_plain, (inp["x"], inp["xc"], inp["emb"], pos, inp["mask"], prep),
+         {"act_bf16": True}, 5),
+        (fl.decoder_layer, fl.decoder_layer_plain, (hb, inp["mask"], prep["layers"][1]), {"act_bf16": True}, 4),
+        (fs.layer_epilogue, fs.layer_epilogue_plain, (hb, inp["mask"], inp["x"], inp["noise"], (0.9, 0.1, 0.05),
+                                                      inp["ipv"], inp["ipm"], prep), {}, 5),
+    ]
+    for wrapper, plain, args, extra, gemms in cases:
+        ck.launch_counts.clear()
+        ck.kernel_launches.clear()
+        out_k = wrapper(*args, **kw, **extra)
+        assert dict(ck.launch_counts) == {wrapper.__name__: 1}
+        assert dict(ck.kernel_launches) == {n_gemm: gemms, n_attn: 1}
+        out_p = plain(*args, **kw, **extra)
+        torch.cuda.synchronize()
+        assert out_k.shape == out_p.shape and out_k.dtype == out_p.dtype
+        assert out_k.dtype == (torch.bfloat16 if extra else torch.float32)
+        if out_k.dtype == torch.float32:
+            assert float((out_k - out_p).abs().max()) < TOL[bf16], wrapper.__name__
+        else:
+            assert _bf16_flips_only(out_k, out_p, TOL[bf16], 1.0 if bf16 else 0.01), wrapper.__name__
+
+
+@pytest.mark.parametrize("bsz,frames", [(64, 120), (64, 30), (3, 41)])
+def test_epilogue_without_the_f32_layer_output_is_bit_for_bit(release, card, bsz, frames):
+    """layer_epilogue in bf16 no longer has its last LayerNorm write an f32
+    output that nothing reads: x_next and xa equal those of the chain that
+    wrote it (the layer's f32 output and bf16 copy, the update reading the
+    copy), bit for bit."""
+    cfg, model, prep = release
+    inp = _step_inputs(card, cfg, model, bsz, frames, seed=11 * frames)
+    kw = dict(n_head=cfg.n_head, d_k=cfg.d_k, d_v=cfg.d_v)
+    scal = (0.9, 0.1, 0.05)
+    xa_new, xa_old = (fs.pack_xa(inp["x"], inp["xc"], prep["wst"].shape[1]) for _ in range(2))
+    new = fs.layer_epilogue(inp["h"], inp["mask"], inp["x"], inp["noise"], scal, inp["ipv"], inp["ipm"], prep,
+                            xa=xa_new, **kw)
+    _, hb = fl.decoder_layer_cuda(inp["h"], inp["mask"], prep["layers"][-1], with_copy=True, **kw)
+    old = torch.empty_like(inp["x"])
+    ck.gemm(ck.STEP, hb, prep["lw"], prep["lb"], old, M=bsz * frames, x=inp["x"], noise=inp["noise"],
+            ipv=inp["ipv"], ipm=inp["ipm"], t_data=frames, scal=scal, out_b=xa_old)
+    torch.cuda.synchronize()
+    assert torch.equal(new, old) and torch.equal(xa_new, xa_old)
+
+
+def test_layer_norm_bf16_residual_and_output_match_plain(card):
+    """The LayerNorm epilogue in each of its layouts, one instantiation each
+    (an f32 or a bf16 residual; an f32 output, with its bf16 copy in bf16
+    compute, or the bf16 output alone), on the wgmma kernel (bf16) and the
+    CUDA-core kernel (f32): the residual read as its f32 value, a bf16
+    output the f32 result rounded once, a copy bit for bit."""
+    g = torch.Generator(device=card).manual_seed(9)
+    m, n, k = 726, 512, 1024
+    bf = torch.bfloat16
+    rn = lambda *s: torch.randn(*s, generator=g, device=card)
+    res32 = rn(m, n)
+    ln_s, ln_b, mask = 1 + 0.1 * rn(n), 0.1 * rn(n), (rn(m) > -1).float()
+    for wdt, kernel in ((bf, "gemm_wgmma"), (torch.float32, "gemm")):
+        bf16 = wdt == bf
+        a, w, bias = rn(m, k).to(wdt), (rn(n, k) * 0.25 / k ** 0.5).to(wdt), 0.25 * rn(n)
+        for res in (res32, res32.to(bf)):
+            want = fl.layer_norm_plain(fl.linear_plain(a, w) + bias + res.float(), ln_s, ln_b) * mask[:, None]
+            for f32_out in (True, False):
+                what = (kernel, res.dtype, f32_out)
+                out = torch.empty(m, n, device=card) if f32_out else None
+                out_b = torch.empty(m, n, dtype=bf, device=card) if bf16 or not f32_out else None
+                ck.kernel_launches.clear()
+                got = ck.gemm(ck.LAYER_NORM, a, w, bias, out, M=m, res=res, ln_s=ln_s, ln_b=ln_b, row_mask=mask,
+                              out_b=out_b)
+                torch.cuda.synchronize()
+                assert got is (out if f32_out else out_b) and dict(ck.kernel_launches) == {kernel: 1}, what
+                if f32_out:
+                    assert float((out - want).abs().max()) <= TOL[bf16], what
+                    if out_b is not None:
+                        assert torch.equal(out_b, out.to(bf)), what
+                else:
+                    assert _bf16_flips_only(out_b, want.to(bf), TOL[bf16], 1.0 if bf16 else 0.01), what
+
+
 def test_stem_and_step_refuse_what_they_cannot_take(release, card):
     """A misaligned or oversized operand of kStem or kStep raises in the
     wrapper; nothing falls back to another kernel or to the plain version."""
@@ -491,13 +605,7 @@ def test_train_step_on_card_matches_cpu(card):
     otherwise sit on inputs within 1e-5 of their call's max; as each side
     runs, gradients within 1e-4 relative L2 over all tensors and 1e-3 in
     each."""
-    import importlib.util
-    import pathlib
-
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = _chip_smoke()
     rng = torch.Generator().manual_seed(2)
     batch = {"motion": torch.rand(4, 24, 198, generator=rng) * 2 - 1, "seq_len": torch.tensor([24, 20, 9, 24])}
     m = cs.train_step_agreement(_train_state, batch, 1, card)
