@@ -102,6 +102,20 @@ Phases (any failure exits non-zero; nothing is caught):
      CPU (train_step_agreement); then ``eval_egoego --headnet_ckpt
      --gravitynet_ckpt --headnet_window 256 --fused_step`` on the trained
      checkpoints with exact launch counts.
+ 14. the parallel-window sampler and the output flags, release widths:
+     ``sample_sliding_window_parallel`` on 16 head trajectories of 470
+     frames (64 stacked windows of 121 tokens, then a 16 x 31-token tail),
+     DDPM-1000 bf16, exact launch counts (2 x 1000 steps), beside the
+     chained sampler on the same input (5 x 1000 steps), both timed; then
+     f32 DDIM-50 on 2 x 250 frames, card kernels against the CPU's plain
+     versions within 1e-3. ``eval_egoego --mujoco_xml --save_html_vis
+     --headnet_window 256 --fused_step`` on phase 8's sequences with a
+     humanoid XML written from the rest offsets (exact counts; qpos_fk card
+     vs CPU within 1e-5; every HTML file parsed back with its frame count).
+     ``run_egoego --export_objs --save_html_vis`` on an ARES demo fixture
+     with synthetic SMPL-H models at the real sizes (6890 vertices, 13776
+     faces, 52 joints, 16 betas): one .obj per frame, exact f32 counts, LBS
+     card vs CPU within 1e-4, the export timed.
 Then one JSON line of per-kernel results (with the training summaries), and
 as the last line {"ok": true, "device": {...}}.
 """
@@ -333,6 +347,133 @@ def write_kinpoly_fixture(root, rng, lengths):
     with open(gt_path, "wb") as f:
         pickle.dump(gt, f)
     return gt_path
+
+
+ARES_DEMO_ROOT = "/viscam/u/jiamanli/datasets/egomotion_syn_dataset/habitat_rendering_replica_all"
+
+
+def write_ares_demo_fixture(root, rng, n_seqs, frames):
+    """The layout ``run_egoego`` reads (``ARESDemoDataset``): demo_ares_data.p
+    (plain pickle) whose of_files carry the reference's authors' cluster
+    prefix, one OF feature npy per frame, and DROID-SLAM npys under
+    droid_slam_res/frl_apartment_4/{take}.npy. ``n_seqs`` sequences of
+    ``frames`` OF frames (frames + 1 head poses)."""
+    feat_dir = os.path.join(root, "feats")
+    slam_dir = os.path.join(root, "droid_slam_res", "frl_apartment_4")
+    for d in (feat_dir, slam_dir):
+        os.makedirs(d, exist_ok=True)
+    recs = {}
+    for si in range(n_seqs):
+        take = f"demo_seq{si}"
+        of_files = []
+        for i in range(frames):
+            np.save(os.path.join(feat_dir, f"raft_of_feats_{take}_{i}.npy"), rng.randn(512).astype(np.float32))
+            of_files.append(os.path.join(ARES_DEMO_ROOT, "feats", f"raft_of_feats_{take}_{i}.npy"))
+        walk = np.cumsum(rng.uniform(-0.02, 0.02, (frames + 1, 3)), 0)
+        recs[si] = {"seq_name": f"frl_apartment_4-{take}", "of_files": of_files,
+                    "head_qpos": np.concatenate([walk + [0, 0, 1.5], smooth_quats(rng, frames + 1)], -1)
+                    .astype(np.float32),
+                    "head_vels": (rng.randn(frames + 1, 6) * 0.01).astype(np.float32)}
+        slam = np.concatenate([0.3 * walk + rng.randn(frames + 1, 3) * 1e-3, smooth_quats(rng, frames + 1)], -1)
+        np.save(os.path.join(slam_dir, f"{take}.npy"), slam.astype(np.float32))
+    with open(os.path.join(root, "demo_ares_data.p"), "wb") as f:
+        pickle.dump(recs, f)
+    return [r["seq_name"] for r in recs.values()]
+
+
+def smplh_parents():
+    """SMPL-H's 52-joint tree: SMPL's 22 body joints, then each hand's five
+    fingers of three joints, the left hand's from joint 20, the right's
+    from 21."""
+    from egoego_release_tpu_torch.ops.fk import SMPL_PARENTS
+
+    parents = list(SMPL_PARENTS)
+    for wrist in (20, 21):
+        for _ in range(5):
+            base = len(parents)
+            parents += [wrist, base, base + 1]
+    return np.asarray(parents, np.int64)
+
+
+def write_smplh_models(root, rng, n_verts=6890, n_faces=13776, n_betas=16, genders=("male", "female", "neutral")):
+    """Synthetic SMPL-H model npzs at ``{root}/{gender}/model.npz`` in the
+    reference's layout (v_template, shapedirs, posedirs, J_regressor,
+    weights, kintree_table, f), 52 joints: each vertex belongs to one joint
+    and lies near it (joints 0.1-0.3 m apart down the tree); J_regressor
+    averages a joint's vertices; skinning weights favour the vertex's joint;
+    faces join vertices of one joint. The real model is licensed."""
+    parents = smplh_parents()
+    n_joints = len(parents)
+    for gender in genders:
+        joints = np.zeros((n_joints, 3))
+        for j in range(1, n_joints):
+            joints[j] = joints[parents[j]] + rng.uniform(-0.3, 0.3, 3)
+        owner = np.arange(n_verts) % n_joints
+        v_template = joints[owner] + rng.randn(n_verts, 3) * 0.03
+        j_reg = np.zeros((n_joints, n_verts))
+        j_reg[owner, np.arange(n_verts)] = 1.0
+        j_reg /= j_reg.sum(1, keepdims=True)
+        weights = rng.rand(n_verts, n_joints) * 0.05
+        weights[np.arange(n_verts), owner] += 1.0
+        weights /= weights.sum(1, keepdims=True)
+        tri_owner = rng.randint(0, n_joints, n_faces)
+        faces = (tri_owner[:, None] + n_joints * rng.randint(0, n_verts // n_joints, (n_faces, 3))) % n_verts
+        os.makedirs(os.path.join(root, gender), exist_ok=True)
+        np.savez(os.path.join(root, gender, "model.npz"), v_template=v_template.astype(np.float32),
+                 shapedirs=(rng.randn(n_verts, 3, n_betas) * 0.01).astype(np.float32),
+                 posedirs=(rng.randn(n_verts, 3, (n_joints - 1) * 9) * 0.001).astype(np.float32),
+                 J_regressor=j_reg.astype(np.float32), weights=weights.astype(np.float32),
+                 kintree_table=np.stack([parents, np.arange(n_joints)]).astype(np.int64),
+                 f=faces.astype(np.int32))
+    return root
+
+
+# kinpoly's humanoid (humanoid_smpl_neutral_mesh.xml): 24 bodies, depth first
+MUJOCO_BODIES = ("Pelvis", "L_Hip", "L_Knee", "L_Ankle", "L_Toe", "R_Hip", "R_Knee", "R_Ankle", "R_Toe",
+                 "Torso", "Spine", "Chest", "Neck", "Head", "L_Thorax", "L_Shoulder", "L_Elbow", "L_Wrist",
+                 "L_Hand", "R_Thorax", "R_Shoulder", "R_Elbow", "R_Wrist", "R_Hand")
+MUJOCO_PARENTS = (-1, 0, 1, 2, 3, 0, 5, 6, 7, 0, 9, 10, 11, 12, 11, 14, 15, 16, 17, 11, 19, 20, 21, 22)
+
+
+def write_humanoid_xml(path, rest_pos):
+    """A MuJoCo model XML of kinpoly's humanoid body tree (MUJOCO_BODIES,
+    MUJOCO_PARENTS), each body at its world rest position ``rest_pos[b]``
+    (24, 3), with three hinges in z, y, x order; the layout that
+    ``ops.mujoco_xml.load_mujoco_skeleton`` reads."""
+    import xml.etree.ElementTree as ET
+
+    model = ET.Element("mujoco", model="humanoid")
+    bodies = [ET.SubElement(model, "worldbody")]
+    for b, (name, parent) in enumerate(zip(MUJOCO_BODIES, MUJOCO_PARENTS)):
+        body = ET.SubElement(bodies[parent + 1] if parent >= 0 else bodies[0], "body", name=name,
+                             pos=" ".join(f"{float(x):.6f}" for x in rest_pos[b]))
+        if parent < 0:
+            ET.SubElement(body, "freejoint", name="root")
+        else:
+            for axis, vec in (("z", "0 0 1"), ("y", "0 1 0"), ("x", "1 0 0")):
+                ET.SubElement(body, "joint", name=f"{name}_{axis}", type="hinge", axis=vec,
+                              pos=" ".join(f"{float(x):.6f}" for x in rest_pos[b]))
+        bodies.append(body)
+    ET.ElementTree(model).write(path)
+    return path
+
+
+def smpl_rest_to_mujoco(rest_offsets):
+    """World rest positions (24, 3) of the humanoid's bodies from the SMPL
+    skeleton's 22 rest offsets: each SMPL joint's position (the offsets
+    summed down the tree) at its body (MUJOCO2SMPL_JOINT_IDX), the two
+    hands 8 cm past the wrists."""
+    from egoego_release_tpu_torch.ops.fk import SMPL_PARENTS
+    from egoego_release_tpu_torch.ops.geometry import MUJOCO2SMPL_JOINT_IDX
+
+    joints = np.zeros((24, 3), np.float64)
+    for j in range(22):
+        joints[j] = rest_offsets[j] + (joints[SMPL_PARENTS[j]] if j else 0.0)
+    for hand, wrist in ((22, 20), (23, 21)):
+        joints[hand] = joints[wrist] + (joints[wrist] - joints[SMPL_PARENTS[wrist]]) * 0.3
+    pos = np.zeros((24, 3), np.float32)
+    pos[MUJOCO2SMPL_JOINT_IDX] = joints
+    return pos
 
 
 def union_us(spans, lo, hi):
@@ -1131,6 +1272,200 @@ def stage1_phase(card, data_dir, stats_path, rest_path, per_step, c_per_step, cl
     return out
 
 
+PAR_SEQS, PAR_FRAMES = 16, 470  # phase 14a: 4 full windows a sequence (64 stacked) and a 30-frame tail
+DEMO_FRAMES = 120                # phase 14c: OF frames of the ARES demo sequence (121 head poses)
+
+
+def outputs_phase(card, data_dir, stats_path, rest_path, kin_root, kin_gt_path, per_step, c_per_step,
+                  clear_counts):
+    """Phase 14, at the release widths: (a) the parallel-window sampler on
+    16 head trajectories of 470 frames (64 stacked windows of 121 tokens,
+    then one 16 x 31-token ragged window), DDPM-1000 bf16, exact launch
+    counts, beside the chained sampler on the same input; then in f32 with
+    DDIM-50 the card's kernels against the CPU's plain versions on the
+    same weights and noise. (b) ``eval_egoego --mujoco_xml --save_html_vis
+    --headnet_window 256 --fused_step`` on phase 8's sequences, with an XML
+    written from the rest offsets: exact counts, qpos_fk's GT card vs CPU,
+    every HTML file parsed back. (c) ``run_egoego --export_objs
+    --save_html_vis`` on an ARES demo fixture with synthetic SMPL-H models
+    at the real sizes: one .obj per frame, exact counts (f32), LBS card vs
+    CPU. Returns the summary."""
+    import torch
+
+    from egoego_release_tpu_torch.data.formats import load_pickle
+    from egoego_release_tpu_torch.eval import eval_egoego, run_egoego
+    from egoego_release_tpu_torch.eval import pipeline as pl
+    from egoego_release_tpu_torch.eval.build import build_pipeline
+    from egoego_release_tpu_torch.ops import cuda_kernels as ck
+    from egoego_release_tpu_torch.ops import geometry, smpl
+    from egoego_release_tpu_torch.ops.fused_step import TorchNoise
+    from egoego_release_tpu_torch.ops.mujoco_xml import load_mujoco_skeleton, qpos_fk
+
+    dev, t_phase, out = torch.device("cuda"), time.perf_counter(), {"card": card}
+    timesteps, window, overlap, n_layers = 1000, 120, 10, 4
+
+    def counts(windows, steps, what, bf16=True, extra=None):
+        want = {**(extra or {}), **{k: windows * steps * v for k, v in per_step.items()}}
+        want_c = {**({"mha": extra["fused_attention"]} if extra else {}),
+                  **{k: windows * steps * v for k, v in c_per_step(bf16).items()}}
+        got, got_c = dict(ck.launch_counts), dict(ck.kernel_launches)
+        log(f"phase 14: {what}: launches {got} (expected {want}); C entries {got_c} (expected {want_c})")
+        if got != want or got_c != want_c:
+            raise AssertionError(f"phase 14: {what}: launch counts {got}, {got_c} != {want}, {want_c}")
+        return got
+
+    # a. the parallel-window sampler against the chained one, DDPM-1000 bf16
+    rng = np.random.RandomState(41)
+    pipe = build_pipeline(stats_path=stats_path, rest_offsets_path=rest_path, device=dev, compute_dtype="bfloat16")
+    motion = [(np.cumsum(rng.randn(PAR_SEQS, PAR_FRAMES, 3) * 0.01, 1) + [0.0, 0.0, 0.9]).astype(np.float32),
+              (rng.randn(PAR_SEQS, PAR_FRAMES, 3) * 0.1).astype(np.float32),
+              (rng.randn(PAR_SEQS, PAR_FRAMES, 63) * 0.1).astype(np.float32)]
+    head = pl.gt_from_smpl_params_batched(pipe, *motion)[2]
+    jpos, jquat = head[..., :3].contiguous(), head[..., 3:].contiguous()
+    stack_rows = []
+    sample_window = pipe.diffusion._sample_window
+    pipe.diffusion._sample_window = lambda jp, *a: stack_rows.append(jp.shape[0]) or sample_window(jp, *a)
+    runs = {}
+    for mode in ("parallel", "chained"):
+        sample = (pipe.diffusion.sample_sliding_window_parallel if mode == "parallel"
+                  else pipe.diffusion.sample_sliding_window_w_canonical)
+        clear_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aa, root = sample(jpos, jquat, pipe.stats, pipe.rest_offsets, noise=TorchNoise(dev, seed=42))
+        torch.cuda.synchronize()
+        runs[mode] = {"s": time.perf_counter() - t0}
+        n_win = 2 if mode == "parallel" else 5  # stack + tail; or 5 chained windows
+        runs[mode]["launches"] = counts(n_win, timesteps, f"{mode} sampler, DDPM-{timesteps} bf16, "
+                                        f"{PAR_SEQS} x {PAR_FRAMES} frames")
+        if aa.shape != (PAR_SEQS, PAR_FRAMES, 22, 3) or root.shape != (PAR_SEQS, PAR_FRAMES, 3):
+            raise AssertionError(f"phase 14: {mode} shapes {tuple(aa.shape)}, {tuple(root.shape)}")
+        if not (torch.isfinite(aa).all() and torch.isfinite(root).all()):
+            raise AssertionError(f"phase 14: {mode} output not finite")
+        runs[mode]["s_per_seq"] = runs[mode]["s"] / PAR_SEQS
+    pipe.diffusion._sample_window = sample_window
+    if stack_rows[:2] != [4 * PAR_SEQS, PAR_SEQS]:
+        raise AssertionError(f"phase 14: the parallel sampler's calls had {stack_rows[:2]} rows")
+    log(f"phase 14: parallel-window sampler, {PAR_SEQS} x {PAR_FRAMES} frames (64 stacked windows of "
+        f"{window + 1} tokens, then {PAR_SEQS} x 31), DDPM-{timesteps} bf16: {runs['parallel']['s']:.2f} s "
+        f"({runs['parallel']['s_per_seq']:.4f} s/seq); chained (5 windows): {runs['chained']['s']:.2f} s "
+        f"({runs['chained']['s_per_seq']:.4f} s/seq); chained / parallel "
+        f"{runs['chained']['s'] / runs['parallel']['s']:.2f} [{card}]")
+    out["parallel"], out["chained"] = runs["parallel"], runs["chained"]
+
+    outs = []
+    for where in ("cuda", "cpu"):
+        p = build_pipeline(stats_path=stats_path, rest_offsets_path=rest_path, device=where, sampler="ddim",
+                           compute_dtype="float32")
+        outs.append([o.cpu() for o in p.diffusion.sample_sliding_window_parallel(
+            jpos[:2, :250].to(where), jquat[:2, :250].to(where), p.stats, p.rest_offsets,
+            noise=TorchNoise("cpu", seed=43))])
+    err = max(float((a - b).abs().max()) for a, b in zip(*outs))
+    log(f"phase 14: parallel sampler DDIM-50 f32, 2 x 250 frames (4 stacked windows and a 30-frame tail): "
+        f"max|card kernels - CPU plain| = {err:.3e} (bound 1e-3)")
+    if not err < 1e-3:
+        raise AssertionError(f"phase 14: the parallel sampler's card and CPU chains disagree by {err}")
+    out["parallel"]["max_abs_err_card_vs_cpu_f32"] = err
+
+    # b. eval_egoego --mujoco_xml --save_html_vis on phase 8's sequences
+    xml = write_humanoid_xml(os.path.join(data_dir, "humanoid.xml"), smpl_rest_to_mujoco(np.load(rest_path)))
+    gt = load_pickle(kin_gt_path)
+    sks = {w: load_mujoco_skeleton(xml, device=w) for w in ("cuda", "cpu")}
+    fk_err = 0.0
+    for rec in gt.values():
+        fk = [qpos_fk(sk, torch.as_tensor(rec["qpos"], device=w)) for w, sk in sks.items()]
+        fk_err = max(fk_err, *(float((a.cpu() - b).abs().max()) for a, b in zip(*fk)))
+    log(f"phase 14: qpos_fk of {len(gt)} GT qpos records, card vs CPU: {fk_err:.3e} (bound 1e-5)")
+    if not fk_err < 1e-5:
+        raise AssertionError(f"phase 14: qpos_fk card and CPU disagree by {fk_err}")
+    html_dir = os.path.join(data_dir, "out_mujoco")
+    shutil.rmtree(html_dir, ignore_errors=True)
+    opt = eval_egoego.parse_opt([
+        "--data_root_folder", kin_root, "--full_body_gt_path", kin_gt_path, "--stats_path", stats_path,
+        "--rest_offsets", rest_path, "--mujoco_xml", xml, "--save_html_vis", "--headnet_window",
+        str(HEADNET_WINDOW_D), "--fused_step", "--out_dir", html_dir, "--device", "cuda"])
+    clear_counts()
+    t0 = time.perf_counter()
+    res = eval_egoego.run(opt)
+    torch.cuda.synchronize()
+    dt_eval = time.perf_counter() - t0
+    windows = SEQS_D * (1 + math.ceil((FRAMES_D - window) / (window - overlap)))
+    counts(windows, timesteps, f"eval_egoego --mujoco_xml --save_html_vis, {SEQS_D} x {FRAMES_D} frames",
+           extra={"fused_attention": 2 * SEQS_D})
+    entries = res["per_seq"].values()
+    if res["num_seqs"] != SEQS_D or not all(math.isfinite(v) for e in entries for v in e.values()):
+        raise AssertionError(f"phase 14: bad eval result {res}")
+    frames = {}
+    for name in res["per_seq"]:
+        data = html_data(os.path.join(html_dir, name + ".html"))
+        frames[name] = (data["numFrames"], [len(s["frames"]) for s in data["skeletons"]])
+        if data["numFrames"] != FRAMES_D or frames[name][1] != [FRAMES_D, FRAMES_D]:
+            raise AssertionError(f"phase 14: {name}.html has {frames[name]} frames, want {FRAMES_D}")
+    log(f"phase 14: eval_egoego --mujoco_xml --save_html_vis in {dt_eval:.2f} s ({dt_eval / SEQS_D:.3f} s/seq): "
+        f"mpjpe {res['mean']['mpjpe']:.1f} mm (random weights); HTML frames {frames} [{card}]")
+    out["eval_egoego_mujoco"] = {"s": dt_eval, "mpjpe": res["mean"]["mpjpe"], "qpos_fk_card_vs_cpu": fk_err}
+
+    # c. run_egoego --export_objs --save_html_vis, SMPL-H at the real sizes
+    demo_root, smplh_dir = os.path.join(data_dir, "ares_demo"), os.path.join(data_dir, "smplh")
+    names = write_ares_demo_fixture(demo_root, np.random.RandomState(44), 1, DEMO_FRAMES)
+    write_smplh_models(smplh_dir, np.random.RandomState(45))
+    demo_out = os.path.join(data_dir, "out_demo")
+    shutil.rmtree(demo_out, ignore_errors=True)
+    opt = run_egoego.parse_opt([
+        "--data_root_folder", demo_root, "--stats_path", stats_path, "--rest_offsets", rest_path,
+        "--smplh_path", smplh_dir, "--export_objs", "--save_html_vis", "--out_dir", demo_out, "--device", "cuda"])
+    export_s = []
+    export = run_egoego.export_obj_sequence
+
+    def timed_export(*a, **k):
+        t0 = time.perf_counter()
+        paths = export(*a, **k)
+        export_s.append(time.perf_counter() - t0)
+        return paths
+
+    run_egoego.export_obj_sequence = timed_export
+    clear_counts()
+    t0 = time.perf_counter()
+    written = run_egoego.run(opt)
+    dt_demo = time.perf_counter() - t0
+    run_egoego.export_obj_sequence = export
+    n_frames = DEMO_FRAMES + 1
+    demo_windows = 1 + math.ceil((n_frames - window) / (window - overlap))
+    counts(demo_windows, timesteps, f"run_egoego --export_objs --save_html_vis, {n_frames} frames, f32", bf16=False)
+    objs = sorted(os.listdir(os.path.join(demo_out, names[0] + "_objs")))
+    if objs != [f"{i:05d}.obj" for i in range(n_frames)] or len(written) != 1:
+        raise AssertionError(f"phase 14: run_egoego wrote {len(objs)} .obj files and {written}")
+    if html_data(os.path.join(demo_out, names[0] + ".html"))["numFrames"] != n_frames:
+        raise AssertionError("phase 14: the demo's HTML has the wrong frame count")
+    pred = np.load(written[0])
+    full_aa = np.zeros((32, 52, 3), np.float32)
+    full_aa[:, :22] = pred["local_aa"][:32]
+    v_card, v_cpu = (smpl.lbs(smpl.load_smpl_npz(os.path.join(smplh_dir, "male", "model.npz"), device=w),
+                              np.zeros((32, 16), np.float32), full_aa, pred["root_pos"][:32])[1].cpu()
+                     for w in ("cuda", "cpu"))
+    lbs_err = float((v_card - v_cpu).abs().max())
+    v_obj = np.loadtxt(os.path.join(demo_out, names[0] + "_objs", "00000.obj"), usecols=(1, 2, 3),
+                       max_rows=v_cpu.shape[1])
+    obj_err = float(np.abs(v_obj - v_cpu[0].numpy()).max())
+    log(f"phase 14: run_egoego --export_objs --save_html_vis, {n_frames} frames (SMPL-H 6890 vertices, 13776 "
+        f"faces, 52 joints) in {dt_demo:.2f} s, of which the .obj export {export_s[0]:.2f} s; LBS of 32 frames "
+        f"card vs CPU {lbs_err:.3e} (bound 1e-4); frame 0's .obj vs CPU LBS {obj_err:.3e} [{card}]")
+    if not (lbs_err < 1e-4 and obj_err < 1e-4):
+        raise AssertionError(f"phase 14: LBS card vs CPU {lbs_err}, .obj vs CPU {obj_err}")
+    out["run_egoego_outputs"] = {"s": dt_demo, "export_s": export_s[0], "frames": n_frames,
+                                 "lbs_card_vs_cpu": lbs_err, "obj_vs_cpu": obj_err}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 14 took {out['seconds']:.1f} s [{card}]")
+    ck.launch_counts.clear()
+    return out
+
+
+def html_data(path):
+    """The ``const DATA = {...};`` object of a vis/html_viewer page."""
+    with open(path) as f:
+        return json.loads(re.search(r"const DATA = (\{.*?\});\n", f.read(), re.S).group(1))
+
+
 ACT_WRAPPERS = ("stem_layer", "decoder_layer", "layer_epilogue")
 
 
@@ -1506,7 +1841,7 @@ def main() -> int:
             raise AssertionError(f"attention: {fn} spills registers: {line.strip()}")
 
     # -- phase 2: kernels against their plain versions ---------------------
-    cfg = DiffusionConfig()
+    cfg = DiffusionConfig(compute_dtype="bfloat16")
     diff_bf16 = CondGaussianDiffusion(cfg, device=dev, seed=0)
     model = diff_bf16.model
     prep = {True: fs.prepare_step_params(model, True), False: fs.prepare_step_params(model, False)}
@@ -2374,6 +2709,10 @@ def main() -> int:
     # -- phase 13: stage-1 training on the card ------------------------------
     stage1_training = stage1_phase(card, data_dir, stats_path, rest_path, per_step, c_per_step, clear_counts)
 
+    # -- phase 14: the parallel-window sampler and the output flags ----------
+    outputs = outputs_phase(card, data_dir, stats_path, rest_path, kin_root, gt_path, per_step, c_per_step,
+                            clear_counts)
+
     replaces = {"stem_layer": "egoego_release_tpu/ops/fused_step.py:126",
                 "decoder_layer": "egoego_release_tpu/ops/fused_layer.py:113",
                 "layer_epilogue": "egoego_release_tpu/ops/fused_step.py:160",
@@ -2419,7 +2758,7 @@ def main() -> int:
         f"device times left by the profiler to CUDA events: {len(EVENT_TIMED)}")
     print(json.dumps({"kernels": kernels, "step": step_prof, "training": training,
                       "act_bf16": {k: v for k, v in act.items() if k != "wrappers"},
-                      "stage1_training": stage1_training}))
+                      "stage1_training": stage1_training, "outputs": outputs}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -68,7 +68,10 @@ class DiffusionConfig:
     # recompute each decoder layer in the backward pass (training memory)
     remat: bool = False
     overlap_frames: int = 10
-    compute_dtype: str = "bfloat16"  # "float32" = exact f32 parity mode
+    # the step kernels' compute type: f32 by default, as JAX's config
+    # (``egoego_release_tpu/diffusion/gaussian_diffusion.py:65``); "bfloat16"
+    # is what the CLIs' --fused_step selects
+    compute_dtype: str = "float32"
     sampler: str = "ddpm"            # "ddim" = strided fast sampler
     ddim_steps: int = 50
     # the --fused denoiser (fused_decoder_layer per layer, bf16) instead of
@@ -367,4 +370,50 @@ class CondGaussianDiffusion:
                 whole_root = torch.cat([whole_root, root[:, ov:]], dim=1)
                 whole_head = torch.cat([whole_head, headp[:, ov:]], dim=1)
             inpaint_value = self._next_window_inpaint(root, aa, rest_offsets, stats)
+        return whole_aa, whole_root
+
+    @torch.no_grad()
+    def sample_sliding_window_parallel(self, head_jpos, head_jquat, stats: NormStats, rest_offsets, *,
+                                       noise):
+        """The throughput mode (JAX ``diffusion/gaussian_diffusion.py:564-653``;
+        its jitted twin ``sample_sliding_window_parallel_jit`` at ``:551``
+        computes the same function, so it has no second copy here): every
+        window of every sequence is canonicalized and denoised without the
+        overlap inpaint, the full windows of all sequences as one stacked
+        batch of ``len(full) * B`` rows in JAX's window-major order, then
+        each ragged window alone; the windows are then stitched by
+        head-position continuity, the root blended linearly over the
+        overlap and the rotations switched at the seam. ``noise.window()``
+        is called once before each ``_sample_window``, in JAX's key order.
+        ``rest_offsets`` is not read (no window is re-projected through FK);
+        it is taken for the chained sampler's signature, as in JAX. JAX's
+        ``mesh=`` (dp-sharding the stack) is not ported. Returns (local_aa
+        (B, T', 22, 3), root_pos (B, T', 3))."""
+        cfg = self.cfg
+        bsz, num_steps = head_jpos.shape[:2]
+        w, ov = cfg.window, cfg.overlap_frames
+        starts = [t for t in range(0, num_steps, w - ov) if min(w, num_steps - t) > ov]
+        full = [t for t in starts if num_steps - t >= w]
+        ragged = [t for t in starts if num_steps - t < w]
+
+        results = {}
+        if full:
+            w_jpos = torch.stack([head_jpos[:, t: t + w] for t in full]).reshape(-1, w, 3)
+            w_jquat = torch.stack([head_jquat[:, t: t + w] for t in full]).reshape(-1, w, 4)
+            out = self._sample_window(w_jpos, w_jquat, stats, None, noise.window())
+            aa, root, headp = (o.reshape((len(full), bsz) + o.shape[1:]) for o in out)
+            results.update({t: (aa[i], root[i], headp[i]) for i, t in enumerate(full)})
+        for t in ragged:
+            results[t] = self._sample_window(head_jpos[:, t:], head_jquat[:, t:], stats, None, noise.window())
+
+        whole_aa, whole_root, whole_head = results[starts[0]]
+        fade = torch.linspace(0.0, 1.0, ov, device=whole_root.device)[None, :, None]
+        for t in starts[1:]:
+            aa, root, headp = results[t]
+            move = whole_head[:, -1:, :] - headp[:, ov - 1: ov, :]
+            root = root + move
+            blended = whole_root[:, -ov:] * (1 - fade) + root[:, :ov] * fade
+            whole_root = torch.cat([whole_root[:, :-ov], blended, root[:, ov:]], dim=1)
+            whole_aa = torch.cat([whole_aa, aa[:, ov:]], dim=1)
+            whole_head = torch.cat([whole_head, (headp + move)[:, ov:]], dim=1)
         return whole_aa, whole_root

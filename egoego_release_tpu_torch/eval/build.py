@@ -20,7 +20,7 @@ from egoego_release_tpu_torch.eval.pipeline import EgoEgoPipeline, check_of_uplo
 from egoego_release_tpu_torch.models.denoiser import init_weights_
 from egoego_release_tpu_torch.models.gravitynet import HeadNormalFormer
 from egoego_release_tpu_torch.models.headnet import HeadFormer
-from egoego_release_tpu_torch.ops.fk import NUM_JOINTS, SMPL_PARENTS
+from egoego_release_tpu_torch.ops.smpl import load_smpl_npz, rest_offsets_22
 from egoego_release_tpu_torch.utils.convert import (
     load_denoiser_weights,
     load_stage1_ckpt,
@@ -30,15 +30,9 @@ from egoego_release_tpu_torch.utils.device import resolve_device
 
 
 def rest_offsets_from_smplh_npz(path: str) -> np.ndarray:
-    """The 22 rest bone offsets used by FK: zero-beta rest joints
-    (J_regressor @ v_template) minus their parents', root offset 0."""
-    data = np.load(path, allow_pickle=True)
-    j_reg = data["J_regressor"]
-    j_reg = j_reg.toarray() if hasattr(j_reg, "toarray") else np.asarray(j_reg)
-    joints = (np.asarray(j_reg, np.float32) @ np.asarray(data["v_template"], np.float32))[:NUM_JOINTS]
-    parents = SMPL_PARENTS.copy()
-    parents[0] = 0
-    return joints - joints[parents]
+    """The 22 rest bone offsets used by FK, from a SMPL-H model npz
+    (``ops.smpl.rest_offsets_22``)."""
+    return rest_offsets_22(load_smpl_npz(path)).numpy()
 
 
 def load_rest_offsets(smplh_path: str | None, rest_offsets_path: str | None) -> np.ndarray:

@@ -15,6 +15,10 @@ follow the JAX CLI, and so do the numerics: f32 unless ``--fused_step``
 denoiser) is given. ``--batch_seqs N`` evaluates same-length sequences N
 at a time through ``pipeline.run_batches_pipelined`` (device floor, one
 chain per chunk); ``--of_bf16`` / ``--of_int8`` set that path's OF upload.
+``--mujoco_xml`` decodes the GT through the humanoid XML's skeleton
+(``ops.mujoco_xml.qpos_fk`` on the device) instead of the SMPL rest
+offsets, and ``--save_html_vis`` writes a pred-vs-GT skeleton animation per
+sequence; both take the per-sequence path, as in JAX.
 
     python -m egoego_release_tpu_torch.eval.eval_egoego \\
         --data_root_folder <root> --full_body_gt_path <mocap_annotations.p> \\
@@ -48,13 +52,11 @@ from egoego_release_tpu_torch.eval.pipeline import (
 from egoego_release_tpu_torch.ops import fk as fk_mod
 from egoego_release_tpu_torch.ops import geometry
 from egoego_release_tpu_torch.ops.fused_step import TorchNoise
+from egoego_release_tpu_torch.ops.mujoco_xml import load_mujoco_skeleton, qpos_fk
+from egoego_release_tpu_torch.vis.html_viewer import vis_skeleton_motion_html
 
 ARES_TEST_SCENES = ("office_0", "hotel_0", "room_2", "frl_apartment_4", "apartment_0")
 GIMO_TEST_SCENES = ("storeroom0217", "classroom0219", "lab0220", "kitchen0214")
-
-
-def _not_ported(flag: str) -> NotImplementedError:
-    return NotImplementedError(f"{flag} is not ported to the PyTorch package yet (see ROADMAP.md)")
 
 
 def select_dataset(opt):
@@ -114,7 +116,17 @@ def run_batched(opt, pipeline, eligible, noise):
 
 def run_per_sequence(opt, pipeline, eligible, noise):
     """--batch_seqs 1: stage 1, GT and stage 2 one sequence at a time, with
-    the host DBSCAN floor; the same yields as ``run_batched``."""
+    the host DBSCAN floor; the same yields as ``run_batched``. With
+    ``--mujoco_xml`` the GT bodies come from ``qpos_fk`` through the XML's
+    skeleton, reordered into SMPL joint order (JAX
+    ``eval/eval_egoego.py:195-204``, whose reorder is the inverse one);
+    with ``--save_html_vis`` each sequence's pred / GT / head animation is
+    written, every layer centred on the GT's first head xy (JAX
+    ``eval/eval_egoego.py:225-240``)."""
+    skeleton = load_mujoco_skeleton(opt.mujoco_xml, device=pipeline.device) if opt.mujoco_xml else None
+    # the body of each of the 22 SMPL joints (JAX indexes with the inverse
+    # permutation, argsort(MUJOCO2SMPL_JOINT_IDX), which picks other bodies)
+    smpl_order = geometry.MUJOCO2SMPL_JOINT_IDX[:fk_mod.NUM_JOINTS]
     for seq_name, rec, gt_rec in eligible:
         # ---- stage 1 ----
         if opt.use_gt_head_pose:
@@ -125,9 +137,14 @@ def run_per_sequence(opt, pipeline, eligible, noise):
         s1 = stage1_metrics(head_pose, gt_rec["head_pose"])
         print(f"{seq_name}: stage1 E={s1[0]:.4f} O={s1[1]:.4f} T={s1[2]:.1f}mm")
 
-        # ---- GT body: qpos codec + FK, snapped to the floor ----
-        gt_trans, gt_aa24 = geometry.qpos_to_smpl(pipeline._as_tensor(gt_rec["qpos"]))
-        gt_jrot, gt_jpos = fk_mod.fk_smpl(gt_trans, gt_aa24[:, :22], pipeline.rest_offsets)
+        # ---- GT body: qpos codec + FK (or the XML's skeleton), snapped to the floor ----
+        qpos = pipeline._as_tensor(gt_rec["qpos"])
+        if skeleton is not None:
+            mj_quat, mj_pos = qpos_fk(skeleton, qpos)
+            gt_jrot, gt_jpos = mj_quat[:, smpl_order], mj_pos[:, smpl_order]
+        else:
+            gt_trans, gt_aa24 = geometry.qpos_to_smpl(qpos)
+            gt_jrot, gt_jpos = fk_mod.fk_smpl(gt_trans, gt_aa24[:, :22], pipeline.rest_offsets)
         floor, _, _ = geometry.determine_floor_height_and_contacts(gt_jpos.cpu().numpy(), 30)
         gt_jpos = gt_jpos.clone()
         gt_jpos[:, :, 2] -= float(np.float32(floor))
@@ -140,15 +157,20 @@ def run_per_sequence(opt, pipeline, eligible, noise):
             head_pose = np.concatenate([gt_head, gt_jrot[:, HEAD_IDX].cpu().numpy()], -1)
 
         # ---- stage 2 + metrics ----
-        md, _ = evaluate_sequence(pipeline, head_pose, gt_jrot, gt_jpos, noise, sample_bs=opt.sample_bs)
+        md, best = evaluate_sequence(pipeline, head_pose, gt_jrot, gt_jpos, noise, sample_bs=opt.sample_bs)
+        if opt.save_html_vis:
+            os.makedirs(opt.out_dir, exist_ok=True)
+            t_vis = best["pred_jpos"].shape[0]
+            origin_xy = gt_head[0:1] * [1.0, 1.0, 0.0]
+            vis_skeleton_motion_html(best["pred_jpos"], os.path.join(opt.out_dir, seq_name + ".html"),
+                                     gt_jpos=gt_jpos.cpu().numpy()[:t_vis] - origin_xy[:, None, :],
+                                     head_traj=head_pose[:t_vis, :3] - origin_xy, title=seq_name)
         yield seq_name, md, s1
 
 
 def run(opt) -> dict:
-    for flag, on in (("--mujoco_xml", bool(opt.mujoco_xml)), ("--save_html_vis", opt.save_html_vis),
-                     ("--dp/--tp", opt.dp != 1 or opt.tp != 1)):
-        if on:
-            raise _not_ported(flag)
+    if opt.dp != 1 or opt.tp != 1:
+        raise NotImplementedError("--dp/--tp is not ported to the PyTorch package yet (see ROADMAP.md A.6)")
     if opt.batch_seqs <= 1 and (opt.of_bf16 or opt.of_int8):
         warnings.warn("--of_bf16/--of_int8 apply to the batched stage 1 only (--batch_seqs > 1); "
                       "the per-sequence path uploads f32", stacklevel=2)
@@ -181,7 +203,12 @@ def run(opt) -> dict:
 
     agg: dict[str, list] = {}
     per_seq = {}
-    evaluate = run_batched if opt.batch_seqs > 1 else run_per_sequence
+    batched = opt.batch_seqs > 1
+    if batched and (opt.mujoco_xml or opt.save_html_vis):
+        print("WARNING: --batch_seqs is incompatible with --mujoco_xml/--save_html_vis; falling back to the "
+              "per-sequence path")
+        batched = False
+    evaluate = run_batched if batched else run_per_sequence
     for seq_name, md, (s1_e, s1_o, s1_t) in evaluate(opt, pipeline, eligible, noise):
         entry = {k: float(np.mean(v)) for k, v in md.items() if k != "single_jpe"}
         entry.update({"s1_e_head": s1_e, "s1_o_head": s1_o, "s1_t_head": s1_t})
@@ -239,8 +266,9 @@ def parse_opt(argv=None):
     p.add_argument("--test_on_ares", action="store_true")
     p.add_argument("--test_on_gimo", action="store_true")
     p.add_argument("--use_gt_head_pose", action="store_true")
-    p.add_argument("--save_html_vis", action="store_true", help="not ported (raises)")
-    p.add_argument("--mujoco_xml", default=None, help="not ported (raises)")
+    p.add_argument("--save_html_vis", action="store_true",
+                   help="write an interactive HTML pred-vs-GT skeleton animation per sequence")
+    p.add_argument("--mujoco_xml", default=None, help="humanoid XML for exact kinpoly-skeleton GT decoding")
     p.add_argument("--out_dir", default="./results")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")

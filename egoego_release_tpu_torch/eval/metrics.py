@@ -1,13 +1,16 @@
 """Stage-2 metric suite on torch tensors (port of
-egoego_release_tpu/eval/metrics.py ``compute_metrics_for_smpl`` and its
-helpers). Every function takes one sequence with T leading, or a batch of
-sequences with any leading dims before T (the JAX package vmaps instead):
-one batched call costs a few dozen launches whatever the batch size."""
+egoego_release_tpu/eval/metrics.py ``compute_metrics_for_smpl``,
+``compute_metrics_for_qpos`` and their helpers). Every function takes one
+sequence with T leading, or a batch of sequences with any leading dims
+before T (the JAX package vmaps instead): one batched call costs a few
+dozen launches whatever the batch size."""
 
 from __future__ import annotations
 
 import torch
 
+from egoego_release_tpu_torch.ops import fk as fk_mod
+from egoego_release_tpu_torch.ops import geometry
 from egoego_release_tpu_torch.ops import rotations as rot
 from egoego_release_tpu_torch.ops.fk import HEAD_IDX
 
@@ -123,3 +126,17 @@ def compute_head_pose_metrics(head_trans, head_rot, gt_head_trans, gt_head_rot):
     head_rot_dist = frobenius_norm_rot(head_rot, gt_head_rot)
     head_trans_err = torch.linalg.norm(head_trans - gt_head_trans, dim=-1).mean(-1) * 1000.0
     return head_dist, head_rot_dist, head_trans_err
+
+
+def compute_metrics_for_qpos(gt_qpos: torch.Tensor, pred_qpos: torch.Tensor, rest_offsets: torch.Tensor,
+                             gt_floor_height=0.0, pred_floor_height=0.0) -> dict:
+    """The metric suite over kinpoly qpos records (T, 76): each record goes
+    through the qpos codec and the SMPL FK on ``rest_offsets`` (22, 3), then
+    ``compute_metrics_for_smpl`` (JAX ``eval/metrics.py:161-189``)."""
+    def fk(qpos):
+        trans, aa24 = geometry.qpos_to_smpl(qpos)
+        return fk_mod.fk_smpl(trans, aa24[:, :fk_mod.NUM_JOINTS], rest_offsets)
+
+    gt_q, gt_p = fk(gt_qpos)
+    pr_q, pr_p = fk(pred_qpos)
+    return compute_metrics_for_smpl(gt_q, gt_p, float(gt_floor_height), pr_q, pr_p, float(pred_floor_height))

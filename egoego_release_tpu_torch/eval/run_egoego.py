@@ -4,9 +4,11 @@ Port of egoego_release_tpu/eval/run_egoego.py with ``--device`` (default
 ``cuda``; ``--device cpu`` runs the plain versions of the kernels): load
 the demo sequence, run stage 1 (HeadNet + GravityNet), condition the
 stage-2 diffusion on the predicted head pose, FK-decode, snap to the floor
-and write the per-frame predictions as an npz per sequence. Stage 2 runs the
-step kernels in f32, as the JAX CLI runs the flax denoiser in f32 (neither
-has a flag for bf16).
+and write the per-frame predictions as an npz per sequence; with
+``--export_objs`` (and ``--smplh_path``) the SMPL-H meshes of each frame
+(LBS on the device) as .obj files, with ``--save_html_vis`` a standalone
+HTML skeleton animation per sequence. Stage 2 runs the step kernels in f32,
+as the JAX CLI runs the flax denoiser in f32 (neither has a flag for bf16).
 
     python -m egoego_release_tpu_torch.eval.run_egoego \\
         --data_root_folder test_data/ares \\
@@ -25,13 +27,12 @@ from egoego_release_tpu_torch.data.headpose import ARESDemoDataset
 from egoego_release_tpu_torch.eval.build import build_pipeline
 from egoego_release_tpu_torch.ops import geometry
 from egoego_release_tpu_torch.ops.fused_step import TorchNoise
+from egoego_release_tpu_torch.vis.html_viewer import vis_skeleton_motion_html
+from egoego_release_tpu_torch.vis.mesh_export import export_obj_sequence
 
 
 def run(opt) -> list[str]:
     """Returns the paths of the npz files written."""
-    for flag, on in (("--export_objs", opt.export_objs), ("--save_html_vis", opt.save_html_vis)):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported to the PyTorch package yet (see ROADMAP.md)")
     pipeline = build_pipeline(
         stats_path=opt.stats_path, smplh_path=opt.smplh_path, rest_offsets_path=opt.rest_offsets,
         diffusion_ckpt=opt.diffusion_ckpt, headnet_ckpt=opt.headnet_ckpt,
@@ -60,6 +61,16 @@ def run(opt) -> list[str]:
                  pred_scale=float(s1["pred_scale"]), pred_jpos=pred_jpos)
         print("saved:", out_path)
         written.append(out_path)
+
+        if opt.export_objs and opt.smplh_path:
+            export_obj_sequence(opt.smplh_path, local_aa[0].cpu().numpy(), root_out,
+                                os.path.join(opt.out_dir, rec["seq_name"] + "_objs"), device=pipeline.device)
+        if opt.save_html_vis:
+            pred_snapped = pred_jpos.copy()
+            pred_snapped[:, :, 2] -= floor
+            html_path = vis_skeleton_motion_html(pred_snapped, os.path.join(opt.out_dir, rec["seq_name"] + ".html"),
+                                                 head_traj=head_pose[:, :3], title=rec["seq_name"])
+            print("saved:", html_path)
     return written
 
 
@@ -75,8 +86,10 @@ def parse_opt(argv=None):
     p.add_argument("--window", type=int, default=120)
     p.add_argument("--timesteps", type=int, default=1000, help="DDPM steps (reduce only for smoke tests)")
     p.add_argument("--demo_floor_offset", type=float, default=-0.13)
-    p.add_argument("--export_objs", action="store_true", help="not ported (raises)")
-    p.add_argument("--save_html_vis", action="store_true", help="not ported (raises)")
+    p.add_argument("--export_objs", action="store_true",
+                   help="with --smplh_path: write the SMPL-H mesh of every frame as .obj under <seq>_objs/")
+    p.add_argument("--save_html_vis", action="store_true",
+                   help="write a standalone interactive HTML skeleton animation per sequence (vis/html_viewer.py)")
     p.add_argument("--out_dir", default="./demo_out")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")

@@ -1,14 +1,17 @@
-"""Geometry helpers (port of parts of egoego_release_tpu/ops/geometry.py):
-the MuJoCo qpos -> SMPL codec of the kinpoly GT records, and host-side
-floor-height estimation (numpy copy): static toe frames, 1-D DBSCAN over
-their heights (eps 0.005, min_samples 3, noise participating as a
-cluster), floor = the lowest cluster median minus an offset."""
+"""Geometry helpers (port of egoego_release_tpu/ops/geometry.py): vectors
+in a body's heading or root frame, the head's local velocities, an
+object's pose relative to the head, the MuJoCo qpos <-> SMPL codec of the
+kinpoly records, and host-side floor-height estimation (numpy copy):
+static toe frames, 1-D DBSCAN over their heights (eps 0.005, min_samples
+3, noise participating as a cluster), floor = the lowest cluster median
+minus an offset."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from egoego_release_tpu_torch.ops import heading as heading_mod
 from egoego_release_tpu_torch.ops import rotations as rot
 
 # MuJoCo body order -> SMPL joint order (24 joints)
@@ -17,22 +20,77 @@ MUJOCO2SMPL_JOINT_IDX = np.asarray(
 )
 
 
-def qpos_to_smpl(qpos: torch.Tensor):
-    """MuJoCo qpos (T, 76) = [trans (3), root quat wxyz (4), 23 joints x
-    intrinsic ZYX euler (69)] -> (trans (T, 3), pose axis-angle (T, 24, 3))
-    in SMPL joint order."""
-    trans = qpos[:, :3]
-    root_aa = rot.quat_to_axis_angle(qpos[:, 3:7])
-    eulers = qpos[:, 7:].reshape(-1, 23, 3)
+def transform_vec(v: torch.Tensor, q: torch.Tensor, mode: str = "heading") -> torch.Tensor:
+    """v (..., 3) in the frame of wxyz q (..., 4): its heading alone
+    (``mode="heading"``) or the whole rotation (``"root"``) (JAX
+    ``ops/geometry.py:49``)."""
+    if mode == "heading":
+        frame_q = heading_mod.get_heading_quat(q)
+    elif mode == "root":
+        frame_q = q
+    else:
+        raise ValueError(mode)
+    return rot.quat_apply(rot.quat_invert(frame_q), v)
+
+
+def get_head_vel(head_pose: torch.Tensor, dt: float = 1.0 / 30.0) -> torch.Tensor:
+    """Finite-difference head velocity (T, 7) -> (T, 6): the linear part in
+    the heading frame, the angular part (rotation vector of the
+    standardized relative quaternion, over dt) in the root frame, the last
+    frame repeated (JAX ``ops/geometry.py:65``)."""
+    trans, quat = head_pose[:, :3], head_pose[:, 3:7]
+    v_local = transform_vec((trans[1:] - trans[:-1]) / dt, quat[:-1], "heading")
+    qrel = rot.quat_multiply(quat[1:], rot.quat_invert(quat[:-1]))
+    rv_local = transform_vec(rot.quat_to_axis_angle(rot.standardize_quat(qrel)) / dt, quat[:-1], "root")
+    vels = torch.cat([v_local, rv_local], dim=-1)
+    return torch.cat([vels, vels[-1:]], dim=0)
+
+
+def get_obj_relative_pose(obj_poses: torch.Tensor, ref_poses: torch.Tensor, num_objs: int = 1) -> torch.Tensor:
+    """Object poses (T, num_objs * 7) relative to a reference pose (T, 7),
+    in the reference's heading frame (JAX ``ops/geometry.py:87``)."""
+    ref_pos, ref_rot = ref_poses[:, :3], ref_poses[:, 3:7]
+    q_heading_inv = rot.quat_invert(heading_mod.get_heading_quat(ref_rot))
+    outs = []
+    for o in range(num_objs):
+        obj = obj_poses[:, o * 7: o * 7 + 7]
+        outs += [transform_vec(obj[:, :3] - ref_pos, ref_rot, "heading"), rot.quat_multiply(q_heading_inv, obj[:, 3:])]
+    return torch.cat(outs, dim=-1)
+
+
+def euler_zyx_to_matrix(eulers: torch.Tensor) -> torch.Tensor:
+    """Intrinsic Z-Y-X Euler angles (..., 3) -> R = Rz(a) Ry(b) Rx(c)
+    (..., 3, 3), the hinge order of the MuJoCo humanoid's joints (JAX
+    ``ops/geometry.py:119-132``, ``ops/mujoco_xml.py:104-115``)."""
     a, b, c = eulers[..., 0], eulers[..., 1], eulers[..., 2]
     ca, sa, cb, sb, cc, sc = torch.cos(a), torch.sin(a), torch.cos(b), torch.sin(b), torch.cos(c), torch.sin(c)
-    m = torch.stack([
+    return torch.stack([
         ca * cb, ca * sb * sc - sa * cc, ca * sb * cc + sa * sc,
         sa * cb, sa * sb * sc + ca * cc, sa * sb * cc - ca * sc,
         -sb, cb * sc, cb * cc,
     ], dim=-1).reshape(eulers.shape[:-1] + (3, 3))
+
+
+def qpos_to_smpl(qpos: torch.Tensor):
+    """MuJoCo qpos (T, 76) = [trans (3), root quat wxyz (4), 23 joints x
+    intrinsic ZYX euler (69)] -> (trans (T, 3), pose axis-angle (T, 24, 3))
+    in SMPL joint order (JAX ``ops/geometry.py:109``)."""
+    root_aa = rot.quat_to_axis_angle(qpos[:, 3:7])
+    m = euler_zyx_to_matrix(qpos[:, 7:].reshape(-1, 23, 3))
     aa = torch.cat([root_aa[:, None, :], rot.matrix_to_axis_angle(m)], dim=1)
-    return trans, aa[:, torch.as_tensor(MUJOCO2SMPL_JOINT_IDX, device=qpos.device)]
+    return qpos[:, :3], aa[:, torch.as_tensor(MUJOCO2SMPL_JOINT_IDX, device=qpos.device)]
+
+
+def smpl_to_qpos(trans: torch.Tensor, pose_aa: torch.Tensor) -> torch.Tensor:
+    """The inverse codec: SMPL trans (T, 3) and 24-joint axis-angle
+    (T, 24, 3) -> qpos (T, 76) (JAX ``ops/geometry.py:138``)."""
+    aa_mj = pose_aa[:, torch.as_tensor(np.argsort(MUJOCO2SMPL_JOINT_IDX), device=pose_aa.device)]
+    m = rot.axis_angle_to_matrix(aa_mj[:, 1:])
+    b = -torch.arcsin(m[..., 2, 0].clamp(-1.0, 1.0))
+    a = torch.atan2(m[..., 1, 0], m[..., 0, 0])
+    c = torch.atan2(m[..., 2, 1], m[..., 2, 2])
+    eulers = torch.stack([a, b, c], dim=-1).reshape(trans.shape[0], -1)
+    return torch.cat([trans, rot.axis_angle_to_quat(aa_mj[:, 0]), eulers], dim=-1)
 
 
 FLOOR_VEL_THRESH = 0.005

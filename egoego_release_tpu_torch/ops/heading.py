@@ -1,11 +1,19 @@
-"""Per-window heading canonicalization (port of
-egoego_release_tpu/ops/heading.py ``rotate_at_frame``)."""
+"""Heading extraction and per-window canonicalization (port of
+egoego_release_tpu/ops/heading.py ``get_heading_quat`` and
+``rotate_at_frame``)."""
 
 from __future__ import annotations
 
 import torch
 
 from egoego_release_tpu_torch.ops import rotations as rot
+
+
+def get_heading_quat(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """The heading (z-axis) part of wxyz quaternions: x and y zeroed, then
+    renormalized (JAX ``ops/heading.py:23``)."""
+    heading = q * q.new_tensor([1.0, 0.0, 0.0, 1.0])
+    return heading / torch.linalg.norm(heading, dim=-1, keepdim=True).clamp_min(eps)
 
 
 def rotate_at_frame(trans: torch.Tensor, quat: torch.Tensor, cano_t_idx: int = 0,

@@ -184,3 +184,13 @@ def rot6d_to_matrix(d6: Tensor) -> Tensor:
     b2 = a2p / torch.linalg.norm(a2p, dim=-1, keepdim=True).clamp_min(1e-12)
     b3 = _cross(b1, b2)
     return torch.stack([b1, b2, b3], dim=-2)
+
+
+def quat_to_rot6d(q: Tensor) -> Tensor:
+    """(..., 4) -> (..., 6) (JAX ``ops/rotations.py:273``)."""
+    return matrix_to_rot6d(quat_to_matrix(q))
+
+
+def rot6d_to_quat(d6: Tensor) -> Tensor:
+    """(..., 6) -> (..., 4) (JAX ``ops/rotations.py:277``)."""
+    return matrix_to_quat(rot6d_to_matrix(d6))

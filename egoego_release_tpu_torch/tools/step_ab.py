@@ -64,7 +64,7 @@ def measure(root: Path) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, bf = torch.device("cuda"), torch.bfloat16
     built = ck.build(force=True)
-    cfg = DiffusionConfig()
+    cfg = DiffusionConfig(compute_dtype="bfloat16")
     model = CondGaussianDiffusion(cfg, device=dev, seed=0).model
     p = fs.prepare_step_params(model, True)
     lp = p["layers"][1]

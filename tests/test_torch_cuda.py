@@ -76,7 +76,8 @@ def test_step_kernels_match_plain(card, bf16, frames, d_head):
 def test_wrappers_count_and_route_to_kernels(card):
     """On CUDA tensors the wrappers launch the kernels (and count them); at
     head width 256 in bf16 the attention is the wgmma kernel."""
-    cfg = DiffusionConfig(d_model=64, n_head=2, d_k=256, d_v=256, n_dec_layers=3, window=24, timesteps=3)
+    cfg = DiffusionConfig(d_model=64, n_head=2, d_k=256, d_v=256, n_dec_layers=3, window=24, timesteps=3,
+                          compute_dtype="bfloat16")
     diff = CondGaussianDiffusion(cfg, device=card)
     x = torch.zeros(2, 24, cfg.d_feats, device=card)
     ck.launch_counts.clear()
@@ -103,7 +104,7 @@ def _step_inputs(card, cfg, model, bsz, frames, seed):
 @pytest.fixture(scope="module")
 def release(card):
     """The release-width denoiser and its bf16 step operands."""
-    cfg = DiffusionConfig()
+    cfg = DiffusionConfig(compute_dtype="bfloat16")
     diff = CondGaussianDiffusion(cfg, device=card, seed=0)
     return cfg, diff.model, fs.prepare_step_params(diff.model, True)
 
@@ -468,7 +469,7 @@ def test_fused_decoder_layer_matches_plain(card, bf16, frames):
     """fused_decoder_layer at the --fused path's shape (release width,
     frames + 1 tokens, a padding-mask zero) against its plain version; it
     counts under its own name, not as decoder_layer."""
-    cfg = DiffusionConfig()
+    cfg = DiffusionConfig(compute_dtype="bfloat16")
     diff = CondGaussianDiffusion(cfg, device=card, seed=0)
     lp = fl.layer_params(diff.model.motion_transformer.layer_stack[2], bf16=bf16)
     g = torch.Generator(device=card).manual_seed(frames)

@@ -1,11 +1,12 @@
 """The port's full-pipeline CLIs on the CPU (``--device cpu``): eval_egoego
 on a synthetic kinpoly-layout fixture, per sequence and with
 ``--batch_seqs``, eval_stage2 with ``--fused``, and run_egoego on a
-synthetic demo fixture. Full release widths, random weights, a few
+synthetic demo fixture, with the output flags of both. Full release widths, random weights, a few
 diffusion steps; the results must be finite and carry the JAX CLIs'
 keys."""
 
 import json
+import os
 import pickle
 import warnings
 
@@ -124,8 +125,24 @@ def test_eval_egoego_gt_head_pose(kinpoly, tmp_path):
 
 @pytest.mark.parametrize("flag", [["--mujoco_xml", "h.xml"], ["--save_html_vis"], ["--dp", "2"], ["--tp", "2"]])
 def test_eval_egoego_unported_flags_raise(kinpoly, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eval_egoego.run(eval_egoego.parse_opt(_egoego_argv(kinpoly, tmp_path / "out", *flag)))
+    """--dp/--tp are not ported and raise. --mujoco_xml and --save_html_vis
+    are ported and run, even with --batch_seqs 2 (the per-sequence path, as
+    in JAX): finite metrics for every sequence, and one HTML file each."""
+    if flag[0] in ("--dp", "--tp"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            eval_egoego.run(eval_egoego.parse_opt(_egoego_argv(kinpoly, tmp_path / "out", *flag)))
+        return
+    import chip_smoke
+
+    if flag[0] == "--mujoco_xml":
+        flag = [flag[0], chip_smoke.write_humanoid_xml(str(tmp_path / flag[1]),
+                                                        chip_smoke.smpl_rest_to_mujoco(np.load(kinpoly["rest"])))]
+    result = eval_egoego.run(eval_egoego.parse_opt(_egoego_argv(kinpoly, tmp_path / "out", "--batch_seqs", "2",
+                                                                *flag)))
+    assert result["num_seqs"] == 2
+    assert all(np.isfinite(v) for e in result["per_seq"].values() for v in e.values())
+    html = sorted(p.name for p in (tmp_path / "out").glob("*.html"))
+    assert html == ([f"{n}.html" for n in kinpoly["names"]] if flag[0] == "--save_html_vis" else [])
 
 
 @pytest.mark.parametrize("extra", [[], ["--use_gt_head_pose"], ["--of_int8"]])
@@ -219,8 +236,21 @@ def test_run_egoego_demo_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--export_objs", "--save_html_vis"])
 def test_run_egoego_unported_flags_raise(tmp_path, flag):
-    stats, rest = _stats_and_rest(tmp_path, np.random.RandomState(3))
-    opt = run_egoego.parse_opt(["--data_root_folder", str(tmp_path), "--stats_path", stats, "--rest_offsets", rest,
-                                "--out_dir", str(tmp_path / "out"), flag, *SMALL_RUN])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_egoego.run(opt)
+    """Both flags are ported: each run writes its npz and the flag's output
+    (one .obj per frame under <seq>_objs/ through a synthetic SMPL-H model
+    at --smplh_path, or <seq>.html) beside it."""
+    import chip_smoke
+
+    root = tmp_path / "ares"
+    name = chip_smoke.write_ares_demo_fixture(str(root), np.random.RandomState(3), n_seqs=1, frames=T)[0]
+    stats, rest = _stats_and_rest(tmp_path, np.random.RandomState(4))
+    smplh = chip_smoke.write_smplh_models(str(tmp_path / "smplh"), np.random.RandomState(5), 104, 60,
+                                          genders=("male",))
+    written = run_egoego.run(run_egoego.parse_opt([
+        "--data_root_folder", str(root), "--stats_path", stats, "--rest_offsets", rest, "--smplh_path", smplh,
+        "--out_dir", str(tmp_path / "out"), flag, *SMALL_RUN]))
+    assert [p.rsplit("/", 1)[-1] for p in written] == [name + ".npz"]
+    if flag == "--export_objs":
+        assert sorted(os.listdir(tmp_path / "out" / (name + "_objs"))) == [f"{i:05d}.obj" for i in range(T + 1)]
+    else:
+        assert "const DATA = " in (tmp_path / "out" / (name + ".html")).read_text()
