@@ -116,6 +116,21 @@ Phases (any failure exits non-zero; nothing is caught):
      with synthetic SMPL-H models at the real sizes (6890 vertices, 13776
      faces, 52 joints, 16 betas): one .obj per frame, exact f32 counts, LBS
      card vs CPU within 1e-4, the export timed.
+ 15. multi-GPU and serving on the one card: the tensor-parallel layer's
+     own launches at its shapes (the PARTIAL GEMM of fc and w2 in bf16 and
+     f32, residual_layernorm with an f32 or bf16 residual; 64 windows of
+     121 and 31 tokens, tp 2 and 4) against their plain versions, timed
+     beside their bounds and the library calls; each custom op through
+     torch.ops against its ctypes wrapper, bit for bit; two gloo ranks on
+     cuda:0 running ``eval_stage2`` through the library (dp 2
+     --fused_step, tp 2 in f32 and with --fused_step; DDIM-50 on 16
+     sequences) with each rank's exact launch counts (no LayerNorm
+     epilogue under tp) and the chain against the unsharded card run; one
+     training step at dp 2 and at tp 2 against the unsharded card step;
+     ``serving.export chain`` at the CLI's defaults (64 x 140 frames,
+     DDPM-1000) and ``export_e2e``, each saved, loaded and called on the
+     card against the live run for one seed, with the kernels launched
+     inside the loaded program counted, and timed.
 Then one JSON line of per-kernel results (with the training summaries), and
 as the last line {"ok": true, "device": {...}}.
 """
@@ -152,7 +167,7 @@ TOL_F32 = 1e-4         # f32 kernel vs plain: summation order only
 TOL_BF16 = 2e-2        # bf16 kernel vs plain: a bf16 rounding may flip where sums differ in order
 UPDATE = (0.9, 0.1, 0.05)  # a1, a2, a3 of the epilogue's update check: x0 dominates
 WG_EPILOGUES = ("bias", "layer_norm", "stem", "step", "layer_norm res_bf16", "layer_norm bf16_out",
-                "layer_norm bf16")  # csrc/gemm.cu WgEpilogue, in order
+                "layer_norm bf16", "partial")  # csrc/gemm.cu WgEpilogue, in order
 ATTN_KEY_TILES = (32, 64, 128)  # csrc/attention.cu attention_wgmma_kernel<NK>
 ATTN_SHAPES = ((BATCH, 121), (BATCH, 31), (1, 121))  # (windows, tokens) of the layer's attention timed in phase 2
 
@@ -1460,6 +1475,436 @@ def outputs_phase(card, data_dir, stats_path, rest_path, kin_root, kin_gt_path, 
     return out
 
 
+TP_TOKENS = (121, 31)        # phase 15: tokens a window of the kernels' tp shapes (the release window, the tail)
+PAR_SEQS, PAR_DDIM = 16, 50   # phase 15: sequences and DDIM steps of the sharded eval_stage2 runs
+TRAIN_WINDOWS = 16            # phase 15: windows of the sharded training step (micro-batch 8 x grad-accum 2)
+E2E_B, E2E_T = 4, 16          # phase 15: export_e2e's batch and frames
+SERVE_B, SERVE_T = 64, 140    # phase 15: the export CLI's default batch and frames
+
+
+def _par_eval_rank(mesh, argv, head_path, out_prefix):
+    """One rank of phase 15's sharded eval_stage2 run: the CLI through the
+    library on this rank's mesh, then the chain itself on phase 15's head
+    poses; writes the rank's launch counts, and rank 0 the chain's output."""
+    import torch
+
+    from egoego_release_tpu_torch.eval import eval_stage2
+    from egoego_release_tpu_torch.eval.build import build_pipeline
+    from egoego_release_tpu_torch.ops import cuda_kernels as ck
+    from egoego_release_tpu_torch.ops.fused_step import TorchNoise
+
+    opt = eval_stage2.parse_opt(argv)
+    for c in (ck.launch_counts, ck.kernel_launches, ck.gemm_modes):
+        c.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eval_stage2.run(opt, mesh=mesh)
+    torch.cuda.synchronize()
+    counts = {"seconds": time.perf_counter() - t0, "launch": dict(ck.launch_counts),
+              "c": dict(ck.kernel_launches), "modes": {str(k): v for k, v in ck.gemm_modes.items()},
+              "mpjpe": res["mean"]["mpjpe"], "per_seq": res["per_seq"]}
+    with open(f"{out_prefix}_rank{mesh.rank}.json", "w") as f:
+        json.dump(counts, f)
+    pipe = build_pipeline(stats_path=opt.stats_path, rest_offsets_path=opt.rest_offsets, window=opt.window,
+                          sampler="ddim", ddim_steps=opt.ddim_steps, timesteps=opt.timesteps, seed=opt.seed,
+                          compute_dtype=eval_stage2.compute_dtype(opt), device=mesh.device).shard(mesh)
+    head = np.load(head_path)
+    aa, root = pipe.stage2_generate_batched(head, TorchNoise(mesh.device, seed=5))
+    x = reverse_chain(pipe, head, mesh.device)
+    if mesh.rank == 0:
+        np.savez(f"{out_prefix}_chain.npz", aa=aa.cpu().numpy(), root=root.cpu().numpy(), x=x.cpu().numpy())
+
+
+def reverse_chain(pipe, head, dev):
+    """Phase 15's reverse chain alone: DDIM on the canonicalized first
+    window of the head poses (the whole batch on every rank)."""
+    import torch
+
+    from egoego_release_tpu_torch.diffusion.gaussian_diffusion import head_condition_mask
+    from egoego_release_tpu_torch.ops.fused_step import TorchNoise
+
+    d = pipe.diffusion
+    hp = torch.as_tensor(head, device=dev)
+    x_start, _ = d._canonicalize_window(hp[..., :3].contiguous(), hp[..., 3:].contiguous(), pipe.stats)
+    return d.p_sample_loop_ddim(x_start, head_condition_mask(*x_start.shape[:2], device=dev),
+                                num_steps=d.cfg.ddim_steps, noise=TorchNoise(dev, seed=6))
+
+
+def _par_train_rank(mesh, batch_path, ckpt_dir, out_path):
+    """One rank of phase 15's sharded training step at the release widths;
+    the gathered checkpoint, and rank 0 the loss and the gathered
+    gradients."""
+    import torch
+
+    from egoego_release_tpu_torch.diffusion.gaussian_diffusion import CondGaussianDiffusion, DiffusionConfig
+    from egoego_release_tpu_torch.ops.fused_step import TorchNoise
+    from egoego_release_tpu_torch.parallel.mesh import gather_state_dict
+    from egoego_release_tpu_torch.training.trainer_diffusion import DiffusionTrainer, save_checkpoint
+
+    batch = dict(np.load(batch_path))
+    trainer = DiffusionTrainer(CondGaussianDiffusion(DiffusionConfig(), device=mesh.device), mesh=mesh)
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    state, loss = trainer.train_step(state, batch, TorchNoise(mesh.device, 3))
+    path = save_checkpoint(ckpt_dir, state)
+    grads = gather_state_dict({n: p.grad for n, p in state.model.named_parameters()}, mesh, state.model.full_shapes)
+    if mesh.rank == 0:
+        torch.save({"loss": float(loss), "ckpt": path, "grads": grads}, out_path)
+
+
+def parallel_phase(card, data_dir, data_path, stats_path, rest_path, clear_counts):
+    """Phase 15: multi-GPU and serving, on the one card.
+    (a) The tensor-parallel layer's own launches at the tp shapes (64
+    windows of 121 and 31 tokens, tp 2 and 4): the PARTIAL GEMM of fc and w2
+    (bf16 on gemm_wgmma_kernel, f32 on the CUDA cores) and
+    residual_layernorm (f32 or bf16 residual; f32 and bf16 outputs), each
+    against its plain version, counted once, timed beside its bound and
+    the library call; each custom op through torch.ops bit for bit against
+    its ctypes wrapper. (b) Two gloo ranks on cuda:0 running eval_stage2
+    through the library (16 sequences, DDIM-50): dp 2 --fused_step, tp 2 in
+    f32 and --fused_step, each rank's exact launch counts (no LayerNorm
+    epilogue under tp), and the chain on fixed head poses against the
+    unsharded card run. (c) One training step at dp 2 x tp 1 and dp 1 x tp
+    2 against the unsharded card step. (d) The chain exported by the
+    export CLI at its defaults (64 x 140 frames, DDPM-1000, f32) and
+    export_e2e (4 x 16 frames, DDIM-50, bf16), each saved, loaded and
+    called on the card against the live run for one seed, with the kernels
+    launched inside the loaded program counted; export, load and call
+    seconds and bytes. Returns the summary."""
+    import torch
+    import torch.nn.functional as F
+
+    from egoego_release_tpu_torch.eval import eval_stage2
+    from egoego_release_tpu_torch.eval.build import build_pipeline
+    from egoego_release_tpu_torch.ops import cuda_kernels as ck
+    from egoego_release_tpu_torch.ops import rotations as rot
+    from egoego_release_tpu_torch.ops.fused_step import DefaultNoise, TorchNoise
+    from egoego_release_tpu_torch.parallel import mesh as pm
+    from egoego_release_tpu_torch.serving import export as sx
+    from egoego_release_tpu_torch.training.trainer_diffusion import load_checkpoint
+
+    dev, t_phase, out = torch.device("cuda"), time.perf_counter(), {"card": card}
+    g = torch.Generator(device=dev).manual_seed(15)
+    rn = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    dm = 512
+
+    def once(fn, want_c, what):
+        clear_counts()
+        ck.gemm_modes.clear()
+        r = fn()
+        torch.cuda.synchronize()
+        if dict(ck.kernel_launches) != want_c:
+            raise AssertionError(f"phase 15: {what} launched {dict(ck.kernel_launches)}, want {want_c}")
+        return r
+
+    # -- a. the tp layer's launches against their plain versions ----------
+    kern = {"partial": {"max_abs_err": 0.0, "max_abs_err_f32": 0.0, "rows": []},
+            "residual_layernorm": {"max_abs_err": 0.0, "max_abs_err_f32": 0.0, "rows": []}}
+    for t in TP_TOKENS:
+        m = BATCH * t
+        for tp in (2, 4):
+            for name, k in (("fc", 4 * 256 // tp), ("w2", dm // tp)):
+                for bf16 in (False, True):
+                    wdt = torch.bfloat16 if bf16 else torch.float32
+                    a, w = rn(m, k).to(wdt), (rn(dm, k) / k ** 0.5).to(wdt)
+                    bias, o = rn(dm), torch.empty(m, dm, device=dev)
+                    run = lambda: ck.gemm(ck.PARTIAL, a, w, bias, o, M=m)
+                    once(run, {"gemm_wgmma" if bf16 else "gemm": 1}, f"PARTIAL {name}")
+                    if dict(ck.gemm_modes) != {ck.PARTIAL: 1}:
+                        raise AssertionError(f"phase 15: PARTIAL counted as {dict(ck.gemm_modes)}")
+                    want = ck.gemm_plain(ck.PARTIAL, a, w, bias, torch.empty_like(o), M=m)
+                    err = float((o - want).abs().max())
+                    tol = TOL_BF16 if bf16 else TOL_F32
+                    if not err <= tol:
+                        raise AssertionError(f"phase 15: PARTIAL {name} {m}x{k} bf16={bf16}: {err} > {tol}")
+                    ms = device_time_ms(run)[0]
+                    lib_ms = device_time_ms(lambda: torch.matmul(a, w.t()))[0]
+                    plain_ms = cuda_time_ms(lambda: ck.gemm_plain(ck.PARTIAL, a, w, bias, o, M=m))
+                    es = 2 if bf16 else 4
+                    mbytes = (m * k * es + dm * k * es + m * dm * 4) / 1e6
+                    gflop = 2 * m * k * dm / 1e9
+                    bound_b, bound_o = mbytes * 1e6 / HBM_BYTES_S * 1e3, gflop * 1e9 / (PEAK_BF16 if bf16 else PEAK_F32) * 1e3
+                    row = {"what": f"{name} tp{tp} {BATCH}x{t}", "bf16": bf16, "mkn": (m, k, dm), "device_ms": ms,
+                           "library_device_ms": lib_ms, "plain_ms": plain_ms, "bound_ms": max(bound_b, bound_o),
+                           "bound_by": "bytes" if bound_b >= bound_o else "operations", "max_abs_err": err,
+                           "gflop": gflop, "mbytes": mbytes}
+                    kern["partial"]["rows"].append(row)
+                    key = "max_abs_err" if bf16 else "max_abs_err_f32"
+                    kern["partial"][key] = max(kern["partial"][key], err)
+                    log(f"phase 15: PARTIAL {row['what']} {'bf16' if bf16 else 'f32'} (M, K, N) = {(m, k, dm)}: "
+                        f"max|kernel - plain| {err:.3e} (bound {tol}); device {ms:.4f} ms, torch.matmul "
+                        f"{lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}) [{card}]")
+        # residual_layernorm: fc's (f32 or bf16 residual, f32 out and its bf16 copy) and w2's with
+        # bf16 activations (the bf16 output alone)
+        for res_bf16, f32_out in ((False, True), (True, True), (False, False)):
+            p, bias = rn(m, dm), rn(dm)
+            res = rn(m, dm).to(torch.bfloat16 if res_bf16 else torch.float32)
+            s_, b_, mask = 1 + 0.1 * rn(dm), 0.1 * rn(dm), (rn(m) > -2).float()
+            o = torch.empty(m, dm, device=dev) if f32_out else None
+            ob = torch.empty(m, dm, dtype=torch.bfloat16, device=dev)
+            run = lambda: ck.residual_layernorm(p, bias, res, s_, b_, mask, o, ob)
+            once(run, {"residual_layernorm": 1}, "residual_layernorm")
+            want = ck.residual_layernorm_plain(p, bias, res, s_, b_, mask)
+            err = float((o - want).abs().max()) if f32_out else 0.0
+            ok, _ = bf16_flips(ob, want, TOL_F32)
+            flips = int((ob != want.to(torch.bfloat16)).sum())  # roundings that fell the other way
+            if not (err <= TOL_F32 and ok and (o is None or torch.equal(ob, o.to(torch.bfloat16)))):
+                raise AssertionError(f"phase 15: residual_layernorm res_bf16={res_bf16}: {err}, bf16 ok {ok}")
+            y = (p + bias) + res.float()
+            ms = device_time_ms(run)[0]
+            lib_ms = device_time_ms(lambda: F.layer_norm(y, (dm,), s_, b_, 1e-5))[0]
+            plain_ms = cuda_time_ms(lambda: ck.residual_layernorm_plain(p, bias, res, s_, b_, mask))
+            mbytes = (m * dm * (4 + (2 if res_bf16 else 4) + (4 if f32_out else 0) + 2) + m * 4 + 3 * dm * 4) / 1e6
+            gflop = 10 * m * dm / 1e9
+            bound_b, bound_o = mbytes * 1e6 / HBM_BYTES_S * 1e3, gflop * 1e9 / PEAK_F32 * 1e3
+            row = {"what": f"{BATCH}x{t} res {'bf16' if res_bf16 else 'f32'}, out {'f32+bf16' if f32_out else 'bf16'}",
+                   "device_ms": ms, "library_device_ms": lib_ms, "plain_ms": plain_ms, "bound_ms": max(bound_b, bound_o),
+                   "bound_by": "bytes" if bound_b >= bound_o else "operations", "max_abs_err": err,
+                   "bf16_flips": flips, "gflop": gflop, "mbytes": mbytes}
+            kern["residual_layernorm"]["rows"].append(row)
+            kern["residual_layernorm"]["max_abs_err_f32"] = max(kern["residual_layernorm"]["max_abs_err_f32"], err)
+            kern["residual_layernorm"]["max_abs_err"] = max(
+                kern["residual_layernorm"]["max_abs_err"], float((ob.float() - want).abs().max()))
+            log(f"phase 15: residual_layernorm {row['what']}: max|f32 out - plain| {err:.3e} (bound {TOL_F32}), "
+                f"bf16 out within it plus one bf16 ulp ({flips} of {ob.numel()} entries one rounding off bf16(plain)); "
+                f"device {ms:.4f} ms, "
+                f"F.layer_norm on the sum {lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}) [{card}]")
+
+    # each custom op through torch.ops, bit for bit against its ctypes wrapper
+    a, w, bias = rn(256, 512).to(torch.bfloat16), (rn(512, 512) / 22.6).to(torch.bfloat16), rn(512)
+    res, s_, b_, mask = rn(256, 512), 1 + 0.1 * rn(512), 0.1 * rn(512), torch.ones(256, device=dev)
+    qkv = rn(2 * 121, 4 * 768).to(torch.bfloat16)
+    q, k_, v = (rn(2, 4, 256, 256) for _ in range(3))
+    pairs = {
+        "gemm LAYER_NORM": lambda o, ob, op: (torch.ops.egoego.gemm(a, w, bias, o, ck.LAYER_NORM, 256, None, res, s_, b_,
+                                                                    mask, None, None, None, None, None, None, ob, 0,
+                                                                    None) if op else
+                                              ck.gemm(ck.LAYER_NORM, a, w, bias, o, M=256, res=res, ln_s=s_, ln_b=b_,
+                                                      row_mask=mask, out_b=ob)),
+        "gemm PARTIAL": lambda o, ob, op: (torch.ops.egoego.gemm(a, w, bias, o, ck.PARTIAL, 256, None, None, None, None,
+                                                                 None, None, None, None, None, None, None, None, 0,
+                                                                 None) if op else
+                                           ck.gemm(ck.PARTIAL, a, w, bias, o, M=256)),
+        "attention": lambda o, ob, op: (torch.ops.egoego.attention(qkv, ob2, 2, 121, 121, 4, 256, 256) if op else
+                                        ck.attention(qkv, ob2, B=2, T=121, t_keys=121, n_head=4, d_k=256, d_v=256)),
+        "mha": lambda o, ob, op: (torch.ops.egoego.mha(q, k_, v, o4, 256) if op else ck.mha(q, k_, v, o4, t_keys=256)),
+        "residual_layernorm": lambda o, ob, op: (torch.ops.egoego.residual_layernorm(res, bias, res, s_, b_, mask, o, ob)
+                                                 if op else ck.residual_layernorm(res, bias, res, s_, b_, mask, o, ob)),
+    }
+    op_same = {}
+    for name, call in pairs.items():
+        got = []
+        for op in (False, True):
+            o, ob = torch.zeros(256, 512, device=dev), torch.zeros(256, 512, dtype=torch.bfloat16, device=dev)
+            ob2 = torch.zeros(2 * 121, 1024, dtype=torch.bfloat16, device=dev)
+            o4 = torch.zeros(2, 4, 256, 256, device=dev)
+            clear_counts()
+            call(o, ob, op)
+            torch.cuda.synchronize()
+            got.append(([t.clone() for t in (o, ob, ob2, o4)], dict(ck.kernel_launches)))
+        same = all(torch.equal(x, y) for x, y in zip(got[0][0], got[1][0]))
+        op_same[name] = same and got[0][1] == got[1][1]
+        if not op_same[name]:
+            raise AssertionError(f"phase 15: torch.ops.egoego {name} differs from its ctypes wrapper: {got[0][1]}, "
+                                 f"{got[1][1]}")
+    log(f"phase 15: custom ops through torch.ops, bit for bit and counted as their ctypes wrappers: {op_same}")
+    out["kernels"] = kern
+
+    # -- b. two gloo ranks on cuda:0: eval_stage2 through the library -----
+    par_dir = os.path.join(data_dir, "parallel")
+    os.makedirs(par_dir, exist_ok=True)
+    rng = np.random.RandomState(15)
+    head = np.concatenate([np.cumsum(rng.randn(PAR_SEQS, 120, 3) * 0.01, 1) + [0.0, 0.0, 1.6],
+                           smooth_quats(rng, PAR_SEQS * 120).reshape(PAR_SEQS, 120, 4)], -1).astype(np.float32)
+    head_path = os.path.join(par_dir, "head.npy")
+    np.save(head_path, head)
+    base = ["--test_data_path", data_path, "--stats_path", stats_path, "--rest_offsets", rest_path,
+            "--ddim_steps", str(PAR_DDIM), "--batch_seqs", str(PAR_SEQS), "--max_seqs", str(PAR_SEQS),
+            "--device", "cuda"]
+    refs, runs = {}, {}
+    for flags in ([], ["--fused_step"]):
+        opt = eval_stage2.parse_opt(base + flags + ["--out_dir", os.path.join(par_dir, "ref")])
+        pipe = build_pipeline(stats_path=stats_path, rest_offsets_path=rest_path, sampler="ddim",
+                              ddim_steps=PAR_DDIM, compute_dtype=eval_stage2.compute_dtype(opt), device=dev)
+        aa, root = pipe.stage2_generate_batched(head, TorchNoise(dev, seed=5))
+        refs[tuple(flags)] = {"aa": aa.cpu().numpy(), "root": root.cpu().numpy(),
+                              "x": reverse_chain(pipe, head, dev).cpu().numpy(), "eval": eval_stage2.run(opt)["per_seq"]}
+    steps, n_layers = PAR_DDIM, 4
+    for dp, tp, flags in ((2, 1, ["--fused_step"]), (1, 2, []), (1, 2, ["--fused_step"])):
+        what = f"dp {dp} x tp {tp} {'bf16' if flags else 'f32'}"
+        prefix = os.path.join(par_dir, f"eval_dp{dp}_tp{tp}_{'bf16' if flags else 'f32'}")
+        argv = base + flags + ["--dp", str(dp), "--tp", str(tp), "--out_dir", prefix + "_out"]
+        t0 = time.perf_counter()
+        pm.spawn(_par_eval_rank, (argv, head_path, prefix), dp, tp, ["cuda:0"] * (dp * tp))
+        wall = time.perf_counter() - t0
+        bf16 = bool(flags)
+        g_name, a_name = ("gemm_wgmma", "attention_wgmma") if bf16 else ("gemm", "attention")
+        want_l = {"stem_layer": steps, "decoder_layer": steps * (n_layers - 2), "layer_epilogue": steps}
+        want_c = {g_name: steps * (4 * n_layers + 2), a_name: steps * n_layers}
+        want_m = {str(ck.BIAS): steps * n_layers, str(ck.BIAS_RELU): steps * n_layers, str(ck.STEM): steps,
+                  str(ck.STEP): steps}
+        if tp > 1:
+            want_c["residual_layernorm"] = steps * 2 * n_layers
+            want_m[str(ck.PARTIAL)] = steps * 2 * n_layers
+        else:
+            want_m[str(ck.LAYER_NORM)] = steps * 2 * n_layers
+        ranks = []
+        for r in range(dp * tp):
+            with open(f"{prefix}_rank{r}.json") as f:
+                ranks.append(json.load(f))
+            got = (ranks[-1]["launch"], ranks[-1]["c"], ranks[-1]["modes"])
+            log(f"phase 15: {what} rank {r}: launches {got[0]}, C entries {got[1]}, GEMM modes {got[2]}")
+            if got != (want_l, want_c, want_m):
+                raise AssertionError(f"phase 15: {what} rank {r}: counts {got} != {(want_l, want_c, want_m)}")
+        chain = np.load(f"{prefix}_chain.npz")
+        ref = refs[tuple(flags)]
+        # axis-angle flips representation at angle ~ pi under any rounding: compare rotation matrices
+        mats = lambda aa: rot.axis_angle_to_matrix(torch.from_numpy(aa)).numpy()
+        err_aa = float(np.abs(mats(chain["aa"]) - mats(ref["aa"])).max())
+        err_root = float(np.abs(chain["root"] - ref["root"]).max())
+        err_x = float(np.abs(chain["x"] - ref["x"]).max())
+        err_m = max(abs(ranks[0]["per_seq"][n][k] - v) for n, e in ref["eval"].items() for k, v in e.items())
+        # dp: each row is the unsharded run's (the step kernels compute rows apart); tp in f32: JAX's
+        # bound for its tp-sharded chain; tp in bf16: a bf16 rounding of h0 or h1 flips where tp sums
+        # the product in another order, so the reverse chain is held to JAX's bf16 drift bound (0.08)
+        bound, x_bound = (0.0, 0.0) if dp > 1 else (2e-3, 2e-3) if not bf16 else (None, 0.08)
+        log(f"phase 15: eval_stage2 {what}, 2 gloo ranks on cuda:0, {PAR_SEQS} seqs DDIM-{PAR_DDIM}: {wall:.1f} s "
+            f"wall (rank 0's run {ranks[0]['seconds']:.2f} s); against the unsharded card run: the reverse chain "
+            f"alone {err_x:.3e} (bound {x_bound}); the decoded chain on {PAR_SEQS} head poses: rotation matrices "
+            f"{err_aa:.3e}, root {err_root:.3e} (bound {bound if bound is not None else 'none: bf16 tp'}); the CLI's "
+            f"metrics {err_m:.3e} [{card}]")
+        if not (err_x <= x_bound and (bound is None or (err_aa <= bound and err_root <= bound))):
+            raise AssertionError(f"phase 15: {what} disagrees with the unsharded run: {err_x}, {err_aa}, {err_root}")
+        runs[what] = {"wall_s": wall, "rank0_s": ranks[0]["seconds"], "err_x": err_x, "err_aa": err_aa,
+                      "err_root": err_root,
+                      "err_metrics": err_m, "counts_rank0": ranks[0]["c"],
+                      "partial_launches": ranks[0]["modes"].get(str(ck.PARTIAL), 0)}
+    out["eval"] = runs
+
+    # -- c. one training step, sharded against unsharded ------------------
+    from egoego_release_tpu_torch.diffusion.gaussian_diffusion import CondGaussianDiffusion, DiffusionConfig
+    from egoego_release_tpu_torch.training.trainer_diffusion import DiffusionTrainer, save_checkpoint
+
+    motion = np.clip(np.cumsum(rng.randn(TRAIN_WINDOWS, 120, 198) * 0.02, 1), -1, 1).astype(np.float32)
+    batch = {"motion": motion, "seq_len": np.array([120] * (TRAIN_WINDOWS - 2) + [90, 60], np.int32)}
+    batch_path = os.path.join(par_dir, "batch.npz")
+    np.savez(batch_path, **batch)
+    trainer = DiffusionTrainer(CondGaussianDiffusion(DiffusionConfig(), device=dev))
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    state, loss = trainer.train_step(state, batch, TorchNoise(dev, 3))
+    g_ref = {n: p.grad.detach().cpu().double() for n, p in state.model.named_parameters()}
+    ref = load_checkpoint(save_checkpoint(os.path.join(par_dir, "train_ref"), state))
+    out["train"] = {}
+    for dp, tp in ((2, 1), (1, 2)):
+        res_path = os.path.join(par_dir, f"train_dp{dp}_tp{tp}.pt")
+        pm.spawn(_par_train_rank, (batch_path, os.path.join(par_dir, f"train_dp{dp}_tp{tp}"), res_path), dp, tp,
+                 ["cuda:0"] * (dp * tp))
+        got = torch.load(res_path)
+        ck_s = load_checkpoint(got["ckpt"])
+        err_loss = abs(got["loss"] - float(loss)) / abs(float(loss))
+        # as train_step_agreement holds two free runs (no branch replayed across the ranks): the
+        # gradients' relative L2 over all tensors and in the worst one; the parameters where |g| is
+        # large (a ReLU input within rounding of 0 may take the other branch where tp sums in
+        # another order, which moves a gradient row and flips Adam's first step there)
+        num = den = err_l2 = err_p = 0.0
+        for name, g_r in g_ref.items():
+            g_s = got["grads"][name].double()
+            if not name.endswith("self_attn.w_k.bias"):  # its gradient is rounding noise (the softmax cancels it)
+                num, den = num + float((g_s - g_r).norm()) ** 2, den + float(g_r.norm()) ** 2
+                err_l2 = max(err_l2, float((g_s - g_r).norm() / g_r.norm()))
+            p_r, p_s = (c["model"]["denoise_fn." + name].double() for c in (ref, ck_s))
+            big = (g_r.abs() >= 1e-3 * float(g_r.abs().max())) & (g_r.abs() >= 1e-6)
+            if big.any() and not name.endswith("self_attn.w_k.bias"):
+                err_p = max(err_p, float((p_s - p_r)[big].abs().max()) / float(p_r.abs().max()))
+        err_l2_all = math.sqrt(num / den)
+        log(f"phase 15: one training step at dp {dp} x tp {tp} (2 gloo ranks on cuda:0, release widths, "
+            f"{TRAIN_WINDOWS} windows, dropout on) against the unsharded card step: loss {err_loss:.3e} relative "
+            f"[{STEP_BOUNDS['loss']}]; gradients {err_l2_all:.3e} relative L2 over all tensors "
+            f"[{STEP_BOUNDS['grad_l2_all']}], {err_l2:.3e} in the worst tensor [{STEP_BOUNDS['grad_l2']}]; "
+            f"parameters {err_p:.3e} of max|p| where |g| >= 1e-3 max|g| (not bounded: a branch flip moves it)")
+        if not (err_loss <= STEP_BOUNDS["loss"] and err_l2_all <= STEP_BOUNDS["grad_l2_all"]
+                and err_l2 <= STEP_BOUNDS["grad_l2"]):
+            raise AssertionError(f"phase 15: the dp {dp} x tp {tp} step disagrees: {err_loss}, {err_l2_all}, {err_l2}")
+        out["train"][f"dp{dp}_tp{tp}"] = {"loss": err_loss, "grad_l2_all": err_l2_all, "grad_l2": err_l2,
+                                          "param": err_p}
+
+    # -- d. serving artifacts on the card ----------------------------------
+    exports = {}
+
+    def artifact(name, export, inputs, live, c_want):
+        """export() -> (program, its path, seconds to build, export and save);
+        load it, call it for seed 11 against live() for the same seed, count
+        the launches inside it."""
+        prog, path, t_export = export()
+        t0 = time.perf_counter()
+        loaded = sx.load_artifact(path)
+        t_load = time.perf_counter() - t0
+        clear_counts()
+        t0 = time.perf_counter()
+        got = sx.call_artifact(loaded, 11, *inputs)
+        torch.cuda.synchronize()
+        t_call = time.perf_counter() - t0
+        c_got = dict(ck.kernel_launches)
+        torch.manual_seed(11)
+        t0 = time.perf_counter()
+        want = live(*inputs)
+        torch.cuda.synchronize()
+        t_live = time.perf_counter() - t0
+        err = max(float((a_ - b_).abs().max()) for a_, b_ in zip(got, want))
+        nodes = sum(1 for gm in loaded.graph_module.modules() for n in gm.graph.nodes
+                    if n.op == "call_function" and "egoego" in str(n.target))
+        r = {"export_s": t_export, "load_s": t_load, "call_s": t_call, "live_s": t_live, "bytes": os.path.getsize(path),
+             "max_abs_err": err, "launches": c_got, "egoego_nodes": nodes}
+        log(f"phase 15: {name}: exported and saved in {t_export:.1f} s, {r['bytes']} bytes, loaded in {t_load:.1f} s, "
+            f"called in {t_call:.2f} s (the live run {t_live:.2f} s); against the live run for seed 11: {err:.3e} "
+            f"(bound 2e-5); kernels launched "
+            f"inside the loaded program {c_got} (expected {c_want}); torch.ops.egoego nodes {nodes} [{card}]")
+        if not (err <= 2e-5 and c_got == c_want and nodes > 0):
+            raise AssertionError(f"phase 15: {name} artifact: err {err}, launches {c_got} != {c_want}, {nodes} nodes")
+        exports[name] = r
+
+    def saved(name, make):
+        t0 = time.perf_counter()
+        path = os.path.join(par_dir, f"{name}.pt2")
+        prog = make(path)
+        if not os.path.exists(path):
+            sx.save_artifact(prog, path)
+        return prog, path, time.perf_counter() - t0
+
+    # the chain at the export CLI's defaults (64 x 140 frames: two windows of DDPM-1000, f32), made by the
+    # CLI itself, against the live chain of the pipeline the CLI builds (the same seed-0 weights)
+    pipe = build_pipeline(stats_path=stats_path, rest_offsets_path=rest_path, device=dev)
+    rng_s = np.random.RandomState(16)
+    jpos = torch.as_tensor(np.cumsum(rng_s.randn(SERVE_B, SERVE_T, 3) * 0.01, 1) + [0.0, 0.0, 1.6],
+                           dtype=torch.float32, device=dev)
+    jquat = torch.as_tensor(smooth_quats(rng_s, SERVE_B * SERVE_T).reshape(SERVE_B, SERVE_T, 4), device=dev)
+    per_step = lambda g_name, a_name: {g_name: 4 * 4 + 2, a_name: 4}
+    artifact("chain_b64_t140", lambda: saved("chain_b64_t140", lambda path: sx.main([
+        "chain", "--stats_path", stats_path, "--rest_offsets", rest_path, "--out", path, "--device", "cuda"])),
+             (jpos, jquat), lambda jp, jq: pipe.diffusion.sample_sliding_window_w_canonical(
+                 jp, jq, pipe.stats, pipe.rest_offsets, noise=DefaultNoise(dev)),
+             {k: 2 * 1000 * v for k, v in per_step("gemm", "attention").items()})
+    # the whole system, bf16 (--fused_step's numerics), DDIM-50, one window
+    pipe = build_pipeline(stats_path=stats_path, rest_offsets_path=rest_path, sampler="ddim", ddim_steps=PAR_DDIM,
+                          compute_dtype="bfloat16", device=dev)
+    s1 = {"of": rn(E2E_B, E2E_T - 1, 512), "init_quat": F.normalize(rn(E2E_B, 4), dim=-1),
+          "aligned": jpos[:E2E_B, :E2E_T].clone(), "ori_trans": jpos[:E2E_B, :E2E_T].clone(),
+          "ori_mat": torch.eye(3, device=dev).expand(E2E_B, E2E_T, 3, 3).contiguous(),
+          "gt": torch.cat([jpos[:E2E_B, :E2E_T], jquat[:E2E_B, :E2E_T]], -1)}
+
+    def e2e_live(*inputs):
+        r = pipe._stage1(*inputs)
+        hp = r["head_pose"]
+        aa, root = pipe.diffusion.sample_sliding_window_w_canonical(
+            hp[..., :3].contiguous(), hp[..., 3:].contiguous(), pipe.stats, pipe.rest_offsets, noise=DefaultNoise(dev))
+        return (aa, root, *pipe.fk(root, aa), hp, r["pred_scale"])
+    artifact("e2e", lambda: saved("e2e", lambda path: sx.export_e2e(pipe, E2E_B, E2E_T)), tuple(s1.values()),
+             e2e_live, {k: PAR_DDIM * v for k, v in per_step("gemm_wgmma", "attention_wgmma").items()})
+    out["exports"] = exports
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 15 took {out['seconds']:.1f} s [{card}]")
+    return out
+
+
 def html_data(path):
     """The ``const DATA = {...};`` object of a vis/html_viewer page."""
     with open(path) as f:
@@ -2713,6 +3158,9 @@ def main() -> int:
     outputs = outputs_phase(card, data_dir, stats_path, rest_path, kin_root, gt_path, per_step, c_per_step,
                             clear_counts)
 
+    # -- phase 15: multi-GPU (ranks on the one card) and serving -------------
+    parallel = parallel_phase(card, data_dir, data_path, stats_path, rest_path, clear_counts)
+
     replaces = {"stem_layer": "egoego_release_tpu/ops/fused_step.py:126",
                 "decoder_layer": "egoego_release_tpu/ops/fused_layer.py:113",
                 "layer_epilogue": "egoego_release_tpu/ops/fused_step.py:160",
@@ -2750,6 +3198,25 @@ def main() -> int:
                                        "mma_sync_tf32_tflops", "launch_table", "gemm_launch", "attention_launch",
                                        "c_kernels", "launches_path_e", "max_abs_err_path_e", "act_bf16") if key in r},
         })
+    # the tensor-parallel layer's own launches: the 64 x 121-token, tp 2 rows
+    # of phase 15 (bf16 PARTIAL fc; residual_layernorm with an f32 residual),
+    # launches per rank of its tp 2 --fused_step eval_stage2 run
+    tp_counts = parallel["eval"]["dp 1 x tp 2 bf16"]["counts_rank0"]
+    for name, src, key, pick in (
+            ("gemm_partial", csrc + "gemm.cu", "partial", lambda r: r["what"].startswith("fc tp2 64x121") and r["bf16"]),
+            ("residual_layernorm", csrc + "residual_layernorm.cu", "residual_layernorm",
+             lambda r: r["what"] == "64x121 res f32, out f32+bf16")):
+        k = parallel["kernels"][key]
+        r = next(r for r in k["rows"] if pick(r))
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "sources": [src],
+            "replaces": "egoego_release_tpu/ops/fused_layer.py:43",
+            "launches": (parallel["eval"]["dp 1 x tp 2 bf16"]["partial_launches"] if key == "partial"
+                         else tp_counts["residual_layernorm"]),
+            "max_abs_err": k["max_abs_err"], "max_abs_err_f32": k["max_abs_err_f32"], "ms": r["device_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_device_ms"], "gflop": r["gflop"], "mbytes": r["mbytes"],
+            "shape": r["what"], "card": card, "per_shape": k["rows"]})
     log(f"main path: eval_stage2 {dt_a:.3f} s; DDPM chain {dt_b:.3f} s; DDIM chain {dt_d:.3f} s; "
         f"eval_stage2 --fused {dt_c:.3f} s; eval_egoego {dt_egoego:.3f} s; eval_egoego --batch_seqs {BATCH_E} "
         f"{dt_e:.3f} s ({s_seq_e:.3f} s/seq against {s_seq_d:.3f}); stage 1 "
@@ -2758,7 +3225,8 @@ def main() -> int:
         f"device times left by the profiler to CUDA events: {len(EVENT_TIMED)}")
     print(json.dumps({"kernels": kernels, "step": step_prof, "training": training,
                       "act_bf16": {k: v for k, v in act.items() if k != "wrappers"},
-                      "stage1_training": stage1_training, "outputs": outputs}))
+                      "stage1_training": stage1_training, "outputs": outputs,
+                      "parallel": {k: v for k, v in parallel.items() if k != "kernels"}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

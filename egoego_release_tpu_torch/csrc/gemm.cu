@@ -75,6 +75,13 @@
 //    with the loads of eight pieces in flight before it stores any (an L2
 //    prefetch of the span at the tile's start, tried, moved nothing); then
 //    it writes bf16(x_next) into the x part of xa, 16 bytes a store.
+//  - kPartial (fc and w2 of a tensor-parallel layer): the f32 product A W
+//    alone, no bias, in the LayerNorm modes' 64 x 512 tiles, stored from
+//    the fragment. Each tp rank holds a slice of K, so its product is a
+//    partial sum: the caller all-reduces it over the tp group, and
+//    csrc/residual_layernorm.cu then adds the bias and the residual and
+//    normalizes. Bound by bytes (K = 512 / tp). Its own instantiation
+//    (kEpiPartial), so the LayerNorm epilogues carry no branch for it.
 //
 // gemm_f32_kernel, every mode in f32 on the CUDA cores (no TF32), for
 // parity checks; there the stem reads x and x_cond (f32) itself.
@@ -96,6 +103,7 @@ enum GemmMode : int {
   kLayerNorm = 2, // out = LN(A W + b + res) * mask[row]        (block owns rows)
   kStem = 3,      // out[b, 0] = emb + pos[0]; out[b, t+1] = [x|xc][b, t] W + b + pos[t+1]
   kStep = 4,      // out = a1 clip(A[b, t+1] W + b) + a2 x + a3 noise, then inpaint
+  kPartial = 5,   // out = A W (f32; no bias: a tensor-parallel partial sum)
 };
 
 struct GemmArgs {
@@ -182,9 +190,14 @@ __device__ __forceinline__ float epilogue_value(const GemmArgs& p, float v, int 
 // out_b is given); with bf16 activations kEpiLnResBf16 a bf16 residual,
 // kEpiLnBf16Out an output that leaves as out_b alone, kEpiLnBf16 both. The
 // f32 kernel takes the same choice as a template argument.
-enum WgEpilogue : int { kEpiBias, kEpiLayerNorm, kEpiStem, kEpiStep, kEpiLnResBf16, kEpiLnBf16Out, kEpiLnBf16 };
+// kEpiPartial is kPartial's, in both kernels.
+enum WgEpilogue : int {
+  kEpiBias, kEpiLayerNorm, kEpiStem, kEpiStep, kEpiLnResBf16, kEpiLnBf16Out, kEpiLnBf16, kEpiPartial
+};
 
-__host__ __device__ constexpr bool ln_epilogue(int e) { return e == kEpiLayerNorm || e >= kEpiLnResBf16; }
+__host__ __device__ constexpr bool ln_epilogue(int e) {
+  return e == kEpiLayerNorm || (e >= kEpiLnResBf16 && e <= kEpiLnBf16);
+}
 __host__ __device__ constexpr bool ln_res_bf16(int e) { return e == kEpiLnResBf16 || e == kEpiLnBf16; }
 __host__ __device__ constexpr bool ln_f32_out(int e) { return e == kEpiLayerNorm || e == kEpiLnResBf16; }
 
@@ -196,12 +209,12 @@ inline int ln_epilogue_of(const GemmArgs& p) {
 
 // The f32 kernel's epilogue on its f32 accumulator tile Cs (BM x BN, row
 // stride LDC); f32 out. LN (a kLayerNorm epilogue of WgEpilogue) fixes
-// kLayerNorm's residual and output types.
+// kLayerNorm's residual and output types; kEpiPartial stores the product.
 template <int BM, int BN, int LDC, int LN>
 __device__ __forceinline__ void epilogue(const GemmArgs& p, const float* Cs, int m0, int n0) {
   const int tid = threadIdx.x;
   float* out = static_cast<float*>(p.out);
-  if (p.mode == kLayerNorm) {
+  if (LN != kEpiPartial && p.mode == kLayerNorm) {
     // One warp per row; the block holds all N <= BN columns of its rows.
     constexpr int PER_LANE = BN / 32;
     const int warp = tid >> 5, lane = tid & 31;
@@ -251,9 +264,11 @@ __device__ __forceinline__ void epilogue(const GemmArgs& p, const float* Cs, int
     const float4 a0 = *reinterpret_cast<const float4*>(Cs + r * LDC + c);
     const float4 a1 = *reinterpret_cast<const float4*>(Cs + r * LDC + c + 4);
     float v[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    if constexpr (LN != kEpiPartial) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (C + j < p.N) v[j] = epilogue_value(p, v[j], R, C + j);
+      for (int j = 0; j < 8; ++j) {
+        if (C + j < p.N) v[j] = epilogue_value(p, v[j], R, C + j);
+      }
     }
     float* o = out + (size_t)R * p.ldo + C;
     if (vec) {
@@ -293,7 +308,7 @@ struct F32Stage {
 template <int BM, int BN, int STAGES, int EPI>
 struct WgTile {
   static constexpr int kEpi = EPI;
-  static constexpr bool kSplitN = ln_epilogue(EPI) || EPI == kEpiStep;
+  static constexpr bool kSplitN = ln_epilogue(EPI) || EPI == kEpiStep || EPI == kEpiPartial;
   static constexpr int kWN = kSplitN ? BN / 2 : BN;  // columns of one warpgroup's m64nWNk16
   static constexpr int kWBox = BN > 256 ? 256 : BN;  // rows of W in one TMA box
   static_assert(BM == (kSplitN ? 64 : 128) && kWN % 8 == 0 && kWN <= 256 && BN % kWBox == 0,
@@ -572,6 +587,19 @@ __device__ __forceinline__ void wgmma_epilogue(const GemmArgs& p, float (&acc)[T
           if (!ln_f32_out(T::kEpi) || p.out_b != nullptr)
             *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out_b) + (size_t)R[h] * p.ldb + C) =
                 __floats2bfloat162_rn(o0, o1);
+        }
+      }
+    }
+  } else if constexpr (T::kEpi == kEpiPartial) {  // the two warpgroups hold the two column halves of 64 rows
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int R = m0 + row0 + rl + 8 * h;
+      if (R < p.M) {
+        float* o = static_cast<float*>(p.out) + (size_t)R * p.ldo;
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const int C = c + 8 * j;
+          if (C < p.N) *reinterpret_cast<float2*>(o + C) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
         }
       }
     }
@@ -893,7 +921,7 @@ extern "C" int egoego_gemm(egoego::GemmArgs* p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int invalid = (int)cudaErrorInvalidValue;
   p->wgmma = 0;
-  if (p->M <= 0 || p->N <= 0 || p->K <= 0 || p->mode < kBias || p->mode > kStep ||
+  if (p->M <= 0 || p->N <= 0 || p->K <= 0 || p->mode < kBias || p->mode > kPartial ||
       ((p->mode == kStem || p->mode == kStep) && p->t_data <= 0))
     return invalid;
   // a bf16 residual, and an output that leaves as its bf16 copy alone, only in kLayerNorm
@@ -903,6 +931,7 @@ extern "C" int egoego_gemm(egoego::GemmArgs* p, void* stream) {
     if (p->a_bf16 || p->out_bf16 || (p->out_b != nullptr && p->out != nullptr) ||
         (p->mode == kLayerNorm && p->N > 512))
       return invalid;
+    if (p->mode == kPartial) return (int)launch_f32<64, 128, kEpiPartial>(*p, s);
     if (p->mode != kLayerNorm) return (int)launch_f32<64, 128>(*p, s);
     switch (ln_epilogue_of(*p)) {
       case kEpiLayerNorm: return (int)launch_f32<32, 512, kEpiLayerNorm>(*p, s);
@@ -929,6 +958,10 @@ extern "C" int egoego_gemm(egoego::GemmArgs* p, void* stream) {
         case kEpiLnBf16Out: err = launch_wgmma<64, 512, 3, kEpiLnBf16Out>(*p, s); break;
         default: err = launch_wgmma<64, 512, 3, kEpiLnBf16>(*p, s);
       }
+      break;
+    case kPartial:  // f32 out, no bias, no copy
+      if (!(ok && !p->out_bf16 && p->out_b == nullptr && p->N % 8 == 0 && p->ldo % 8 == 0)) return invalid;
+      err = launch_wgmma<64, 512, 3, kEpiPartial>(*p, s);
       break;
     case kStem:  // A = xa (B t_data, K); f32 out (B (t_data + 1), N) and its bf16 copy
       if (!(ok && !p->out_bf16 && p->out_b != nullptr && p->N % 8 == 0 && p->ldo % 8 == 0 &&

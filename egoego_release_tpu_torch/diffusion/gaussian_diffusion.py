@@ -18,6 +18,11 @@ queued on the device without a host sync.
 Randomness comes from outside: a noise source (``ops.fused_step.TorchNoise``
 by default) hands out each window's initial x, condition noise and per-step
 noise, so a test can replay another framework's draws.
+
+On a mesh (``parallel.mesh``): ``shard(mesh)`` splits the denoiser's layers
+over tp, and the window samplers take ``mesh=`` to split their batch over
+dp, each rank drawing the noise of the whole padded batch and keeping its
+rows, as JAX shards the draws of one key.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 from egoego_release_tpu_torch.diffusion.schedule import make_diffusion_constants
 from egoego_release_tpu_torch.models.denoiser import TransformerDiffusionModel, init_weights_
 from egoego_release_tpu_torch.ops import fk as fk_mod
+from egoego_release_tpu_torch.ops import cuda_kernels as ck
 from egoego_release_tpu_torch.ops import heading
 from egoego_release_tpu_torch.ops import rotations as rot
 from egoego_release_tpu_torch.ops.fused_layer import fused_denoiser_apply, layer_params
@@ -40,6 +46,7 @@ from egoego_release_tpu_torch.ops.fused_step import (
     fused_p_sample_loop,
     prepare_step_params,
 )
+from egoego_release_tpu_torch.parallel.mesh import shard_module_, sharded_rows
 from egoego_release_tpu_torch.utils.device import resolve_device
 
 NUM_JOINTS = fk_mod.NUM_JOINTS
@@ -163,21 +170,37 @@ class CondGaussianDiffusion:
         if model is None:
             model = init_weights_(new_denoiser(cfg), torch.Generator().manual_seed(seed))
         self.model = model.to(self.device).eval()
+        self.mesh = None
         self._prep = None
         self._fused_layers = None
 
+    def shard(self, mesh) -> "CondGaussianDiffusion":
+        """Put the denoiser on ``mesh`` in place: under tp each rank keeps its
+        shards of every layer (``parallel.mesh.shard_module_``), and the step
+        kernels run the tensor-parallel layer."""
+        shard_module_(self.model, mesh)
+        self.mesh = mesh
+        self._prep = self._fused_layers = None
+        return self
+
+    def _kept(self, attr: str, make):
+        """``make()``, computed once from the current weights and kept in
+        ``attr``; while ``torch.export`` traces, computed in the traced
+        program and not kept."""
+        if ck.tracing():
+            return make()
+        if getattr(self, attr) is None:
+            setattr(self, attr, make())
+        return getattr(self, attr)
+
     def step_params(self) -> dict:
-        """Kernel operands, prepared once from the current weights."""
-        if self._prep is None:
-            self._prep = prepare_step_params(self.model, self.cfg.compute_dtype == "bfloat16")
-        return self._prep
+        """Kernel operands of the step kernels."""
+        return self._kept("_prep", lambda: prepare_step_params(self.model, self.cfg.compute_dtype == "bfloat16"))
 
     def fused_layer_params(self) -> list[dict]:
         """Per-layer operands of the ``--fused`` denoiser, bf16 as in JAX."""
-        if self._fused_layers is None:
-            self._fused_layers = [layer_params(layer, bf16=True)
-                                  for layer in self.model.motion_transformer.layer_stack]
-        return self._fused_layers
+        return self._kept("_fused_layers", lambda: [layer_params(layer, bf16=True)
+                                                    for layer in self.model.motion_transformer.layer_stack])
 
     # -- forward process / training ---------------------------------------
 
@@ -342,12 +365,19 @@ class CondGaussianDiffusion:
 
     @torch.no_grad()
     def sample_sliding_window_w_canonical(self, head_jpos, head_jquat, stats: NormStats,
-                                          rest_offsets, *, noise):
+                                          rest_offsets, *, noise, mesh=None):
         """Long sequences in overlapping windows with per-window
         canonicalization, overlap inpainting and head-continuity stitching.
         head_jpos (B, T, 3), head_jquat (B, T, 4) wxyz. ``noise.window()`` is
-        called once per window. Returns (local_aa (B, T', 22, 3), root_pos
-        (B, T', 3))."""
+        called once per window. ``mesh``: each dp rank samples its rows of
+        the batch padded to dp (``parallel.mesh.sharded_rows``), and every
+        rank returns the whole batch. Returns (local_aa (B, T', 22, 3),
+        root_pos (B, T', 3))."""
+        if mesh is not None and mesh.dp > 1:
+            if self.cfg.sample_microbatch:  # its chunks would split each rank's rows again
+                raise ValueError("sample_microbatch does not combine with a dp-split batch")
+            return sharded_rows(lambda jp, jq, noise: self.sample_sliding_window_w_canonical(
+                jp, jq, stats, rest_offsets, noise=noise), mesh, noise, head_jpos, head_jquat)
         cfg = self.cfg
         num_steps = head_jpos.shape[1]
         stride = cfg.window - cfg.overlap_frames
@@ -374,7 +404,7 @@ class CondGaussianDiffusion:
 
     @torch.no_grad()
     def sample_sliding_window_parallel(self, head_jpos, head_jquat, stats: NormStats, rest_offsets, *,
-                                       noise):
+                                       noise, mesh=None):
         """The throughput mode (JAX ``diffusion/gaussian_diffusion.py:564-653``;
         its jitted twin ``sample_sliding_window_parallel_jit`` at ``:551``
         computes the same function, so it has no second copy here): every
@@ -386,8 +416,10 @@ class CondGaussianDiffusion:
         overlap and the rotations switched at the seam. ``noise.window()``
         is called once before each ``_sample_window``, in JAX's key order.
         ``rest_offsets`` is not read (no window is re-projected through FK);
-        it is taken for the chained sampler's signature, as in JAX. JAX's
-        ``mesh=`` (dp-sharding the stack) is not ported. Returns (local_aa
+        it is taken for the chained sampler's signature, as in JAX. ``mesh``
+        (JAX ``:604-613``): the stack is padded to dp and each dp rank
+        samples its rows, with its share of the noise of the padded stack;
+        the ragged windows run whole on every rank. Returns (local_aa
         (B, T', 22, 3), root_pos (B, T', 3))."""
         cfg = self.cfg
         bsz, num_steps = head_jpos.shape[:2]
@@ -400,7 +432,11 @@ class CondGaussianDiffusion:
         if full:
             w_jpos = torch.stack([head_jpos[:, t: t + w] for t in full]).reshape(-1, w, 3)
             w_jquat = torch.stack([head_jquat[:, t: t + w] for t in full]).reshape(-1, w, 4)
-            out = self._sample_window(w_jpos, w_jquat, stats, None, noise.window())
+            sample = lambda jp, jq, noise: self._sample_window(jp, jq, stats, None, noise)
+            if mesh is not None and mesh.dp > 1:
+                out = sharded_rows(sample, mesh, noise.window(), w_jpos, w_jquat)
+            else:
+                out = sample(w_jpos, w_jquat, noise.window())
             aa, root, headp = (o.reshape((len(full), bsz) + o.shape[1:]) for o in out)
             results.update({t: (aa[i], root[i], headp[i]) for i, t in enumerate(full)})
         for t in ragged:

@@ -15,7 +15,9 @@ follow the JAX CLI, and so do the numerics: f32 unless ``--fused_step``
 denoiser) is given. ``--batch_seqs N`` evaluates same-length sequences N
 at a time through ``pipeline.run_batches_pipelined`` (device floor, one
 chain per chunk); ``--of_bf16`` / ``--of_int8`` set that path's OF upload.
-``--mujoco_xml`` decodes the GT through the humanoid XML's skeleton
+``--dp N --tp M`` runs on N x M ranks as ``eval_stage2 --dp/--tp`` does:
+stage 1 replicated, stage 2 split. ``--mujoco_xml`` decodes the GT through
+the humanoid XML's skeleton
 (``ops.mujoco_xml.qpos_fk`` on the device) instead of the SMPL rest
 offsets, and ``--save_html_vis`` writes a pred-vs-GT skeleton animation per
 sequence; both take the per-sequence path, as in JAX.
@@ -53,6 +55,7 @@ from egoego_release_tpu_torch.ops import fk as fk_mod
 from egoego_release_tpu_torch.ops import geometry
 from egoego_release_tpu_torch.ops.fused_step import TorchNoise
 from egoego_release_tpu_torch.ops.mujoco_xml import load_mujoco_skeleton, qpos_fk
+from egoego_release_tpu_torch.parallel.mesh import spawn
 from egoego_release_tpu_torch.vis.html_viewer import vis_skeleton_motion_html
 
 ARES_TEST_SCENES = ("office_0", "hotel_0", "room_2", "frl_apartment_4", "apartment_0")
@@ -158,7 +161,7 @@ def run_per_sequence(opt, pipeline, eligible, noise):
 
         # ---- stage 2 + metrics ----
         md, best = evaluate_sequence(pipeline, head_pose, gt_jrot, gt_jpos, noise, sample_bs=opt.sample_bs)
-        if opt.save_html_vis:
+        if opt.save_html_vis and (pipeline.mesh is None or pipeline.mesh.rank == 0):
             os.makedirs(opt.out_dir, exist_ok=True)
             t_vis = best["pred_jpos"].shape[0]
             origin_xy = gt_head[0:1] * [1.0, 1.0, 0.0]
@@ -168,9 +171,22 @@ def run_per_sequence(opt, pipeline, eligible, noise):
         yield seq_name, md, s1
 
 
-def run(opt) -> dict:
-    if opt.dp != 1 or opt.tp != 1:
-        raise NotImplementedError("--dp/--tp is not ported to the PyTorch package yet (see ROADMAP.md A.6)")
+def result_path(opt) -> str:
+    tag = "ares" if opt.test_on_ares else ("gimo" if opt.test_on_gimo else "kinpoly")
+    return os.path.join(opt.out_dir, f"egoego_pipeline_res_on_{tag}.json")
+
+
+def _run_rank(mesh, opt):
+    run(opt, mesh=mesh)
+
+
+def run(opt, mesh=None, devices=None) -> dict:
+    """Evaluate and write the JSON summary; returns it. --dp/--tp above 1
+    with no ``mesh``: as ``eval_stage2.run``."""
+    if opt.dp * opt.tp > 1 and mesh is None:
+        spawn(_run_rank, (opt,), opt.dp, opt.tp, devices or opt.device)
+        with open(result_path(opt)) as f:
+            return json.load(f)
     if opt.batch_seqs <= 1 and (opt.of_bf16 or opt.of_int8):
         warnings.warn("--of_bf16/--of_int8 apply to the batched stage 1 only (--batch_seqs > 1); "
                       "the per-sequence path uploads f32", stacklevel=2)
@@ -180,7 +196,9 @@ def run(opt) -> dict:
         gravitynet_ckpt=opt.gravitynet_ckpt, window=opt.window, headnet_window=opt.headnet_window,
         timesteps=opt.timesteps, compute_dtype=compute_dtype(opt),
         fused_transformer=opt.fused and not opt.fused_step, sample_microbatch=opt.sample_microbatch,
-        of_bf16=opt.of_bf16, of_int8=opt.of_int8, seed=opt.seed, device=opt.device)
+        of_bf16=opt.of_bf16, of_int8=opt.of_int8, seed=opt.seed, device=opt.device if mesh is None else mesh.device)
+    if mesh is not None:
+        pipeline.shard(mesh)
     ds = select_dataset(opt)
     full_body_gt = load_motion_dict(opt.full_body_gt_path)
     bad_seqs: set = set()
@@ -219,10 +237,10 @@ def run(opt) -> dict:
 
     summary = {k: float(np.mean(v)) for k, v in agg.items()}
     result = {"mean": summary, "per_seq": per_seq, "num_seqs": len(per_seq)}
-    os.makedirs(opt.out_dir, exist_ok=True)
-    tag = "ares" if opt.test_on_ares else ("gimo" if opt.test_on_gimo else "kinpoly")
-    with open(os.path.join(opt.out_dir, f"egoego_pipeline_res_on_{tag}.json"), "w") as f:
-        json.dump(result, f, indent=2)
+    if mesh is None or mesh.rank == 0:
+        os.makedirs(opt.out_dir, exist_ok=True)
+        with open(result_path(opt), "w") as f:
+            json.dump(result, f, indent=2)
     print("mean:", json.dumps(summary, indent=2))
     return result
 
@@ -260,8 +278,8 @@ def parse_opt(argv=None):
     p.add_argument("--of_int8", action="store_true",
                    help="batched stage 1: upload the OF features in int8 with per-frame absmax scales, "
                         "dequantized on the device (coarser than bf16 for small features)")
-    p.add_argument("--dp", type=int, default=1, help="not ported (values other than 1 raise)")
-    p.add_argument("--tp", type=int, default=1, help="not ported (values other than 1 raise)")
+    p.add_argument("--dp", type=int, default=1, help="data-parallel ranks: each batch's chains split over them")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks: the denoiser's layers split over them")
     p.add_argument("--max_seqs", type=int, default=0)
     p.add_argument("--test_on_ares", action="store_true")
     p.add_argument("--test_on_gimo", action="store_true")

@@ -7,7 +7,10 @@ the kernels). For each test sequence (Transitions_mocap + HumanEva, first
 the diffusion model on the GT head pose, samples, and scores; it writes a
 JSON summary. As in JAX, it computes in f32 unless ``--fused_step`` (the
 bf16 step kernels) or ``--fused`` (the bf16 fused_decoder_layer denoiser)
-is given.
+is given. ``--dp N --tp M`` starts N x M ranks (one process each, rank r
+on ``cuda:r``, or all on the CPU with ``--device cpu``): the denoiser's
+layers split over tp, each batch's chains over dp (``EgoEgoPipeline.shard``);
+rank 0 prints and writes the results.
 
     python -m egoego_release_tpu_torch.eval.eval_stage2 \\
         --test_data_path <test_amass_smplh_motion.p> --stats_path <stats.p> \\
@@ -31,12 +34,17 @@ from egoego_release_tpu_torch.eval.pipeline import (
     run_batches_pipelined,
 )
 from egoego_release_tpu_torch.ops.fused_step import TorchNoise
+from egoego_release_tpu_torch.parallel.mesh import spawn
 
 TEST_SUBSETS = ("Transitions_mocap", "HumanEva")
 
 
-def _not_ported(flag: str) -> NotImplementedError:
-    return NotImplementedError(f"{flag} is not ported to the PyTorch package yet (see ROADMAP.md)")
+def result_path(opt) -> str:
+    return os.path.join(opt.out_dir, "stage2_diffusion_model_res_on_amass_test.json")
+
+
+def _run_rank(mesh, opt):
+    run(opt, mesh=mesh)
 
 
 def compute_dtype(opt) -> str:
@@ -45,9 +53,15 @@ def compute_dtype(opt) -> str:
     return "bfloat16" if opt.fused or opt.fused_step else "float32"
 
 
-def run(opt) -> dict:
-    if opt.dp != 1 or opt.tp != 1:
-        raise _not_ported("--dp/--tp")
+def run(opt, mesh=None, devices=None) -> dict:
+    """Evaluate and write the JSON summary; returns it. With --dp/--tp above
+    1 and no ``mesh``, runs itself on dp x tp new ranks (rank r on
+    ``devices[r]``; by default on --device: ``parallel.mesh.spawn``) and
+    returns what rank 0 wrote."""
+    if opt.dp * opt.tp > 1 and mesh is None:
+        spawn(_run_rank, (opt,), opt.dp, opt.tp, devices or opt.device)
+        with open(result_path(opt)) as f:
+            return json.load(f)
     # The JAX CLI's numerics: f32 without flags; --fused_step the bf16 step
     # kernels, --fused the bf16 fused_decoder_layer denoiser, and
     # --fused_step wins over --fused.
@@ -57,7 +71,9 @@ def run(opt) -> dict:
         window=opt.window, sampler="ddim" if opt.ddim_steps else "ddpm",
         ddim_steps=opt.ddim_steps or 50, timesteps=opt.timesteps, seed=opt.seed,
         compute_dtype=compute_dtype(opt), fused_transformer=opt.fused and not opt.fused_step,
-        sample_microbatch=opt.sample_microbatch, device=opt.device)
+        sample_microbatch=opt.sample_microbatch, device=opt.device if mesh is None else mesh.device)
+    if mesh is not None:
+        pipeline.shard(mesh)
     data = load_motion_dict(opt.test_data_path)
     noise = TorchNoise(pipeline.device, seed=opt.seed)
 
@@ -110,12 +126,12 @@ def run(opt) -> dict:
 
     summary = {k: float(np.mean(v)) for k, v in agg.items()}
     result = {"mean": summary, "per_seq": per_seq, "num_seqs": len(per_seq)}
-    os.makedirs(opt.out_dir, exist_ok=True)
-    out_path = os.path.join(opt.out_dir, "stage2_diffusion_model_res_on_amass_test.json")
-    with open(out_path, "w") as f:
-        json.dump(result, f, indent=2)
+    if mesh is None or mesh.rank == 0:
+        os.makedirs(opt.out_dir, exist_ok=True)
+        with open(result_path(opt), "w") as f:
+            json.dump(result, f, indent=2)
     print("mean:", json.dumps(summary, indent=2))
-    print("saved:", out_path)
+    print("saved:", result_path(opt))
     return result
 
 
@@ -142,8 +158,8 @@ def parse_opt(argv=None):
                    help="the step kernels in bf16 (bf16-level drift; default: f32); wins over --fused")
     p.add_argument("--sample_microbatch", type=int, default=0,
                    help="run the reverse chain in sequential chunks of N rows (0 = off)")
-    p.add_argument("--dp", type=int, default=1, help="not ported (values other than 1 raise)")
-    p.add_argument("--tp", type=int, default=1, help="not ported (values other than 1 raise)")
+    p.add_argument("--dp", type=int, default=1, help="data-parallel ranks: each batch's chains split over them")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks: the denoiser's layers split over them")
     p.add_argument("--max_seqs", type=int, default=0)
     p.add_argument("--filter_subsets", action="store_true", default=True)
     p.add_argument("--no_filter_subsets", dest="filter_subsets", action="store_false")

@@ -26,6 +26,7 @@ from egoego_release_tpu_torch.ops import fk as fk_mod
 from egoego_release_tpu_torch.ops import floor as floor_mod
 from egoego_release_tpu_torch.ops import geometry
 from egoego_release_tpu_torch.ops import rotations as rot
+from egoego_release_tpu_torch.parallel.mesh import Mesh
 
 HEAD_IDX = fk_mod.HEAD_IDX
 
@@ -55,9 +56,20 @@ class EgoEgoPipeline:
     dist_scale: float = 10.0
     of_bf16: bool = False
     of_int8: bool = False
+    mesh: Mesh | None = None
 
     def __post_init__(self):
         check_of_upload(self.of_bf16, self.of_int8)
+
+    def shard(self, mesh: Mesh) -> "EgoEgoPipeline":
+        """Multi-GPU eval (JAX ``eval/pipeline.py:72-88``): the denoiser's
+        layers split over tp (``CondGaussianDiffusion.shard``), stage 1
+        replicated (every rank runs it on the same inputs), and the stage-2
+        batch of ``stage2_generate*`` (so of ``run_batches_pipelined``) split
+        over dp, padded to a multiple of dp; every rank gets every result."""
+        self.diffusion.shard(mesh)
+        self.mesh = mesh
+        return self
 
     @property
     def device(self) -> torch.device:
@@ -140,11 +152,12 @@ class EgoEgoPipeline:
         return self.stage2_generate_batched(rep, noise)
 
     def stage2_generate_batched(self, head_poses, noise):
-        """(N, T, 7) distinct sequences sampled as one batch."""
+        """(N, T, 7) distinct sequences sampled as one batch (over the dp
+        ranks of the mesh, when the pipeline has one)."""
         hp = self._as_tensor(head_poses)
         return self.diffusion.sample_sliding_window_w_canonical(
             hp[:, :, :3].contiguous(), hp[:, :, 3:].contiguous(), self.stats, self.rest_offsets,
-            noise=noise)
+            noise=noise, mesh=self.mesh)
 
     def fk(self, root_pos: torch.Tensor, local_aa: torch.Tensor):
         """(B, T, 3) + (B, T, 22, 3) -> (B, T, 22, 4), (B, T, 22, 3)."""

@@ -26,6 +26,11 @@ backward (the JAX guard at egoego_release_tpu/models/transformer.py:95-97).
 ``Decoder(remat=True)`` recomputes each layer in the backward pass
 (``torch.utils.checkpoint``, which replays the RNG state, so the dropout
 masks of the recompute are the forward's).
+
+Tensor parallel (``parallel.mesh.shard_module_``): an attention or FFN with
+a ``tp_group`` holds this rank's column shards of w_q/w_k/w_v (its heads)
+or w_1 and the row shards of fc or w_2; the row-parallel product is summed
+over the group before its bias, which is added once (``row_parallel``).
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from egoego_release_tpu_torch.ops.attention import fused_attention
+from egoego_release_tpu_torch.parallel.mesh import copy_to_tp, row_parallel
 
 LN_EPS = 1e-5
 DROPOUT_RATE = 0.1  # egoego_release_tpu/models/transformer.py:69,134
@@ -88,6 +94,7 @@ class MultiHeadAttention(nn.Module):
         self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
         self.attn_dropout = _dropout(DROPOUT_RATE)
         self.dropout = _dropout(DROPOUT_RATE)
+        self.tp_group = None
 
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -96,9 +103,11 @@ class MultiHeadAttention(nn.Module):
         bs, n_q, _ = q.shape
         n_k = k.shape[1]
         h = self.n_head
-        wq = self.w_q(q).view(bs, n_q, h, self.d_k).transpose(1, 2)
-        wk = self.w_k(k).view(bs, n_k, h, self.d_k).transpose(1, 2)
-        wv = self.w_v(v).view(bs, n_k, h, self.d_v).transpose(1, 2)
+        tp = self.tp_group
+        qi, ki, vi = (q, k, v) if tp is None else (copy_to_tp(t, tp) for t in (q, k, v))
+        wq = self.w_q(qi).view(bs, n_q, h, self.d_k).transpose(1, 2)
+        wk = self.w_k(ki).view(bs, n_k, h, self.d_k).transpose(1, 2)
+        wv = self.w_v(vi).view(bs, n_k, h, self.d_v).transpose(1, 2)
         dropout_on = self.attn_dropout.training and self.attn_dropout.p > 0
         if mask is None and n_q >= FUSED_ATTENTION_MIN_TOKENS and not dropout_on:
             out = fused_attention(wq, wk, wv)
@@ -107,8 +116,8 @@ class MultiHeadAttention(nn.Module):
             if mask is not None:
                 attn = attn.masked_fill(mask[:, None], float("-inf"))
             out = torch.matmul(self.attn_dropout(torch.softmax(attn.float(), dim=-1)), wv)
-        out = self.dropout(self.fc(out.transpose(1, 2).reshape(bs, n_q, h * self.d_v)))
-        return _post_ln(self.layer_norm, out + q)
+        out = row_parallel(out.transpose(1, 2).reshape(bs, n_q, h * self.d_v), self.fc.weight, self.fc.bias, tp)
+        return _post_ln(self.layer_norm, self.dropout(out) + q)
 
 
 class PositionwiseFeedForward(nn.Module):
@@ -118,11 +127,13 @@ class PositionwiseFeedForward(nn.Module):
         self.w_2 = nn.Conv1d(d_hid, d_in, 1)
         self.layer_norm = nn.LayerNorm(d_in, eps=LN_EPS)
         self.dropout = _dropout(DROPOUT_RATE)
+        self.tp_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Dense-ReLU-Dense over the features of x (B, T, d_in), post-LN."""
-        out = F.linear(torch.relu(F.linear(x, self.w_1.weight[..., 0], self.w_1.bias)),
-                       self.w_2.weight[..., 0], self.w_2.bias)
+        xi = x if self.tp_group is None else copy_to_tp(x, self.tp_group)
+        out = row_parallel(torch.relu(F.linear(xi, self.w_1.weight[..., 0], self.w_1.bias)),
+                           self.w_2.weight[..., 0], self.w_2.bias, self.tp_group)
         return _post_ln(self.layer_norm, self.dropout(out) + x)
 
 

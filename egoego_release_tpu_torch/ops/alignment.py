@@ -24,21 +24,21 @@ def umeyama(src: torch.Tensor, dst: torch.Tensor, with_scale: bool = True):
     """Least-squares similarity transform dst ~= s R src + t with the
     reflection (det) correction. src, dst (..., P, 3) -> (R (..., 3, 3),
     t (..., 3), s (...)), in src's dtype and on its device: one batched
-    host solve for all leading dims."""
-    a = src.detach().cpu().double().numpy()
-    b = dst.detach().cpu().double().numpy()
-    mu_a, mu_b = a.mean(-2, keepdims=True), b.mean(-2, keepdims=True)
+    float64 solve for all leading dims on the host (LAPACK's SVD, as
+    numpy's), in torch ops so that ``torch.export`` records it."""
+    a = src.detach().cpu().double()
+    b = dst.detach().cpu().double()
+    mu_a, mu_b = a.mean(-2, keepdim=True), b.mean(-2, keepdim=True)
     ac, bc = a - mu_a, b - mu_b
-    cov = np.swapaxes(bc, -1, -2) @ ac / a.shape[-2]
-    var_a = np.mean(np.sum(ac * ac, axis=-1), axis=-1)
-    u, d, vt = np.linalg.svd(cov)
-    sign = np.sign(np.linalg.det(u) * np.linalg.det(vt))
-    diag = np.ones(d.shape)
-    diag[..., 2] = sign
+    cov = bc.transpose(-1, -2) @ ac / a.shape[-2]
+    var_a = (ac * ac).sum(-1).mean(-1)
+    u, d, vt = torch.linalg.svd(cov)
+    sign = torch.sign(torch.linalg.det(u) * torch.linalg.det(vt))
+    diag = torch.cat([torch.ones_like(d[..., :2]), sign[..., None]], -1)
     r = (u * diag[..., None, :]) @ vt
-    scale = np.sum(d * diag, axis=-1) / np.maximum(var_a, 1e-12) if with_scale else np.ones(var_a.shape)
-    t = mu_b[..., 0, :] - scale[..., None] * np.einsum("...ij,...j->...i", r, mu_a[..., 0, :])
-    out = lambda x: torch.as_tensor(np.asarray(x), dtype=src.dtype, device=src.device)
+    scale = (d * diag).sum(-1) / var_a.clamp_min(1e-12) if with_scale else torch.ones_like(var_a)
+    t = mu_b[..., 0, :] - scale[..., None] * torch.einsum("...ij,...j->...i", r, mu_a[..., 0, :])
+    out = lambda x: x.to(dtype=src.dtype, device=src.device)
     return out(r), out(t), out(scale)
 
 

@@ -47,8 +47,8 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     for CUDA tensors (f32; counted in ``cuda_kernels.launch_counts
     ["fused_attention"]`` once it has launched), the plain version for CPU
     tensors."""
-    if q.is_cuda:
+    if q.is_cuda or ck.tracing():
         out = fused_attention_cuda(q, k, v)
-        ck.launch_counts["fused_attention"] += 1
+        ck.count("fused_attention")
         return out
     return fused_attention_plain(q, k, v)

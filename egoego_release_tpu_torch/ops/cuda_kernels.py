@@ -8,9 +8,18 @@ than its library), and loaded with ``ctypes``. Every C entry returns
 kernels launch on PyTorch's current stream and allocate nothing: the callers
 allocate outputs with ``torch.empty``.
 
-Nothing here is imported or built for CPU tensors; the wrappers in
+Nothing here is built for CPU tensors; the wrappers in
 ``ops/fused_layer.py``, ``ops/fused_step.py`` and ``ops/attention.py`` take
 their plain PyTorch versions for those.
+
+Each C entry is also a ``torch.library.custom_op`` (``torch.ops.egoego.gemm``,
+``attention``, ``mha``, ``residual_layernorm``), which writes into its
+output tensors: the ctypes call on CUDA tensors, the entry's plain version
+(``gemm_plain``, ...) on CPU tensors, and a fake implementation for shapes.
+The eager path calls ctypes directly (the dispatcher would add host time to
+each of a reverse step's launches); while ``torch.export`` traces, each
+wrapper below records its op instead, so an exported program keeps every
+kernel as a node and needs this module, which registers the ops, to load.
 """
 
 from __future__ import annotations
@@ -24,11 +33,12 @@ from collections import Counter
 from pathlib import Path
 
 import torch
+from torch import Tensor
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
-SOURCES = ("gemm", "attention", "mha")
+SOURCES = ("gemm", "attention", "mha", "residual_layernorm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,8 +48,10 @@ launch_counts: Counter = Counter()
 # Launches of each kernel of the C entries, counted once the entry has
 # returned without error: "gemm_wgmma" (every product in bf16) and "gemm"
 # (f32) as egoego_gemm reports its choice; the attention kernel that
-# ``attention`` picks (ATTENTION_KERNELS); "mha".
+# ``attention`` picks (ATTENTION_KERNELS); "mha"; "residual_layernorm".
 kernel_launches: Counter = Counter()
+# GEMM launches by epilogue mode (BIAS ... PARTIAL), counted with kernel_launches
+gemm_modes: Counter = Counter()
 
 # csrc/attention.cu AttnKernel, by launch name: the CUDA-core kernel (f32
 # mode, other head widths), the WMMA kernel (bf16 at head width 256 past
@@ -48,10 +60,25 @@ ATTENTION_KERNELS = {"attention": 0, "attention_wmma": 1, "attention_wgmma": 2}
 WGMMA_MAX_TOKENS = 128  # keys in one m64n128 score accumulator, K and V in shared memory
 
 # GEMM epilogue modes (csrc/gemm.cu GemmMode); the first three are the
-# products of a DecoderLayer
-BIAS, BIAS_RELU, LAYER_NORM, STEM, STEP = range(5)
+# products of a DecoderLayer; PARTIAL the bare product of a tensor-parallel
+# layer's fc and w2
+BIAS, BIAS_RELU, LAYER_NORM, STEM, STEP, PARTIAL = range(6)
 
 _libs: dict[str, ctypes.CDLL] = {}
+
+LN_EPS = 1e-5
+
+
+def tracing() -> bool:
+    """True while ``torch.export`` traces: the wrappers record the custom
+    ops then, launch nothing and count nothing."""
+    return torch.compiler.is_exporting()
+
+
+def count(name: str) -> None:
+    """One launch of the ported TPU kernel ``name`` (not while tracing)."""
+    if not tracing():
+        launch_counts[name] += 1
 
 
 class GemmArgs(ctypes.Structure):
@@ -77,9 +104,16 @@ class MhaArgs(ctypes.Structure):
         ("scale", ctypes.c_float)]
 
 
+class RlnArgs(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in ("p", "bias", "res", "ln_s", "ln_b", "row_mask", "out",
+                                                     "out_b")] + [
+        (name, ctypes.c_int) for name in ("M", "N", "res_bf16")]
+
+
 # argument struct and its C size function, per source
 _ARGS = {"gemm": (GemmArgs, "egoego_gemm_args_size"), "attention": (AttnArgs, "egoego_attn_args_size"),
-         "mha": (MhaArgs, "egoego_mha_args_size")}
+         "mha": (MhaArgs, "egoego_mha_args_size"),
+         "residual_layernorm": (RlnArgs, "egoego_residual_layernorm_args_size")}
 
 
 def _nvcc() -> str:
@@ -200,7 +234,17 @@ def gemm(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     as ``out_b`` alone, in either compute type (in f32 compute that is the
     only ``out_b`` taken). Returns ``out``, or ``out_b`` when ``out`` is
     None. A layout the kernels cannot take raises here or in the C entry;
-    nothing falls back to another kernel."""
+    nothing falls back to another kernel. While tracing, ``scal`` may be a
+    CPU f32 tensor of the three floats (an exported reverse loop indexes its
+    table)."""
+    if tracing():
+        if mode != STEP:
+            scal = None
+        elif not isinstance(scal, Tensor):
+            scal = torch.tensor(scal, dtype=torch.float32)
+        torch.ops.egoego.gemm(a, w, bias, out, mode, M, a2, res, ln_s, ln_b, row_mask, pos, emb, x, noise, ipv,
+                              ipm, out_b, t_data, scal)
+        return out_b if out is None else out
     f32, bf16 = torch.float32, torch.bfloat16
     _layout(w, (f32, bf16), what="w")
     _layout(bias, f32, what="bias")
@@ -287,6 +331,7 @@ def gemm(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     with torch.cuda.device(a.device):
         _check(_lib("gemm").egoego_gemm(ctypes.byref(args), stream), "gemm")
     kernel_launches["gemm_wgmma" if args.wgmma else "gemm"] += 1
+    gemm_modes[mode] += 1
     return out_b if out is None else out
 
 
@@ -316,6 +361,9 @@ def attention(qkv: torch.Tensor, ctx: torch.Tensor, *, B: int, T: int, t_keys: i
     picks. The tensor-core kernels need 16-byte aligned qkv and ctx; a
     layout the picked kernel cannot take raises, and nothing falls back to
     another kernel."""
+    if tracing():
+        torch.ops.egoego.attention(qkv, ctx, B, T, t_keys, n_head, d_k, d_v)
+        return ctx
     dt = qkv.dtype
     _need(qkv, (torch.float32, torch.bfloat16), (B * T, n_head * (2 * d_k + d_v)), "qkv")
     _need(ctx, dt, (B * T, n_head * d_v), "ctx")
@@ -367,6 +415,9 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, *,
     the head width, 16-byte aligned, head widths multiples of 4 up to 256
     (the kernel copies 16-byte vectors). A layout is checked once and its
     struct kept, so a repeated call only sets the pointers."""
+    if tracing():
+        torch.ops.egoego.mha(q, k, v, out, t_keys)
+        return out
     key = (t_keys, q.shape, k.shape, v.shape, out.shape, q.stride(), k.stride(), v.stride(), out.stride(),
            q.dtype, k.dtype, v.dtype, out.dtype, q.device, k.device, v.device, out.device)
     args = _mha_layouts.get(key)
@@ -381,3 +432,149 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, *,
         _check(_lib("mha").egoego_mha(ctypes.byref(args), stream), "mha")
     kernel_launches["mha"] += 1
     return out
+
+
+def residual_layernorm(p: Tensor, bias: Tensor, res: Tensor, ln_s: Tensor, ln_b: Tensor, row_mask: Tensor,
+                       out: Tensor | None, out_b: Tensor | None = None) -> Tensor:
+    """out (M, N) = LayerNorm((p + bias) + res) * row_mask[:, None] on the
+    card (csrc/residual_layernorm.cu; eps 1e-5, f32 statistics): p the
+    all-reduced partial product of a tensor-parallel fc or w2 (f32), res
+    f32 or bf16, out f32 and/or its bf16 copy ``out_b`` (at least one).
+    Returns ``out``, or ``out_b`` when ``out`` is None. N a multiple of 4
+    up to 1024; 16-byte aligned rows."""
+    if tracing():
+        torch.ops.egoego.residual_layernorm(p, bias, res, ln_s, ln_b, row_mask, out, out_b)
+        return out_b if out is None else out
+    M, N = p.shape
+    _need(p, torch.float32, (M, N), "p")
+    _need(res, (torch.float32, torch.bfloat16), (M, N), "res")
+    for name, t in (("bias", bias), ("ln_s", ln_s), ("ln_b", ln_b)):
+        _need(t, torch.float32, (N,), name)
+    _need(row_mask, torch.float32, (M,), "row_mask")
+    if out is None and out_b is None:
+        raise ValueError("residual_layernorm: need out and/or out_b")
+    if out is not None:
+        _need(out, torch.float32, (M, N), "out")
+    if out_b is not None:
+        _need(out_b, torch.bfloat16, (M, N), "out_b")
+    args = RlnArgs(p=_ptr(p), bias=_ptr(bias), res=_ptr(res), ln_s=_ptr(ln_s), ln_b=_ptr(ln_b),
+                   row_mask=_ptr(row_mask), out=_ptr(out), out_b=_ptr(out_b), M=M, N=N,
+                   res_bf16=int(res.dtype == torch.bfloat16))
+    stream = torch.cuda.current_stream(p.device).cuda_stream
+    with torch.cuda.device(p.device):
+        _check(_lib("residual_layernorm").egoego_residual_layernorm(ctypes.byref(args), stream),
+               "residual_layernorm")
+    kernel_launches["residual_layernorm"] += 1
+    return out_b if out is None else out
+
+
+# -- plain versions of the C entries -------------------------------------
+
+
+def layer_norm_plain(y: Tensor, s: Tensor, b: Tensor) -> Tensor:
+    mu = y.mean(-1, keepdim=True)
+    var = ((y - mu) ** 2).mean(-1, keepdim=True)
+    return (y - mu) * torch.rsqrt(var + LN_EPS) * s + b
+
+
+def residual_layernorm_plain(p: Tensor, bias: Tensor, res: Tensor, ln_s: Tensor, ln_b: Tensor,
+                             row_mask: Tensor) -> Tensor:
+    """Plain version of ``residual_layernorm``: the f32 output."""
+    return layer_norm_plain((p + bias) + res.float(), ln_s, ln_b) * row_mask.reshape(-1, 1)
+
+
+def gemm_plain(mode, a, w, bias, out, *, M, a2=None, res=None, ln_s=None, ln_b=None, row_mask=None, pos=None,
+               emb=None, x=None, noise=None, ipv=None, ipm=None, out_b=None, t_data=0, scal=(0.0, 0.0, 0.0)):
+    """Plain version of one ``gemm`` call, on tensors of any device: the
+    same arithmetic (A rounded to W's dtype, an f32 product, the epilogue in
+    f32), written into ``out`` and ``out_b`` as the kernels write them."""
+    N = bias.numel()
+    wn = w[:N].float()
+    prod = lambda t: t.reshape(-1, t.shape[-1]).to(w.dtype).float() @ wn[:, :t.shape[-1]].t()
+    if mode == STEM:
+        if a2 is not None:  # f32: x and x_cond, K split at d
+            d = a.shape[-1]
+            p = prod(a) + a2.reshape(-1, d).float() @ wn[:, d: 2 * d].t()
+        else:
+            p = prod(a)
+        b = M // (t_data + 1)
+        tok = torch.cat([emb.reshape(1, 1, N).expand(b, 1, N), (p + bias).reshape(b, t_data, N)], 1) + pos
+        y = tok.reshape(M, N)
+    elif mode == STEP:
+        b = M // t_data
+        p = prod(a.reshape(b, t_data + 1, -1)[:, 1:])
+        x0 = torch.clamp(p + bias, -1.0, 1.0)
+        y = scal[0] * x0 + scal[1] * x.reshape(M, N) + scal[2] * noise.reshape(M, N)
+        if ipv is not None:
+            y = y + ipm.reshape(M, 1) * (ipv.reshape(M, N) - y)
+        if out_b is not None:  # x_next's part of the stem's packed A
+            out_b.reshape(M, -1)[:, :N].copy_(y)
+    else:
+        y = prod(a)
+        if mode in (BIAS, BIAS_RELU, LAYER_NORM):
+            y = y + bias
+        if mode == BIAS_RELU:
+            y = torch.relu(y)
+        elif mode == LAYER_NORM:
+            y = layer_norm_plain(y + res.float(), ln_s, ln_b) * row_mask.reshape(M, 1)
+    if out is not None:
+        out.copy_(y.reshape(out.shape))
+    if out_b is not None and mode != STEP:
+        out_b.copy_(y.reshape(out_b.shape))
+    return out_b if out is None else out
+
+
+def _mha_plain(q: Tensor, k: Tensor, v: Tensor, t_keys: int) -> Tensor:
+    s = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / q.shape[-1] ** 0.5)
+    if t_keys < q.shape[2]:
+        s[..., t_keys:] = float("-inf")
+    return torch.softmax(s, dim=-1) @ v.float()
+
+
+# -- the C entries as custom ops (see the module docstring) --------------
+
+Opt = Tensor | None
+
+
+@torch.library.custom_op("egoego::gemm", mutates_args=("out", "out_b"))
+def _gemm_op(a: Tensor, w: Tensor, bias: Tensor, out: Opt, epilogue: int, M: int, a2: Opt, res: Opt, ln_s: Opt,
+             ln_b: Opt, row_mask: Opt, pos: Opt, emb: Opt, x: Opt, noise: Opt, ipv: Opt, ipm: Opt, out_b: Opt,
+             t_data: int, scal: Opt) -> None:
+    kw = dict(M=M, a2=a2, res=res, ln_s=ln_s, ln_b=ln_b, row_mask=row_mask, pos=pos, emb=emb, x=x, noise=noise,
+              ipv=ipv, ipm=ipm, out_b=out_b, t_data=t_data, scal=(0.0, 0.0, 0.0) if scal is None else scal.tolist())
+    (gemm if a.is_cuda else gemm_plain)(epilogue, a, w, bias, out, **kw)
+
+
+@torch.library.custom_op("egoego::attention", mutates_args=("ctx",))
+def _attention_op(qkv: Tensor, ctx: Tensor, B: int, T: int, t_keys: int, n_head: int, d_k: int, d_v: int) -> None:
+    if qkv.is_cuda:
+        attention(qkv, ctx, B=B, T=T, t_keys=t_keys, n_head=n_head, d_k=d_k, d_v=d_v)
+    else:
+        from egoego_release_tpu_torch.ops.fused_layer import attention_plain
+
+        ctx.copy_(attention_plain(qkv, B=B, T=T, t_keys=t_keys, n_head=n_head, d_k=d_k, d_v=d_v,
+                                  bf16=qkv.dtype == torch.bfloat16))
+
+
+@torch.library.custom_op("egoego::mha", mutates_args=("out",))
+def _mha_op(q: Tensor, k: Tensor, v: Tensor, out: Tensor, t_keys: int) -> None:
+    if q.is_cuda:
+        mha(q, k, v, out, t_keys=t_keys)
+    else:
+        out.copy_(_mha_plain(q, k, v, t_keys))
+
+
+@torch.library.custom_op("egoego::residual_layernorm", mutates_args=("out", "out_b"))
+def _residual_layernorm_op(p: Tensor, bias: Tensor, res: Tensor, ln_s: Tensor, ln_b: Tensor, row_mask: Tensor,
+                           out: Opt, out_b: Opt) -> None:
+    if p.is_cuda:
+        residual_layernorm(p, bias, res, ln_s, ln_b, row_mask, out, out_b)
+        return
+    y = residual_layernorm_plain(p, bias, res, ln_s, ln_b, row_mask)
+    for o in (out, out_b):
+        if o is not None:
+            o.copy_(y)
+
+
+for _op in (_gemm_op, _attention_op, _mha_op, _residual_layernorm_op):
+    _op.register_fake(lambda *args, **kwargs: None)  # they write into their output arguments

@@ -37,6 +37,16 @@ residual add promotes it, as ``attn + x`` does in ``_layer_body``. ``h0``
 stays f32 (with its bf16 copy in bf16 compute): the TPU kernel keeps it in
 VMEM.
 
+Tensor parallel (a layer of a model that ``parallel.mesh.shard_module_``
+put on a mesh; ``layer_params`` then carries its tp group): the QKV
+product and the attention run this rank's H / tp heads, w1 its 1 / tp of
+the hidden units, and fc and w2, whose products are partial sums over the
+tp ranks, run as the ``PARTIAL`` GEMM (the bare f32 product), an
+all-reduce over the tp group, then ``cuda_kernels.residual_layernorm``
+(bias, residual, LayerNorm and mask, with the same outputs as the fused
+epilogue), in place of the LayerNorm epilogue, which needs a row's whole
+product.
+
 ``decoder_layer`` (a middle layer of the step path) and
 ``fused_decoder_layer`` (every layer of the ``--fused`` denoiser, port of
 ``fused_decoder_layer`` and ``fused_denoiser_apply``) run the plain
@@ -47,23 +57,27 @@ never fall back from one to the other.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from egoego_release_tpu_torch.ops import cuda_kernels as ck
-
-LN_EPS = 1e-5
+from egoego_release_tpu_torch.ops.cuda_kernels import layer_norm_plain  # noqa: F401 (the tests read it here)
 
 
 def layer_params(layer, bf16: bool) -> dict:
     """Kernel operands of one ``models.transformer.DecoderLayer``: weight
     matrices as (out, in), ``nn.Linear``'s layout (K-major rows for the
     kernels), in the compute dtype (bf16 or f32), q/k/v fused into one
-    (H*(2 dk + dv), d_model) product, biases and LayerNorm rows f32."""
+    (H*(2 dk + dv), d_model) product, biases and LayerNorm rows f32; under
+    tensor parallelism "tp", the layer's tp group."""
     wdt = torch.bfloat16 if bf16 else torch.float32
     sa, ff = layer.self_attn, layer.pos_ffn
     w = lambda t: t.detach().contiguous().to(wdt)
     f = lambda t: t.detach().float().contiguous()
+    if (sa.tp_group is None) != (ff.tp_group is None):
+        raise ValueError("a layer's attention and FFN must both be split over tp, or neither")
     return {
+        **({} if sa.tp_group is None else {"tp": sa.tp_group}),
         "wqkv": torch.cat([w(sa.w_q.weight), w(sa.w_k.weight), w(sa.w_v.weight)], 0).contiguous(),
         "bqkv": torch.cat([f(sa.w_q.bias), f(sa.w_k.bias), f(sa.w_v.bias)]).contiguous(),
         "wfc": w(sa.fc.weight), "bfc": f(sa.fc.bias),
@@ -85,12 +99,6 @@ def linear_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return a.to(w.dtype).float() @ w.float().t()
 
 
-def layer_norm_plain(y: torch.Tensor, s: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    mu = y.mean(-1, keepdim=True)
-    var = ((y - mu) ** 2).mean(-1, keepdim=True)
-    return (y - mu) * torch.rsqrt(var + LN_EPS) * s + b
-
-
 def attention_plain(qkv, *, B, T, t_keys, n_head, d_k, d_v, bf16=False):
     """Plain PyTorch version of the attention launch (csrc/attention.cu):
     qkv (B*T, H (2 dk + dv)) packed as q | k | v, head h at columns h d of
@@ -109,6 +117,21 @@ def attention_plain(qkv, *, B, T, t_keys, n_head, d_k, d_v, bf16=False):
     return rnd((p @ v).transpose(1, 2).reshape(B * T, n_head * d_v))
 
 
+def local_heads(lp: dict, n_head: int) -> int:
+    """The heads this rank computes: all of them, or its 1 / tp under
+    tensor parallelism (the width of its QKV product)."""
+    return n_head if "tp" not in lp else n_head // dist.get_world_size(lp["tp"])
+
+
+def add_layer_norm_plain(a, w, b, res, ln_s, ln_b, mask, tp):
+    """LN((a W^T + b) + res) * mask, the plain version of a LayerNorm GEMM;
+    under tp the partial product a W^T is summed over the group first."""
+    p = linear_plain(a, w)
+    if tp is not None:
+        dist.all_reduce(p, group=tp)
+    return ck.residual_layernorm_plain(p, b, res, ln_s, ln_b, mask)
+
+
 def decoder_layer_plain(h, mask, lp, *, n_head, d_k, d_v, act_bf16=False):
     """Plain PyTorch version of the kernel chain: h (B, T, dm) f32 or bf16,
     mask (B, T) f32. The mask scales output rows only; every token is a
@@ -118,12 +141,27 @@ def decoder_layer_plain(h, mask, lp, *, n_head, d_k, d_v, act_bf16=False):
     rnd = round_bf16 if bf16 else (lambda a: a)
     x = h.reshape(bsz * t, dm).float()
     qkv = rnd(linear_plain(x, lp["wqkv"]) + lp["bqkv"])
-    ctx = attention_plain(qkv, B=bsz, T=t, t_keys=t, n_head=n_head, d_k=d_k, d_v=d_v, bf16=bf16)
-    m = mask.reshape(bsz * t, 1).float()
-    h0 = layer_norm_plain(linear_plain(ctx, lp["wfc"]) + lp["bfc"] + x, lp["ln1s"], lp["ln1b"]) * m
+    ctx = attention_plain(qkv, B=bsz, T=t, t_keys=t, n_head=local_heads(lp, n_head), d_k=d_k, d_v=d_v, bf16=bf16)
+    m = mask.reshape(bsz * t).float()
+    tp = lp.get("tp")
+    h0 = add_layer_norm_plain(ctx, lp["wfc"], lp["bfc"], x, lp["ln1s"], lp["ln1b"], m, tp)
     h1 = rnd(torch.relu(linear_plain(h0, lp["w1"]) + lp["b1"]))
-    out = layer_norm_plain(linear_plain(h1, lp["w2"]) + lp["b2"] + h0, lp["ln2s"], lp["ln2b"]) * m
+    out = add_layer_norm_plain(h1, lp["w2"], lp["b2"], h0, lp["ln2s"], lp["ln2b"], m, tp)
     return out.reshape(bsz, t, dm).to(torch.bfloat16 if act_bf16 else torch.float32)
+
+
+def add_layer_norm_cuda(a, w, b, res, ln_s, ln_b, mask, out, out_b, tp):
+    """A LayerNorm GEMM on the card: the fused epilogue, or under tp the
+    PARTIAL product, the all-reduce over the group and residual_layernorm.
+    Returns out, or out_b when out is None."""
+    m_rows = a.shape[0]
+    if tp is None:
+        return ck.gemm(ck.LAYER_NORM, a, w, b, out, M=m_rows, res=res, ln_s=ln_s, ln_b=ln_b, row_mask=mask,
+                       out_b=out_b)
+    p = torch.empty(m_rows, b.numel(), dtype=torch.float32, device=a.device)
+    ck.gemm(ck.PARTIAL, a, w, b, p, M=m_rows)
+    dist.all_reduce(p, group=tp)
+    return ck.residual_layernorm(p, b, res, ln_s, ln_b, mask, out, out_b)
 
 
 def decoder_layer_cuda(h, mask, lp, *, n_head, d_k, d_v, hb=None, with_copy=False, act_bf16=False):
@@ -145,26 +183,25 @@ def decoder_layer_cuda(h, mask, lp, *, n_head, d_k, d_v, hb=None, with_copy=Fals
     else:
         xb = (x.to(torch.bfloat16) if hb is None else hb.reshape(m_rows, dm)) if bf16 else x
     mask = mask.reshape(m_rows)
+    tp = lp.get("tp")
+    heads = local_heads(lp, n_head)
     copy = lambda: torch.empty(m_rows, dm, dtype=torch.bfloat16, device=dev) if bf16 else None
     qkv = torch.empty(m_rows, lp["wqkv"].shape[0], dtype=cdt, device=dev)
     ck.gemm(ck.BIAS, xb, lp["wqkv"], lp["bqkv"], qkv, M=m_rows)
-    ctx = torch.empty(m_rows, n_head * d_v, dtype=cdt, device=dev)
-    ck.attention(qkv, ctx, B=bsz, T=t, t_keys=t, n_head=n_head, d_k=d_k, d_v=d_v)
+    ctx = torch.empty(m_rows, heads * d_v, dtype=cdt, device=dev)
+    ck.attention(qkv, ctx, B=bsz, T=t, t_keys=t, n_head=heads, d_k=d_k, d_v=d_v)
     h0 = torch.empty(m_rows, dm, dtype=torch.float32, device=dev)
     h0b = copy()
-    ck.gemm(ck.LAYER_NORM, ctx, lp["wfc"], lp["bfc"], h0, M=m_rows, res=x,
-            ln_s=lp["ln1s"], ln_b=lp["ln1b"], row_mask=mask, out_b=h0b)
+    add_layer_norm_cuda(ctx, lp["wfc"], lp["bfc"], x, lp["ln1s"], lp["ln1b"], mask, h0, h0b, tp)
     h1 = torch.empty(m_rows, lp["w1"].shape[0], dtype=cdt, device=dev)
     ck.gemm(ck.BIAS_RELU, h0 if h0b is None else h0b, lp["w1"], lp["b1"], h1, M=m_rows)
     if act_bf16:
         out = torch.empty(m_rows, dm, dtype=torch.bfloat16, device=dev)
-        ck.gemm(ck.LAYER_NORM, h1, lp["w2"], lp["b2"], None, M=m_rows, res=h0,
-                ln_s=lp["ln2s"], ln_b=lp["ln2b"], row_mask=mask, out_b=out)
+        add_layer_norm_cuda(h1, lp["w2"], lp["b2"], h0, lp["ln2s"], lp["ln2b"], mask, None, out, tp)
         return out.reshape(bsz, t, dm), None
     out = torch.empty(m_rows, dm, dtype=torch.float32, device=dev)
     outb = copy() if with_copy else None
-    ck.gemm(ck.LAYER_NORM, h1, lp["w2"], lp["b2"], out, M=m_rows, res=h0,
-            ln_s=lp["ln2s"], ln_b=lp["ln2b"], row_mask=mask, out_b=outb)
+    add_layer_norm_cuda(h1, lp["w2"], lp["b2"], h0, lp["ln2s"], lp["ln2b"], mask, out, outb, tp)
     return out.reshape(bsz, t, dm), None if outb is None else outb.reshape(bsz, t, dm)
 
 
@@ -175,10 +212,10 @@ def decoder_layer(h, mask, lp, *, n_head, d_k, d_v, hb=None, with_copy=False, ac
     ``act_bf16`` are ``decoder_layer_cuda``'s (the step chain's bf16
     copies, its bf16 activations); with_copy returns (out, its bf16 copy or
     None) instead of out."""
-    if h.is_cuda:
+    if h.is_cuda or ck.tracing():
         out = decoder_layer_cuda(h, mask, lp, n_head=n_head, d_k=d_k, d_v=d_v, hb=hb, with_copy=with_copy,
                                  act_bf16=act_bf16)
-        ck.launch_counts["decoder_layer"] += 1
+        ck.count("decoder_layer")
     else:
         out = decoder_layer_plain(h, mask, lp, n_head=n_head, d_k=d_k, d_v=d_v, act_bf16=act_bf16), None
     return out if with_copy else out[0]
@@ -198,9 +235,9 @@ def fused_decoder_layer(x, padding_mask, lp, *, n_head, d_k, d_v, hb=None, with_
     keys to mask, and there are no padded rows; padding-mask zeros inside T
     stay visible keys on both. The result is the same function of the real
     tokens."""
-    if x.is_cuda:
+    if x.is_cuda or ck.tracing():
         out = decoder_layer_cuda(x, padding_mask, lp, n_head=n_head, d_k=d_k, d_v=d_v, hb=hb, with_copy=with_copy)
-        ck.launch_counts["fused_decoder_layer"] += 1
+        ck.count("fused_decoder_layer")
     else:
         out = decoder_layer_plain(x, padding_mask, lp, n_head=n_head, d_k=d_k, d_v=d_v), None
     return out if with_copy else out[0]

@@ -142,10 +142,10 @@ def stem_layer(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v, with_copy=False
     DecoderLayer 0, or with ``with_copy`` (output, its bf16 copy on the card
     in bf16 mode, else None); ``act_bf16``: the output as a bf16 tensor
     (copy None)."""
-    if x.is_cuda:
+    if x.is_cuda or ck.tracing():
         out = stem_layer_cuda(x, xc, emb, pos, mask, prep, n_head=n_head, d_k=d_k, d_v=d_v, with_copy=with_copy,
                               xa=xa, act_bf16=act_bf16)
-        ck.launch_counts["stem_layer"] += 1
+        ck.count("stem_layer")
     else:
         out = stem_layer_plain(x, xc, emb, pos, mask, prep, n_head=n_head, d_k=d_k, d_v=d_v, act_bf16=act_bf16), None
     return out if with_copy else out[0]
@@ -193,10 +193,10 @@ def layer_epilogue(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v,
     copy of an f32 h on the card (made there when None); ``xa`` on the card in
     bf16: the stem's packed A, whose x part receives bf16(x_next). Returns
     x_next (B, T, d) f32."""
-    if h.is_cuda:
+    if h.is_cuda or ck.tracing():
         out = layer_epilogue_cuda(h, mask, x, noise, scal, ipv, ipm, prep,
                                   n_head=n_head, d_k=d_k, d_v=d_v, hb=hb, xa=xa)
-        ck.launch_counts["layer_epilogue"] += 1
+        ck.count("layer_epilogue")
         return out
     return layer_epilogue_plain(h, mask, x, noise, scal, ipv, ipm, prep,
                                 n_head=n_head, d_k=d_k, d_v=d_v)
@@ -287,6 +287,28 @@ class TorchNoise:
         return int(torch.randint(2**62, (1,), generator=self._host))
 
 
+class DefaultNoise:
+    """A noise source over the default generator of ``device``
+    (``torch.manual_seed`` seeds it): what an exported chain draws
+    (``serving.export``), so the live chain on this source and the exported
+    program agree for one seed. ``step_at(i, shape)``: the draw of step i
+    of a traced reverse loop, in order."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+    def window(self) -> "DefaultNoise":
+        return self
+
+    def _draw(self, shape) -> torch.Tensor:
+        return torch.randn(shape, device=self.device)
+
+    initial = cond = step = _draw
+
+    def step_at(self, i, shape) -> torch.Tensor:
+        return self._draw(shape)
+
+
 @torch.no_grad()
 def fused_p_sample_loop(diff, x_start, cond_mask, padding_mask=None, inpaint_value=None,
                         inpaint_mask=None, *, noise, ddim_steps: int | None = None,
@@ -326,8 +348,36 @@ def fused_p_sample_loop(diff, x_start, cond_mask, padding_mask=None, inpaint_val
     kw = dict(n_head=cfg.n_head, d_k=cfg.d_k, d_v=cfg.d_v)
     # the stem's bf16 A on the card, packed once a window; each step's update
     # writes x_next's part
-    xa = pack_xa(x, x_cond, prep["wst"].shape[1]) if x.is_cuda and prep["wst"].dtype == torch.bfloat16 else None
+    kernels = x.is_cuda or ck.tracing()
+    xa = pack_xa(x, x_cond, prep["wst"].shape[1]) if kernels and prep["wst"].dtype == torch.bfloat16 else None
+    if ck.tracing():
+        return _traced_loop(x, x_cond, embs, pos, mask, ipv, ipm, prep, sched, xa,
+                            lambda i: draw(lambda sh: noise.step_at(i, sh)), act_bf16, kw)
     for i, (_, scal) in enumerate(sched):
         x = fused_denoise_step(x, x_cond, embs[i], pos, mask, draw(noise.step),
                                scal, ipv, ipm, prep, xa=xa, act_bf16=act_bf16, **kw)
     return x
+
+
+def _traced_loop(x, x_cond, embs, pos, mask, ipv, ipm, prep, sched, xa, draw_step, act_bf16, kw):
+    """The reverse loop as ``torch.export`` records it: one
+    ``while_loop`` whose body is one ``fused_denoise_step``, so a program of
+    any step count holds one step's nodes. Step i reads its noise-level
+    token and its update scalars from tables (the scalars stay on the host,
+    so no step waits on the device) and draws its noise with ``draw_step(i)``;
+    the packed A ``xa`` is carried (copied each step: the loop's body may not
+    write its inputs)."""
+    from torch._higher_order_ops.while_loop import while_loop
+
+    n = len(sched)
+    scal = torch.tensor([s for _, s in sched], dtype=torch.float32)
+
+    def body(i, x, *xa):
+        xa = xa[0].clone() if xa else None
+        emb = embs.index_select(0, i.reshape(1).to(embs.device))[0]
+        x = fused_denoise_step(x, x_cond, emb, pos, mask, draw_step(i), scal.index_select(0, i.reshape(1))[0],
+                               ipv, ipm, prep, xa=xa, act_bf16=act_bf16, **kw)
+        return (i + 1, x) + (() if xa is None else (xa,))
+
+    carry = (torch.zeros((), dtype=torch.int64), x) + (() if xa is None else (xa,))
+    return while_loop(lambda i, *_: i < n, body, carry)[1]

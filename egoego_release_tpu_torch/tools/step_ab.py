@@ -20,7 +20,9 @@ ROOT's ``csrc/`` into ROOT's build directory and times, at 64 windows of
 
 Each is timed twice on the device: torch.profiler's device time a call
 (``chip_smoke.device_time_ms``, as phase 2) and CUDA events behind a held
-stream (``chip_smoke.held_events_ms``, as phase 12). It passes the
+stream (``chip_smoke.held_events_ms``, as phase 12); and on the host: the
+host's time to issue one call (``host_ms``: the median of 9 runs of 20
+calls queued behind a held stream, so none waits on the card). It passes the
 wrappers only arguments that checkouts from before the bf16-activation
 mode take as well, checks nothing (``chip_smoke.py`` does), and needs the
 card and nvcc.
@@ -34,6 +36,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
@@ -46,6 +49,29 @@ def _chip_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def host_ms(fn, cs, reps: int = 20, repeats: int = 9, hold_ms: float = 50.0) -> float:
+    """The host's ms to issue one call of fn: the median over ``repeats``
+    runs of reps calls queued behind a sleep kernel that holds the stream
+    (the card's sleep rate from ``cs.held_events_ms``, cs the loaded
+    chip_smoke), on the host clock."""
+    import statistics
+
+    import torch
+
+    if not cs._SLEEP_CYCLES_PER_MS:
+        cs.held_events_ms(fn, 1)
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(hold_ms * cs._SLEEP_CYCLES_PER_MS[0]))
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        times.append((time.perf_counter() - t0) / reps * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 def measure(root: Path) -> dict:
@@ -103,7 +129,7 @@ def measure(root: Path) -> dict:
         for name, (fn, chain) in fns.items():
             prof_ms, kernels = cs.device_time_ms(fn, chain=chain)
             table[f"{name} {b}x{tokens}"] = {"profiler_ms": prof_ms, "events_ms": cs.held_events_ms(fn, 20),
-                                            "kernels": kernels}
+                                            "host_ms": host_ms(fn, cs), "kernels": kernels}
     torch.cuda.synchronize()
     return table
 
@@ -136,7 +162,7 @@ def main() -> int:
         for key, r in table.items():
             if isinstance(r, dict):
                 print(f"step_ab {root}: {key}: profiler {r['profiler_ms']:.4f} ms, held events "
-                      f"{r['events_ms']:.4f} ms [{card}]", flush=True)
+                      f"{r['events_ms']:.4f} ms, host {r['host_ms']:.4f} ms a call [{card}]", flush=True)
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": card, "tables": tables}, f, indent=1)

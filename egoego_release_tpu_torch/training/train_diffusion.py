@@ -8,8 +8,11 @@ NaN guard) with ``model-<step>.pt`` checkpoints under
 and stop on SIGTERM or SIGINT), JSONL / wandb logging, an opt.yaml of the
 run's settings, and an optional torch.profiler trace. ``--sample`` loads
 the newest checkpoint's EMA weights and runs the DDPM reverse chain through
-the f32 step kernels. ``parallel.dp`` / ``parallel.tp`` above 1 are not
-ported (ROADMAP A.6) and raise.
+the f32 step kernels. ``parallel.dp`` / ``parallel.tp`` above 1 train on
+dp x tp ranks (one process each, rank r on ``cuda:r``, or all on the CPU
+with ``--device cpu``; dp 0 = the cards / tp, as JAX's mesh): each
+micro-batch split over dp, the layers over tp (``DiffusionTrainer(mesh=)``),
+the bank replicated; rank 0 logs and writes the (full-layout) checkpoints.
 
     python -m egoego_release_tpu_torch.training.train_diffusion \\
         --train_data_path train_amass_smplh_motion.p \\
@@ -37,6 +40,7 @@ from egoego_release_tpu_torch.diffusion.gaussian_diffusion import (
 )
 from egoego_release_tpu_torch.eval.build import load_rest_offsets
 from egoego_release_tpu_torch.ops.fused_step import TorchNoise
+from egoego_release_tpu_torch.parallel.mesh import spawn
 from egoego_release_tpu_torch.training.trainer_diffusion import (
     DiffusionTrainer,
     restore_state,
@@ -70,15 +74,30 @@ def diffusion_config(s2) -> DiffusionConfig:
         compute_dtype="float32")
 
 
-def run(cfg, train_data_path: str, device="cuda"):
-    """Train; returns the final TrainState."""
-    dev = resolve_device(device)
-    if cfg.parallel.dp > 1 or cfg.parallel.tp > 1:
-        raise NotImplementedError("parallel.dp / parallel.tp above 1: multi-GPU training is not ported "
-                                  "to the PyTorch package yet (ROADMAP A.6)")
+def _run_rank(mesh, cfg, train_data_path, device):
+    run(cfg, train_data_path, device, mesh=mesh)
+
+
+def run(cfg, train_data_path: str, device="cuda", mesh=None, devices=None):
+    """Train; returns the final TrainState. With parallel.dp / parallel.tp
+    above 1 and no ``mesh``, trains on dp x tp new ranks (rank r on
+    ``devices[r]``; by default on ``device``: ``parallel.mesh.spawn``) and
+    returns None."""
+    par = cfg.parallel
+    if (par.dp > 1 or par.tp > 1) and mesh is None:
+        n_dev = torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
+        dp = par.dp or max(1, n_dev // par.tp)
+        spawn(_run_rank, (cfg, train_data_path, device), dp, par.tp, devices or device)
+        return None
+    dev = resolve_device(device) if mesh is None else mesh.device
+    if mesh is not None and cfg.data.batch_size % mesh.dp:
+        raise ValueError(f"data.batch_size {cfg.data.batch_size} must be divisible by dp={mesh.dp}")
+    rank0 = mesh is None or mesh.rank == 0
     save_dir = os.path.join(cfg.logging.save_dir, cfg.logging.exp_name)
-    save_run_config(cfg, save_dir)
-    logger = MetricLogger(save_dir, cfg.logging.use_wandb, cfg.logging.wandb_project, cfg.logging.exp_name)
+    logger = None
+    if rank0:
+        save_run_config(cfg, save_dir)
+        logger = MetricLogger(save_dir, cfg.logging.use_wandb, cfg.logging.wandb_project, cfg.logging.exp_name)
 
     rest = load_rest_offsets(cfg.data.smplh_path or None, cfg.data.rest_offsets or None)
     ds = AMASSWindowDataset(train_data_path, rest, window=cfg.data.window,
@@ -90,7 +109,7 @@ def run(cfg, train_data_path: str, device="cuda"):
     trainer = DiffusionTrainer(
         CondGaussianDiffusion(diffusion_config(cfg.stage2), device=dev), lr=t.learning_rate,
         grad_accum=t.grad_accum, ema_decay=t.ema_decay, ema_update_every=t.ema_update_every,
-        ema_step_start=t.ema_step_start)
+        ema_step_start=t.ema_step_start, mesh=mesh)
     noise = TorchNoise(dev, seed=t.seed)
     ckpt_dir = os.path.join(save_dir, "weights")
     latest = latest_checkpoint(ckpt_dir)
@@ -128,7 +147,8 @@ def run(cfg, train_data_path: str, device="cuda"):
     finally:
         for s, h in old_handlers.items():
             signal.signal(s, h)
-        logger.close()
+        if logger is not None:
+            logger.close()
     return state
 
 

@@ -20,15 +20,25 @@ Checkpoints are ``model-<step>.pt`` in the reference's layout (``step``,
 keys) plus ``adam`` and ``nan_count``; ``utils.convert.load_stage2_diffusion_ckpt``
 reads them as released checkpoints. The JAX package's orbax directories are
 neither read nor written here.
+
+On a mesh (``mesh=``, JAX ``trainer_diffusion.py:49-55, 142-176``): the model
+and its EMA keep this rank's tp shards (``parallel.mesh.shard_module_``),
+each micro-batch is split over dp, with each rank's share of the noise and
+of the dropout masks of the whole micro-batch, and the gradients and the
+loss are averaged over the dp group, so a step equals the unsharded one.
+Checkpoints are gathered to the released full layout and written by rank 0
+alone, so ``model-<step>.pt`` is the same file under any mesh.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 import os
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 
 from egoego_release_tpu_torch.diffusion.gaussian_diffusion import (
     CondGaussianDiffusion,
@@ -36,6 +46,13 @@ from egoego_release_tpu_torch.diffusion.gaussian_diffusion import (
     new_denoiser,
 )
 from egoego_release_tpu_torch.models.denoiser import TransformerDiffusionModel, init_weights_
+from egoego_release_tpu_torch.parallel.mesh import (
+    RowNoise,
+    dp_rows,
+    gather_state_dict,
+    shard_module_,
+    shard_state_dict,
+)
 from egoego_release_tpu_torch.training.ema import ema_update
 from egoego_release_tpu_torch.utils.convert import load_denoiser_weights, strip_prefix
 
@@ -56,17 +73,24 @@ class TrainState:
 
 class DiffusionTrainer:
     def __init__(self, diffusion: CondGaussianDiffusion, lr: float = 1e-4, grad_accum: int = 2,
-                 ema_decay: float = 0.995, ema_update_every: int = 10, ema_step_start: int = 2000):
+                 ema_decay: float = 0.995, ema_update_every: int = 10, ema_step_start: int = 2000, mesh=None):
         self.diffusion = diffusion
+        self.mesh = mesh
         self.device = diffusion.device
         self.lr = lr
         self.grad_accum = grad_accum
         self.ema_cfg = (ema_decay, ema_update_every, ema_step_start)
         self._one = torch.ones((), device=self.device)
 
-    def _new_state(self, model: TransformerDiffusionModel) -> TrainState:
+    def _new_state(self, model: TransformerDiffusionModel, ema: TransformerDiffusionModel | None = None
+                   ) -> TrainState:
+        """Full-size model (and EMA, a copy of the model when None) on the
+        device, then on the mesh."""
         model = model.to(self.device)
-        ema = copy.deepcopy(model).requires_grad_(False)
+        ema = (copy.deepcopy(model) if ema is None else ema.to(self.device)).requires_grad_(False)
+        if self.mesh is not None:
+            shard_module_(model, self.mesh)
+            shard_module_(ema, self.mesh)
         # fused: one kernel for the whole update, and the only Adam that
         # takes a device-side found_inf
         opt = torch.optim.Adam(model.parameters(), lr=self.lr, fused=True)
@@ -83,17 +107,18 @@ class DiffusionTrainer:
     def state_from_dict(self, ckpt: dict) -> TrainState:
         """A TrainState from a checkpoint's dict (``load_checkpoint``, or
         ``utils.convert.trainer_state_from_jax``)."""
-        model = load_denoiser_weights(new_denoiser(self.diffusion.cfg),
-                                      strip_prefix(ckpt["model"], "denoise_fn."))
-        state = self._new_state(model)
-        load_denoiser_weights(state.ema, strip_prefix(strip_prefix(ckpt["ema"], "ema_model."), "denoise_fn."))
+        load = lambda key, *prefixes: load_denoiser_weights(new_denoiser(self.diffusion.cfg), functools.reduce(
+            strip_prefix, prefixes, ckpt[key]))
+        state = self._new_state(load("model", "denoise_fn."), load("ema", "ema_model.", "denoise_fn."))
         adam = ckpt["adam"]
+        moments = {k: adam[k] if self.mesh is None else shard_state_dict(adam[k], self.mesh)
+                   for k in ("exp_avg", "exp_avg_sq")}
         with torch.no_grad():
             for name, p in state.model.named_parameters():
                 st = state.optimizer.state[p]
                 st["step"].fill_(adam["step"])
-                st["exp_avg"].copy_(adam["exp_avg"][name])
-                st["exp_avg_sq"].copy_(adam["exp_avg_sq"][name])
+                st["exp_avg"].copy_(moments["exp_avg"][name])
+                st["exp_avg_sq"].copy_(moments["exp_avg_sq"][name])
         state.step = int(ckpt["step"])
         state.nan_count.fill_(int(ckpt["nan_count"]))
         return state
@@ -109,18 +134,29 @@ class DiffusionTrainer:
                < (seq_len + 1)[:, None]).float()[:, None, :]
         micro = self.grad_accum
         mb = motion.shape[0] // micro
-        cond_mask = head_condition_mask(mb, window, device=motion.device)
+        mesh = self.mesh
+        rows = slice(0, mb) if mesh is None else dp_rows(mb, mesh)
+        cond_mask = head_condition_mask(rows.stop - rows.start, window, device=motion.device)
         model, opt = state.model, state.optimizer
         opt.zero_grad(set_to_none=True)
         loss = None
         for i, src in enumerate(noise.split(micro)):
             sl = slice(i * mb, (i + 1) * mb)
-            li = self.diffusion.p_losses(model, motion[sl], cond_mask, pad[sl], noise=src, train=True)
+            if mesh is not None:  # this rank's rows, and its share of the micro-batch's draws
+                src = RowNoise(src, mb, rows)
+                model.row_spec.set(rows, mb)
+            li = self.diffusion.p_losses(model, motion[sl][rows], cond_mask, pad[sl][rows], noise=src, train=True)
             li.backward()
             loss = li.detach() if loss is None else loss + li.detach()
         loss = loss / micro
         grads = [p.grad for p in model.parameters()]
         torch._foreach_div_(grads, micro)
+        if mesh is not None and mesh.dp > 1:  # the means over dp, in one all-reduce
+            flat = torch._utils._flatten_dense_tensors(grads + [loss.reshape(1)])
+            dist.all_reduce(flat, group=mesh.dp_group)
+            flat /= mesh.dp
+            torch._foreach_copy_(grads, torch._utils._unflatten_dense_tensors(flat[:-1], grads))
+            loss = flat[-1].clone()
 
         # NaN guard (trainer:144-160): Adam skips the update on found_inf
         found_inf = (~torch.isfinite(loss)).float()
@@ -156,7 +192,12 @@ class DiffusionTrainer:
                    data_dtype: torch.dtype | None = None, **loop):
         """fit() over a device-resident window bank ((N, T, D) + (N,)).
         ``data_dtype=torch.bfloat16`` halves its footprint; each step casts
-        the gathered batch back to f32. ``loop``: as ``_loop``."""
+        the gathered batch back to f32. On a mesh the bank is replicated and
+        each micro-batch (``batch_size / grad_accum``) must split evenly over
+        dp. ``loop``: as ``_loop``."""
+        if self.mesh is not None and (batch_size // self.grad_accum) % self.mesh.dp:
+            raise ValueError(f"per-accum microbatch {batch_size // self.grad_accum} (batch_size {batch_size} / "
+                             f"grad_accum {self.grad_accum}) must be divisible by dp={self.mesh.dp}")
         data = torch.as_tensor(data).to(self.device, data_dtype or torch.float32)
         seq_lens = torch.as_tensor(seq_lens).to(self.device, torch.int64)
         step = lambda s: self._train_step_device(s, data, seq_lens, noise, batch_size)
@@ -199,13 +240,19 @@ class DiffusionTrainer:
 def save_checkpoint(ckpt_dir: str, state: TrainState) -> str:
     """``{ckpt_dir}/model-<step>.pt``: step, model, ema, adam (step count,
     moments by parameter name), nan_count. Written to a temporary name and
-    renamed, so a stop mid-write leaves no partial checkpoint."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    renamed, so a stop mid-write leaves no partial checkpoint. On a mesh
+    every rank must call it: the shards are gathered to the full layout,
+    and rank 0 writes."""
     path = os.path.join(os.path.abspath(ckpt_dir), f"model-{state.step}.pt")
-    cpu = lambda sd, prefix: {prefix + k: v.detach().cpu() for k, v in sd.items()}
+    mesh = getattr(state.model, "mesh", None)
+    if mesh is None:
+        full = lambda sd: {k: v.detach().cpu() for k, v in sd.items()}
+    else:
+        full = lambda sd: gather_state_dict(sd, mesh, state.model.full_shapes)
+    cpu = lambda sd, prefix: {prefix + k: v for k, v in full(sd).items()}
     params = dict(state.model.named_parameters())
     adam = {name: state.optimizer.state[p] for name, p in params.items()}
-    torch.save({
+    payload = {
         "step": state.step,
         "model": cpu(state.model.state_dict(), "denoise_fn."),
         "ema": cpu(state.ema.state_dict(), "ema_model.denoise_fn."),
@@ -215,8 +262,11 @@ def save_checkpoint(ckpt_dir: str, state: TrainState) -> str:
                  "exp_avg": cpu({k: s["exp_avg"] for k, s in adam.items()}, ""),
                  "exp_avg_sq": cpu({k: s["exp_avg_sq"] for k, s in adam.items()}, "")},
         "nan_count": int(state.nan_count),
-    }, path + ".tmp")
-    os.replace(path + ".tmp", path)
+    }
+    if mesh is None or mesh.rank == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        torch.save(payload, path + ".tmp")
+        os.replace(path + ".tmp", path)
     return path
 
 

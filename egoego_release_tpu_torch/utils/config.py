@@ -79,7 +79,7 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    dp: int = 0  # above 1 (or tp above 1): not ported, train_diffusion raises
+    dp: int = 0  # above 1 (or tp above 1): train_diffusion on dp x tp ranks; 0 = the cards / tp
     tp: int = 1
 
 

@@ -173,13 +173,24 @@ def test_eval_stage2_cli_on_cpu(tmp_path, batch_seqs):
         assert all(np.isfinite(v) for v in entry.values())
 
 
-@pytest.mark.parametrize("flag", [["--dp", "2"], ["--tp", "2"]])
+@pytest.mark.parametrize("flag", [["--dp", "2"], ["--tp", "2"], ["--dp", "2", "--tp", "2"]])
 def test_eval_stage2_unported_flags_raise(tmp_path, flag):
-    paths = _amass(tmp_path, np.random.RandomState(3), n=1)
-    opt = eval_stage2.parse_opt(["--test_data_path", paths["data.p"], "--stats_path", paths["stats.p"],
-                                 "--rest_offsets", paths["rest.npy"], "--device", "cpu", *flag])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eval_stage2.run(opt)
+    """--dp 2, --tp 2 and both (they raised until the multi-GPU port; the
+    name stays) start their CPU ranks and write the unsharded run's results:
+    every metric of every sequence within JAX's bounds for the sharded
+    chain (2e-4 for dp, 2e-3 for tp; relative above 1), 4 sequences so
+    that dp pads nothing."""
+    paths = _amass(tmp_path, np.random.RandomState(3), n=4)
+    argv = ["--test_data_path", paths["data.p"], "--stats_path", paths["stats.p"], "--rest_offsets",
+            paths["rest.npy"], "--window", "16", "--timesteps", "4", "--batch_seqs", "4", "--device", "cpu"]
+    want = eval_stage2.run(eval_stage2.parse_opt(argv + ["--out_dir", str(tmp_path / "ref")]))
+    got = eval_stage2.run(eval_stage2.parse_opt(argv + [*flag, "--out_dir", paths["out"]]))
+    assert got == json.load(open(f"{paths['out']}/stage2_diffusion_model_res_on_amass_test.json"))
+    assert got["num_seqs"] == want["num_seqs"] == 4 and set(got["per_seq"]) == set(want["per_seq"])
+    tol = 2e-3 if "--tp" in flag else 2e-4
+    for name, entry in want["per_seq"].items():
+        for k, v in entry.items():
+            assert abs(got["per_seq"][name][k] - v) <= tol * max(1.0, abs(v)), (name, k)
 
 
 @pytest.mark.parametrize("route", [[], ["--fused"]])

@@ -637,3 +637,96 @@ def test_fit_device_bf16_bank_on_card(card):
         out.append([p.detach().clone() for p in state.model.parameters()])
     for a, b in zip(*out):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("tokens", [121, 31])
+def test_partial_gemm_and_residual_layernorm_match_plain(card, bf16, tp, tokens):
+    """The tensor-parallel layer's own launches at its shapes (64 windows,
+    tp 2 and 4): fc's and w2's PARTIAL product (the bare f32 product of this
+    rank's K slice) and residual_layernorm (f32 or bf16 residual; f32 out
+    with its bf16 copy, or the bf16 out alone) against their plain
+    versions, each counted once."""
+    g = torch.Generator(device=card).manual_seed(2)
+    rn = lambda *s: torch.randn(*s, generator=g, device=card)
+    m, dm = 64 * tokens, 512
+    wdt = torch.bfloat16 if bf16 else torch.float32
+    for k in (4 * 256 // tp, dm // tp):
+        a, w, bias = rn(m, k).to(wdt), (rn(dm, k) / k ** 0.5).to(wdt), rn(dm)
+        out = torch.empty(m, dm, device=card)
+        ck.kernel_launches.clear()
+        ck.gemm_modes.clear()
+        ck.gemm(ck.PARTIAL, a, w, bias, out, M=m)
+        assert dict(ck.gemm_modes) == {ck.PARTIAL: 1} and sum(ck.kernel_launches.values()) == 1
+        want = ck.gemm_plain(ck.PARTIAL, a, w, bias, torch.empty_like(out), M=m)
+        assert float((out - want).abs().max()) <= TOL[bf16]
+    p, res = rn(m, dm), rn(m, dm).to(wdt)
+    s, b, mask = 1 + 0.1 * rn(dm), 0.1 * rn(dm), (rn(m) > -1).float()
+    want = ck.residual_layernorm_plain(p, bias, res, s, b, mask)
+    for f32_out in (True, False):
+        out = torch.empty(m, dm, device=card) if f32_out else None
+        out_b = torch.empty(m, dm, dtype=torch.bfloat16, device=card)
+        ck.kernel_launches.clear()
+        ck.residual_layernorm(p, bias, res, s, b, mask, out, out_b)
+        assert dict(ck.kernel_launches) == {"residual_layernorm": 1}
+        if f32_out:
+            assert float((out - want).abs().max()) <= TOL[False] and torch.equal(out_b, out.to(torch.bfloat16))
+        # the bf16 output: within the f32 bound plus the one bf16 ulp its own rounding adds
+        assert bool(((out_b.float() - want).abs() <= TOL[False] + 2.0 ** -7 * want.abs()).all())
+
+
+def test_custom_ops_match_ctypes_wrappers(card):
+    """Each C entry through torch.ops.egoego (the custom op an exported
+    program records) writes what its ctypes wrapper writes, bit for bit,
+    and counts the same launch."""
+    g = torch.Generator(device=card).manual_seed(3)
+    rn = lambda *s: torch.randn(*s, generator=g, device=card)
+    bf = torch.bfloat16
+    m, t = 64 * 121, 120
+    a, w, bias = rn(m, 512).to(bf), (rn(512, 512) / 22.6).to(bf), rn(512)
+    res, s, b, mask = rn(m, 512), 1 + 0.1 * rn(512), 0.1 * rn(512), torch.ones(m, device=card)
+    x, noise, ipv = rn(64 * t, 198), rn(64 * t, 198), rn(64 * t, 198)
+    lw, lb, ipm = (rn(200, 512) / 22.6).to(bf), rn(198), torch.ones(64 * t, device=card)
+    qkv, q = rn(m, 4 * 768).to(bf), rn(2, 4, 256, 256)
+    none9 = (None,) * 9
+    cases = {
+        "gemm LAYER_NORM": (
+            lambda o: torch.ops.egoego.gemm(a, w, bias, o[0], ck.LAYER_NORM, m, None, res, s, b, mask, None, None,
+                                            None, None, None, None, o[1], 0, None),
+            lambda o: ck.gemm(ck.LAYER_NORM, a, w, bias, o[0], M=m, res=res, ln_s=s, ln_b=b, row_mask=mask,
+                              out_b=o[1]),
+            lambda: (torch.zeros(m, 512, device=card), torch.zeros(m, 512, dtype=bf, device=card))),
+        "gemm PARTIAL": (
+            lambda o: torch.ops.egoego.gemm(a, w, bias, o[0], ck.PARTIAL, m, *none9, None, None, None, 0, None),
+            lambda o: ck.gemm(ck.PARTIAL, a, w, bias, o[0], M=m),
+            lambda: (torch.zeros(m, 512, device=card),)),
+        "gemm STEP": (
+            lambda o: torch.ops.egoego.gemm(a, lw, lb, o[0], ck.STEP, 64 * t, None, None, None, None, None, None,
+                                            None, x, noise, ipv, ipm, None, t, torch.tensor([0.9, 0.1, 0.05])),
+            lambda o: ck.gemm(ck.STEP, a, lw, lb, o[0], M=64 * t, x=x, noise=noise, ipv=ipv, ipm=ipm, t_data=t,
+                              scal=(0.9, 0.1, 0.05)),
+            lambda: (torch.zeros(64 * t, 198, device=card),)),
+        "attention": (
+            lambda o: torch.ops.egoego.attention(qkv, o[0], 64, 121, 121, 4, 256, 256),
+            lambda o: ck.attention(qkv, o[0], B=64, T=121, t_keys=121, n_head=4, d_k=256, d_v=256),
+            lambda: (torch.zeros(m, 1024, dtype=bf, device=card),)),
+        "mha": (
+            lambda o: torch.ops.egoego.mha(q, q, q, o[0], 256),
+            lambda o: ck.mha(q, q, q, o[0], t_keys=256),
+            lambda: (torch.zeros(2, 4, 256, 256, device=card),)),
+        "residual_layernorm": (
+            lambda o: torch.ops.egoego.residual_layernorm(res, bias, res, s, b, mask, o[0], o[1]),
+            lambda o: ck.residual_layernorm(res, bias, res, s, b, mask, o[0], o[1]),
+            lambda: (torch.zeros(m, 512, device=card), torch.zeros(m, 512, dtype=bf, device=card))),
+    }
+    for name, (op, wrapper, outputs) in cases.items():
+        got = []
+        for call in (op, wrapper):
+            o = outputs()
+            ck.kernel_launches.clear()
+            call(o)
+            torch.cuda.synchronize()
+            got.append((o, dict(ck.kernel_launches)))
+        assert got[0][1] == got[1][1], name
+        assert all(torch.equal(u, v) for u, v in zip(got[0][0], got[1][0])), name

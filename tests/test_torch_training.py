@@ -483,10 +483,24 @@ def test_train_cli_iterator_path_and_stop_signal(tmp_path, monkeypatch):
 
 
 def test_train_cli_refuses_multi_gpu(tmp_path):
+    """parallel.dp=2, parallel.tp=2 and both (they raised until the
+    multi-GPU port; the name stays) train on their CPU ranks (dropout on)
+    and rank 0 writes the checkpoint in the released full layout: the
+    unsharded run's, entry by entry within JAX's 1e-4."""
     paths = _amass(tmp_path)
-    for ov in ("parallel.dp=2", "parallel.tp=2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-            train_diffusion.main(["--train_data_path", paths["train.p"], "--device", "cpu", "--set", ov])
+    argv = ["--train_data_path", paths["train.p"], "--device", "cpu", "--set"]
+    train_diffusion.main(argv + _cli_overrides(paths, exp="ref"))
+    ref = load_checkpoint(os.path.join(paths["runs"], "ref", "weights", "model-3.pt"))
+    for i, ov in enumerate((["parallel.dp=2"], ["parallel.tp=2"], ["parallel.dp=2", "parallel.tp=2"])):
+        assert train_diffusion.main(argv + _cli_overrides(paths, exp=f"mesh{i}") + ov) is None
+        ckpt_dir = os.path.join(paths["runs"], f"mesh{i}", "weights")
+        assert os.listdir(ckpt_dir) == ["model-3.pt"]
+        got = load_checkpoint(os.path.join(ckpt_dir, "model-3.pt"))
+        assert got["step"] == 3 and got["nan_count"] == 0
+        for part in ("model", "ema"):
+            assert set(got[part]) == set(ref[part])
+            for k, v in ref[part].items():
+                np.testing.assert_allclose(got[part][k].numpy(), v.numpy(), atol=1e-4, rtol=0, err_msg=k)
 
 
 def test_fit_device_bf16_bank_runs_and_logs(tmp_path, capsys):
