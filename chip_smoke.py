@@ -6,8 +6,8 @@
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit; build the CUDA kernels from csrc/;
      their registers and spills, the mha kernel's HMMA count and the HGMMA
-     count of each instantiation of the wgmma GEMM and of the wgmma
-     attention (cuobjdump).
+     count of each instantiation of the wgmma GEMM, of the 3xTF32 GEMM (TF32
+     HGMMA alone: the f32 route) and of the wgmma attention (cuobjdump).
   2. kernels: each of the three denoise-step wrappers (stem_layer,
      decoder_layer, layer_epilogue) on card tensors against its plain
      PyTorch version on the same inputs, at the main path's shapes (64
@@ -21,7 +21,14 @@ Phases (any failure exits non-zero; nothing is caught):
      update's GEMM and the attention also checked against their plain
      versions; the layer's attention (attention_wgmma) at 64 x 121, 64 x 31
      and 1 x 121 tokens beside the WMMA kernel it replaced there, SDPA bf16
-     and the bound.
+     and the bound. The f32 mode (the CLIs' default numerics): each
+     wrapper's device ms beside its library calls in f32 and both bounds
+     (3xTF32 and the f32 CUDA cores), the f32 step's device ms and profile,
+     and each f32 launch of a step at 64 x 121 and 64 x 31 (gemm_tf32x3,
+     the attention on mha) beside the CUDA-core kernel it replaced at the
+     same layout, torch.matmul f32 or SDPA f32, both bounds, and its error
+     against its plain version; at 64 x 121 each GEMM launch must beat the
+     CUDA-core kernel.
   3. main path A: ``eval_stage2.run --fused_step`` on synthetic AMASS-layout
      records (64 sequences x 120 frames, one batch of
      run_batches_pipelined), full release width, random weights from a seed, DDPM-1000 in
@@ -32,7 +39,8 @@ Phases (any failure exits non-zero; nothing is caught):
      launch count, and each C entry's, must equal windows x steps x its
      launches per step.
   5. f32: ``eval_stage2.run`` with no flag (the JAX CLI's f32 numerics),
-     DDIM-50 on 4 sequences: exact launch counts, f32 C entries only; then
+     DDIM-50 on 4 sequences, timed: exact launch counts, gemm_tf32x3 and mha
+     alone; then
      chain parity: the f32 kernels on the card against the plain versions
      on the CPU, same weights and noise, DDIM-50 on a small batch.
   6. kernels of the --fused and stage-1 routes: fused_attention (csrc/mha.cu,
@@ -120,7 +128,8 @@ Phases (any failure exits non-zero; nothing is caught):
      own launches at its shapes (the PARTIAL GEMM of fc and w2 in bf16 and
      f32, residual_layernorm with an f32 or bf16 residual; 64 windows of
      121 and 31 tokens, tp 2 and 4) against their plain versions, timed
-     beside their bounds and the library calls; each custom op through
+     beside their bounds and the library calls (the f32 PARTIAL also beside
+     the CUDA-core kernel); each custom op through
      torch.ops against its ctypes wrapper, bit for bit; two gloo ranks on
      cuda:0 running ``eval_stage2`` through the library (dp 2
      --fused_step, tp 2 in f32 and with --fused_step; DDIM-50 on 16
@@ -1606,33 +1615,43 @@ def parallel_phase(card, data_dir, data_path, stats_path, rest_path, clear_count
                 for bf16 in (False, True):
                     wdt = torch.bfloat16 if bf16 else torch.float32
                     a, w = rn(m, k).to(wdt), (rn(dm, k) / k ** 0.5).to(wdt)
+                    wk = w if bf16 else ck.split_tf32(w)  # the operand of the f32 route's 3xTF32 kernel
                     bias, o = rn(dm), torch.empty(m, dm, device=dev)
-                    run = lambda: ck.gemm(ck.PARTIAL, a, w, bias, o, M=m)
-                    once(run, {"gemm_wgmma" if bf16 else "gemm": 1}, f"PARTIAL {name}")
+                    run = lambda: ck.gemm(ck.PARTIAL, a, wk, bias, o, M=m)
+                    once(run, {"gemm_wgmma" if bf16 else "gemm_tf32x3": 1}, f"PARTIAL {name}")
                     if dict(ck.gemm_modes) != {ck.PARTIAL: 1}:
                         raise AssertionError(f"phase 15: PARTIAL counted as {dict(ck.gemm_modes)}")
-                    want = ck.gemm_plain(ck.PARTIAL, a, w, bias, torch.empty_like(o), M=m)
+                    want = ck.gemm_plain(ck.PARTIAL, a, wk, bias, torch.empty_like(o), M=m)
                     err = float((o - want).abs().max())
                     tol = TOL_BF16 if bf16 else TOL_F32
                     if not err <= tol:
                         raise AssertionError(f"phase 15: PARTIAL {name} {m}x{k} bf16={bf16}: {err} > {tol}")
                     ms = device_time_ms(run)[0]
                     lib_ms = device_time_ms(lambda: torch.matmul(a, w.t()))[0]
-                    plain_ms = cuda_time_ms(lambda: ck.gemm_plain(ck.PARTIAL, a, w, bias, o, M=m))
+                    plain_ms = cuda_time_ms(lambda: ck.gemm_plain(ck.PARTIAL, a, wk, bias, o, M=m))
                     es = 2 if bf16 else 4
                     mbytes = (m * k * es + dm * k * es + m * dm * 4) / 1e6
                     gflop = 2 * m * k * dm / 1e9
-                    bound_b, bound_o = mbytes * 1e6 / HBM_BYTES_S * 1e3, gflop * 1e9 / (PEAK_BF16 if bf16 else PEAK_F32) * 1e3
+                    # f32: three TF32 products per product; beside it the f32 CUDA cores' bound
+                    bound_b = mbytes * 1e6 / HBM_BYTES_S * 1e3
+                    bound_o = gflop * 1e9 * (1 / PEAK_BF16 if bf16 else 3 / PEAK_TF32) * 1e3
                     row = {"what": f"{name} tp{tp} {BATCH}x{t}", "bf16": bf16, "mkn": (m, k, dm), "device_ms": ms,
                            "library_device_ms": lib_ms, "plain_ms": plain_ms, "bound_ms": max(bound_b, bound_o),
                            "bound_by": "bytes" if bound_b >= bound_o else "operations", "max_abs_err": err,
                            "gflop": gflop, "mbytes": mbytes}
+                    if not bf16:  # the CUDA-core kernel the f32 route ran before
+                        o_old = torch.empty_like(o)
+                        row["cores_device_ms"] = device_time_ms(lambda: ck.gemm_cuda_cores(ck.PARTIAL, a, w, bias,
+                                                                                            o_old, M=m))[0]
+                        row["bound_f32_core_ms"] = max(bound_b, gflop * 1e9 / PEAK_F32 * 1e3)
                     kern["partial"]["rows"].append(row)
                     key = "max_abs_err" if bf16 else "max_abs_err_f32"
                     kern["partial"][key] = max(kern["partial"][key], err)
+                    f32_more = ("" if bf16 else f", the CUDA-core kernel {row['cores_device_ms']:.4f} ms, f32-core "
+                                f"bound {row['bound_f32_core_ms']:.4f} ms")
                     log(f"phase 15: PARTIAL {row['what']} {'bf16' if bf16 else 'f32'} (M, K, N) = {(m, k, dm)}: "
                         f"max|kernel - plain| {err:.3e} (bound {tol}); device {ms:.4f} ms, torch.matmul "
-                        f"{lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}) [{card}]")
+                        f"{lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}){f32_more} [{card}]")
         # residual_layernorm: fc's (f32 or bf16 residual, f32 out and its bf16 copy) and w2's with
         # bf16 activations (the bf16 output alone)
         for res_bf16, f32_out in ((False, True), (True, True), (False, False)):
@@ -1674,7 +1693,15 @@ def parallel_phase(card, data_dir, data_path, stats_path, rest_path, clear_count
     res, s_, b_, mask = rn(256, 512), 1 + 0.1 * rn(512), 0.1 * rn(512), torch.ones(256, device=dev)
     qkv = rn(2 * 121, 4 * 768).to(torch.bfloat16)
     q, k_, v = (rn(2, 4, 256, 256) for _ in range(3))
+    a32, w32, qkv32 = a.float(), ck.split_tf32(w.float()), qkv.float()
     pairs = {
+        "gemm f32 LAYER_NORM": lambda o, ob, op: (
+            torch.ops.egoego.gemm(a32, w32, bias, o, ck.LAYER_NORM, 256, None, res, s_, b_, mask, None, None, None,
+                                  None, None, None, None, 0, None) if op else
+            ck.gemm(ck.LAYER_NORM, a32, w32, bias, o, M=256, res=res, ln_s=s_, ln_b=b_, row_mask=mask)),
+        "attention f32": lambda o, ob, op: (torch.ops.egoego.attention(qkv32, o32, 2, 121, 121, 4, 256, 256) if op else
+                                            ck.attention(qkv32, o32, B=2, T=121, t_keys=121, n_head=4, d_k=256,
+                                                         d_v=256)),
         "gemm LAYER_NORM": lambda o, ob, op: (torch.ops.egoego.gemm(a, w, bias, o, ck.LAYER_NORM, 256, None, res, s_, b_,
                                                                     mask, None, None, None, None, None, None, ob, 0,
                                                                     None) if op else
@@ -1697,10 +1724,11 @@ def parallel_phase(card, data_dir, data_path, stats_path, rest_path, clear_count
             o, ob = torch.zeros(256, 512, device=dev), torch.zeros(256, 512, dtype=torch.bfloat16, device=dev)
             ob2 = torch.zeros(2 * 121, 1024, dtype=torch.bfloat16, device=dev)
             o4 = torch.zeros(2, 4, 256, 256, device=dev)
+            o32 = torch.zeros(2 * 121, 1024, device=dev)
             clear_counts()
             call(o, ob, op)
             torch.cuda.synchronize()
-            got.append(([t.clone() for t in (o, ob, ob2, o4)], dict(ck.kernel_launches)))
+            got.append(([t.clone() for t in (o, ob, ob2, o4, o32)], dict(ck.kernel_launches)))
         same = all(torch.equal(x, y) for x, y in zip(got[0][0], got[1][0]))
         op_same[name] = same and got[0][1] == got[1][1]
         if not op_same[name]:
@@ -1737,7 +1765,7 @@ def parallel_phase(card, data_dir, data_path, stats_path, rest_path, clear_count
         pm.spawn(_par_eval_rank, (argv, head_path, prefix), dp, tp, ["cuda:0"] * (dp * tp))
         wall = time.perf_counter() - t0
         bf16 = bool(flags)
-        g_name, a_name = ("gemm_wgmma", "attention_wgmma") if bf16 else ("gemm", "attention")
+        g_name, a_name = ("gemm_wgmma", "attention_wgmma") if bf16 else ("gemm_tf32x3", "mha")
         want_l = {"stem_layer": steps, "decoder_layer": steps * (n_layers - 2), "layer_epilogue": steps}
         want_c = {g_name: steps * (4 * n_layers + 2), a_name: steps * n_layers}
         want_m = {str(ck.BIAS): steps * n_layers, str(ck.BIAS_RELU): steps * n_layers, str(ck.STEM): steps,
@@ -1882,7 +1910,7 @@ def parallel_phase(card, data_dir, data_path, stats_path, rest_path, clear_count
         "chain", "--stats_path", stats_path, "--rest_offsets", rest_path, "--out", path, "--device", "cuda"])),
              (jpos, jquat), lambda jp, jq: pipe.diffusion.sample_sliding_window_w_canonical(
                  jp, jq, pipe.stats, pipe.rest_offsets, noise=DefaultNoise(dev)),
-             {k: 2 * 1000 * v for k, v in per_step("gemm", "attention").items()})
+             {k: 2 * 1000 * v for k, v in per_step("gemm_tf32x3", "mha").items()})
     # the whole system, bf16 (--fused_step's numerics), DDIM-50, one window
     pipe = build_pipeline(stats_path=stats_path, rest_offsets_path=rest_path, sampler="ddim", ddim_steps=PAR_DDIM,
                           compute_dtype="bfloat16", device=dev)
@@ -1957,7 +1985,7 @@ def act_bf16_phase(card, head, stats_path, rest_path, check_counts, clear_counts
 
     def c_launches(name, bf16):
         n_gemm = 4 if name == "decoder_layer" else 5
-        return {"gemm_wgmma": n_gemm, "attention_wgmma": 1} if bf16 else {"gemm": n_gemm, "attention": 1}
+        return {"gemm_wgmma": n_gemm, "attention_wgmma": 1} if bf16 else {"gemm_tf32x3": n_gemm, "mha": 1}
 
     def bound(name, t, act_bf16):
         """max(operations / 989 TFLOP/s, bytes / 3.35 TB/s) of one call at
@@ -2137,12 +2165,12 @@ def act_bf16_phase(card, head, stats_path, rest_path, check_counts, clear_counts
     h0f, h0f_r = torch.empty(rows, dm, device=dev), torch.empty(rows, dm, device=dev)
     of, ofb = torch.empty(rows, dm, device=dev), torch.empty(rows, dm, dtype=bf, device=dev)
     clear_counts()
-    ck.gemm(ck.LAYER_NORM, ctx32, lp32["wfc"], lp32["bfc"], h0f, M=rows, res=xb, **ln1)
-    ck.gemm(ck.LAYER_NORM, ctx32, lp32["wfc"], lp32["bfc"], h0f_r, M=rows, res=x_r, **ln1)
-    ck.gemm(ck.LAYER_NORM, h132, lp32["w2"], lp32["b2"], of, M=rows, res=h0f, **ln2)
-    ck.gemm(ck.LAYER_NORM, h132, lp32["w2"], lp32["b2"], None, M=rows, res=h0f, out_b=ofb, **ln2)
+    ck.gemm(ck.LAYER_NORM, ctx32, lp32["wfc_split"], lp32["bfc"], h0f, M=rows, res=xb, **ln1)
+    ck.gemm(ck.LAYER_NORM, ctx32, lp32["wfc_split"], lp32["bfc"], h0f_r, M=rows, res=x_r, **ln1)
+    ck.gemm(ck.LAYER_NORM, h132, lp32["w2_split"], lp32["b2"], of, M=rows, res=h0f, **ln2)
+    ck.gemm(ck.LAYER_NORM, h132, lp32["w2_split"], lp32["b2"], None, M=rows, res=h0f, out_b=ofb, **ln2)
     torch.cuda.synchronize()
-    if dict(ck.kernel_launches) != {"gemm": 4}:
+    if dict(ck.kernel_launches) != {"gemm_tf32x3": 4}:
         raise AssertionError(f"phase 12: the f32 LayerNorm launches launched {dict(ck.kernel_launches)}")
     same["fc_ln f32"] = torch.equal(h0f, h0f_r)
     same["w2_ln f32"] = torch.equal(ofb, of.to(bf))
@@ -2260,6 +2288,21 @@ def main() -> int:
     if sorted(wg_kernels) != sorted(WG_EPILOGUES) or not all(hg for _, hg in wg_kernels.values()) or hmma:
         raise AssertionError(f"gemm: want HGMMA in each of {WG_EPILOGUES} and no HMMA, got "
                              f"{ {k: len(v[1]) for k, v in wg_kernels.items()} } and {len(hmma)} HMMA")
+    # every f32 product runs on 3xTF32 wgmma: one instantiation of
+    # gemm_tf32x3_kernel<BM, BN, STAGES, epilogue> per epilogue and layout,
+    # each with TF32 HGMMA (and only TF32)
+    tf32_kernels = {}
+    for fn in sass.split("Function : ")[1:]:
+        m = re.match(r"\S*gemm_tf32x3_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d)E", fn)
+        if m:
+            hg = re.findall(r"\bHGMMA\.[\w.]+", fn)
+            tf32_kernels[WG_EPILOGUES[int(m.group(4))]] = (f"{m.group(1)}x{m.group(2)}, {m.group(3)} stages", hg)
+    for epi, (tile, hg) in sorted(tf32_kernels.items()):
+        log(f"phase 1: gemm_tf32x3_kernel {epi} ({tile}): {len(hg)} HGMMA ({', '.join(sorted(set(hg)))})")
+    if (sorted(tf32_kernels) != sorted(WG_EPILOGUES)
+            or not all(hg and all(".TF32" in x for x in hg) for _, hg in tf32_kernels.values())):
+        raise AssertionError(f"gemm: want TF32 HGMMA (alone) in each of {WG_EPILOGUES} of gemm_tf32x3_kernel, got "
+                             f"{ {k: sorted(set(v[1])) for k, v in tf32_kernels.items()} }")
     if any("spill" in line and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line)
            for line in built["ptxas"].get("gemm", "").splitlines()):
         raise AssertionError("gemm: a kernel spills registers")
@@ -2309,19 +2352,19 @@ def main() -> int:
 
     # kernel launches of one call of each wrapper: 4 GEMMs and one attention
     # per layer, plus the stem's or the update's GEMM; every GEMM on the
-    # wgmma kernel in bf16, on the f32 kernel ("gemm") in f32; the attention
-    # on the wgmma kernel in bf16 (head width 256, <= 128 tokens), on the
-    # CUDA cores ("attention") in f32
+    # wgmma kernel in bf16, on the 3xTF32 kernel ("gemm_tf32x3") in f32; the
+    # attention on the wgmma kernel in bf16 (head width 256, <= 128 tokens),
+    # on the 3xTF32 mha kernel in f32
     def c_launches(name, bf16=True):
         n_gemm = 4 if name in ("decoder_layer", "fused_decoder_layer") else 5
-        return {"gemm_wgmma": n_gemm, "attention_wgmma": 1} if bf16 else {"gemm": n_gemm, "attention": 1}
+        return {"gemm_wgmma": n_gemm, "attention_wgmma": 1} if bf16 else {"gemm_tf32x3": n_gemm, "mha": 1}
 
     def calls(inp, bf16):
         """[(name, check, wrapper, plain, args, kwargs of the wrapper alone)];
         the last case of each name is the one timed. In bf16 the stem reads
         the packed xa, and the update writes x_next's part of another."""
         p = prep[bf16]
-        xa = (lambda: fs.pack_xa(inp["x"], inp["xc"], p["wst"].shape[1])) if bf16 else (lambda: None)
+        xa = lambda: fs.pack_xa(inp["x"], inp["xc"], p["wst"].shape[1], p["wst"].dtype)
         return [
             ("stem_layer", "", fs.stem_layer, fs.stem_layer_plain,
              (inp["x"], inp["xc"], inp["emb"], inp["pos"], inp["mask"], p), {"xa": xa()}),
@@ -2336,7 +2379,8 @@ def main() -> int:
     def check(name, what, wrapper, plain, args, extra, bf16, t, phase="phase 2"):
         """The wrapper on card tensors against its plain version; the call
         must count once and launch its C entries. An update given xa must
-        write bf16(x_next) into its x part, bit for bit, and nothing else."""
+        write x_next in xa's dtype into its x part, bit for bit, and nothing
+        else."""
         ck.launch_counts.clear()
         ck.kernel_launches.clear()
         xa0 = extra["xa"].clone() if extra.get("xa") is not None else None
@@ -2348,9 +2392,9 @@ def main() -> int:
         out_p = plain(*args, **kw)
         torch.cuda.synchronize()
         if name == "layer_epilogue" and xa0 is not None and not (
-                torch.equal(extra["xa"][..., :d], out_k.to(torch.bfloat16))
+                torch.equal(extra["xa"][..., :d], out_k.to(xa0.dtype))
                 and torch.equal(extra["xa"][..., d:], xa0[..., d:])):
-            raise AssertionError(f"{name}{what}: xa's x part is not bf16(x_next), or its x_cond part changed")
+            raise AssertionError(f"{name}{what}: xa's x part is not x_next in xa's dtype, or its x_cond part changed")
         if what == " x0" and float((out_p.abs() < 1).float().mean()) < 0.5:
             raise AssertionError("layer_epilogue x0 check: x0 is mostly clipped, the check has no teeth")
         err = float((out_k - out_p).abs().max())
@@ -2362,28 +2406,31 @@ def main() -> int:
         return err
 
     def library_layer(h, mask, lp):
-        """One DecoderLayer from PyTorch library calls in bf16 (SDPA,
-        matmul, layer_norm): the yardstick, never called by the port."""
+        """One DecoderLayer from PyTorch library calls in the weights' dtype
+        (SDPA, matmul, layer_norm; f32 with TF32 off): the yardstick, never
+        called by the port."""
         b, t, _ = h.shape
         x = h.reshape(b * t, dm)
-        qkv = (torch.matmul(x.to(torch.bfloat16), lp["wqkv"].t()).float() + lp["bqkv"]).to(torch.bfloat16)
+        cdt = lp["wqkv"].dtype
+        qkv = (torch.matmul(x.to(cdt), lp["wqkv"].t()).float() + lp["bqkv"]).to(cdt)
         q, k, v = (qkv[:, i * nh * dk:(i + 1) * nh * dk].reshape(b, t, nh, dk).transpose(1, 2)
                    for i in range(3))
         ctx = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(b * t, nh * dv)
         m = mask.reshape(b * t, 1)
         h0 = F.layer_norm(torch.matmul(ctx, lp["wfc"].t()).float() + lp["bfc"] + x, (dm,),
                           lp["ln1s"], lp["ln1b"]) * m
-        h1 = torch.relu(torch.matmul(h0.to(torch.bfloat16), lp["w1"].t()).float() + lp["b1"])
-        h2 = torch.matmul(h1.to(torch.bfloat16), lp["w2"].t()).float() + lp["b2"]
+        h1 = torch.relu(torch.matmul(h0.to(cdt), lp["w1"].t()).float() + lp["b1"])
+        h2 = torch.matmul(h1.to(cdt), lp["w2"].t()).float() + lp["b2"]
         return (F.layer_norm(h2 + h0, (dm,), lp["ln2s"], lp["ln2b"]) * m).reshape(b, t, dm)
 
-    def library(name, inp):
-        p = prep[True]
+    def library(name, inp, bf16=True):
+        p = prep[bf16]
+        cdt = p["wst"].dtype
         if name == "decoder_layer":
             return lambda: library_layer(inp["h"], inp["mask"], p["layers"][1])
         if name == "stem_layer":
             def run():
-                src = torch.cat([inp["x"], inp["xc"]], -1).to(torch.bfloat16)
+                src = torch.cat([inp["x"], inp["xc"]], -1).to(cdt)
                 stem = torch.matmul(src, p["wst"][:, :2 * d].t()).float() + p["bst"]
                 h = torch.cat([inp["emb"].expand(BATCH, 1, dm), stem], 1) + inp["pos"]
                 return library_layer(h, inp["mask"], p["layers"][0])
@@ -2392,29 +2439,30 @@ def main() -> int:
         def run():
             t = inp["x"].shape[1]
             h = library_layer(inp["h"], inp["mask"], p["layers"][-1])
-            x0 = torch.clamp(torch.matmul(h[:, 1:t + 1].to(torch.bfloat16), p["lw"][:d].t()).float() + p["lb"], -1, 1)
+            x0 = torch.clamp(torch.matmul(h[:, 1:t + 1].to(cdt), p["lw"][:d].t()).float() + p["lb"], -1, 1)
             a1, a2, a3 = UPDATE
             xn = a1 * x0 + a2 * inp["x"] + a3 * inp["noise"]
             return xn + inp["ipm"][..., None] * (inp["ipv"] - xn)
         return run
 
-    def cost(name, t):
+    def cost(name, t, es=2):
         """FLOPs and the bytes each input is read once and each output
-        written once, for one call at BATCH windows of t frames, bf16 weights."""
+        written once, for one call at BATCH windows of t frames, weights and
+        the packed xa of es bytes an element (bf16; 4 in f32 compute)."""
         tok = BATCH * (t + 1)
         flops = (2 * tok * dm * nh * (2 * dk + dv) + 2 * BATCH * nh * (t + 1) ** 2 * (dk + dv)
                  + 2 * tok * nh * dv * dm + 4 * tok * dm * dm)
-        wbytes = 2 * (dm * nh * (2 * dk + dv) + nh * dv * dm + 2 * dm * dm) + 4 * (nh * (2 * dk + dv) + 7 * dm)
+        wbytes = es * (dm * nh * (2 * dk + dv) + nh * dv * dm + 2 * dm * dm) + 4 * (nh * (2 * dk + dv) + 7 * dm)
         act = 4 * tok * dm
         nbytes = wbytes + 4 * tok  # weights + mask
-        if name == "stem_layer":  # reads the packed bf16 xa (400 wide)
+        if name == "stem_layer":  # reads the packed xa (400 wide)
             flops += 2 * BATCH * t * 2 * d * dm
-            nbytes += 2 * BATCH * t * 400 + 4 * dm + 4 * (t + 1) * dm + 2 * 2 * d * dm + 4 * dm + act
+            nbytes += es * BATCH * t * 400 + 4 * dm + 4 * (t + 1) * dm + es * 2 * d * dm + 4 * dm + act
         elif name == "decoder_layer":
             nbytes += 2 * act
-        else:  # and writes bf16(x_next) into xa
+        else:  # and writes x_next into xa
             flops += 2 * BATCH * t * dm * d
-            nbytes += act + 4 * 4 * BATCH * t * d + 4 * BATCH * t + 2 * dm * d + 4 * d + 2 * BATCH * t * d
+            nbytes += act + 4 * 4 * BATCH * t * d + 4 * BATCH * t + es * dm * d + 4 * d + es * BATCH * t * d
         return flops, nbytes
 
     def launch_parts(inp):
@@ -2578,10 +2626,11 @@ def main() -> int:
             raise AssertionError("attention_wgmma is slower than the WMMA kernel it replaced at 64 x 121")
         return table
 
-    def step_profile(inp, steps=20):
+    def step_profile(inp, steps=20, bf16=True):
         """Wall time of `steps` reverse steps (host clock around
-        synchronize) and the device-busy share from torch.profiler."""
-        p = prep[True]
+        synchronize), the device-busy share and the device ms a step from
+        torch.profiler; the stem packs xa each step."""
+        p = prep[bf16]
         step = lambda: fs.fused_denoise_step(inp["x"], inp["xc"], inp["emb"], inp["pos"], inp["mask"],
                                              inp["noise"], UPDATE, None, None, p, **kw)
         step()
@@ -2596,9 +2645,117 @@ def main() -> int:
         busy_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
         out = {"step_ms": wall / steps * 1e3}
         out["device_busy_share"] = busy_us * 1e-6 / wall if busy_us > 0 else "not measured"
+        out["device_ms"] = busy_us / steps / 1e3 if busy_us > 0 else "not measured"
         return out
 
-    results = {}
+    def f32_launch_table(inp, gate):
+        """Per launch of one f32 step (the CLIs' default numerics), each alone
+        on the operands the chain gives it: its device time (torch.profiler)
+        beside the CUDA-core kernel it replaced at the same layout
+        (gemm_f32_kernel through ck.gemm_cuda_cores; the CUDA-core attention
+        kernel by its C entry), torch.matmul f32 at the same (M, K, N) (SDPA
+        f32 for the attention), both bounds (3xTF32: 3 operations / 495
+        TFLOP/s; the f32 CUDA cores: operations / 67 TFLOP/s; each against
+        bytes / 3.35 TB/s, each input read once and each output written once)
+        and max|launch - plain| (TOL_F32; the update's f32 xa bit for bit).
+        gate: fail if a GEMM launch is not faster than gemm_f32_kernel."""
+        p = prep[False]
+        lp = p["layers"][1]
+        b, t1, _ = inp["h"].shape
+        rows, t = b * t1, t1 - 1
+        x, m = inp["h"].reshape(rows, dm), inp["mask"].reshape(rows)
+        n_qkv = lp["wqkv"].shape[0]
+        # the chain's operands: each launch's input is its producer's output
+        qkv, ctx = torch.empty(rows, n_qkv, device=dev), torch.empty(rows, nh * dv, device=dev)
+        h0, h1 = torch.empty(rows, dm, device=dev), torch.empty(rows, dm, device=dev)
+        ln1 = dict(res=x, ln_s=lp["ln1s"], ln_b=lp["ln1b"], row_mask=m)
+        ln2 = dict(res=h0, ln_s=lp["ln2s"], ln_b=lp["ln2b"], row_mask=m)
+        ck.gemm(ck.BIAS, x, lp["wqkv_split"], lp["bqkv"], qkv, M=rows)
+        ck.attention(qkv, ctx, B=b, T=t1, t_keys=t1, **kw)
+        ck.gemm(ck.LAYER_NORM, ctx, lp["wfc_split"], lp["bfc"], h0, M=rows, **ln1)
+        ck.gemm(ck.BIAS_RELU, h0, lp["w1_split"], lp["b1"], h1, M=rows)
+        xa = fs.pack_xa(inp["x"], inp["xc"], p["wst"].shape[1], torch.float32)
+        xa_step = xa.clone()
+        stem_kw = dict(pos=inp["pos"], emb=inp["emb"], t_data=t)
+        step_kw = dict(x=inp["x"], noise=inp["noise"], ipv=inp["ipv"], ipm=inp["ipm"], t_data=t, scal=UPDATE)
+        # name: (mode, A, params, weight, bias, M, keywords, (M, K, N) of the product, other reads)
+        gemms = {
+            "qkv": (ck.BIAS, x, lp, "wqkv", lp["bqkv"], rows, {}, (rows, dm, n_qkv), []),
+            "fc_ln": (ck.LAYER_NORM, ctx, lp, "wfc", lp["bfc"], rows, ln1, (rows, nh * dv, dm), [x, m, lp["ln1s"],
+                                                                                              lp["ln1b"]]),
+            "w1_relu": (ck.BIAS_RELU, h0, lp, "w1", lp["b1"], rows, {}, (rows, dm, dm), []),
+            "w2_ln": (ck.LAYER_NORM, h1, lp, "w2", lp["b2"], rows, ln2, (rows, dm, dm), [h0, m, lp["ln2s"],
+                                                                                        lp["ln2b"]]),
+            "stem": (ck.STEM, xa.reshape(b * t, -1), p, "wst", p["bst"], rows, stem_kw, (b * t, 2 * d, dm),
+                     [inp["pos"], inp["emb"]]),
+            "step": (ck.STEP, inp["h"], p, "lw", p["lb"], b * t, step_kw, (rows, dm, d),
+                     [inp["x"], inp["noise"], inp["ipv"], inp["ipm"]]),
+        }
+        table = {}
+
+        def row(name, mkn, flops, nbytes, run, old, lib, err, want_launch):
+            ck.launch_counts.clear()
+            ck.kernel_launches.clear()
+            run()
+            torch.cuda.synchronize()
+            if dict(ck.kernel_launches) != {want_launch: 1}:
+                raise AssertionError(f"f32 launch {name}: launched {dict(ck.kernel_launches)}, want {want_launch}")
+            r = {"mkn": mkn, "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "max_abs_err": err(),
+                 "bound_ms": max(3 * flops / PEAK_TF32, nbytes / HBM_BYTES_S) * 1e3,
+                 "bound_f32_core_ms": max(flops / PEAK_F32, nbytes / HBM_BYTES_S) * 1e3}
+            r["bound_by"] = "operations" if 3 * flops / PEAK_TF32 >= nbytes / HBM_BYTES_S else "bytes"
+            if not r["max_abs_err"] <= TOL_F32:
+                raise AssertionError(f"f32 launch {name} {b}x{t1}: max|launch - plain| = {r['max_abs_err']} > "
+                                     f"{TOL_F32} (inf: the update's xa is not its f32 x_next)")
+            r["device_ms"], r["kernels"] = device_time_ms(run)
+            r["cores_device_ms"], _ = device_time_ms(old)
+            r["library_device_ms"], _ = device_time_ms(lib)
+            r["tflops"] = flops / r["device_ms"] / 1e9
+            table[name] = r
+            log(f"phase 2: f32 launch {name} {b}x{t1} tokens (M, K, N) = {mkn}: device {r['device_ms']:.4f} ms "
+                f"({r['tflops']:.1f} TFLOP/s of f32 work), the CUDA-core kernel {r['cores_device_ms']:.4f} ms, "
+                f"{'SDPA' if mkn is None else 'torch.matmul'} f32 {r['library_device_ms']:.4f} ms; bound 3xTF32 "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), f32 cores {r['bound_f32_core_ms']:.4f} ms "
+                f"({r['gflop']:.2f} GFLOP, {r['mbytes']:.1f} MB); max|launch - plain| {r['max_abs_err']:.3e} "
+                f"(bound {TOL_F32}); {r['kernels']} [{card}]")
+            if gate and mkn is not None and not r["device_ms"] < r["cores_device_ms"]:
+                raise AssertionError(f"f32 launch {name} {b}x{t1}: gemm_tf32x3 {r['device_ms']:.4f} ms is not faster "
+                                     f"than gemm_f32_kernel's {r['cores_device_ms']:.4f} ms")
+
+        for name, (mode, a, prm, wname, bias, mm, kwargs, mkn, extra) in gemms.items():
+            n = bias.numel()
+            out, out_old = torch.empty(mm, n, device=dev), torch.empty(mm, n, device=dev)
+            xa_kw = {"out_b": xa_step} if mode == ck.STEP else {}
+            a_l = a.reshape(-1, a.shape[-1])[:, :mkn[1]].contiguous()
+            w_l = prm[wname][:n, :mkn[1]].t()
+
+            def err(mode=mode, a=a, prm=prm, wname=wname, bias=bias, mm=mm, kwargs=kwargs, out=out):
+                want = ck.gemm_plain(mode, a, prm[wname + "_split"], bias, torch.empty_like(out), M=mm, **kwargs)
+                e = float((out - want).abs().max())
+                if mode == ck.STEP and not torch.equal(xa_step[..., :d], out.reshape(b, t, d)):
+                    e = math.inf
+                return e
+            reads = [a, prm[wname][:n], bias, *extra]
+            nbytes = 4 * sum(x_.numel() for x_ in reads) + 4 * out.numel() * (2 if mode == ck.STEP else 1)
+            row(name, mkn, 2 * mkn[0] * mkn[1] * mkn[2], nbytes,
+                lambda mode=mode, a=a, prm=prm, wname=wname, bias=bias, mm=mm, kwargs=kwargs, out=out, xa_kw=xa_kw:
+                    ck.gemm(mode, a, prm[wname + "_split"], bias, out, M=mm, **kwargs, **xa_kw),
+                lambda mode=mode, a=a, prm=prm, wname=wname, bias=bias, mm=mm, kwargs=kwargs, out_old=out_old:
+                    ck.gemm_cuda_cores(mode, a, prm[wname], bias, out_old, M=mm, **kwargs),
+                lambda a_l=a_l, w_l=w_l: torch.matmul(a_l, w_l), err, "gemm_tf32x3")
+            if name == "qkv":  # the attention, on this launch's output
+                ctx_k, ctx_c = torch.empty_like(ctx), torch.empty_like(ctx)
+                args = ck.attention_args(qkv, ctx_c, B=b, T=t1, t_keys=t1, **kw, kernel="attention")
+                q, k, v, _ = ck.qkv_heads(qkv, ctx, B=b, T=t1, **kw)
+                row("attention", None, 2 * b * nh * t1 * t1 * (dk + dv), 4 * (qkv.numel() + ctx.numel()),
+                    lambda: ck.attention(qkv, ctx_k, B=b, T=t1, t_keys=t1, **kw),
+                    lambda: ck._check(ck._lib("attention").egoego_attention(
+                        ctypes.byref(args), torch.cuda.current_stream().cuda_stream), "attention"),
+                    lambda: F.scaled_dot_product_attention(q, k, v),
+                    lambda: float((ctx_k - fl.attention_plain(qkv, B=b, T=t1, t_keys=t1, **kw)).abs().max()), "mha")
+        return table
+
+    results, f32_step = {}, {}
     for t in (cfg.window, 30):
         inp = inputs(t)
         for bf16 in (False, True):
@@ -2628,7 +2785,33 @@ def main() -> int:
                     f"({r['bound_by']}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB) [{card}]")
             step_prof = step_profile(inp)
             log(f"phase 2: one reverse step, bf16 {BATCH}x{t + 1} tokens: {step_prof} [{card}]")
+        # the f32 mode (the CLIs' default), at both windows: each wrapper as the chain calls it, and the step
+        shape = f"{BATCH}x{t + 1}"
+        timed = {name: (wrapper, plain, args, extra) for name, _, wrapper, plain, args, extra in calls(inp, False)}
+        for name, (wrapper, plain, args, extra) in timed.items():
+            flops, nbytes = cost(name, t, es=4)
+            run = lambda: wrapper(*args, **kw, **extra)
+            r = results[name].setdefault("f32", {})[shape] = {
+                "ms": cuda_time_ms(run), "plain_ms": cuda_time_ms(lambda: plain(*args, **kw)),
+                "library_ms": cuda_time_ms(library(name, inp, bf16=False)),
+                "device_ms": device_time_ms(run, chain=True)[0],
+                "library_device_ms": device_time_ms(library(name, inp, bf16=False), chain=True)[0],
+                "bound_ms": max(3 * flops / PEAK_TF32, nbytes / HBM_BYTES_S) * 1e3,
+                "bound_f32_core_ms": max(flops / PEAK_F32, nbytes / HBM_BYTES_S) * 1e3,
+                "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+            log(f"phase 2: {name} f32 {shape} tokens: kernel {r['ms']:.3f} ms (device "
+                f"{r['device_ms']:.4f}), plain {r['plain_ms']:.3f} ms, library f32 {r['library_ms']:.3f} ms "
+                f"(device {r['library_device_ms']:.4f}), bound 3xTF32 {r['bound_ms']:.4f} ms, f32 cores "
+                f"{r['bound_f32_core_ms']:.4f} ms ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB) [{card}]")
+        r = f32_step[shape] = {"device_ms": sum(n * results[name]["f32"][shape]["device_ms"] for name, n in (
+            ("stem_layer", 1), ("decoder_layer", cfg.n_dec_layers - 2), ("layer_epilogue", 1)))}
+        r.update({f"profile_{k}": v for k, v in step_profile(inp, bf16=False).items()})
+        log(f"phase 2: one reverse step, f32 {shape} tokens: device {r['device_ms']:.4f} ms (stem_layer + "
+            f"{cfg.n_dec_layers - 2} x decoder_layer + layer_epilogue); under the profiler "
+            f"{ {k: v for k, v in r.items() if k.startswith('profile_')} } [{card}]")
         results["decoder_layer"].setdefault("launch_table", {})[f"{BATCH}x{t + 1}"] = launch_table(inp)
+        results["decoder_layer"].setdefault("f32_launch_table", {})[f"{BATCH}x{t + 1}"] = f32_launch_table(
+            inp, gate=t == cfg.window)
     results["decoder_layer"]["attention_launch"] = attention_table()
     del prep, inp
 
@@ -2728,10 +2911,16 @@ def main() -> int:
         "--batch_seqs", str(seqs_f32), "--max_seqs", str(seqs_f32), "--ddim_steps", str(cfg.ddim_steps),
         "--out_dir", os.path.join(data_dir, "out_f32"), "--device", "cuda"])
     clear_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     res_f32 = eval_stage2.run(opt)
+    torch.cuda.synchronize()
+    dt_f32 = time.perf_counter() - t0
     check_counts(1, cfg.ddim_steps, "phase 5 eval_stage2 (no flag: f32)", bf16=False)
     if res_f32["num_seqs"] != seqs_f32 or not all(math.isfinite(v) for v in res_f32["mean"].values()):
         raise AssertionError(f"phase 5: bad eval result {res_f32['mean']}")
+    log(f"phase 5: eval_stage2 (no flag: f32) {seqs_f32} seqs x {cfg.window} frames DDIM-{cfg.ddim_steps} in "
+        f"{dt_f32:.2f} s [{card}]")
 
     # both runs draw the same noise from a CPU generator; the sampler moves
     # each draw to its own device
@@ -3179,10 +3368,12 @@ def main() -> int:
                              c_kernels={k: launches[name] * v for k, v in c_launches(name).items()})
     # the stem's and the update's GEMM launch (gemm_wgmma_kernel kStem / kStep) at both windows
     tables = results["decoder_layer"]["launch_table"]
+    tables32 = results["decoder_layer"]["f32_launch_table"]
     for name, part in (("stem_layer", "stem"), ("layer_epilogue", "step")):
         results[name]["gemm_launch"] = {shape: {k: tab[part][k] for k in (
             "mkn", "device_ms", "library_device_ms", "bound_ms", "bound_ops_ms", "bound_bytes_ms", "max_abs_err")}
             for shape, tab in tables.items()}
+        results[name]["f32"]["gemm_launch"] = {shape: tab[part] for shape, tab in tables32.items()}
     kernels = []
     for name, r in results.items():
         srcs = [csrc + "mha.cu"] if name == "fused_attention" else layer_srcs
@@ -3196,7 +3387,8 @@ def main() -> int:
             "shape": r["shape"], "card": card,
             **{key: r[key] for key in ("device_ms", "library_device_ms", "bound_f32_core_ms", "per_shape",
                                        "mma_sync_tf32_tflops", "launch_table", "gemm_launch", "attention_launch",
-                                       "c_kernels", "launches_path_e", "max_abs_err_path_e", "act_bf16") if key in r},
+                                       "c_kernels", "launches_path_e", "max_abs_err_path_e", "act_bf16", "f32",
+                                       "f32_launch_table") if key in r},
         })
     # the tensor-parallel layer's own launches: the 64 x 121-token, tp 2 rows
     # of phase 15 (bf16 PARTIAL fc; residual_layernorm with an f32 residual),
@@ -3216,14 +3408,16 @@ def main() -> int:
             "max_abs_err": k["max_abs_err"], "max_abs_err_f32": k["max_abs_err_f32"], "ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_device_ms"], "gflop": r["gflop"], "mbytes": r["mbytes"],
-            "shape": r["what"], "card": card, "per_shape": k["rows"]})
+            "shape": r["what"], "card": card, "per_shape": k["rows"],
+            **({"f32": next(r32 for r32 in k["rows"] if r32["what"] == r["what"] and not r32["bf16"])}
+               if key == "partial" else {})})
     log(f"main path: eval_stage2 {dt_a:.3f} s; DDPM chain {dt_b:.3f} s; DDIM chain {dt_d:.3f} s; "
         f"eval_stage2 --fused {dt_c:.3f} s; eval_egoego {dt_egoego:.3f} s; eval_egoego --batch_seqs {BATCH_E} "
         f"{dt_e:.3f} s ({s_seq_e:.3f} s/seq against {s_seq_d:.3f}); stage 1 "
         f"{stage1[HEADNET_WINDOW_D]['ms_per_seq']:.2f} ms/seq (window {HEADNET_WINDOW_D}), "
         f"{stage1[60]['ms_per_seq']:.2f} ms/seq (window 60); whole smoke {time.perf_counter() - t_start:.1f} s; "
         f"device times left by the profiler to CUDA events: {len(EVENT_TIMED)}")
-    print(json.dumps({"kernels": kernels, "step": step_prof, "training": training,
+    print(json.dumps({"kernels": kernels, "step": step_prof, "step_f32": f32_step, "training": training,
                       "act_bf16": {k: v for k, v in act.items() if k != "wrappers"},
                       "stage1_training": stage1_training, "outputs": outputs,
                       "parallel": {k: v for k, v in parallel.items() if k != "kernels"}}))

@@ -4,6 +4,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace egoego {
 
 constexpr int kThreads = 256;  // every kernel here runs 8 warps per block
@@ -41,6 +43,16 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pr
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+// 3xTF32 (mha.cu, gemm.cu): x = hi + lo. hi is x rounded to the nearest TF32 value (10 mantissa
+// bits, ties away from zero: cvt.rna's rounding, done on the bits in two
+// instructions, where cvt.rna.tf32.f32 expands to several); lo = x - hi
+// exactly, which the tensor core reads truncated to TF32 (|lo| <= 2^-11 |x|,
+// so the truncation costs at most 2^-21 |x|). x is finite.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll

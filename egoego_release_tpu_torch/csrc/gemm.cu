@@ -10,7 +10,7 @@
 // An H100 SM has 227 KB of shared memory, so here each product is its own
 // launch and the elementwise work that followed it in the TPU kernel rides
 // in that launch's epilogue, so no intermediate makes an extra trip through
-// device memory. Two kernels; the mode and the compute type alone pick one.
+// device memory. Two kernels on the route; the compute type picks one.
 //
 // gemm_wgmma_kernel, every product in bf16. wgmma is the only instruction
 // that reaches the card's full bf16 rate, so: one producer warpgroup, of
@@ -83,8 +83,51 @@
 //    normalizes. Bound by bytes (K = 512 / tp). Its own instantiation
 //    (kEpiPartial), so the LayerNorm epilogues carry no branch for it.
 //
-// gemm_f32_kernel, every mode in f32 on the CUDA cores (no TF32), for
-// parity checks; there the stem reads x and x_cond (f32) itself.
+// gemm_tf32x3_kernel, every product in f32 compute (the CLIs' default
+// numerics), on the tensor cores at f32 accuracy: a TMA ring of k-tiles, two
+// consumer warpgroups, persistent, the same epilogues on the accumulators.
+// One TF32 pass keeps 10 mantissa bits, which misses the f32 kernels' 1e-4
+// at K = 1024 (tests/test_torch_f32_tensor_cores.py), so each product is
+// 3xTF32, as csrc/mha.cu does it: x = hi + lo, hi x rounded to TF32 on the
+// bits, lo = x - hi exactly (the tensor core reads it truncated to TF32, at
+// most 2^-21 |x| off), and A W = Ahi Whi + Ahi Wlo + Alo Whi (Alo Wlo,
+// ~2^-22 relative, is dropped). W is constant over a chain, so it arrives
+// split: w = Whi and w_lo = Wlo (cuda_kernels.split_tf32, once per model in
+// the f32 step parameters), both (N, K) f32 and K-major, by TMA. A is read
+// from its stage into registers as the m64nNk8 tf32 A fragment and split
+// there, and the three products are wgmma.m64nNk8.f32.tf32.tf32 with A from
+// registers and W from shared memory. A 32-deep f32 k-tile of a 512-wide W
+// hi and lo is 128 KB, so the k-tiles are 16 deep, in rows of 64 bytes with
+// the 64-byte swizzle.
+// The tensor cores add each product into their f32 accumulator truncated,
+// not rounded to nearest: over K = 512-1024 (3 K / 8 adds into one
+// accumulator) that bias cost the f32 step 5-9x the CUDA-core kernel's
+// error against the plain version, and the f32 chains their 1e-3
+// card-vs-CPU bound (chip_smoke.py phase 14). So each k-tile's six products
+// of a chunk of 128 columns (104 in kStep) go into a zeroed register chunk,
+// which the CUDA cores then add into the f32 accumulator rounding to
+// nearest: each truncated sum is one k-tile's. That chunk needs registers
+// beside the 128 of the accumulators, and registers go to a block in units
+// of four warps, so a producer warp or warpgroup beside the consumers (288
+// or 384 threads) would hold every thread to 168: the block is the two
+// consumer warpgroups alone (256 threads, up to 255 registers), and thread
+// 0 refills each stage once both have handed it back.
+// An f32 product is bound by operations at every shape of the step: three
+// tensor-core products per f32 product, 3 x 2 M N K / 495 TFLOP/s. Tiles,
+// stages and shared memory of each instantiation (A + Whi + Wlo a stage):
+//  - kBias, kBiasRelu (QKV, w1): 128 x 256, 5 stages of 40 KB (200 KB);
+//    f32 out stored from the fragment.
+//  - kLayerNorm (four layouts, as above) and kPartial: 64 x 512, 3 stages
+//    of 68 KB (204 KB).
+//  - kStem: 128 x 256, 4 stages of 40 KB and 20 KB of f32 staging (180 KB).
+//    A is an f32 xa (B t_data, K) = [x | x_cond | 0] at the padded width
+//    (x and x_cond have 792-byte rows, which TMA cannot map); f32 h only.
+//  - kStep: 64 x 208, 4 stages of 30 KB and the 52 KB x0 span (172 KB); it
+//    writes x_next into the f32 xa's x part (out_b) for the next stem.
+//
+// gemm_f32_kernel, every mode in f32 on the CUDA cores (no TF32): off the
+// route, reachable by its own C entry (egoego_gemm_cuda_cores) alone, so
+// that chip_smoke.py can time it beside gemm_tf32x3_kernel.
 //
 // Rounding points follow _layer_body: A is rounded to bf16 before the
 // product, the epilogue adds the f32 bias and rounds the output to bf16
@@ -107,9 +150,9 @@ enum GemmMode : int {
 };
 
 struct GemmArgs {
-  const void* a;          // (rows, lda), f32 or bf16; kStem in bf16: xa (B t_data, lda)
-  const void* a2;         // kStem in f32: x_cond, laid out like a
-  const void* w;          // (N or more rows, ldw), K-major as nn.Linear; bf16 in bf16 mode, f32 in f32 mode
+  const void* a;          // (rows, lda), f32 or bf16; kStem: xa (B t_data, lda)
+  const void* w;          // (N or more rows, ldw), K-major as nn.Linear; bf16 in bf16 mode; f32 mode: Whi
+  const void* w_lo;       // f32 mode: Wlo = W - Whi, laid out like w (gemm_f32_kernel reads w as W itself)
   const float* bias;      // (N,)
   const void* res;        // kLayerNorm: residual (M, N), f32 or (res_bf16) bf16
   const float* ln_s;      // kLayerNorm: (N,)
@@ -125,14 +168,15 @@ struct GemmArgs {
   void* out_b;            // bf16 (M, ldb): kLayerNorm/kStem the f32 out rounded; kStep the x part of xa; or null
   int M, N, K;            // M: rows of out
   int lda, ldw, ldo, ldb;
-  int k_split;            // kStem in f32: columns taken from a; the rest come from a2
   int a_bf16, out_bf16, compute_bf16;
   int res_bf16;           // kLayerNorm: the residual is bf16 (read as f32, the add stays f32)
   int mode;
   int t_data;             // kStem/kStep: frames per window (tokens = t_data + 1)
-  int wgmma;              // set by egoego_gemm: 1 if it launched gemm_wgmma_kernel
+  int kernel;             // set by the C entries: the GemmKernel launched
   float c1, c2, c3;       // kStep: the update scalars a1, a2, a3
 };
+
+enum GemmKernel : int { kKernelCudaCores = 0, kKernelWgmma = 1, kKernelTf32x3 = 2 };
 
 // Rows of the product: kStem multiplies the B t_data data rows (out has a
 // token 0 more per window), kStep all B (t_data + 1) token rows of A (out
@@ -156,8 +200,6 @@ __device__ __forceinline__ int a_row(const GemmArgs& p, int r) {
 
 __device__ __forceinline__ float load_a(const GemmArgs& p, int arow, int k) {
   if (arow < 0 || k >= p.K) return 0.f;
-  if (p.mode == kStem && k >= p.k_split)
-    return load_f(p.a2, (size_t)arow * p.lda + (k - p.k_split), p.a_bf16);
   return load_f(p.a, (size_t)arow * p.lda + k, p.a_bf16);
 }
 
@@ -308,6 +350,7 @@ struct F32Stage {
 template <int BM, int BN, int STAGES, int EPI>
 struct WgTile {
   static constexpr int kEpi = EPI;
+  static constexpr bool kTf32 = false;  // bf16 operands (TfTile: gemm_tf32x3_kernel's f32 layouts)
   static constexpr bool kSplitN = ln_epilogue(EPI) || EPI == kEpiStep || EPI == kEpiPartial;
   static constexpr int kWN = kSplitN ? BN / 2 : BN;  // columns of one warpgroup's m64nWNk16
   static constexpr int kWBox = BN > 256 ? 256 : BN;  // rows of W in one TMA box
@@ -427,8 +470,9 @@ __device__ __forceinline__ void store_block(const GemmArgs& p, const float (&acc
 // eight threads to a row, adds bias and position row in 16-byte loads (the
 // four pieces of a thread at once; from the fragment they would be 64
 // float2 loads a thread, which the accumulators' registers leave the
-// compiler no room to keep in flight), and stores 16 bytes of f32 and 8 of
-// bf16. N % 8 == 0.
+// compiler no room to keep in flight), and stores 16 bytes of f32 and, with
+// kCopy (bf16 compute), 8 of bf16. N % 8 == 0.
+template <bool kCopy>
 __device__ __forceinline__ void store_block_f32(const GemmArgs& p, const float (&acc)[128], unsigned char* stage,
                                                 int r0, int c0, int rows) {
   const int t = threadIdx.x % 128, lane = t % 32, wg = threadIdx.x / 128;
@@ -462,10 +506,12 @@ __device__ __forceinline__ void store_block_f32(const GemmArgs& p, const float (
                                      (a.w + b.w) + ps[u].w);
         const size_t R = r + r / p.t_data + 1;
         *reinterpret_cast<float4*>(static_cast<float*>(p.out) + R * p.ldo + C) = v;
-        union { uint2 bits; __nv_bfloat162 h[2]; } vb;
-        vb.h[0] = __floats2bfloat162_rn(v.x, v.y);
-        vb.h[1] = __floats2bfloat162_rn(v.z, v.w);
-        *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(p.out_b) + R * p.ldb + C) = vb.bits;
+        if constexpr (kCopy) {
+          union { uint2 bits; __nv_bfloat162 h[2]; } vb;
+          vb.h[0] = __floats2bfloat162_rn(v.x, v.y);
+          vb.h[1] = __floats2bfloat162_rn(v.z, v.w);
+          *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(p.out_b) + R * p.ldb + C) = vb.bits;
+        }
       }
     }
     warpgroup_sync(wg);  // the staging rows are free again
@@ -493,7 +539,9 @@ __device__ __forceinline__ float lane_of(const float4& v, int e) {
 // (store_block); the LayerNorm modes store column pairs straight from the
 // fragment (staging their f32 rows too gained them under 10% and cost a ring
 // stage and spills); kStem and kStep as the note at the top says. Same
-// arithmetic as the f32 kernel's epilogue().
+// arithmetic as the f32 kernel's epilogue(). In gemm_tf32x3_kernel
+// (T::kTf32) the bias/ReLU modes store f32 column pairs from the fragment,
+// the stem writes no bf16 copy, and the update writes f32 x_next into xa.
 template <typename T>
 __device__ __forceinline__ void wgmma_epilogue(const GemmArgs& p, float (&acc)[T::kWN / 2], unsigned char* stage,
                                                int m0, int n0, int row0, int col0) {
@@ -514,7 +562,22 @@ __device__ __forceinline__ void wgmma_epilogue(const GemmArgs& p, float (&acc)[T
         }
       }
     }
-    store_block(p, acc, stage, m0 + row0, n0 + col0);
+    if constexpr (T::kTf32) {  // f32 out: each quad of lanes writes 32 contiguous bytes of a row
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int R = m0 + row0 + rl + 8 * h;
+        if (R < p.M) {
+          float* o = static_cast<float*>(p.out) + (size_t)R * p.ldo;
+#pragma unroll
+          for (int j = 0; j < 32; ++j) {
+            const int C = c + 8 * j;
+            if (C < p.N) *reinterpret_cast<float2*>(o + C) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          }
+        }
+      }
+    } else {
+      store_block(p, acc, stage, m0 + row0, n0 + col0);
+    }
   } else if constexpr (ln_epilogue(T::kEpi)) {  // the two warpgroups hold the two column halves of 64 rows
     __shared__ float part[2][2][64];  // [statistic][warpgroup][row]: row sums over each half
     const int wg = threadIdx.x / 128;
@@ -605,7 +668,7 @@ __device__ __forceinline__ void wgmma_epilogue(const GemmArgs& p, float (&acc)[T
     }
   } else if constexpr (T::kEpi == kEpiStem) {
     const int t = p.t_data, rows = prod_rows(p);
-    store_block_f32(p, acc, stage, m0 + row0, n0 + col0, rows);
+    store_block_f32<!T::kTf32>(p, acc, stage, m0 + row0, n0 + col0, rows);
     // token 0 (emb + pos[0]) of each window whose first data row is among this warpgroup's 64 rows
     const int r_lo = m0 + row0, r_hi = min(r_lo + 64, rows);
     for (int b = (r_lo + t - 1) / t; b * t < r_hi; ++b) {
@@ -616,8 +679,9 @@ __device__ __forceinline__ void wgmma_epilogue(const GemmArgs& p, float (&acc)[T
         const float v0 = e.x + ps.x, v1 = e.y + ps.y;
         const size_t R = (size_t)b * (t + 1);
         *reinterpret_cast<float2*>(static_cast<float*>(p.out) + R * p.ldo + C) = make_float2(v0, v1);
-        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out_b) + R * p.ldb + C) =
-            __floats2bfloat162_rn(v0, v1);
+        if constexpr (!T::kTf32)
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out_b) + R * p.ldb + C) =
+              __floats2bfloat162_rn(v0, v1);
       }
     }
   } else {  // kEpiStep: the two warpgroups hold the two column halves of the same 64 product rows
@@ -656,7 +720,8 @@ __device__ __forceinline__ void wgmma_epilogue(const GemmArgs& p, float (&acc)[T
       const float xn = __fadd_rn(__fadd_rn(__fmul_rn(p.c1, x0), __fmul_rn(p.c2, x)), __fmul_rn(p.c3, nz));
       return inpaint ? xn + m * (v - xn) : xn;
     };
-    constexpr int kInFlight = 8;  // pieces a thread loads before it stores any
+    // pieces a thread loads before it stores any (in gemm_tf32x3_kernel 8 spill)
+    constexpr int kInFlight = T::kTf32 ? 4 : 8;
     for (int f_first = (f0 & ~3) + 4 * tid; f_first < f1; f_first += 4 * 256 * kInFlight) {
       // a piece's loads, the inpaint mask of its row and the next (a piece
       // may straddle two rows), and how many of its elements lie in the first
@@ -702,9 +767,19 @@ __device__ __forceinline__ void wgmma_epilogue(const GemmArgs& p, float (&acc)[T
       }
     }
     consumer_sync();
-    // bf16(x_next) into the x part of xa (out_b, row stride ldb): 16-byte
-    // pieces of 8 columns, then the last N % 8 columns in pairs
-    if (p.out_b != nullptr) {
+    // x_next into the x part of xa (out_b, row stride ldb): in f32 compute
+    // f32 column pairs; in bf16, bf16(x_next) in 16-byte pieces of 8
+    // columns, then the last N % 8 columns in pairs
+    if constexpr (T::kTf32) {
+      if (p.out_b != nullptr) {
+        const int pairs = p.N / 2;
+        for (int i = tid; i < (o_hi - o_lo) * pairs; i += 256) {
+          const int row = i / pairs, C = 2 * (i % pairs);
+          *reinterpret_cast<float2*>(static_cast<float*>(p.out_b) + (size_t)(o_lo + row) * p.ldb + C) =
+              *reinterpret_cast<const float2*>(xs + row * p.N + C);
+        }
+      }
+    } else if (p.out_b != nullptr) {
       const int pieces = p.N / 8, per_row = pieces + p.N % 8 / 2;
       for (int i = tid; i < (o_hi - o_lo) * per_row; i += 256) {
         const int row = i / per_row, k = i % per_row;
@@ -801,6 +876,247 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       if (leader) mbar_arrive(&empty[(it - 1) % STAGES]);
       wgmma_epilogue<T>(p, acc, out_stage + wg * T::kStageWg, t / n_tiles * BM, t % n_tiles * BN, row0, col0);
     }
+  }
+}
+
+// -- gemm_tf32x3_kernel: f32 products as 3xTF32 wgmma (see the note at the top) --
+
+constexpr int kTfBK = 16;  // k-tile depth: 16 f32 = one 64-byte swizzle row
+// Two consumer warpgroups and no producer warp: thread 0 also keeps the TMA
+// ring full. 256 threads leave each up to 255 registers, which the
+// accumulators, a k-tile's products and the A fragments need (~200);
+// registers are allocated to a block in units of four warps, so a
+// producer warp or warpgroup beside them (288 or 384 threads) holds every
+// thread to 168 and spills.
+constexpr int kTfThreads = 256;
+
+// BM x BN tile, STAGES-deep ring of (A, Whi, Wlo) k-tiles, epilogue EPI;
+// the warpgroups split the tile as WgTile's do.
+template <int BM, int BN, int STAGES, int EPI>
+struct TfTile {
+  static constexpr int kEpi = EPI;
+  static constexpr bool kTf32 = true;
+  static constexpr bool kSplitN = ln_epilogue(EPI) || EPI == kEpiStep || EPI == kEpiPartial;
+  static constexpr int kWN = kSplitN ? BN / 2 : BN;  // columns of one warpgroup's m64nWNk8
+  static constexpr int kWBox = BN > 256 ? 256 : BN;  // rows of W in one TMA box
+  static constexpr int kChunk = kWN == 104 ? 104 : 128;  // columns of a k-tile's products in registers
+  static_assert(BM == (kSplitN ? 64 : 128) && kWN % kChunk == 0 && kWN <= 256 && BN % kWBox == 0,
+                "two warpgroups of m64n128k8 or m64n104k8 chunks");
+  static constexpr int kA = BM * kTfBK * 4, kB = BN * kTfBK * 4, kStage = kA + 2 * kB;
+  static_assert(kA % 512 == 0 && kB % 512 == 0, "sub-tiles on the 64-byte swizzle's 512-byte period");
+  static constexpr size_t kRing = (size_t)STAGES * kStage;
+  static constexpr int kStageWg = EPI == kEpiStem ? F32Stage::kBytes : 0;
+  static constexpr size_t kOut = EPI == kEpiStep ? (size_t)BM * BN * 4 : 2 * kStageWg;
+  static constexpr size_t kSmem = kRing + kOut + 2 * STAGES * sizeof(uint64_t) + 1024;
+  static_assert(kSmem <= 227 * 1024, "shared memory of one block");
+};
+
+// wgmma descriptor of a K-major f32 (tf32) tile of 64-byte rows with the
+// 64-byte swizzle, at a 512-byte aligned base (+ 32 bytes per k8 step):
+// 8-row groups 512 bytes apart (SBO 32 x 16 B); LBO is not read.
+__device__ __forceinline__ uint64_t wg_desc_sw64(const void* tile) {
+  return ((smem_u32(tile) & 0x3FFFF) >> 4) | (1ull << 16) | (32ull << 32) | (2ull << 62);
+}
+
+// d = A (64 x 8 tf32, the m64nNk8 tf32 A fragment in registers) W^T (8 x 128,
+// K-major in shared memory), d the m64n128 fragment
+__device__ __forceinline__ void wgmma_tf32_set(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_w) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_w), "r"(0));  // scale-d
+}
+
+// d += A (64 x 8 tf32, the m64nNk8 tf32 A fragment in registers) W^T (8 x 128,
+// K-major in shared memory), d the m64n128 fragment
+__device__ __forceinline__ void wgmma_tf32_acc(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_w) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_w), "r"(1));  // scale-d
+}
+
+// d = A (64 x 8 tf32, the m64nNk8 tf32 A fragment in registers) W^T (8 x 104,
+// K-major in shared memory), d the m64n104 fragment
+__device__ __forceinline__ void wgmma_tf32_set(float (&d)[52], const uint32_t (&a)[4], uint64_t desc_w) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %57, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n104k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51"
+      "}, {%52, %53, %54, %55}, %56, p, 1, 1;\n"
+      "}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_w), "r"(0));  // scale-d
+}
+
+// d += A (64 x 8 tf32, the m64nNk8 tf32 A fragment in registers) W^T (8 x 104,
+// K-major in shared memory), d the m64n104 fragment
+__device__ __forceinline__ void wgmma_tf32_acc(float (&d)[52], const uint32_t (&a)[4], uint64_t desc_w) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %57, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n104k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51"
+      "}, {%52, %53, %54, %55}, %56, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_w), "r"(1));  // scale-d
+}
+
+// One consumer thread's share of a k-tile's A: the m64nNk8 tf32 A fragment
+// of both k8 steps. Element i of step j is row ra + 8 (i % 2), column
+// 8 j + q + 4 (i / 2) of the 64-byte-swizzled tile (ra = 16 warp + lane / 4,
+// q = lane % 4; the swizzle XORs 16-byte chunk c of row r with (r / 2) % 4,
+// the same for rows ra and ra + 8), split into hi and lo.
+__device__ __forceinline__ void load_split_a(const unsigned char* tile, int ra, int q, uint32_t (&hi)[2][4],
+                                             uint32_t (&lo)[2][4]) {
+  const int sw = (ra >> 1) & 3;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int chunk = 2 * j + i / 2;
+      const float x = *reinterpret_cast<const float*>(tile + (ra + 8 * (i % 2)) * 64 + ((chunk ^ sw) << 4) + 4 * q);
+      split_tf32(x, hi[j][i], lo[j][i]);
+    }
+  }
+}
+
+template <int BM, int BN, int STAGES, int EPI>
+__global__ void __launch_bounds__(kTfThreads, 1)
+    gemm_tf32x3_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
+                       const __grid_constant__ CUtensorMap map_wlo, const GemmArgs p) {
+  using T = TfTile<BM, BN, STAGES, EPI>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>((reinterpret_cast<size_t>(smem_raw) + 1023) & ~size_t(1023));
+  unsigned char* out_stage = ring + T::kRing;
+  uint64_t* full = reinterpret_cast<uint64_t*>(out_stage + T::kOut);
+  uint64_t* empty = full + STAGES;
+  // persistent, as gemm_wgmma_kernel
+  const int n_tiles = (p.N + BN - 1) / BN, tiles = n_tiles * ((prod_rows(p) + BM - 1) / BM);
+  const int nk = (p.K + kTfBK - 1) / kTfBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);   // the producer's arrive, plus the TMA bytes
+      mbar_init(&empty[s], 2);  // one arrive per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // this block's k-tiles in order: it = j nk + kt is k-tile kt of its j-th tile
+  const int total = (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x * nk;
+  auto issue = [&](int it) {  // the TMA loads of k-tile it into stage it % STAGES
+    const int t = blockIdx.x + it / nk * gridDim.x, kt = it % nk, s = it % STAGES;
+    const int m0 = t / n_tiles * BM, n0 = t % n_tiles * BN;
+    unsigned char* st = ring + (size_t)s * T::kStage;
+    mbar_expect_tx(&full[s], T::kStage);
+    tma_load_2d(st, &map_a, &full[s], kt * kTfBK, m0);
+#pragma unroll
+    for (int h = 0; h < BN / T::kWBox; ++h) {
+      tma_load_2d(st + T::kA + h * T::kWBox * 64, &map_w, &full[s], kt * kTfBK, n0 + h * T::kWBox);
+      tma_load_2d(st + T::kA + T::kB + h * T::kWBox * 64, &map_wlo, &full[s], kt * kTfBK, n0 + h * T::kWBox);
+    }
+  };
+  if (threadIdx.x == 0)
+    for (int it = 0; it < STAGES && it < total; ++it) issue(it);
+
+  // warpgroup wg owns rows row0.. row0 + 63 and columns col0.. col0 + kWN - 1 of each tile
+  const int wg = threadIdx.x / 128;
+  const int row0 = T::kSplitN ? 0 : 64 * wg, col0 = T::kSplitN ? T::kWN * wg : 0;
+  const int lane = threadIdx.x % 32, ra = row0 + 16 * ((threadIdx.x % 128) / 32) + lane / 4;
+  const bool leader = threadIdx.x % 128 == 0;
+  unsigned char* stage = out_stage + wg * T::kStageWg;  // the epilogue's staging
+  int it = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    float acc[T::kWN / 2];
+#pragma unroll
+    for (int i = 0; i < T::kWN / 2; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % STAGES;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      const unsigned char* st = ring + (size_t)s * T::kStage;
+      uint32_t hi[2][4], lo[2][4];
+      load_split_a(st, ra, lane % 4, hi, lo);
+      // chunk by chunk of kChunk columns: the k-tile's six products into
+      // part on the tensor cores, then part into acc on the CUDA cores
+      // (round to nearest; see the note at the top)
+#pragma unroll
+      for (int c = 0; c < T::kWN / T::kChunk; ++c) {
+        const unsigned char* wt = st + T::kA + (col0 + c * T::kChunk) * 64;
+        const uint64_t dh = wg_desc_sw64(wt), dl = wg_desc_sw64(wt + T::kB);
+        float part[T::kChunk / 2];
+        wgmma_fence();
+        wgmma_tf32_set(part, lo[0], dh);  // the small terms first
+        wgmma_tf32_acc(part, hi[0], dl);
+        wgmma_tf32_acc(part, hi[0], dh);
+        wgmma_tf32_acc(part, lo[1], dh + 2);
+        wgmma_tf32_acc(part, hi[1], dl + 2);
+        wgmma_tf32_acc(part, hi[1], dh + 2);
+        wgmma_commit();
+        wgmma_wait<0>();  // the other warpgroup keeps the tensor cores busy meanwhile
+#pragma unroll
+        for (int i = 0; i < T::kChunk / 2; ++i) acc[c * (T::kChunk / 2) + i] += part[i];
+      }
+      if (leader) mbar_arrive(&empty[s]);  // every product that read the stage is done
+      // thread 0 refills the stage once both warpgroups have handed it back
+      if (threadIdx.x == 0 && it + STAGES < total) {
+        mbar_wait(&empty[s], (it / STAGES) & 1);
+        issue(it + STAGES);
+      }
+      __syncwarp();
+    }
+    wgmma_epilogue<T>(p, acc, stage, t / n_tiles * BM, t % n_tiles * BN, row0, col0);
   }
 }
 
@@ -908,37 +1224,106 @@ static cudaError_t launch_wgmma(const GemmArgs& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// TMA map of a row-major f32 (rows, cols) matrix with row stride ld,
+// boxes of box_rows x kTfBK columns with the 64-byte swizzle; out-of-bounds
+// elements read as zeros.
+static bool tma_map_f32(CUtensorMap* map, const void* base, int rows, int cols, int ld, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)kTfBK, (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BM, int BN, int STAGES, int EPI>
+static cudaError_t launch_tf32(const GemmArgs& p, cudaStream_t stream) {
+  using T = TfTile<BM, BN, STAGES, EPI>;
+  const int rows = prod_rows(p);
+  CUtensorMap map_a, map_w, map_wlo;
+  if (!tma_map_f32(&map_a, p.a, rows, p.K, p.lda, BM) || !tma_map_f32(&map_w, p.w, p.N, p.K, p.ldw, T::kWBox) ||
+      !tma_map_f32(&map_wlo, p.w_lo, p.N, p.K, p.ldw, T::kWBox))
+    return cudaErrorInvalidValue;
+  auto kernel = gemm_tf32x3_kernel<BM, BN, STAGES, EPI>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
+  if (err != cudaSuccess) return err;
+  int device, sms;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return err;
+  const int tiles = ((p.N + BN - 1) / BN) * ((rows + BM - 1) / BM);
+  kernel<<<tiles < sms ? tiles : sms, kTfThreads, T::kSmem, stream>>>(map_a, map_w, map_wlo, p);  // one block an SM
+  return cudaGetLastError();
+}
+
 static bool aligned16(const void* ptr) { return reinterpret_cast<size_t>(ptr) % 16 == 0; }
+
+// The f32-compute route: gemm_tf32x3_kernel, one instantiation per epilogue
+// and layout. A (rows, K) f32, Whi (w) and Wlo (w_lo) (N, K) f32, K-major,
+// with 16-byte rows and bases; f32 out, or in kLayerNorm with bf16
+// activations the bf16 out_b alone; kStep may write x_next into the f32 xa
+// (out_b, row stride ldb).
+static cudaError_t tf32_route(const GemmArgs& p, cudaStream_t s) {
+  const bool ok = !p.a_bf16 && !p.out_bf16 && p.w_lo != nullptr && p.K % 4 == 0 &&
+                  p.lda % 4 == 0 && p.ldw % 4 == 0 && aligned16(p.a) && aligned16(p.w) && aligned16(p.w_lo) &&
+                  aligned16(p.out) && aligned16(p.res) && aligned16(p.out_b);
+  if (!ok || (p.out_b != nullptr && p.out != nullptr && p.mode != kStep)) return cudaErrorInvalidValue;
+  switch (p.mode) {
+    case kBias:
+    case kBiasRelu:  // f32 out in column pairs
+      if (p.N % 2 || p.ldo % 2) return cudaErrorInvalidValue;
+      return launch_tf32<128, 256, 5, kEpiBias>(p, s);
+    case kLayerNorm:  // whole rows in one tile
+      if (p.N % 8 || p.N > 512 || p.ldo % 8 || (p.out_b != nullptr && p.ldb % 8)) return cudaErrorInvalidValue;
+      switch (ln_epilogue_of(p)) {
+        case kEpiLayerNorm: return launch_tf32<64, 512, 3, kEpiLayerNorm>(p, s);
+        case kEpiLnResBf16: return launch_tf32<64, 512, 3, kEpiLnResBf16>(p, s);
+        case kEpiLnBf16Out: return launch_tf32<64, 512, 3, kEpiLnBf16Out>(p, s);
+        default: return launch_tf32<64, 512, 3, kEpiLnBf16>(p, s);
+      }
+    case kPartial:
+      if (p.N % 8 || p.ldo % 8) return cudaErrorInvalidValue;
+      return launch_tf32<64, 512, 3, kEpiPartial>(p, s);
+    case kStem:  // A = the f32 xa (B t_data, K); f32 out (B (t_data + 1), N)
+      if (p.N % 8 || p.ldo % 8 || p.M % (p.t_data + 1)) return cudaErrorInvalidValue;
+      return launch_tf32<128, 256, 4, kEpiStem>(p, s);
+    default:  // kStep: as in bf16; out_b the f32 xa
+      if (!(p.N % 2 == 0 && p.N <= 208 && p.ldo == p.N && p.M % p.t_data == 0 && (size_t)p.M * p.N < (1u << 31) &&
+            aligned16(p.x) && aligned16(p.noise) && aligned16(p.ipv) && (p.ipv == nullptr || p.ipm != nullptr) &&
+            (p.out_b == nullptr || (p.ldb >= p.N && p.ldb % 2 == 0))))
+        return cudaErrorInvalidValue;
+      return launch_tf32<64, 208, 4, kEpiStep>(p, s);
+  }
+}
+
+// The argument checks both C entries share.
+static bool valid_args(const GemmArgs& p) {
+  if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.mode < kBias || p.mode > kPartial ||
+      ((p.mode == kStem || p.mode == kStep) && p.t_data <= 0))
+    return false;
+  // a bf16 residual, and an output that leaves as its bf16 copy alone, only in kLayerNorm
+  return !((p.res_bf16 && p.mode != kLayerNorm) || (p.out == nullptr && (p.mode != kLayerNorm || p.out_b == nullptr)));
+}
 
 }  // namespace egoego
 
-// Launches one product; the mode and the compute type alone pick the kernel.
-// Sets p->wgmma to 1 when it launched gemm_wgmma_kernel. A layout that the
-// picked kernel cannot take returns cudaErrorInvalidValue and launches
-// nothing.
+// Launches one product; the compute type alone picks the kernel: bf16
+// gemm_wgmma_kernel, f32 gemm_tf32x3_kernel. Sets p->kernel to the
+// GemmKernel launched. A layout that the picked kernel cannot take returns
+// cudaErrorInvalidValue and launches nothing.
 extern "C" int egoego_gemm(egoego::GemmArgs* p, void* stream) {
   using namespace egoego;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int invalid = (int)cudaErrorInvalidValue;
-  p->wgmma = 0;
-  if (p->M <= 0 || p->N <= 0 || p->K <= 0 || p->mode < kBias || p->mode > kPartial ||
-      ((p->mode == kStem || p->mode == kStep) && p->t_data <= 0))
-    return invalid;
-  // a bf16 residual, and an output that leaves as its bf16 copy alone, only in kLayerNorm
-  if ((p->res_bf16 && p->mode != kLayerNorm) || (p->out == nullptr && (p->mode != kLayerNorm || p->out_b == nullptr)))
-    return invalid;
-  if (!p->compute_bf16) {  // f32 A and W; f32 out, or in kLayerNorm with bf16 activations a bf16 out_b alone
-    if (p->a_bf16 || p->out_bf16 || (p->out_b != nullptr && p->out != nullptr) ||
-        (p->mode == kLayerNorm && p->N > 512))
-      return invalid;
-    if (p->mode == kPartial) return (int)launch_f32<64, 128, kEpiPartial>(*p, s);
-    if (p->mode != kLayerNorm) return (int)launch_f32<64, 128>(*p, s);
-    switch (ln_epilogue_of(*p)) {
-      case kEpiLayerNorm: return (int)launch_f32<32, 512, kEpiLayerNorm>(*p, s);
-      case kEpiLnResBf16: return (int)launch_f32<32, 512, kEpiLnResBf16>(*p, s);
-      case kEpiLnBf16Out: return (int)launch_f32<32, 512, kEpiLnBf16Out>(*p, s);
-      default: return (int)launch_f32<32, 512, kEpiLnBf16>(*p, s);
-    }
+  p->kernel = -1;
+  if (!valid_args(*p)) return invalid;
+  if (!p->compute_bf16) {
+    const cudaError_t err = tf32_route(*p, s);
+    if (err == cudaSuccess) p->kernel = kKernelTf32x3;
+    return (int)err;
   }
   // bf16: A (rows, K) and W (N, K), K-major, 16-byte rows and bases
   bool ok = p->a_bf16 && p->K % 8 == 0 && p->lda % 8 == 0 && p->ldw % 8 == 0 && aligned16(p->a) &&
@@ -976,7 +1361,34 @@ extern "C" int egoego_gemm(egoego::GemmArgs* p, void* stream) {
         return invalid;
       err = launch_wgmma<64, 208, 4, kEpiStep>(*p, s);
   }
-  p->wgmma = err == cudaSuccess;
+  if (err == cudaSuccess) p->kernel = kKernelWgmma;
+  return (int)err;
+}
+
+// gemm_f32_kernel (f32 on the CUDA cores) on an f32-compute product: off
+// the route, for timing beside gemm_tf32x3_kernel. w is W itself (w_lo is
+// not read); in kStem A is the f32 xa; kStep writes no out_b.
+extern "C" int egoego_gemm_cuda_cores(egoego::GemmArgs* p, void* stream) {
+  using namespace egoego;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  p->kernel = -1;
+  if (!valid_args(*p) || p->compute_bf16 || p->a_bf16 || p->out_bf16 || (p->out_b != nullptr && p->out != nullptr) ||
+      (p->mode == kLayerNorm && p->N > 512))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (p->mode == kPartial) {
+    err = launch_f32<64, 128, kEpiPartial>(*p, s);
+  } else if (p->mode != kLayerNorm) {
+    err = launch_f32<64, 128>(*p, s);
+  } else {
+    switch (ln_epilogue_of(*p)) {
+      case kEpiLayerNorm: err = launch_f32<32, 512, kEpiLayerNorm>(*p, s); break;
+      case kEpiLnResBf16: err = launch_f32<32, 512, kEpiLnResBf16>(*p, s); break;
+      case kEpiLnBf16Out: err = launch_f32<32, 512, kEpiLnBf16Out>(*p, s); break;
+      default: err = launch_f32<32, 512, kEpiLnBf16>(*p, s);
+    }
+  }
+  if (err == cudaSuccess) p->kernel = kKernelCudaCores;
   return (int)err;
 }
 

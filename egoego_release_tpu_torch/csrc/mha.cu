@@ -143,16 +143,6 @@ struct TileCopy {
   }
 };
 
-// x = hi + lo. hi is x rounded to the nearest TF32 value (10 mantissa
-// bits, ties away from zero: cvt.rna's rounding, done on the bits in two
-// instructions, where cvt.rna.tf32.f32 expands to several); lo = x - hi
-// exactly, which the tensor core reads truncated to TF32 (|lo| <= 2^-11 |x|,
-// so the truncation costs at most 2^-21 |x|). x is finite.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
 // c (16 x 8) += a (16 x 8) b (8 x 8) on the tensor cores, TF32 operands
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
   asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "

@@ -46,16 +46,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel chain has been launched on the card.
 launch_counts: Counter = Counter()
 # Launches of each kernel of the C entries, counted once the entry has
-# returned without error: "gemm_wgmma" (every product in bf16) and "gemm"
-# (f32) as egoego_gemm reports its choice; the attention kernel that
-# ``attention`` picks (ATTENTION_KERNELS); "mha"; "residual_layernorm".
+# returned without error: "gemm_wgmma" (every product in bf16) and
+# "gemm_tf32x3" (f32) as egoego_gemm reports its choice (GEMM_KERNELS;
+# "gemm", the CUDA-core kernel, only by ``gemm_cuda_cores``); the attention
+# kernel that ``attention`` picks (``attention_route``); "mha";
+# "residual_layernorm".
 kernel_launches: Counter = Counter()
 # GEMM launches by epilogue mode (BIAS ... PARTIAL), counted with kernel_launches
 gemm_modes: Counter = Counter()
 
+# csrc/gemm.cu GemmKernel, by launch name
+GEMM_KERNELS = ("gemm", "gemm_wgmma", "gemm_tf32x3")
+
 # csrc/attention.cu AttnKernel, by launch name: the CUDA-core kernel (f32
-# mode, other head widths), the WMMA kernel (bf16 at head width 256 past
-# WGMMA_MAX_TOKENS tokens) and the wgmma kernel (bf16 at head width 256)
+# at head widths mha cannot take; bf16 at other widths than 256), the WMMA
+# kernel (bf16 at head width 256 past WGMMA_MAX_TOKENS tokens) and the
+# wgmma kernel (bf16 at head width 256)
 ATTENTION_KERNELS = {"attention": 0, "attention_wmma": 1, "attention_wgmma": 2}
 WGMMA_MAX_TOKENS = 128  # keys in one m64n128 score accumulator, K and V in shared memory
 
@@ -83,10 +89,10 @@ def count(name: str) -> None:
 
 class GemmArgs(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "a", "a2", "w", "bias", "res", "ln_s", "ln_b", "row_mask", "pos", "emb",
+        "a", "w", "w_lo", "bias", "res", "ln_s", "ln_b", "row_mask", "pos", "emb",
         "x", "noise", "ipv", "ipm", "out", "out_b")] + [(name, ctypes.c_int) for name in (
-        "M", "N", "K", "lda", "ldw", "ldo", "ldb", "k_split", "a_bf16", "out_bf16",
-        "compute_bf16", "res_bf16", "mode", "t_data", "wgmma")] + [(name, ctypes.c_float) for name in (
+        "M", "N", "K", "lda", "ldw", "ldo", "ldb", "a_bf16", "out_bf16",
+        "compute_bf16", "res_bf16", "mode", "t_data", "kernel")] + [(name, ctypes.c_float) for name in (
         "c1", "c2", "c3")]
 
 
@@ -167,9 +173,9 @@ def _lib(name: str) -> ctypes.CDLL:
     if name not in _libs:
         build()
         lib = ctypes.CDLL(str(_lib_path(name)))
-        entry = getattr(lib, f"egoego_{name}")
-        entry.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        entry.restype = ctypes.c_int
+        for entry in [getattr(lib, f"egoego_{name}")] + ([lib.egoego_gemm_cuda_cores] if name == "gemm" else []):
+            entry.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            entry.restype = ctypes.c_int
         struct, size_fn = _ARGS[name]
         size = getattr(lib, size_fn)
         size.restype = ctypes.c_int
@@ -207,48 +213,33 @@ def _need(t: torch.Tensor, dtype, shape=None, what="tensor") -> None:
     _layout(t, dtype, shape, what)
 
 
-def gemm(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-         out: torch.Tensor | None, *, M: int, a2: torch.Tensor | None = None, res=None, ln_s=None, ln_b=None,
-         row_mask=None, pos=None, emb=None, x=None, noise=None, ipv=None, ipm=None, out_b=None,
-         t_data: int = 0, scal=(0.0, 0.0, 0.0)) -> torch.Tensor:
-    """out (M, N) = epilogue(A W^T + b) on the card, N = len(bias), in W's
-    dtype: bf16 on the wgmma kernel (tensor cores), f32 on the CUDA cores.
+def split_tf32(w: Tensor) -> Tensor:
+    """(2, *w.shape) f32 = [hi, lo] of an f32 weight for the 3xTF32 GEMM:
+    hi is w rounded to TF32 on the bits (10 mantissa bits, ties away from
+    zero, as csrc/common.cuh ``split_tf32``), lo = w - hi, which is exact,
+    so hi + lo == w in f32. The f32 step parameters hold each weight split
+    once (``fused_layer.layer_params``, ``fused_step.prepare_step_params``)."""
+    w = w.detach().float().contiguous()
+    hi = ((w.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    return torch.stack([hi, w - hi])
 
-    W is (N_w, K), ``nn.Linear``'s layout, with N_w >= N rows (rows past N
-    are never read). A is (rows, K), except in the f32 stem, which reads x
-    (B, T, d) as ``a`` and x_cond as ``a2``, with 2 d <= K. In bf16, A is
-    bf16, K a multiple of 8, A, W and out 16-byte aligned, and out bf16 in
-    BIAS/BIAS_RELU, f32 in the other modes:
 
-    - BIAS, BIAS_RELU, LAYER_NORM: A (M, K); N a multiple of 8.
-    - STEM: A = xa (B T, K) (``fused_step.pack_xa``); out (B (T+1), N) and,
-      in bf16, its bf16 copy ``out_b`` (required); N a multiple of 8.
-    - STEP: A = the last layer's output (B (T+1), K) (its bf16 copy in
-      bf16); x, noise, ipv, out (B T, N) f32, 16-byte aligned; N even and
-      at most 208 in bf16; ``out_b`` (bf16 only, optional) receives
-      bf16(out) in the first N columns of its rows (xa).
-
-    ``out_b`` of LAYER_NORM: bf16 (M, N), the f32 output rounded. With bf16
-    inter-layer activations LAYER_NORM's residual ``res`` may be bf16 (read
-    as f32; the add stays f32) and ``out`` None, so that the output leaves
-    as ``out_b`` alone, in either compute type (in f32 compute that is the
-    only ``out_b`` taken). Returns ``out``, or ``out_b`` when ``out`` is
-    None. A layout the kernels cannot take raises here or in the C entry;
-    nothing falls back to another kernel. While tracing, ``scal`` may be a
-    CPU f32 tensor of the three floats (an exported reverse loop indexes its
-    table)."""
-    if tracing():
-        if mode != STEP:
-            scal = None
-        elif not isinstance(scal, Tensor):
-            scal = torch.tensor(scal, dtype=torch.float32)
-        torch.ops.egoego.gemm(a, w, bias, out, mode, M, a2, res, ln_s, ln_b, row_mask, pos, emb, x, noise, ipv,
-                              ipm, out_b, t_data, scal)
-        return out_b if out is None else out
+def gemm_args(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, out: torch.Tensor | None, *,
+              M: int, a2: torch.Tensor | None = None, res=None, ln_s=None, ln_b=None, row_mask=None, pos=None,
+              emb=None, x=None, noise=None, ipv=None, ipm=None, out_b=None, t_data: int = 0,
+              scal=(0.0, 0.0, 0.0), cores: bool = False) -> GemmArgs:
+    """Check one ``gemm`` call's layout and return its argument struct
+    (``cores``: for ``gemm_cuda_cores``, with W itself in f32)."""
     f32, bf16 = torch.float32, torch.bfloat16
     _layout(w, (f32, bf16), what="w")
     _layout(bias, f32, what="bias")
     is_bf16 = w.dtype == bf16
+    if not is_bf16 and not cores:
+        if w.dim() != 3 or w.shape[0] != 2:
+            raise ValueError(f"f32 mode: w must be split_tf32(W), (2, N, K), got {tuple(w.shape)}")
+        w, w_lo = w[0], w[1]
+    else:
+        w_lo = None
     N = bias.numel()
     n_w, K = w.shape
     if n_w < N:
@@ -261,18 +252,15 @@ def gemm(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         _layout(out, (f32, bf16), what="out")
         if out.numel() != M * N:
             raise ValueError(f"out: need {M}x{N} elements, got {tuple(out.shape)}")
-    lda, k_split = a.shape[-1], 0
-    if mode == STEM and not is_bf16:
-        _layout(a2, a.dtype, a.shape, "a2")
-        K, k_split = 2 * lda, lda
-        if K > w.shape[1]:
-            raise ValueError(f"stem: need 2 d <= K, got d = {lda}, w {tuple(w.shape)}")
+    if a2 is not None:  # the op schema keeps the argument; no kernel on the route reads it
+        raise ValueError("a2: the stem reads the packed xa (fused_step.pack_xa), not x and x_cond apart")
+    lda = a.shape[-1]
     rows = M  # of A: the stem's product skips token 0, the update's includes it
     if mode in (STEM, STEP):
         if t_data <= 0 or M % (t_data + (mode == STEM)):
             raise ValueError(f"stem/step: M = {M} is not a whole number of windows of {t_data} frames")
         rows = M // (t_data + 1) * t_data if mode == STEM else M // t_data * (t_data + 1)
-    if a.numel() != rows * lda or (k_split == 0 and lda != K):
+    if a.numel() != rows * lda or lda != K:
         raise ValueError(f"a: need ({rows}, {K}), got {tuple(a.shape)}")
     if mode == STEM:
         _layout(pos, f32, (t_data + 1, N), "pos")
@@ -296,53 +284,135 @@ def gemm(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
             raise ValueError("layer-norm epilogue: N <= 512")
     ldb = N
     if out_b is not None:
-        _layout(out_b, bf16, what="out_b")
+        # bf16, but in f32 compute the update's xa is f32
+        _layout(out_b, f32 if mode == STEP and not is_bf16 else bf16, what="out_b")
         ldb = out_b.shape[-1]
-        if (mode not in (LAYER_NORM, STEM, STEP) or (not is_bf16 and out is not None) or out_b.numel() != M * ldb
-                or ldb < N or (mode != STEP and ldb != N)):
+        if (mode not in (LAYER_NORM, STEM, STEP) or (not is_bf16 and out is not None and mode != STEP)
+                or (cores and mode == STEP) or out_b.numel() != M * ldb or ldb < N or (mode != STEP and ldb != N)):
             raise ValueError("out_b: a bf16 copy (M, N) of the f32 output of LAYER_NORM or STEM in bf16, the "
                              "(M, N) bf16 output of LAYER_NORM alone (out None), or the (M, >= N) x part of xa "
-                             "for STEP")
+                             "(in the compute dtype) for STEP")
+    aligned = lambda *ts: not any(t is not None and t.data_ptr() % 16 for t in ts)
     if is_bf16:
         out_dt = bf16 if mode in (BIAS, BIAS_RELU) else f32
         step_n = N % 2 == 0 and N <= 208 if mode == STEP else N % 8 == 0
         if (a.dtype != bf16 or (out is not None and out.dtype != out_dt) or K % 8 or not step_n
-                or (mode == STEM and out_b is None)
-                or any(t is not None and t.data_ptr() % 16 for t in (a, w, out, out_b, res, *(t for _, t in vecs)))):
+                or (mode == STEM and out_b is None) or not aligned(a, w, out, out_b, res, *(t for _, t in vecs))):
             raise ValueError(f"the wgmma GEMM needs a bf16 A, a bf16 out (f32 for LAYER_NORM, STEM and STEP), K a "
                              f"multiple of 8, N a multiple of 8 (STEP: even, <= 208), the stem's bf16 copy, and "
                              f"16-byte aligned tensors; got A {a.dtype}, out {None if out is None else out.dtype}, "
                              f"K={K}, N={N}")
     elif a.dtype != f32 or (out is not None and out.dtype != f32):
         raise ValueError(f"f32 mode: need f32 A and out, got {a.dtype}, {None if out is None else out.dtype}")
-    if not all(t.is_cuda for t in (a, a2, w, bias, res, ln_s, ln_b, row_mask, pos, emb, x, noise, ipv, ipm, out, out_b)
+    elif not cores:
+        step_n = N % 2 == 0 and N <= 208 if mode == STEP else N % (2 if mode in (BIAS, BIAS_RELU) else 8) == 0
+        if K % 4 or not step_n or not aligned(a, w, w_lo, out, out_b, res, *(t for _, t in vecs)):
+            raise ValueError(f"the 3xTF32 GEMM needs K a multiple of 4, N a multiple of 8 (BIAS/BIAS_RELU: even; "
+                             f"STEP: even, <= 208) and 16-byte aligned tensors; got K={K}, N={N}")
+    if not all(t.is_cuda for t in (a, w, bias, res, ln_s, ln_b, row_mask, pos, emb, x, noise, ipv, ipm, out, out_b)
                if t is not None):
         raise ValueError("gemm: need CUDA tensors (the plain versions take CPU tensors)")
-    args = GemmArgs(
-        a=_ptr(a), a2=_ptr(a2), w=_ptr(w), bias=_ptr(bias), res=_ptr(res),
+    return GemmArgs(
+        a=_ptr(a), w=_ptr(w), w_lo=_ptr(w_lo), bias=_ptr(bias), res=_ptr(res),
         ln_s=_ptr(ln_s), ln_b=_ptr(ln_b), row_mask=_ptr(row_mask), pos=_ptr(pos),
         emb=_ptr(emb), x=_ptr(x), noise=_ptr(noise), ipv=_ptr(ipv), ipm=_ptr(ipm),
         out=_ptr(out), out_b=_ptr(out_b), M=M, N=N, K=K, lda=lda, ldw=w.shape[1], ldo=N, ldb=ldb,
-        k_split=k_split, a_bf16=int(a.dtype == bf16), out_bf16=int(out is not None and out.dtype == bf16),
+        a_bf16=int(a.dtype == bf16), out_bf16=int(out is not None and out.dtype == bf16),
         compute_bf16=int(is_bf16), res_bf16=int(res is not None and res.dtype == bf16), mode=mode, t_data=t_data,
         c1=scal[0], c2=scal[1], c3=scal[2],
     )
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    with torch.cuda.device(a.device):
-        _check(_lib("gemm").egoego_gemm(ctypes.byref(args), stream), "gemm")
-    kernel_launches["gemm_wgmma" if args.wgmma else "gemm"] += 1
-    gemm_modes[mode] += 1
+
+
+def _launch_gemm(entry: str, args: GemmArgs, device) -> None:
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        _check(getattr(_lib("gemm"), entry)(ctypes.byref(args), stream), "gemm")
+    kernel_launches[GEMM_KERNELS[args.kernel]] += 1
+    gemm_modes[args.mode] += 1
+
+
+def gemm(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+         out: torch.Tensor | None, *, M: int, a2: torch.Tensor | None = None, res=None, ln_s=None, ln_b=None,
+         row_mask=None, pos=None, emb=None, x=None, noise=None, ipv=None, ipm=None, out_b=None,
+         t_data: int = 0, scal=(0.0, 0.0, 0.0)) -> torch.Tensor:
+    """out (M, N) = epilogue(A W^T + b) on the card, N = len(bias), on the
+    tensor cores in W's dtype: bf16 on the wgmma kernel; f32 (the CLIs'
+    default numerics) on the 3xTF32 kernel, at f32 accuracy, with W given
+    as ``split_tf32(W)``, (2, N_w, K).
+
+    W is (N_w, K), ``nn.Linear``'s layout, with N_w >= N rows (rows past N
+    are never read). A is (rows, K), in W's dtype; K a multiple of 8 in
+    bf16, of 4 in f32; A, W and the outputs 16-byte aligned; out bf16 in
+    BIAS/BIAS_RELU in bf16, f32 otherwise:
+
+    - BIAS, BIAS_RELU, LAYER_NORM: A (M, K); N a multiple of 8 (f32
+      BIAS/BIAS_RELU: even).
+    - STEM: A = xa (B T, K) (``fused_step.pack_xa``, in W's dtype); out
+      (B (T+1), N) and, in bf16, its bf16 copy ``out_b`` (required); N a
+      multiple of 8.
+    - STEP: A = the last layer's output (B (T+1), K) (its bf16 copy in
+      bf16); x, noise, ipv, out (B T, N) f32, 16-byte aligned; N even and
+      at most 208; ``out_b`` (optional) receives x_next, rounded to the
+      compute dtype, in the first N columns of its rows (xa).
+
+    ``out_b`` of LAYER_NORM: bf16 (M, N), the f32 output rounded. With bf16
+    inter-layer activations LAYER_NORM's residual ``res`` may be bf16 (read
+    as f32; the add stays f32) and ``out`` None, so that the output leaves
+    as ``out_b`` alone, in either compute type (in f32 compute that is the
+    only ``out_b`` taken). Returns ``out``, or ``out_b`` when ``out`` is
+    None. A layout the kernels cannot take raises here or in the C entry;
+    nothing falls back to another kernel. While tracing, ``scal`` may be a
+    CPU f32 tensor of the three floats (an exported reverse loop indexes its
+    table)."""
+    if tracing():
+        if mode != STEP:
+            scal = None
+        elif not isinstance(scal, Tensor):
+            scal = torch.tensor(scal, dtype=torch.float32)
+        torch.ops.egoego.gemm(a, w, bias, out, mode, M, a2, res, ln_s, ln_b, row_mask, pos, emb, x, noise, ipv,
+                              ipm, out_b, t_data, scal)
+        return out_b if out is None else out
+    args = gemm_args(mode, a, w, bias, out, M=M, a2=a2, res=res, ln_s=ln_s, ln_b=ln_b, row_mask=row_mask, pos=pos,
+                     emb=emb, x=x, noise=noise, ipv=ipv, ipm=ipm, out_b=out_b, t_data=t_data, scal=scal)
+    _launch_gemm("egoego_gemm", args, a.device)
     return out_b if out is None else out
 
 
+def gemm_cuda_cores(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, out: torch.Tensor | None,
+                    **kw) -> torch.Tensor:
+    """The f32 product on csrc/gemm.cu's CUDA-core kernel (counted as
+    "gemm"), which the route no longer takes: ``gemm``'s arguments in f32
+    with W (N_w, K) itself; the stem reads the f32 xa and the update writes
+    no xa. For timing it beside the route's kernel."""
+    args = gemm_args(mode, a, w, bias, out, cores=True, **kw)
+    if args.compute_bf16:
+        raise ValueError("gemm_cuda_cores: f32 compute only")
+    _launch_gemm("egoego_gemm_cuda_cores", args, a.device)
+    return kw.get("out_b") if out is None else out
+
+
 def attention_route(dtype: torch.dtype, T: int, d_k: int, d_v: int) -> str:
-    """The attention kernel for a layout, by launch name: the wgmma kernel
-    in bf16 at head width 256 up to WGMMA_MAX_TOKENS tokens (every path at
-    the release window), the WMMA kernel there past it, the CUDA-core
-    kernel otherwise."""
+    """The attention kernel for a layout, by launch name: in bf16 the wgmma
+    kernel at head width 256 up to WGMMA_MAX_TOKENS tokens (every path at
+    the release window), the WMMA kernel there past it; in f32 the 3xTF32
+    ``mha`` kernel (csrc/mha.cu) at the head widths it takes (multiples of 4
+    up to 256, every path of the release model); the CUDA-core kernel
+    otherwise."""
     if dtype == torch.bfloat16 and d_k == d_v == 256:
         return "attention_wgmma" if T <= WGMMA_MAX_TOKENS else "attention_wmma"
+    if dtype == torch.float32 and all(0 < d <= 256 and d % 4 == 0 for d in (d_k, d_v)):
+        return "mha"
     return "attention"
+
+
+def qkv_heads(qkv: torch.Tensor, ctx: torch.Tensor, *, B: int, T: int, n_head: int, d_k: int,
+              d_v: int) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """q, k (B, H, T, dk), v and out (B, H, T, dv): views of the packed qkv
+    (B*T, H (2 dk + dv)) and of ctx (B*T, H dv), strides (T ld, d, ld, 1),
+    the layout ``mha`` takes."""
+    hk = n_head * d_k
+    heads = lambda t, d: t.unflatten(0, (B, T)).unflatten(2, (n_head, d)).transpose(1, 2)
+    return heads(qkv[:, :hk], d_k), heads(qkv[:, hk:2 * hk], d_k), heads(qkv[:, 2 * hk:], d_v), heads(ctx, d_v)
 
 
 def attention_args(qkv: torch.Tensor, ctx: torch.Tensor, *, B: int, T: int, t_keys: int, n_head: int, d_k: int,
@@ -358,21 +428,28 @@ def attention(qkv: torch.Tensor, ctx: torch.Tensor, *, B: int, T: int, t_keys: i
     """ctx (B*T, H*dv) = softmax(q k^T / sqrt(dk), keys < t_keys) v per
     head, from the packed qkv (B*T, H (2 dk + dv)); the function of
     ``fused_layer.attention_plain``, on the kernel ``attention_route``
-    picks. The tensor-core kernels need 16-byte aligned qkv and ctx; a
-    layout the picked kernel cannot take raises, and nothing falls back to
-    another kernel."""
+    picks (in f32 ``mha`` on views of qkv and ctx, ``qkv_heads``). The
+    tensor-core kernels need 16-byte aligned qkv and ctx; a layout the
+    picked kernel cannot take raises, and nothing falls back to another
+    kernel."""
     if tracing():
         torch.ops.egoego.attention(qkv, ctx, B, T, t_keys, n_head, d_k, d_v)
         return ctx
     dt = qkv.dtype
-    _need(qkv, (torch.float32, torch.bfloat16), (B * T, n_head * (2 * d_k + d_v)), "qkv")
-    _need(ctx, dt, (B * T, n_head * d_v), "ctx")
+    _layout(qkv, (torch.float32, torch.bfloat16), (B * T, n_head * (2 * d_k + d_v)), "qkv")
+    _layout(ctx, dt, (B * T, n_head * d_v), "ctx")
     if d_v > 256 or not 0 < t_keys <= T:
         raise ValueError(f"attention: need d_v <= 256 and 0 < t_keys <= T, got {d_v}, {t_keys}, {T}")
     kernel = attention_route(dt, T, d_k, d_v)
     if kernel != "attention" and (qkv.data_ptr() % 16 or ctx.data_ptr() % 16):
         raise ValueError(f"{kernel}: need 16-byte aligned qkv and ctx, got them at {qkv.data_ptr() % 16} and "
                          f"{ctx.data_ptr() % 16} bytes past 16")
+    if not (qkv.is_cuda and ctx.device == qkv.device):  # the layout first, so that the CPU tests reach it
+        raise ValueError("attention: need CUDA tensors (the plain version takes CPU tensors)")
+    if kernel == "mha":
+        q, k, v, out = qkv_heads(qkv, ctx, B=B, T=T, n_head=n_head, d_k=d_k, d_v=d_v)
+        mha(q, k, v, out, t_keys=t_keys)
+        return ctx
     args = attention_args(qkv, ctx, B=B, T=T, t_keys=t_keys, n_head=n_head, d_k=d_k, d_v=d_v, kernel=kernel)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     with torch.cuda.device(qkv.device):
@@ -382,13 +459,14 @@ def attention(qkv: torch.Tensor, ctx: torch.Tensor, *, B: int, T: int, t_keys: i
 
 
 def _mha_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-              t_keys: int) -> MhaArgs:
-    """Check the layout of one ``mha`` call and return its argument struct,
-    pointers unset."""
+              t_keys: int, on_card: bool = True) -> MhaArgs:
+    """Check the layout of one ``mha`` call (and, with ``on_card``, that its
+    tensors are on one card) and return its argument struct, pointers
+    unset."""
     b, h, t, dk = q.shape
     dv = v.shape[-1]
     for name, x, d in (("q", q, dk), ("k", k, dk), ("v", v, dv), ("out", out, dv)):
-        if x.device != q.device or not x.is_cuda or x.dtype != torch.float32 or x.stride(-1) != 1:
+        if (on_card and (x.device != q.device or not x.is_cuda)) or x.dtype != torch.float32 or x.stride(-1) != 1:
             raise ValueError(f"mha {name}: need a CUDA f32 tensor with unit stride over the "
                              f"head width, got {x.dtype} on {x.device}, strides {x.stride()}")
         if tuple(x.shape) != (b, h, t, d):
@@ -489,14 +567,12 @@ def gemm_plain(mode, a, w, bias, out, *, M, a2=None, res=None, ln_s=None, ln_b=N
     same arithmetic (A rounded to W's dtype, an f32 product, the epilogue in
     f32), written into ``out`` and ``out_b`` as the kernels write them."""
     N = bias.numel()
+    if w.dim() == 3:  # f32: split_tf32(W), whose hi + lo is W exactly
+        w = w[0] + w[1]
     wn = w[:N].float()
     prod = lambda t: t.reshape(-1, t.shape[-1]).to(w.dtype).float() @ wn[:, :t.shape[-1]].t()
     if mode == STEM:
-        if a2 is not None:  # f32: x and x_cond, K split at d
-            d = a.shape[-1]
-            p = prod(a) + a2.reshape(-1, d).float() @ wn[:, d: 2 * d].t()
-        else:
-            p = prod(a)
+        p = prod(a)
         b = M // (t_data + 1)
         tok = torch.cat([emb.reshape(1, 1, N).expand(b, 1, N), (p + bias).reshape(b, t_data, N)], 1) + pos
         y = tok.reshape(M, N)

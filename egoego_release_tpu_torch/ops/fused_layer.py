@@ -14,19 +14,22 @@ QKV product, attention (``attention_plain`` is its plain version), fc
 with the residual + LayerNorm + mask epilogue, w1 with bias + ReLU, and w2
 with the residual + LayerNorm + mask epilogue.
 The layer is compute-bound at the main path's shapes (~47 GFLOP against
-~40 MB), so the products run on the tensor cores in bf16 mode, on the
+~40 MB), so the products run on the tensor cores: in bf16 mode on the
 wgmma kernel, which reads both operands as bf16 in device memory: the
 weights as (N, K) and A as the bf16 copy of the layer input and of h0
 that their producers write beside the f32 tensor (the stem's and the
 LayerNorms' epilogues). The chain hands the (f32, bf16) pair from layer to
-layer; a layer called alone makes the copy of its input.
+layer; a layer called alone makes the copy of its input. In f32 mode (the
+CLIs' default numerics) on the 3xTF32 kernel, f32-accurate, which takes
+each weight split once into TF32 hi and lo parts (``<name>_split`` in
+``layer_params``), and the attention on ``csrc/mha.cu``.
 
 Rounding points in bf16 mode are those of ``_layer_body``: the layer input
 is rounded to bf16 for the QKV product, q/k/v after their bias, p before
 p v, ctx before fc, h0 before w1 and h1 before w2 (rounding the input or h0
 where it is written is the same round-to-nearest as rounding it at the
-product). LayerNorm statistics stay f32. ``bf16=False`` is the f32 parity
-mode (no TF32 anywhere).
+product). LayerNorm statistics stay f32. ``bf16=False`` is f32 compute:
+every launch within the f32 kernels' 1e-4 of its plain f32 version.
 
 The inter-layer activations are f32, or bf16 with ``act_bf16``: the TPU
 kernels' ``adt`` (their out_shape dtype; ``DiffusionConfig.
@@ -69,14 +72,16 @@ def layer_params(layer, bf16: bool) -> dict:
     matrices as (out, in), ``nn.Linear``'s layout (K-major rows for the
     kernels), in the compute dtype (bf16 or f32), q/k/v fused into one
     (H*(2 dk + dv), d_model) product, biases and LayerNorm rows f32; under
-    tensor parallelism "tp", the layer's tp group."""
+    tensor parallelism "tp", the layer's tp group. In f32 each weight also
+    as ``<name>_split`` = ``cuda_kernels.split_tf32(W)``, the operand of the
+    3xTF32 GEMM (``kernel_weight``)."""
     wdt = torch.bfloat16 if bf16 else torch.float32
     sa, ff = layer.self_attn, layer.pos_ffn
     w = lambda t: t.detach().contiguous().to(wdt)
     f = lambda t: t.detach().float().contiguous()
     if (sa.tp_group is None) != (ff.tp_group is None):
         raise ValueError("a layer's attention and FFN must both be split over tp, or neither")
-    return {
+    lp = {
         **({} if sa.tp_group is None else {"tp": sa.tp_group}),
         "wqkv": torch.cat([w(sa.w_q.weight), w(sa.w_k.weight), w(sa.w_v.weight)], 0).contiguous(),
         "bqkv": torch.cat([f(sa.w_q.bias), f(sa.w_k.bias), f(sa.w_v.bias)]).contiguous(),
@@ -86,6 +91,19 @@ def layer_params(layer, bf16: bool) -> dict:
         "w2": w(ff.w_2.weight[..., 0]), "b2": f(ff.w_2.bias),
         "ln2s": f(ff.layer_norm.weight), "ln2b": f(ff.layer_norm.bias),
     }
+    return lp if bf16 else with_splits(lp, ("wqkv", "wfc", "w1", "w2"))
+
+
+def with_splits(params: dict, names) -> dict:
+    """params plus ``<name>_split`` = split_tf32(params[name]) for each of
+    the f32 weights ``names``."""
+    return {**params, **{f"{k}_split": ck.split_tf32(params[k]) for k in names}}
+
+
+def kernel_weight(params: dict, name: str) -> torch.Tensor:
+    """The GEMM operand of weight ``name``: its TF32 split in f32 compute,
+    the bf16 weight itself in bf16."""
+    return params.get(f"{name}_split", params[name])
 
 
 def round_bf16(t: torch.Tensor) -> torch.Tensor:
@@ -187,21 +205,21 @@ def decoder_layer_cuda(h, mask, lp, *, n_head, d_k, d_v, hb=None, with_copy=Fals
     heads = local_heads(lp, n_head)
     copy = lambda: torch.empty(m_rows, dm, dtype=torch.bfloat16, device=dev) if bf16 else None
     qkv = torch.empty(m_rows, lp["wqkv"].shape[0], dtype=cdt, device=dev)
-    ck.gemm(ck.BIAS, xb, lp["wqkv"], lp["bqkv"], qkv, M=m_rows)
+    ck.gemm(ck.BIAS, xb, kernel_weight(lp, "wqkv"), lp["bqkv"], qkv, M=m_rows)
     ctx = torch.empty(m_rows, heads * d_v, dtype=cdt, device=dev)
     ck.attention(qkv, ctx, B=bsz, T=t, t_keys=t, n_head=heads, d_k=d_k, d_v=d_v)
     h0 = torch.empty(m_rows, dm, dtype=torch.float32, device=dev)
     h0b = copy()
-    add_layer_norm_cuda(ctx, lp["wfc"], lp["bfc"], x, lp["ln1s"], lp["ln1b"], mask, h0, h0b, tp)
+    add_layer_norm_cuda(ctx, kernel_weight(lp, "wfc"), lp["bfc"], x, lp["ln1s"], lp["ln1b"], mask, h0, h0b, tp)
     h1 = torch.empty(m_rows, lp["w1"].shape[0], dtype=cdt, device=dev)
-    ck.gemm(ck.BIAS_RELU, h0 if h0b is None else h0b, lp["w1"], lp["b1"], h1, M=m_rows)
+    ck.gemm(ck.BIAS_RELU, h0 if h0b is None else h0b, kernel_weight(lp, "w1"), lp["b1"], h1, M=m_rows)
     if act_bf16:
         out = torch.empty(m_rows, dm, dtype=torch.bfloat16, device=dev)
-        add_layer_norm_cuda(h1, lp["w2"], lp["b2"], h0, lp["ln2s"], lp["ln2b"], mask, None, out, tp)
+        add_layer_norm_cuda(h1, kernel_weight(lp, "w2"), lp["b2"], h0, lp["ln2s"], lp["ln2b"], mask, None, out, tp)
         return out.reshape(bsz, t, dm), None
     out = torch.empty(m_rows, dm, dtype=torch.float32, device=dev)
     outb = copy() if with_copy else None
-    add_layer_norm_cuda(h1, lp["w2"], lp["b2"], h0, lp["ln2s"], lp["ln2b"], mask, out, outb, tp)
+    add_layer_norm_cuda(h1, kernel_weight(lp, "w2"), lp["b2"], h0, lp["ln2s"], lp["ln2b"], mask, out, outb, tp)
     return out.reshape(bsz, t, dm), None if outb is None else outb.reshape(bsz, t, dm)
 
 
@@ -251,7 +269,7 @@ def fused_denoiser_apply(model, src, noise_t, padding_mask, cfg, layers=None, bf
     (``layer_params``), prepared here when None. The layers compute in bf16
     by default, as the JAX ``--fused`` path does whatever the configured
     compute dtype (its default ``compute_dtype=jnp.bfloat16``);
-    ``bf16=False`` is the f32 parity mode. The noise-level MLP (exact-erf
+    ``bf16=False`` is f32 compute. The noise-level MLP (exact-erf
     GELU), the stem, the position rows 1..T+1 of a ``cfg.window + 2`` row
     table and ``linear_out`` stay plain f32 PyTorch, as they stay jnp."""
     mt = model.motion_transformer

@@ -26,12 +26,14 @@ f32 and, for the next layer's bf16 products, as a bf16 copy; with
 ``act_bf16`` (the TPU kernels' bf16 ``adt``) as one bf16 tensor alone.
 The stem's tokens (layer 0's input) stay f32, as they stay in the TPU
 kernel's VMEM, and so does the last layer's output, which linear_out reads
-in the compute dtype (in bf16 compute as a bf16 tensor alone). In bf16 the
-stem's A is ``xa`` (B, T, 400) = [bf16(x) | bf16(x_cond) | 0] (``pack_xa``):
+in the compute dtype (in bf16 compute as a bf16 tensor alone). The stem's A
+is ``xa`` (B, T, 400) = [x | x_cond | 0] in the compute dtype (``pack_xa``):
 ``fused_p_sample_loop`` packs it once a window, and each step's update
-writes bf16(x_next) into its x part, so the stem reads one 16-byte aligned
-bf16 matrix (the round-to-nearest _stem_layer_kernel does at
-``x_ref[:].astype(cdt)``).
+writes x_next, rounded to that dtype, into its x part, so the stem reads one
+16-byte aligned matrix (in bf16 the round-to-nearest _stem_layer_kernel
+does at ``x_ref[:].astype(cdt)``; x and x_cond themselves have 792-byte
+rows, which TMA cannot map). In f32 compute each weight is also held split
+into TF32 hi and lo parts (``<name>_split``), the 3xTF32 GEMM's operand.
 
 The port pads nothing: a window of T frames is T + 1 tokens, every row is
 real, and every token is a key. The samplers
@@ -52,8 +54,10 @@ from egoego_release_tpu_torch.ops.fused_layer import (
     decoder_layer,
     decoder_layer_cuda,
     decoder_layer_plain,
+    kernel_weight,
     layer_params,
     linear_plain,
+    with_splits,
 )
 
 
@@ -63,13 +67,14 @@ def prepare_step_params(model, bf16: bool) -> dict:
     (d_model, 2 d) and the output projection (d, d_model), both (N, K) as
     ``nn.Linear`` keeps them, the stem's K and linear_out's N zero-padded to
     multiples of 8 (16-byte bf16 rows of xa; (512, 400) and (200, 512) at the
-    release widths); f32 biases and the position table."""
+    release widths); f32 biases and the position table. In f32 also
+    ``wst_split`` and ``lw_split`` (``fused_layer.with_splits``)."""
     wdt = torch.bfloat16 if bf16 else torch.float32
     mt = model.motion_transformer
     f = lambda t: t.detach().float().contiguous()
     wst = mt.start_conv.weight.detach()[..., 0]
     lw = model.linear_out.weight.detach()
-    return {
+    prep = {
         "layers": [layer_params(layer, bf16) for layer in mt.layer_stack],
         "wst": F.pad(wst, (0, -wst.shape[1] % 8)).contiguous().to(wdt),
         "bst": f(mt.start_conv.bias),
@@ -77,13 +82,16 @@ def prepare_step_params(model, bf16: bool) -> dict:
         "lb": f(model.linear_out.bias),
         "pos_table": mt.position_table,
     }
+    return prep if bf16 else with_splits(prep, ("wst", "lw"))
 
 
-def pack_xa(x: torch.Tensor, xc: torch.Tensor, width: int | None = None) -> torch.Tensor:
-    """The stem's bf16 A: (B, T, width) = [bf16(x) | bf16(x_cond) | 0], width
-    2 d rounded up to a multiple of 8 by default (``prep["wst"].shape[1]``)."""
+def pack_xa(x: torch.Tensor, xc: torch.Tensor, width: int | None = None,
+            dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The stem's A: (B, T, width) = [x | x_cond | 0] in ``dtype`` (the
+    compute dtype, ``prep["wst"].dtype``), width 2 d rounded up to a
+    multiple of 8 by default (``prep["wst"].shape[1]``)."""
     bsz, t, d = x.shape
-    xa = x.new_zeros(bsz, t, width or 2 * d + (-2 * d) % 8, dtype=torch.bfloat16)
+    xa = x.new_zeros(bsz, t, width or 2 * d + (-2 * d) % 8, dtype=dtype)
     xa[..., :d] = x
     xa[..., d: 2 * d] = xc
     return xa
@@ -117,19 +125,16 @@ def stem_layer_plain(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v, act_bf16=
 
 def stem_layer_cuda(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v, with_copy=False, xa=None, act_bf16=False):
     """The stem's GEMM, then layer 0; returns ``decoder_layer_cuda``'s pair.
-    In bf16 the GEMM reads ``xa`` (packed here when None) and also writes the
+    The GEMM reads ``xa`` (packed here when None); in bf16 it also writes the
     bf16 copy of its output, which layer 0's QKV product reads."""
     bsz, t, _ = x.shape
     dm = prep["bst"].shape[0]
+    wst = prep["wst"]
     h = torch.empty(bsz, t + 1, dm, dtype=torch.float32, device=x.device)
-    if prep["wst"].dtype == torch.bfloat16:
-        xa = pack_xa(x, xc, prep["wst"].shape[1]) if xa is None else xa
-        hb = torch.empty_like(h, dtype=torch.bfloat16)
-        ck.gemm(ck.STEM, xa.reshape(bsz * t, -1), prep["wst"], prep["bst"], h, M=bsz * (t + 1),
-                pos=pos, emb=emb, t_data=t, out_b=hb)
-    else:
-        hb = None
-        ck.gemm(ck.STEM, x, prep["wst"], prep["bst"], h, M=bsz * (t + 1), a2=xc, pos=pos, emb=emb, t_data=t)
+    xa = pack_xa(x, xc, wst.shape[1], wst.dtype) if xa is None else xa
+    hb = torch.empty_like(h, dtype=torch.bfloat16) if wst.dtype == torch.bfloat16 else None
+    ck.gemm(ck.STEM, xa.reshape(bsz * t, -1), kernel_weight(prep, "wst"), prep["bst"], h, M=bsz * (t + 1),
+            pos=pos, emb=emb, t_data=t, out_b=hb)
     return decoder_layer_cuda(h, mask, prep["layers"][0], n_head=n_head, d_k=d_k, d_v=d_v, hb=hb,
                               with_copy=with_copy, act_bf16=act_bf16)
 
@@ -137,8 +142,8 @@ def stem_layer_cuda(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v, with_copy=
 def stem_layer(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v, with_copy=False, xa=None, act_bf16=False):
     """x, xc (B, T, d) f32; emb (d_model,) the noise-level token; pos
     (T+1, d_model) the position rows of tokens 0..T; mask (B, T+1); ``xa``
-    on the card in bf16: ``pack_xa(x, xc)``, kept by the caller across steps
-    (made here when None). Returns the (B, T+1, d_model) output of
+    on the card: ``pack_xa(x, xc)`` in the compute dtype, kept by the caller
+    across steps (made here when None). Returns the (B, T+1, d_model) output of
     DecoderLayer 0, or with ``with_copy`` (output, its bf16 copy on the card
     in bf16 mode, else None); ``act_bf16``: the output as a bf16 tensor
     (copy None)."""
@@ -175,13 +180,13 @@ def layer_epilogue_plain(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k
 def layer_epilogue_cuda(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v, hb=None, xa=None):
     """The last layer, then the update's GEMM, which in bf16 reads the
     layer's output as bf16 alone (its only reader: the layer writes no f32
-    output) and, when ``xa`` is given, writes bf16(x_next) into its x
-    part."""
+    output) and, when ``xa`` is given, writes x_next (rounded to the compute
+    dtype) into its x part."""
     bf16 = prep["lw"].dtype == torch.bfloat16
     h, _ = decoder_layer_cuda(h, mask, prep["layers"][-1], n_head=n_head, d_k=d_k, d_v=d_v, hb=hb, act_bf16=bf16)
     bsz, t, d = x.shape
     out = torch.empty(bsz, t, d, dtype=torch.float32, device=x.device)
-    ck.gemm(ck.STEP, h, prep["lw"], prep["lb"], out, M=bsz * t, x=x, noise=noise,
+    ck.gemm(ck.STEP, h, kernel_weight(prep, "lw"), prep["lb"], out, M=bsz * t, x=x, noise=noise,
             ipv=ipv, ipm=ipm, t_data=t, scal=scal, out_b=xa)
     return out
 
@@ -190,8 +195,8 @@ def layer_epilogue(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v,
     """h (B, T+1, d_model) f32, or bf16 (the bf16 activations of the
     ``act_bf16`` chain); x, noise (B, T, d) f32; scal = (a1, a2, a3)
     host floats; ipv (B, T, d) and ipm (B, T) or both None; hb the bf16
-    copy of an f32 h on the card (made there when None); ``xa`` on the card in
-    bf16: the stem's packed A, whose x part receives bf16(x_next). Returns
+    copy of an f32 h on the card (made there when None); ``xa`` on the card:
+    the stem's packed A, whose x part receives x_next in its dtype. Returns
     x_next (B, T, d) f32."""
     if h.is_cuda or ck.tracing():
         out = layer_epilogue_cuda(h, mask, x, noise, scal, ipv, ipm, prep,
@@ -205,7 +210,7 @@ def layer_epilogue(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v,
 def fused_denoise_step(x, xc, emb, pos, mask, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v, xa=None,
                        act_bf16=False):
     """One reverse step: ``len(prep["layers"])`` kernel calls. ``xa`` (on
-    the card in bf16): ``pack_xa(x, xc)``, updated in place to x_next's.
+    the card): ``pack_xa(x, xc)``, updated in place to x_next's.
     ``act_bf16``: the outputs of layers 0 .. L-2 cross between the calls as
     bf16 tensors alone."""
     kw = dict(n_head=n_head, d_k=d_k, d_v=d_v)
@@ -346,10 +351,10 @@ def fused_p_sample_loop(diff, x_start, cond_mask, padding_mask=None, inpaint_val
         sched = ddim_scalars(diff.consts, cfg.timesteps, ddim_steps, eta)
     embs = noise_level_embeddings(diff.model, [s[0] for s in sched])
     kw = dict(n_head=cfg.n_head, d_k=cfg.d_k, d_v=cfg.d_v)
-    # the stem's bf16 A on the card, packed once a window; each step's update
+    # the stem's A on the card, packed once a window; each step's update
     # writes x_next's part
     kernels = x.is_cuda or ck.tracing()
-    xa = pack_xa(x, x_cond, prep["wst"].shape[1]) if kernels and prep["wst"].dtype == torch.bfloat16 else None
+    xa = pack_xa(x, x_cond, prep["wst"].shape[1], prep["wst"].dtype) if kernels else None
     if ck.tracing():
         return _traced_loop(x, x_cond, embs, pos, mask, ipv, ipm, prep, sched, xa,
                             lambda i: draw(lambda sh: noise.step_at(i, sh)), act_bf16, kw)

@@ -46,7 +46,7 @@ STEM_STORE = "      if (r < rows && C < p.N) {\n        const float4 a"  # store
 STEM_TOKEN0 = "      if (C < p.N) {\n        const float2 e"  # kStem: token 0 of each window
 STEP_STORE = "          *reinterpret_cast<float4*>(out + f) ="  # kStep: x_next, 16-byte pieces
 STEP_STORE_1 = "            out[g] = o;"  # kStep: x_next at the span's ends
-STEP_XA = "    if (p.out_b != nullptr) {\n      const int pieces"  # kStep: bf16(x_next) into xa
+STEP_XA = "} else if (p.out_b != nullptr) {\n      const int pieces"  # kStep: bf16(x_next) into xa
 NO_STORE = lambda anchor, cond: (anchor, anchor.replace(cond, cond[:-3] + " && p.M < 0) {"))
 VARIANTS = {
     "kernel": [],

@@ -1,5 +1,6 @@
 """Two or more checkouts of the repo on one card: the denoise step's wrappers
-and its LayerNorm launches in the default mode, timed alike.
+and its LayerNorm launches in bf16 compute, and the wrappers and the step in
+f32 compute (the CLIs' default numerics), timed alike.
 
     python3 -m egoego_release_tpu_torch.tools.step_ab ROOT [ROOT ...] [--json PATH]
 
@@ -16,7 +17,12 @@ ROOT's ``csrc/`` into ROOT's build directory and times, at 64 windows of
   phase 6 of ``chip_smoke.py`` call them (an f32 input whose bf16 copy the
   wrapper makes);
 - the fc and w2 LayerNorm launches of a middle layer (f32 residual, f32
-  output and its bf16 copy; w2 also without the copy).
+  output and its bf16 copy; w2 also without the copy);
+- in f32 compute, ``stem_layer`` (given an f32 xa = [x | x_cond | 0], which
+  a checkout whose f32 stem reads x and x_cond itself ignores),
+  ``decoder_layer`` and ``layer_epilogue`` (the update with the inpaint, no
+  xa), and their sum over a step, ``f32 step`` = stem_layer + (L - 2)
+  decoder_layer + layer_epilogue, from each timer.
 
 Each is timed twice on the device: torch.profiler's device time a call
 (``chip_smoke.device_time_ms``, as phase 2) and CUDA events behind a held
@@ -126,10 +132,23 @@ def measure(root: Path) -> dict:
             "w2_ln": (ln(h1, lp["w2"], lp["b2"], lp["ln2s"], lp["ln2b"], True), False),
             "w2_ln no copy": (ln(h1, lp["w2"], lp["b2"], lp["ln2s"], lp["ln2b"], False), False),
         }
+        # f32 compute: the split weights (when the checkout has them) are made here
+        p32 = fs.prepare_step_params(model, False)
+        xa32 = torch.zeros(b, t, p32["wst"].shape[1], device=dev)
+        xa32[..., :d], xa32[..., d: 2 * d] = x, xc
+        f32 = {
+            "stem_layer f32": lambda: fs.stem_layer(x, xc, emb, pos, mask, p32, xa=xa32, **kw),
+            "decoder_layer f32": lambda: fl.decoder_layer(h, mask, p32["layers"][1], **kw),
+            "layer_epilogue f32": lambda: fs.layer_epilogue(h, mask, x, noise, cs.UPDATE, ipv, ipm, p32, **kw),
+        }
+        fns.update({name: (fn, True) for name, fn in f32.items()})
         for name, (fn, chain) in fns.items():
             prof_ms, kernels = cs.device_time_ms(fn, chain=chain)
             table[f"{name} {b}x{tokens}"] = {"profiler_ms": prof_ms, "events_ms": cs.held_events_ms(fn, 20),
                                             "host_ms": host_ms(fn, cs), "kernels": kernels}
+        per_step = {"stem_layer f32": 1, "decoder_layer f32": cfg.n_dec_layers - 2, "layer_epilogue f32": 1}
+        table[f"f32 step {b}x{tokens}"] = {k: sum(n * table[f"{name} {b}x{tokens}"][k] for name, n in per_step.items())
+                                          for k in ("profiler_ms", "events_ms", "host_ms")}
     torch.cuda.synchronize()
     return table
 

@@ -264,9 +264,10 @@ def test_default_keeps_f32_activations_bit_for_bit(models):
 
 def _gemm_operands(bf16_compute, m=16, n=64, k=64):
     """CPU tensors of a LAYER_NORM product (the refusals are checked before
-    the device is)."""
+    the device is); in f32 compute W arrives split for the 3xTF32 kernel."""
     wdt = torch.bfloat16 if bf16_compute else torch.float32
-    return dict(a=torch.zeros(m, k, dtype=wdt), w=torch.zeros(n, k, dtype=wdt), bias=torch.zeros(n),
+    w = torch.zeros(n, k, dtype=wdt)
+    return dict(a=torch.zeros(m, k, dtype=wdt), w=w if bf16_compute else ck.split_tf32(w), bias=torch.zeros(n),
                 res=torch.zeros(m, n, dtype=torch.bfloat16), ln_s=torch.ones(n), ln_b=torch.zeros(n),
                 row_mask=torch.ones(m), out=torch.zeros(m, n), out_b=torch.zeros(m, n, dtype=torch.bfloat16), M=m)
 

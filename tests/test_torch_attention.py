@@ -245,11 +245,16 @@ def test_layer_params_are_the_jax_weights_transposed(bf16):
             "bqkv": np.concatenate([jp["bq"], jp["bk"], jp["bv"]], 1)[0],
             **{k: jp[k].T for k in ("wfc", "w1", "w2")},
             **{k: jp[k][0] for k in ("bfc", "ln1s", "ln1b", "b1", "b2", "ln2s", "ln2b")}}
-    assert lp.keys() == want.keys()
+    # f32: each weight also split for the 3xTF32 GEMM, hi + lo the weight exactly
+    splits = {} if bf16 else {f"{k}_split": want[k] for k in ("wqkv", "wfc", "w1", "w2")}
+    assert lp.keys() == want.keys() | splits.keys()
     for key, w in want.items():
         assert lp[key].dtype == (torch.bfloat16 if bf16 and key[0] == "w" else torch.float32), key
         assert lp[key].is_contiguous()
         np.testing.assert_array_equal(lp[key].float().numpy(), w, err_msg=key)
+    for key, w in splits.items():
+        assert lp[key].shape == (2, *w.shape) and lp[key].is_contiguous(), key
+        np.testing.assert_array_equal((lp[key][0] + lp[key][1]).numpy(), w, err_msg=key)
 
 
 def test_bf16_copy_at_the_producer_is_the_rounding_at_the_product():

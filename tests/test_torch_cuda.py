@@ -4,8 +4,9 @@ there with (tests/conftest.py imports JAX, which the GPU machine may lack)
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
-Tolerances: 1e-4 absolute in f32 mode (summation order only: no TF32, or
-3xTF32, which keeps f32 accuracy, in csrc/mha.cu) and
+Tolerances: 1e-4 absolute in f32 mode (summation order only: every f32
+product is 3xTF32, which keeps f32 accuracy: csrc/gemm.cu
+gemm_tf32x3_kernel and csrc/mha.cu) and
 2e-2 in bf16 mode (a bf16 rounding of q/k/v, p, ctx or h1 may flip where
 the two sum in other orders; outputs are O(1) LayerNorm values).
 """
@@ -212,7 +213,7 @@ def test_act_bf16_wrappers_match_plain(release, card, bf16, bsz, frames):
     kw = dict(n_head=cfg.n_head, d_k=cfg.d_k, d_v=cfg.d_v)
     pos = prep["pos_table"][1: frames + 2].contiguous()
     hb = inp["h"].to(torch.bfloat16)
-    n_gemm, n_attn = ("gemm_wgmma", "attention_wgmma") if bf16 else ("gemm", "attention")
+    n_gemm, n_attn = ("gemm_wgmma", "attention_wgmma") if bf16 else ("gemm_tf32x3", "mha")
     cases = [
         (fs.stem_layer, fs.stem_layer_plain, (inp["x"], inp["xc"], inp["emb"], pos, inp["mask"], prep),
          {"act_bf16": True}, 5),
@@ -261,17 +262,18 @@ def test_layer_norm_bf16_residual_and_output_match_plain(card):
     """The LayerNorm epilogue in each of its layouts, one instantiation each
     (an f32 or a bf16 residual; an f32 output, with its bf16 copy in bf16
     compute, or the bf16 output alone), on the wgmma kernel (bf16) and the
-    CUDA-core kernel (f32): the residual read as its f32 value, a bf16
-    output the f32 result rounded once, a copy bit for bit."""
+    3xTF32 kernel (f32): the residual read as its f32 value, a bf16 output
+    the f32 result rounded once, a copy bit for bit."""
     g = torch.Generator(device=card).manual_seed(9)
     m, n, k = 726, 512, 1024
     bf = torch.bfloat16
     rn = lambda *s: torch.randn(*s, generator=g, device=card)
     res32 = rn(m, n)
     ln_s, ln_b, mask = 1 + 0.1 * rn(n), 0.1 * rn(n), (rn(m) > -1).float()
-    for wdt, kernel in ((bf, "gemm_wgmma"), (torch.float32, "gemm")):
+    for wdt, kernel in ((bf, "gemm_wgmma"), (torch.float32, "gemm_tf32x3")):
         bf16 = wdt == bf
         a, w, bias = rn(m, k).to(wdt), (rn(n, k) * 0.25 / k ** 0.5).to(wdt), 0.25 * rn(n)
+        wk = w if bf16 else ck.split_tf32(w)
         for res in (res32, res32.to(bf)):
             want = fl.layer_norm_plain(fl.linear_plain(a, w) + bias + res.float(), ln_s, ln_b) * mask[:, None]
             for f32_out in (True, False):
@@ -279,7 +281,7 @@ def test_layer_norm_bf16_residual_and_output_match_plain(card):
                 out = torch.empty(m, n, device=card) if f32_out else None
                 out_b = torch.empty(m, n, dtype=bf, device=card) if bf16 or not f32_out else None
                 ck.kernel_launches.clear()
-                got = ck.gemm(ck.LAYER_NORM, a, w, bias, out, M=m, res=res, ln_s=ln_s, ln_b=ln_b, row_mask=mask,
+                got = ck.gemm(ck.LAYER_NORM, a, wk, bias, out, M=m, res=res, ln_s=ln_s, ln_b=ln_b, row_mask=mask,
                               out_b=out_b)
                 torch.cuda.synchronize()
                 assert got is (out if f32_out else out_b) and dict(ck.kernel_launches) == {kernel: 1}, what
@@ -654,11 +656,13 @@ def test_partial_gemm_and_residual_layernorm_match_plain(card, bf16, tp, tokens)
     wdt = torch.bfloat16 if bf16 else torch.float32
     for k in (4 * 256 // tp, dm // tp):
         a, w, bias = rn(m, k).to(wdt), (rn(dm, k) / k ** 0.5).to(wdt), rn(dm)
+        w = w if bf16 else ck.split_tf32(w)
         out = torch.empty(m, dm, device=card)
         ck.kernel_launches.clear()
         ck.gemm_modes.clear()
         ck.gemm(ck.PARTIAL, a, w, bias, out, M=m)
-        assert dict(ck.gemm_modes) == {ck.PARTIAL: 1} and sum(ck.kernel_launches.values()) == 1
+        assert dict(ck.gemm_modes) == {ck.PARTIAL: 1}
+        assert dict(ck.kernel_launches) == {"gemm_wgmma" if bf16 else "gemm_tf32x3": 1}
         want = ck.gemm_plain(ck.PARTIAL, a, w, bias, torch.empty_like(out), M=m)
         assert float((out - want).abs().max()) <= TOL[bf16]
     p, res = rn(m, dm), rn(m, dm).to(wdt)
@@ -689,8 +693,17 @@ def test_custom_ops_match_ctypes_wrappers(card):
     x, noise, ipv = rn(64 * t, 198), rn(64 * t, 198), rn(64 * t, 198)
     lw, lb, ipm = (rn(200, 512) / 22.6).to(bf), rn(198), torch.ones(64 * t, device=card)
     qkv, q = rn(m, 4 * 768).to(bf), rn(2, 4, 256, 256)
+    a32, w32, qkv32 = a.float(), ck.split_tf32(w.float()), qkv.float()
     none9 = (None,) * 9
     cases = {
+        "gemm f32 BIAS": (
+            lambda o: torch.ops.egoego.gemm(a32, w32, bias, o[0], ck.BIAS, m, *none9, None, None, None, 0, None),
+            lambda o: ck.gemm(ck.BIAS, a32, w32, bias, o[0], M=m),
+            lambda: (torch.zeros(m, 512, device=card),)),
+        "attention f32": (
+            lambda o: torch.ops.egoego.attention(qkv32, o[0], 64, 121, 121, 4, 256, 256),
+            lambda o: ck.attention(qkv32, o[0], B=64, T=121, t_keys=121, n_head=4, d_k=256, d_v=256),
+            lambda: (torch.zeros(m, 1024, device=card),)),
         "gemm LAYER_NORM": (
             lambda o: torch.ops.egoego.gemm(a, w, bias, o[0], ck.LAYER_NORM, m, None, res, s, b, mask, None, None,
                                             None, None, None, None, o[1], 0, None),
@@ -730,3 +743,123 @@ def test_custom_ops_match_ctypes_wrappers(card):
             got.append((o, dict(ck.kernel_launches)))
         assert got[0][1] == got[1][1], name
         assert all(torch.equal(u, v) for u, v in zip(got[0][0], got[1][0])), name
+
+
+# -- the f32 route: gemm_tf32x3_kernel (3xTF32 wgmma) and the attention on mha --
+
+F32_SHAPES = [(64, 121), (64, 31), (1, 121)]  # (windows, tokens): the main path, its tail, eval_egoego's batch 1
+
+
+@pytest.mark.parametrize("windows,tokens", F32_SHAPES)
+@pytest.mark.parametrize("mode,k,n", [
+    (ck.BIAS, 512, 3072), (ck.BIAS_RELU, 512, 512), (ck.LAYER_NORM, 1024, 512), (ck.LAYER_NORM, 512, 512),
+    (ck.BIAS, 512, 1536), (ck.BIAS_RELU, 512, 128), (ck.PARTIAL, 512, 512), (ck.PARTIAL, 128, 512),
+    (ck.BIAS, 400, 512), (ck.LAYER_NORM, 200, 512)])
+def test_tf32x3_gemm_matches_plain(card, windows, tokens, mode, k, n):
+    """Each layer mode of the 3xTF32 kernel against its plain f32 version
+    within 1e-4: QKV, w1, fc and w2 at the release widths, the tp shards
+    (QKV and w1 at tp 2 and 4; fc's and w2's PARTIAL products), and K = 400
+    and 200, not multiples of the 32-deep k-tiles of the bf16 kernel (the
+    stem's padded K; a half k-tile of 16). Counted as gemm_tf32x3 alone."""
+    g = torch.Generator(device=card).manual_seed(windows + tokens + k + n + mode)
+    rn = lambda *s: torch.randn(*s, generator=g, device=card)
+    m = windows * tokens
+    a, w, bias = rn(m, k), rn(n, k) / k ** 0.5, rn(n)
+    ws = ck.split_tf32(w)
+    out = torch.empty(m, n, device=card)
+    extra = {}
+    if mode == ck.LAYER_NORM:
+        extra = dict(res=rn(m, n), ln_s=1 + 0.1 * rn(n), ln_b=0.1 * rn(n), row_mask=(rn(m) > -1).float())
+    ck.kernel_launches.clear()
+    ck.gemm(mode, a, ws, bias, out, M=m, **extra)
+    assert dict(ck.kernel_launches) == {"gemm_tf32x3": 1}
+    want = ck.gemm_plain(mode, a, w, bias, torch.empty_like(out), M=m, **extra)
+    torch.cuda.synchronize()
+    assert float((out - want).abs().max()) < TOL[False]
+
+
+@pytest.mark.parametrize("windows,tokens", F32_SHAPES)
+@pytest.mark.parametrize("res_bf16", [False, True])
+def test_tf32x3_layer_norm_bf16_output_alone(card, windows, tokens, res_bf16):
+    """The act-bf16 layouts of the f32-compute LayerNorm on the 3xTF32
+    kernel: the bf16 output alone, with an f32 or a bf16 residual, within
+    1e-4 plus the one bf16 ulp its rounding adds."""
+    g = torch.Generator(device=card).manual_seed(windows + tokens)
+    rn = lambda *s: torch.randn(*s, generator=g, device=card)
+    m, n, k = windows * tokens, 512, 1024
+    a, w, bias = rn(m, k), rn(n, k) / k ** 0.5, rn(n)
+    res = rn(m, n).to(torch.bfloat16 if res_bf16 else torch.float32)
+    ln = dict(res=res, ln_s=1 + 0.1 * rn(n), ln_b=0.1 * rn(n), row_mask=(rn(m) > -1).float())
+    out_b = torch.empty(m, n, dtype=torch.bfloat16, device=card)
+    ck.kernel_launches.clear()
+    ck.gemm(ck.LAYER_NORM, a, ck.split_tf32(w), bias, None, M=m, out_b=out_b, **ln)
+    assert dict(ck.kernel_launches) == {"gemm_tf32x3": 1}
+    want = ck.gemm_plain(ck.LAYER_NORM, a, w, bias, torch.empty(m, n, device=card), M=m, **ln)
+    torch.cuda.synchronize()
+    assert bool(((out_b.float() - want).abs() <= TOL[False] + 2.0 ** -7 * want.abs()).all())
+
+
+@pytest.mark.parametrize("windows,tokens", F32_SHAPES)
+def test_tf32x3_stem_and_step_match_plain(card, windows, tokens):
+    """The f32 stem (A the packed f32 xa, K = 400) and the f32 update (the
+    overlap inpaint; x_next into the f32 xa's x part, bit for bit) against
+    stem_tokens_plain and step_update_plain within 1e-4."""
+    cfg = DiffusionConfig()
+    model = CondGaussianDiffusion(cfg, device=card, seed=0).model
+    prep = fs.prepare_step_params(model, False)
+    t, d, dm = tokens - 1, cfg.d_feats, cfg.d_model
+    inp = _step_inputs(card, cfg, model, windows, t, seed=tokens)
+    pos = prep["pos_table"][1: tokens + 1].contiguous()
+    xa = fs.pack_xa(inp["x"], inp["xc"], prep["wst"].shape[1], torch.float32)
+    h = torch.empty(windows * tokens, dm, device=card)
+    ck.kernel_launches.clear()
+    ck.gemm(ck.STEM, xa.reshape(windows * t, -1), prep["wst_split"], prep["bst"], h, M=windows * tokens, pos=pos,
+            emb=inp["emb"], t_data=t)
+    want = fs.stem_tokens_plain(inp["x"], inp["xc"], inp["emb"], pos, prep).reshape(windows * tokens, dm)
+    torch.cuda.synchronize()
+    assert float((h - want).abs().max()) < TOL[False]
+    out, xa0 = torch.empty_like(inp["x"]), xa.clone()
+    scal = (0.9, 0.1, 0.05)
+    ck.gemm(ck.STEP, inp["h"], prep["lw_split"], prep["lb"], out, M=windows * t, x=inp["x"], noise=inp["noise"],
+            ipv=inp["ipv"], ipm=inp["ipm"], t_data=t, scal=scal, out_b=xa)
+    assert dict(ck.kernel_launches) == {"gemm_tf32x3": 2}
+    want = fs.step_update_plain(inp["h"], inp["x"], inp["noise"], scal, inp["ipv"], inp["ipm"], prep)
+    torch.cuda.synchronize()
+    assert float((out - want).abs().max()) < TOL[False]
+    assert torch.equal(xa[..., :d], out) and torch.equal(xa[..., d:], xa0[..., d:])
+
+
+@pytest.mark.parametrize("windows,tokens", F32_SHAPES)
+@pytest.mark.parametrize("cut", [0, 5])
+def test_f32_layer_attention_runs_on_mha(card, windows, tokens, cut):
+    """The layer's attention in f32 launches the 3xTF32 mha kernel on views
+    of the packed qkv and of ctx, within 1e-4 of attention_plain (keys at or
+    past t_keys hidden), counted as mha."""
+    g = torch.Generator(device=card).manual_seed(windows + tokens + cut)
+    qkv = torch.randn(windows * tokens, 3 * 4 * 256, generator=g, device=card)
+    ctx = torch.full((windows * tokens, 4 * 256), float("nan"), device=card)
+    kw = dict(B=windows, T=tokens, t_keys=tokens - cut, n_head=4, d_k=256, d_v=256)
+    ck.kernel_launches.clear()
+    ck.attention(qkv, ctx, **kw)
+    assert dict(ck.kernel_launches) == {"mha": 1}
+    torch.cuda.synchronize()
+    assert float((ctx - fl.attention_plain(qkv, **kw)).abs().max()) < TOL[False]
+
+
+def test_tf32x3_gemm_refuses_what_it_cannot_take(card):
+    """The f32 route takes W split (split_tf32), an A whose rows are
+    16-byte multiples and the packed stem A; the wrapper raises on anything
+    else and launches nothing."""
+    w, bias = torch.zeros(256, 64, device=card), torch.zeros(256, device=card)
+    out = torch.empty(8, 256, device=card)
+    ck.kernel_launches.clear()
+    with pytest.raises(ValueError, match="split_tf32"):
+        ck.gemm(ck.BIAS, torch.zeros(8, 64, device=card), w, bias, out, M=8)
+    with pytest.raises(ValueError, match="3xTF32"):  # K = 62: rows of 248 bytes
+        ck.gemm(ck.BIAS, torch.zeros(8, 62, device=card), ck.split_tf32(w[:, :62]), bias, out, M=8)
+    x = torch.zeros(2, 4, 31, device=card)
+    with pytest.raises(ValueError, match="packed xa"):
+        ck.gemm(ck.STEM, x, ck.split_tf32(torch.zeros(256, 64, device=card)), bias,
+                torch.empty(10, 256, device=card), M=10, a2=x, pos=torch.zeros(5, 256, device=card),
+                emb=bias, t_data=4)
+    assert not ck.kernel_launches

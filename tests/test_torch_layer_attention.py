@@ -86,14 +86,16 @@ def test_attention_plain_bf16_keeps_layer_body_rounding(b, t, h, d):
 @pytest.mark.parametrize("dtype,t,d_k,d_v,kernel", [
     (torch.bfloat16, 121, 256, 256, "attention_wgmma"), (torch.bfloat16, 31, 256, 256, "attention_wgmma"),
     (torch.bfloat16, 128, 256, 256, "attention_wgmma"), (torch.bfloat16, 129, 256, 256, "attention_wmma"),
-    (torch.float32, 121, 256, 256, "attention"), (torch.bfloat16, 121, 32, 32, "attention"),
+    (torch.float32, 121, 256, 256, "mha"), (torch.float32, 31, 16, 16, "mha"), (torch.float32, 121, 18, 18, "attention"),
+    (torch.float32, 121, 512, 512, "attention"), (torch.bfloat16, 121, 32, 32, "attention"),
     (torch.bfloat16, 121, 256, 128, "attention")])
 def test_attention_route(dtype, t, d_k, d_v, kernel):
     """bf16 at head width 256 takes the wgmma kernel up to 128 tokens (the
     release window's 121 and its 31-token tail), the WMMA kernel past that;
-    f32 mode and other widths the CUDA-core kernel."""
+    f32 mode the 3xTF32 mha kernel at the head widths it takes (multiples of
+    4 up to 256), the CUDA-core kernel at other widths, as bf16 does."""
     assert ck.attention_route(dtype, t, d_k, d_v) == kernel
-    assert kernel in ck.ATTENTION_KERNELS
+    assert kernel == "mha" or kernel in ck.ATTENTION_KERNELS
 
 
 @pytest.mark.parametrize("tool,source", [("attention_variants", "attention"), ("gemm_variants", "gemm")])
