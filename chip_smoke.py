@@ -140,8 +140,24 @@ Phases (any failure exits non-zero; nothing is caught):
      DDPM-1000) and ``export_e2e``, each saved, loaded and called on the
      card against the live run for one seed, with the kernels launched
      inside the loaded program counted, and timed.
-Then one JSON line of per-kernel results (with the training summaries), and
-as the last line {"ok": true, "device": {...}}.
+ 16. optical flow, the raw-flow HeadNet and GIMO (no kernel of the port's
+     runs here; f32 convolutions: the ResNet's on cuDNN, PWC-Net's by
+     im2col + cuBLAS, cuDNN's TF32 timed beside them): the ``of_feats`` CLI
+     on 256 flows of 360 x 480 (frames/s; its first 64 features card vs CPU
+     within 1e-4 of their max; a 64-frame batch's device ms beside its f32
+     bound and with cuDNN TF32 on); ``train_stage1 headnet --raw_flow`` at
+     the release widths, batch 32 x window 60, 2 epochs of 4 steps on ARES
+     records whose flows come from a pool of 64 npys of 256 x 320 (finite
+     losses, the frozen CNN bit for bit, the rest moved, a checkpoint per
+     epoch reloaded; the step's ms, busy share, peak memory, bound and the
+     host's loading and augment_flow; one step at 2 x 60 card vs CPU
+     through train_step_agreement; one step at 4 x 60 with the CNN
+     trained); ``pwcnet_forward`` on 4 pairs of 448 x 768 and its training
+     pyramid card vs CPU within 5e-4 (device ms, the correlation's share,
+     cuDNN in f32 and TF32); ``vposer_decode`` of 20,000 latents card vs CPU (1e-5 of each
+     joint's vposer_error_scale) and ``gimo_pose.extract_all`` card vs CPU.
+Then one JSON line of per-kernel results (with the training and phase-16
+summaries), and as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -655,6 +671,12 @@ def float64_gradients(make_state, batch, seed, replay):
     return loss, [p.grad.detach() for p in model.parameters()]
 
 
+def trained_parameters(model):
+    """(name, parameter) of the parameters a trainer updates: those that
+    require a gradient (a frozen ResNet's are left out)."""
+    return [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+
+
 def train_step_agreement(make_state, batch, seed, card, gradients64=None, adam=None):
     """One optimizer step from ``make_state(device)`` -> (trainer, state)
     (one weight set, dropout off) on ``batch`` with the draws of
@@ -669,7 +691,8 @@ def train_step_agreement(make_state, batch, seed, card, gradients64=None, adam=N
     measures named in STEP_BOUNDS and more. ``gradients64`` (the float64
     reference, by default the stage-2 trainer's float64_gradients) and
     ``adam(trainer)`` -> (lr, weight decay) of the first step (by default
-    (trainer.lr, 0)) let it hold other trainers."""
+    (trainer.lr, 0)) let it hold other trainers. Frozen parameters are left
+    out (``trained_parameters``)."""
     import torch
 
     from egoego_release_tpu_torch.ops.fused_step import TorchNoise
@@ -678,7 +701,7 @@ def train_step_agreement(make_state, batch, seed, card, gradients64=None, adam=N
     runs = {}
     for side, where, replay in (("card", card, None), ("cpu", cpu, None), ("replay", cpu, "card")):
         trainer, state = make_state(where)
-        p0 = {n: p.detach().cpu().double() for n, p in state.model.named_parameters()}
+        p0 = {n: p.detach().cpu().double() for n, p in trained_parameters(state.model)}
         with branch_mode(runs[replay]["mode"].signs if replay else None) as mode:
             state, loss, *_ = trainer.train_step(state, batch, TorchNoise("cpu", seed))
         lr, wd = adam(trainer) if adam else (trainer.lr, 0.0)
@@ -699,7 +722,7 @@ def train_step_agreement(make_state, batch, seed, card, gradients64=None, adam=N
             if at.any():
                 m["flip_input"] = max(m["flip_input"], float(run["mode"].inputs[i][at].abs().max()) / top)
     for run in runs.values():
-        run["params"] = list(run["state"].model.parameters())
+        run["params"] = [p for _, p in trained_parameters(run["state"].model)]
         run["g"] = [p.grad.detach().cpu().double() for p in run["params"]]
     loss64, g64 = (gradients64 or float64_gradients)(make_state, batch, seed, c["mode"].signs)
     m.update(loss64=abs(c["loss"] - loss64) / abs(loss64), loss64_cpu=abs(r["loss"] - loss64) / abs(loss64),
@@ -709,7 +732,7 @@ def train_step_agreement(make_state, batch, seed, card, gradients64=None, adam=N
     m.update(grad=0.0, grad_worst="", wk_bias=0.0, grad_free=0.0, grad_free_worst="", grad_l2=0.0,
              param=0.0, adam=0.0)
     num = den = covered = total = 0.0
-    for k, (name, _) in enumerate(c["state"].model.named_parameters()):
+    for k, (name, _) in enumerate(trained_parameters(c["state"].model)):
         g_c, g_h, g_r = c["g"][k], h["g"][k], r["g"][k]
         if name.endswith("self_attn.w_k.bias"):  # its gradient is rounding noise (the softmax cancels it)
             m["wk_bias"] = max(m["wk_bias"], float((g_c - g_r).abs().max()) / g_top)
@@ -998,7 +1021,7 @@ def smooth_head_track(rng, frames):
     return np.concatenate([trans, quats], -1).astype(np.float32), vel
 
 
-def write_ares_fixture(root, rng, n_seqs, frames, feat_dim=512):
+def write_ares_fixture(root, rng, n_seqs, frames, feat_dim=512, flow_pool=None):
     """The ARES training layout that ``ARESHeadPoseDataset(train=True)``
     reads: ares_egoego_processed/train_ares_smplh_motion.p (head_qpos
     (frames + 1, 7), head_vels (frames + 1, 6), of_files, seq_name; plain
@@ -1007,22 +1030,33 @@ def write_ares_fixture(root, rng, n_seqs, frames, feat_dim=512):
     authors' paths to raft_flows, which the dataset rewrites), DROID-SLAM
     npys ares/droid_slam_res/<scene>/<take>.npy. A frame's features are a
     fixed random projection of its velocities and step length, plus noise,
-    so HeadNet has something to learn."""
+    so HeadNet has something to learn. With ``flow_pool`` = (n, h, w) no
+    features: n raw-flow npys of h x w x 2 under ares/flow_pool/raft_flows/,
+    and each frame's of_file one of them at random (paths repeat), for the
+    raw-flow HeadNet."""
     proj = rng.randn(feat_dim, 7).astype(np.float32)
     os.makedirs(os.path.join(root, "ares_egoego_processed"), exist_ok=True)
+    if flow_pool is not None:
+        pool_dir = os.path.join(root, "ares", "flow_pool", "raft_flows")
+        os.makedirs(pool_dir, exist_ok=True)
+        for j in range(flow_pool[0]):
+            np.save(os.path.join(pool_dir, f"{j:05d}.npy"), (2 * rng.randn(*flow_pool[1:], 2)).astype(np.float32))
     recs = {}
     for si in range(n_seqs):
         scene, take = f"scene{si % 4}", f"take{si}"
         head, vel = smooth_head_track(rng, frames)
-        step = np.linalg.norm(np.diff(head[:, :3], axis=0), axis=-1, keepdims=True) * 10.0
-        feats = np.concatenate([vel, step], -1) @ proj.T + 0.1 * rng.randn(frames, feat_dim)
-        feat_dir = os.path.join(root, "ares", scene, take, "raft_of_feats")
-        os.makedirs(feat_dir, exist_ok=True)
-        for i in range(frames):
-            np.save(os.path.join(feat_dir, f"{i:05d}.npy"), feats[i].astype(np.float32))
+        if flow_pool is None:
+            step = np.linalg.norm(np.diff(head[:, :3], axis=0), axis=-1, keepdims=True) * 10.0
+            feats = np.concatenate([vel, step], -1) @ proj.T + 0.1 * rng.randn(frames, feat_dim)
+            feat_dir = os.path.join(root, "ares", scene, take, "raft_of_feats")
+            os.makedirs(feat_dir, exist_ok=True)
+            for i in range(frames):
+                np.save(os.path.join(feat_dir, f"{i:05d}.npy"), feats[i].astype(np.float32))
+            of_files = [f"{ARES_ROOT}/{scene}/{take}/raft_flows/{i:05d}.npy" for i in range(frames)]
+        else:
+            of_files = [f"{ARES_ROOT}/flow_pool/raft_flows/{j:05d}.npy" for j in rng.randint(flow_pool[0], size=frames)]
         recs[si] = {"seq_name": f"{scene}-{take}", "head_qpos": head,
-                    "head_vels": np.concatenate([vel, vel[-1:]]),
-                    "of_files": [f"{ARES_ROOT}/{scene}/{take}/raft_flows/{i:05d}.npy" for i in range(frames)]}
+                    "head_vels": np.concatenate([vel, vel[-1:]]), "of_files": of_files}
         slam_dir = os.path.join(root, "ares", "droid_slam_res", scene)
         os.makedirs(slam_dir, exist_ok=True)
         slam = np.concatenate([0.3 * head[:, :3] + rng.randn(frames + 1, 3) * 1e-3, head[:, 3:]], -1)
@@ -1042,8 +1076,9 @@ def write_head_motion(path, rng, n_seqs, lengths=(125, 300)):
 
 def stage1_gradients64(make_state, batch, seed, replay):
     """train_step_agreement's float64 reference for a stage-1 trainer: the
-    loss and the clipped gradients of ``make_state``'s weights in float64 on
-    the CPU, taking the branches ``replay`` (dropout off: ``seed`` unused)."""
+    loss and the clipped gradients of ``make_state``'s trained weights in
+    float64 on the CPU, taking the branches ``replay`` (dropout off:
+    ``seed`` unused)."""
     import torch
 
     trainer, state = make_state(torch.device("cpu"))
@@ -1052,7 +1087,7 @@ def stage1_gradients64(make_state, batch, seed, replay):
     with branch_mode(replay), float64_mode():
         loss, _ = trainer.loss_fn(model, b)
         loss.backward()
-        grads = [p.grad for p in model.parameters()]
+        grads = [p.grad for _, p in trained_parameters(model)]
         trainer.optimizer.clip_(grads)
     return float(loss.detach()), [g.detach() for g in grads]
 
@@ -1192,9 +1227,10 @@ def stage1_phase(card, data_dir, stats_path, rest_path, per_step, c_per_step, cl
             step()
         torch.cuda.synchronize()
         r["wall_ms"] = (time.perf_counter() - t0) / 20 * 1e3
-        r["device_ms"], kernels = device_time_ms(step, reps=20, chain=True)
+        # 5 steps under the profiler: a HeadNet step launches ~12,000 kernels
+        r["device_ms"], kernels = device_time_ms(step, reps=5, chain=True)
         r["device_busy_share"] = r["device_ms"] / r["wall_ms"]
-        r["launches_per_step"] = sum(kernels.values()) / 20
+        r["launches_per_step"] = sum(kernels.values()) / 5
         r["peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20  # model, AdamW, the steps' activations
         r["gflop"] = stage1_step_flops(kind, m, STAGE1_BATCH) / 1e9
         r["bound_ms"] = r["gflop"] * 1e9 / PEAK_F32 * 1e3
@@ -2222,6 +2258,407 @@ def act_bf16_phase(card, head, stats_path, rest_path, check_counts, clear_counts
             "chain_s": {"act_f32": chain_s[False], "act_bf16": chain_s[True]}, "drift": drift,
             "chain_drift_window_1": drift_w[1], "chain_drift_local_aa": drift_aa, "chain_drift_root": drift_root,
             "card": card}
+
+
+def vposer_error_scale(d6, aa=None):
+    """How far the VPoser decode may carry a rounding of its network's
+    output d6 (..., 21, 6), per joint: max(1, max|d6| of the latent /
+    min(|a1|, |a2 without its a1 part|)), since the Gram-Schmidt divides by
+    those norms; for axis-angle output ``aa`` (..., 21, 3) also times max(1,
+    its angle). Two f32 decodes of one latent (card and CPU, port and JAX)
+    are held to 1e-5 times it: a joint whose columns are short or nearly
+    parallel turns an f32 rounding of d6 into a large turn of its frame."""
+    d6 = np.asarray(d6, np.float64)
+    a = d6.reshape(d6.shape[:-1] + (3, 2))
+    a1, a2 = a[..., 0], a[..., 1]
+    n1 = np.linalg.norm(a1, axis=-1)
+    b1 = a1 / np.maximum(n1, 1e-8)[..., None]
+    n2 = np.linalg.norm(a2 - (b1 * a2).sum(-1, keepdims=True) * b1, axis=-1)
+    scale = np.maximum(1.0, np.abs(d6).max(axis=(-2, -1))[..., None] / np.maximum(np.minimum(n1, n2), 1e-8))
+    return scale if aa is None else scale * np.maximum(1.0, np.linalg.norm(np.asarray(aa, np.float64), axis=-1))
+
+
+OF_FRAMES, OF_HW, OF_BATCH = 256, (360, 480), 64  # phase 16a: flow npys for of_feats, their size, its batch
+RAW_SEQS, RAW_FRAMES, RAW_EPOCHS = 128, 62, 2  # phase 16b: 4 steps an epoch at batch 32, window 60
+RAW_POOL = (64, 256, 320)  # phase 16b: distinct raw-flow npys (h x w x 2) the records point into
+PWC_PAIRS, PWC_HW = 4, (448, 768)  # phase 16c: image pairs of the PWC-Net forward
+GIMO_LATENTS = 20000  # phase 16d: VPoser latents decoded card vs CPU
+
+
+def conv_macs(model, *inputs):
+    """Multiply-adds of the Conv2d, ConvTranspose2d and Linear layers in one
+    forward of ``model(*inputs)``, counted from their shapes by forward hooks."""
+    import torch
+    from torch import nn
+
+    total = [0]
+
+    def hook(mod, args, out):
+        if isinstance(mod, nn.ConvTranspose2d):  # each input pixel scatters to out x kh x kw
+            total[0] += args[0].numel() * mod.weight[0].numel()
+        elif isinstance(mod, nn.Conv2d):  # each output pixel gathers in / groups x kh x kw
+            total[0] += out.numel() * mod.weight[0].numel()
+        else:
+            total[0] += out.numel() * mod.in_features
+
+    layers = (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)
+    handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, layers)]
+    try:
+        with torch.no_grad():
+            model(*inputs)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def write_gimo_fixture(root, rng, seqs=(("sceneA", "seq1", 4), ("sceneA", "seq2", 3), ("sceneB", "seq0", 5))):
+    """GIMO's segmented layout that ``preprocess.gimo_pose`` walks:
+    <root>/<scene>/<seq>/smplx_local/<frame>.pkl, each frame a dict of torch
+    tensors (latent (32,), trans, orient (3,), beta (10,)), as GIMO stores
+    them; and a file beside the scenes that is not one. Returns {(scene,
+    seq): latents (frames, 32)}."""
+    import torch
+
+    latents = {}
+    for scene, seq, frames in seqs:
+        d = os.path.join(root, scene, seq, "smplx_local")
+        os.makedirs(d)
+        for i in range(frames):
+            rec = {k: torch.tensor(rng.randn(n), dtype=torch.float32)
+                   for k, n in (("latent", 32), ("trans", 3), ("orient", 3), ("beta", 10))}
+            with open(os.path.join(d, f"{i:04d}.pkl"), "wb") as f:
+                pickle.dump(rec, f)
+            latents.setdefault((scene, seq), []).append(rec["latent"].numpy())
+    open(os.path.join(root, "README"), "w").close()
+    return {k: np.stack(v) for k, v in latents.items()}
+
+
+def optical_flow_phase(card, data_dir):
+    """Phase 16: the optical-flow models, the raw-flow HeadNet and the GIMO
+    decoder at release shapes, on fixtures written here from seeds. (a) the
+    ``of_feats`` CLI on OF_FRAMES flows of 360 x 480: frames/s, its first
+    64 features against the CPU port's on the same weights (1e-4 of their
+    max), the device ms of one 64-frame batch beside its f32 bound and with
+    cuDNN's TF32 on. (b) ``train_stage1 headnet --raw_flow`` at the release
+    widths, batch 32 x window 60 (1,920 frames of 224 x 224 a step), frozen
+    CNN, RAW_EPOCHS epochs of 4 steps: finite losses, the CNN bit for bit,
+    the rest moved, a checkpoint per epoch that reloads; the step's wall
+    and device ms, busy share, peak memory and bound, the host ms of loading
+    and augment_flow; one step at 2 x 60 card vs CPU (train_step_agreement);
+    one step with the CNN trained at 4 x 60. (c) ``pwcnet_forward`` on
+    PWC_PAIRS pairs of 448 x 768 and its training pyramid, card vs CPU
+    within 5e-4; its device ms, the correlation's share, and the forward
+    with its convolutions on cuDNN in f32 and in TF32. (d)
+    ``vposer_decode`` of GIMO_LATENTS latents card vs CPU (1e-5 of each
+    joint's ``vposer_error_scale``) and ``gimo_pose.extract_all`` on a
+    fixture, card vs CPU. Returns the summary."""
+    import torch
+
+    from egoego_release_tpu_torch.data.headpose import ARESHeadPoseDataset
+    from egoego_release_tpu_torch.models import pwcnet as pw
+    from egoego_release_tpu_torch.models.denoiser import init_weights_
+    from egoego_release_tpu_torch.models.headnet import HeadFormerWithCNN
+    from egoego_release_tpu_torch.models.resnet import f32_convolutions, flow_to_input
+    from egoego_release_tpu_torch.models.transformer import set_dropout_rate
+    from egoego_release_tpu_torch.models.vposer import VPoserDecoder, load_vposer_ckpt, vposer_decode
+    from egoego_release_tpu_torch.ops.fused_step import TorchNoise
+    from egoego_release_tpu_torch.preprocess import gimo_pose, of_feats
+    from egoego_release_tpu_torch.training import train_stage1 as ts
+    from egoego_release_tpu_torch.training.trainer_stage1 import (
+        Stage1Trainer, freeze_subtrees, headnet_cnn_loss_fn, make_optimizer)
+    from egoego_release_tpu_torch.utils.config import load_config
+    from egoego_release_tpu_torch.utils.convert import load_stage1_ckpt
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    root = os.path.join(data_dir, "optical_flow")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cudnn = torch.backends.cudnn
+    tf32_on = lambda: cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark, deterministic=cudnn.deterministic,
+                                  allow_tf32=True)
+    out = {"card": card}
+    at = lambda: f"; {time.perf_counter() - t_phase:.0f} s into phase 16"
+
+    # (a) the of_feats CLI
+    rng = np.random.RandomState(31)
+    of_root = os.path.join(root, "of_feats")
+    for k in range(2):
+        d = os.path.join(of_root, f"take{k}", "raft_flows")
+        os.makedirs(d)
+        for i in range(OF_FRAMES // 2):
+            np.save(os.path.join(d, f"{i:05d}.npy"), (3 * rng.randn(*OF_HW, 2)).astype(np.float32))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = of_feats.main(["--flow_root", of_root, "--batch", str(OF_BATCH), "--device", "cuda"])
+    torch.cuda.synchronize()
+    dt_cli = time.perf_counter() - t0
+    flow_dir = os.path.join(of_root, "take0", "raft_flows")
+    files = sorted(os.listdir(flow_dir))[:OF_BATCH]
+    t0 = time.perf_counter()
+    flows = np.stack([of_feats.resize_flow(np.load(os.path.join(flow_dir, f)).astype(np.float32)) for f in files])
+    host_ms = (time.perf_counter() - t0) * 1e3
+    got = np.stack([np.load(os.path.join(flow_dir.replace("raft_flows", "raft_of_feats"), f)) for f in files])
+    want = of_feats.build_encoder(None, device="cpu")(flows)
+    err, bound = float(np.abs(got - want).max()), 1e-4 * float(np.abs(want).max())
+    if n != OF_FRAMES or got.shape != (OF_BATCH, 512) or not err <= bound:
+        raise AssertionError(f"phase 16a: of_feats wrote {n} files; first batch {got.shape}, card vs CPU {err} > "
+                             f"{bound}")
+    enc = of_feats.build_encoder(None, device="cuda")
+    x = flow_to_input(torch.from_numpy(flows).to(dev))
+    fwd = torch.no_grad()(lambda: enc.model(x))
+    with f32_convolutions():
+        f32_ms, _ = device_time_ms(fwd, reps=10, chain=True)
+        y32 = fwd()
+        macs = conv_macs(enc.model, x[:1]) * OF_BATCH
+    with tf32_on():
+        tf32_ms, _ = device_time_ms(fwd, reps=10, chain=True)
+        tf32_err = float((fwd() - y32).abs().max() / y32.abs().max())
+    nbytes = (x.numel() + sum(t.numel() for t in enc.model.state_dict().values()) + OF_BATCH * 512) * 4
+    ops_s, bytes_s = 2 * macs / PEAK_F32, nbytes / HBM_BYTES_S
+    a = out["of_feats"] = {
+        "frames": n, "cli_s": dt_cli, "frames_per_s": n / dt_cli, "batch_device_ms": f32_ms,
+        "batch_tf32_ms": tf32_ms, "tf32_rel_err": tf32_err, "host_load_resize_ms": host_ms, "card_vs_cpu": err,
+        "bound_card_vs_cpu": bound, "gflop": 2 * macs / 1e9, "bound_ms": max(ops_s, bytes_s) * 1e3,
+        "bound_by": "operations" if ops_s > bytes_s else "bytes"}
+    log(f"phase 16a: of_feats --device cuda on {n} flows of {OF_HW[0]} x {OF_HW[1]} in {dt_cli:.2f} s "
+        f"({a['frames_per_s']:.1f} frames/s, loading and writing included); first {OF_BATCH} features card vs CPU "
+        f"{err:.3e} (bound {bound:.3e}); one {OF_BATCH}-frame batch (ResNet-18 at 224, stored statistics): device "
+        f"{f32_ms:.3f} ms in f32, {tf32_ms:.3f} ms with cuDNN TF32 (features off by {tf32_err:.2e} of their max), "
+        f"bound {a['bound_ms']:.3f} ms ({a['gflop']:.1f} GFLOP at {PEAK_F32 / 1e12:.0f} TFLOP/s f32); the host's load "
+        f"and resize of {OF_BATCH} flows {host_ms:.1f} ms{at()} [{card}]")
+
+    # (b) train_stage1 headnet --raw_flow, release widths
+    raw_root = os.path.join(root, "ares_raw")
+    t0 = time.perf_counter()
+    write_ares_fixture(raw_root, np.random.RandomState(37), RAW_SEQS, RAW_FRAMES, flow_pool=RAW_POOL)
+    dt_fixture = time.perf_counter() - t0
+    sets = ["logging.log_every=1", "train.seed=0", f"data.batch_size={STAGE1_BATCH}", f"logging.save_dir={root}"]
+    cfg = load_config(None, overrides=sets)
+    m, steps_per_epoch = cfg.headnet, RAW_SEQS // STAGE1_BATCH
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = ts.main(["headnet", "--dataset", "ares", "--data_root_folder", raw_root, "--raw_flow", "--epochs",
+                     str(RAW_EPOCHS), "--device", "cuda", "--set", *sets, "logging.exp_name=raw_flow"])
+    torch.cuda.synchronize()
+    dt_run = time.perf_counter() - t0
+    losses = [json.loads(line)["loss"] for line in open(os.path.join(root, "raw_flow", "metrics.jsonl"))]
+    fresh = dict(ts.stage1_model(HeadFormerWithCNN, m, cfg.train.seed, "cpu").named_parameters())
+    params = {k: p.detach().cpu() for k, p in state.model.named_parameters()}
+    cnn_same = all(torch.equal(p, fresh[k]) for k, p in params.items() if k.startswith("cnn."))
+    unmoved = [k for k, p in params.items() if not k.startswith("cnn.") and torch.equal(p, fresh[k])]
+    weights = os.path.join(root, "raw_flow", "weights")
+    names = sorted(os.listdir(weights))
+    reloaded = load_stage1_ckpt(os.path.join(weights, names[-1]), "headnet_cnn", m.n_dec_layers, d_model=m.d_model,
+                                n_head=m.n_head, d_k=m.d_k, d_v=m.d_v)
+    same = all(torch.equal(reloaded[k], v.cpu()) for k, v in state.model.state_dict().items())
+    if (state.step != RAW_EPOCHS * steps_per_epoch or len(losses) != state.step or not all(map(math.isfinite, losses))
+            or not cnn_same or unmoved or names != [f"epoch-{i}.pt" for i in range(RAW_EPOCHS)] or not same):
+        raise AssertionError(f"phase 16b: step {state.step}, losses {losses}, CNN unchanged {cnn_same}, unmoved "
+                             f"{unmoved}, checkpoints {names}, reloaded {same}")
+    b = out["raw_flow"] = {"fixture_s": dt_fixture, "run_s": dt_run, "steps": state.step, "losses": losses}
+    log(f"phase 16b: train_stage1 headnet --raw_flow, release widths, batch {STAGE1_BATCH} x window {m.window} "
+        f"(frozen ResNet-18 over {STAGE1_BATCH * m.window} frames of 224 x 224 a step), {RAW_EPOCHS} epochs = "
+        f"{state.step} steps in {dt_run:.2f} s (loading, augment_flow and checkpoints included; fixture of "
+        f"{RAW_SEQS} records into {RAW_POOL[0]} flows of {RAW_POOL[1]} x {RAW_POOL[2]} in {dt_fixture:.1f} s); losses "
+        f"{[round(v, 4) for v in losses]}; the CNN bit for bit, every other tensor moved; {names} saved, "
+        f"{names[-1]} reloaded bit for bit{at()} [{card}]")
+    del state
+    ds = ARESHeadPoseDataset(raw_root, train=True, window=m.window)
+    ds.input_of_feats, ds.augment = False, True
+    t0 = time.perf_counter()  # 8 records loaded and augmented, timed; the step's batch repeats them 4 times
+    items = [ds[i % len(ds)] for i in range(8)]
+    b["host_batch_ms"] = (time.perf_counter() - t0) * 1e3 / 8 * STAGE1_BATCH
+    batch = {k: np.stack([it[k] for it in items] * (STAGE1_BATCH // 8)) for k in ("of", "head_pose", "head_vels",
+                                                                                  "seq_len")}
+
+    def raw_state(where, freeze=True, dropout=True):
+        tr = Stage1Trainer(headnet_cnn_loss_fn, make_optimizer(cfg.train.learning_rate, cfg.train.lr_step_size,
+                                                               cfg.train.lr_gamma, steps_per_epoch))
+        model = ts.stage1_model(HeadFormerWithCNN, m, 1, where, freeze_cnn=freeze)
+        st = tr.init_state(freeze_subtrees(model, ("cnn",) if freeze else ()))
+        if not dropout:
+            set_dropout_rate(st.model, 0.0)
+        return tr, st
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr, st = raw_state(dev)
+    batch_dev = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    noise = TorchNoise(dev, seed=7)
+    step = lambda: tr.train_step(st, batch_dev, noise)
+    for _ in range(2):
+        step()
+    times = []
+    for _ in range(5):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        step()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    b["step_ms"] = statistics.median(times)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    b["wall_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+    b["device_ms"], kernels = device_time_ms(step, reps=2, chain=True)
+    b["device_busy_share"] = b["device_ms"] / b["wall_ms"]
+    b["launches_per_step"] = sum(kernels.values()) / 2
+    b["peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    with f32_convolutions():
+        cnn_macs = conv_macs(st.model.cnn, flow_to_input(batch_dev["of"][0, :1])) * STAGE1_BATCH * m.window
+    b["gflop"] = (2 * cnn_macs + stage1_step_flops("headnet", m, STAGE1_BATCH)) / 1e9
+    b["bound_ms"] = b["gflop"] * 1e9 / PEAK_F32 * 1e3
+    b["cnn_bound_ms"] = 2 * cnn_macs / PEAK_F32 * 1e3
+    log(f"phase 16b: raw-flow optimizer step (batch {STAGE1_BATCH} x {m.window}, f32, dropout on, CNN frozen): "
+        f"{b['step_ms']:.2f} ms (median of 5 CUDA-event timings after 2 warm-up steps), wall {b['wall_ms']:.2f} "
+        f"ms over 3; device {b['device_ms']:.2f} ms, busy share {b['device_busy_share']:.3f}, "
+        f"{b['launches_per_step']:.0f} device kernels and copies a step; peak {b['peak_mib']:.0f} MiB; bound "
+        f"{b['bound_ms']:.2f} ms ({b['gflop']:.0f} GFLOP at {PEAK_F32 / 1e12:.0f} TFLOP/s f32; the CNN's forward "
+        f"{b['cnn_bound_ms']:.2f}); the host's loading and augment_flow of one batch ({STAGE1_BATCH * m.window} "
+        f"flows; 8 records timed) {b['host_batch_ms']:.0f} ms{at()} [{card}]")
+    del tr, st, step, batch_dev
+
+    pick = {k: v[:2] for k, v in batch.items()}
+    errs = train_step_agreement(lambda where: raw_state(where, dropout=False), pick, 4, dev,
+                                gradients64=stage1_gradients64,
+                                adam=lambda tr: (tr.optimizer.learning_rate(0), tr.optimizer.weight_decay))
+    log(f"phase 16b: raw-flow step, card vs CPU, 2 x {m.window} frames, CNN frozen (bounds in brackets): loss "
+        f"{errs['loss']:.3e} [{STEP_BOUNDS['loss']}]; {errs['branch_calls']} relu / abs calls, {errs['flips']} entries "
+        f"where the CPU took the other branch, {errs['forced']} forced, inputs within {errs['flip_input']:.3e} "
+        f"[{STEP_BOUNDS['flip_input']}]; clipped gradients against float64: card {errs['grad64']:.3e} "
+        f"({errs['grad64_worst']}), CPU {errs['grad64_cpu']:.3e}, ratio {errs['grad64_excess']:.3f} "
+        f"[{STEP_BOUNDS['grad64_excess']}]; w_k.bias {errs['wk_bias']:.3e} [{STEP_BOUNDS['wk_bias']}], parameters "
+        f"{errs['param']:.3e} [{STEP_BOUNDS['param']}], AdamW {errs['adam']:.3e} [{STEP_BOUNDS['adam']}]; as each "
+        f"side runs: gradients {errs['grad_l2_all']:.3e} [{STEP_BOUNDS['grad_l2_all']}], worst tensor "
+        f"{errs['grad_l2']:.3e} [{STEP_BOUNDS['grad_l2']}] (held when no branch flipped){at()}")
+    free = ("grad_l2_all", "grad_l2") if errs["flips"] else ()
+    bad = {k: errs[k] for k, lim in STEP_BOUNDS.items() if not errs[k] <= lim and k not in free}
+    if bad:
+        raise AssertionError(f"phase 16b: card and CPU raw-flow steps disagree: {bad}")
+    b["card_vs_cpu"] = {k: v for k, v in errs.items() if k != "flip_calls"}
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr, st = raw_state(dev, freeze=False)
+    before = {k: p.detach().clone() for k, p in st.model.named_parameters()}
+    t0 = time.perf_counter()
+    tr.train_step(st, {k: v[:4] for k, v in batch.items()}, TorchNoise(dev, seed=8))
+    torch.cuda.synchronize()
+    b["trained_cnn_step_s"] = time.perf_counter() - t0
+    b["trained_cnn_peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    unmoved = [k for k, p in st.model.named_parameters() if torch.equal(p, before[k])]
+    if unmoved:
+        raise AssertionError(f"phase 16b: a step with the CNN trained left {unmoved} unchanged")
+    log(f"phase 16b: one step with the CNN trained (freeze_cnn=False), 4 x {m.window} frames: every parameter moved; "
+        f"{b['trained_cnn_step_s']:.2f} s (first call), peak {b['trained_cnn_peak_mib']:.0f} MiB{at()} [{card}]")
+    del tr, st, before
+
+    # (c) PWC-Net
+    net_cpu = pw.init_pwcnet_(pw.PWCDCNet(), torch.Generator().manual_seed(41)).eval()
+    net = pw.PWCDCNet().to(dev).eval()
+    net.load_state_dict(net_cpu.state_dict())
+    rng = np.random.RandomState(43)
+    im1, im2 = (torch.from_numpy(rng.rand(PWC_PAIRS, 3, *PWC_HW).astype(np.float32)) for _ in range(2))
+    d1, d2 = im1.to(dev), im2.to(dev)
+    with torch.no_grad():
+        flow2 = pw.pwcnet_forward(net, d1, d2).cpu()
+        pyramid = [f.cpu() for f in pw.pwcnet_forward(net, d1, d2, training=True)]
+        t0 = time.perf_counter()
+        want = pw.pwcnet_forward(net_cpu, im1, im2, training=True)
+        cpu_s = time.perf_counter() - t0
+    err_flow = float((flow2 - want[0]).abs().max())
+    err_pyr = max(float((g - w).abs().max()) for g, w in zip(pyramid, want))
+    if flow2.shape != (PWC_PAIRS, 2, PWC_HW[0] // 4, PWC_HW[1] // 4) or not (err_flow <= 5e-4 and err_pyr <= 5e-4):
+        raise AssertionError(f"phase 16c: PWC-Net card vs CPU: flow2 {tuple(flow2.shape)} {err_flow}, pyramid "
+                             f"{err_pyr}")
+    fwd = torch.no_grad()(lambda: pw.pwcnet_forward(net, d1, d2))
+    calls, corr = [], pw.correlation
+    pw.correlation = lambda x1, x2, md=4: calls.append((x1, x2)) or corr(x1, x2, md)
+    try:
+        fwd()
+    finally:
+        pw.correlation = corr
+    fwd_ms, _ = device_time_ms(fwd, reps=5, chain=True)
+    corr_ms, _ = device_time_ms(torch.no_grad()(lambda: [corr(x1, x2) for x1, x2 in calls]), reps=5, chain=True)
+    # yardsticks: the same forward with its convolutions on cuDNN in f32 and in
+    # TF32, timed by CUDA events (tracing cuDNN's slow f32 route costs minutes)
+    own, cudnn_ms = pw.f32_convolutions, {}
+    for name, tf32 in (("f32", False), ("tf32", True)):
+        pw.f32_convolutions = lambda cudnn=True, tf32=tf32: torch.backends.cudnn.flags(
+            enabled=True, benchmark=False, deterministic=False, allow_tf32=tf32)
+        try:
+            cudnn_ms[name] = (cuda_time_ms(fwd, warmup=1, reps=2), float((fwd().cpu() - want[0]).abs().max()))
+        finally:
+            pw.f32_convolutions = own
+    macs = conv_macs(net, torch.cat([d1, d2], 1)) + sum(81 * x1.numel() for x1, _ in calls)
+    c = out["pwcnet"] = {
+        "pairs": PWC_PAIRS, "hw": PWC_HW, "max_abs_err_flow2": err_flow, "max_abs_err_pyramid": err_pyr,
+        "max_abs_flow2": float(want[0].abs().max()), "device_ms": fwd_ms, "cudnn_f32_ms": cudnn_ms["f32"][0],
+        "cudnn_tf32_ms": cudnn_ms["tf32"][0], "cudnn_tf32_err": cudnn_ms["tf32"][1], "correlation_ms": corr_ms,
+        "correlation_share": corr_ms / fwd_ms, "gflop": 2 * macs / 1e9, "bound_ms": 2 * macs / PEAK_F32 * 1e3,
+        "cpu_s": cpu_s}
+    log(f"phase 16c: pwcnet_forward, {PWC_PAIRS} pairs of {PWC_HW[0]} x {PWC_HW[1]}: flow2 {tuple(flow2.shape)} "
+        f"card vs CPU {err_flow:.3e}, the training pyramid {err_pyr:.3e} (bound 5e-4; max|flow2| "
+        f"{c['max_abs_flow2']:.3f}); device {fwd_ms:.3f} ms (f32 convolutions by im2col + cuBLAS), of which the "
+        f"{len(calls)} correlations {corr_ms:.3f} ms ({c['correlation_share']:.3f}); the convolutions on cuDNN "
+        f"instead: f32 "
+        f"{cudnn_ms['f32'][0]:.1f} ms (error {cudnn_ms['f32'][1]:.2e}), TF32 {cudnn_ms['tf32'][0]:.1f} ms (error "
+        f"{cudnn_ms['tf32'][1]:.2e}; CUDA events, 2 calls); bound {c['bound_ms']:.3f} ms ({c['gflop']:.1f} GFLOP at "
+        f"{PEAK_F32 / 1e12:.0f} TFLOP/s f32); the CPU's pyramid {cpu_s:.1f} s{at()} [{card}]")
+    del net, d1, d2, calls
+
+    # (d) the GIMO decoder and its extraction
+    gimo = os.path.join(root, "gimo")
+    os.makedirs(gimo)
+    ckpt = os.path.join(gimo, "vposer_snapshot.pt")
+    torch.save(init_weights_(VPoserDecoder(), torch.Generator().manual_seed(47)).state_dict(), ckpt)
+    dec, dec_cpu = load_vposer_ckpt(ckpt, dev), load_vposer_ckpt(ckpt, "cpu")
+    lat = torch.from_numpy(np.random.RandomState(53).randn(GIMO_LATENTS, 32).astype(np.float32))
+    with torch.no_grad():
+        d6, d6_cpu = dec.rot6d(lat.to(dev)).cpu().numpy(), dec_cpu.rot6d(lat).numpy()
+    ratios = {}
+    for kind in ("matrot", "aa"):
+        got, want = vposer_decode(dec, lat.to(dev), kind).cpu().numpy(), vposer_decode(dec_cpu, lat, kind).numpy()
+        scale = vposer_error_scale(d6_cpu, want if kind == "aa" else None)
+        e = np.abs(got - want).reshape(scale.shape + (-1,)).max(-1)
+        ratios[kind] = (float(e.max()), float((e / scale).max()), float(np.median(scale)))
+    err6 = float(np.abs(d6 - d6_cpu).max() / np.abs(d6_cpu).max())
+    lat_dev = lat.to(dev)
+    decode_ms, _ = device_time_ms(lambda: vposer_decode(dec, lat_dev, "aa"), reps=10, chain=True)
+    fixture = write_gimo_fixture(os.path.join(gimo, "root"), np.random.RandomState(59),
+                                 (("scene0", "seq0", 30), ("scene1", "seq0", 25)))
+    n_card = gimo_pose.extract_all(os.path.join(gimo, "root"), os.path.join(gimo, "card"), ckpt, device="cuda")
+    n_cpu = gimo_pose.extract_all(os.path.join(gimo, "root"), os.path.join(gimo, "cpu"), ckpt, device="cpu")
+    err_npz = 0.0
+    for (scene, seq), latents in fixture.items():
+        g, w = (np.load(os.path.join(gimo, side, scene, seq + ".npz")) for side in ("card", "cpu"))
+        with torch.no_grad():
+            scale = vposer_error_scale(dec_cpu.rot6d(torch.from_numpy(latents)).numpy(), w["poses"])
+        err_npz = max(err_npz, float((np.abs(g["poses"] - w["poses"]).max(-1) / scale).max()))
+        if not all(np.array_equal(g[k], w[k]) for k in ("root_trans", "root_orient", "beta")):
+            raise AssertionError(f"phase 16d: gimo_pose {scene}/{seq}: card and CPU npzs differ beyond poses")
+    if not (ratios["matrot"][1] <= 1e-5 and ratios["aa"][1] <= 1e-5 and err6 <= 1e-5 and err_npz <= 1e-5
+            and n_card == n_cpu == len(fixture)):
+        raise AssertionError(f"phase 16d: VPoser card vs CPU {ratios}, 6D {err6}, npz {err_npz}, {n_card} / {n_cpu}")
+    out["gimo"] = {"latents": GIMO_LATENTS, "max_abs_err_matrot": ratios["matrot"][0],
+                   "scaled_err_matrot": ratios["matrot"][1], "max_abs_err_aa": ratios["aa"][0],
+                   "scaled_err_aa": ratios["aa"][1], "median_scale_aa": ratios["aa"][2], "rel_err_6d": err6,
+                   "decode_device_ms": decode_ms, "extract_scaled_err": err_npz, "sequences": n_card}
+    log(f"phase 16d: vposer_decode of {GIMO_LATENTS} latents, card vs CPU: matrot {ratios['matrot'][0]:.3e}, aa "
+        f"{ratios['aa'][0]:.3e} abs, {ratios['matrot'][1]:.3e} / {ratios['aa'][1]:.3e} of each joint's "
+        f"vposer_error_scale (bound 1e-5; the median joint's aa scale {ratios['aa'][2]:.2f}), the network's 6D "
+        f"output {err6:.3e} of its max; decode device {decode_ms:.3f} ms; gimo_pose.extract_all on {n_card} sequences, "
+        f"card vs CPU {err_npz:.3e} of the scale, the rest bit for bit{at()} [{card}]")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 16 took {out['phase_s']:.1f} s [{card}]")
+    return out
 
 
 def main() -> int:
@@ -3350,6 +3787,9 @@ def main() -> int:
     # -- phase 15: multi-GPU (ranks on the one card) and serving -------------
     parallel = parallel_phase(card, data_dir, data_path, stats_path, rest_path, clear_counts)
 
+    # -- phase 16: optical flow, the raw-flow HeadNet, GIMO ------------------
+    optical_flow = optical_flow_phase(card, data_dir)
+
     replaces = {"stem_layer": "egoego_release_tpu/ops/fused_step.py:126",
                 "decoder_layer": "egoego_release_tpu/ops/fused_layer.py:113",
                 "layer_epilogue": "egoego_release_tpu/ops/fused_step.py:160",
@@ -3420,7 +3860,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "step": step_prof, "step_f32": f32_step, "training": training,
                       "act_bf16": {k: v for k, v in act.items() if k != "wrappers"},
                       "stage1_training": stage1_training, "outputs": outputs,
-                      "parallel": {k: v for k, v in parallel.items() if k != "kernels"}}))
+                      "parallel": {k: v for k, v in parallel.items() if k != "kernels"},
+                      "optical_flow": optical_flow}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

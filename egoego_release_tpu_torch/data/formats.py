@@ -1,9 +1,10 @@
 """Loaders for the reference's on-disk formats: the motion pickles ({index:
 record} with trans (T,3), root_orient (T,3), body_pose (T,63), seq_name,
 ...), the min/max normalization stats pickle, DROID-SLAM trajectories
-((T, 7) npy, trans + quat wxyz) and the per-frame optical-flow feature npys
-(loaders copied from egoego_release_tpu/data/formats.py; the features
-through the native loader, as there).
+((T, 7) npy, trans + quat wxyz), the per-frame optical-flow feature npys
+and the raw flow npys (loaders copied from
+egoego_release_tpu/data/formats.py; the features through the native
+loader, as there).
 
 The reference writes these files with joblib, which stores numpy arrays as
 raw bytes between pickle opcodes. ``load_pickle`` reads both that layout
@@ -107,6 +108,22 @@ def load_of_feats(of_files: list[str], rewrite: tuple[str, str] | None = None,
             f = f.replace(rewrite[0], rewrite[1])
         paths.append(f.replace("raft_flows", "raft_of_feats"))
     return load_npy_batch(paths, feat_dim)
+
+
+def load_raw_flows(of_files: list[str], rewrite: tuple[str, str] | None = None, augment=None) -> np.ndarray:
+    """Stack per-frame RAW optical-flow npys -> (T, H, W, 2) f32, the
+    raw-flow HeadNet's input; ``augment`` is an optional per-frame callable
+    (``headpose.augment_flow`` when training), applied before the stack and
+    the cast. Read by ``np.load``: the native loader takes feature vectors."""
+    flows = []
+    for f in of_files:
+        if rewrite is not None:
+            f = f.replace(rewrite[0], rewrite[1])
+        flow = np.load(f)
+        if augment is not None:
+            flow = augment(flow)
+        flows.append(flow)
+    return np.stack(flows).astype(np.float32)
 
 
 def find_slam_npy(slam_res_folder: str, seq_name: str) -> str | None:

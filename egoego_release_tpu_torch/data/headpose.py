@@ -4,9 +4,9 @@ Kinpoly-RealWorld and demo variants: they share the record schema and the
 SLAM attachment and differ in paths and splits. Host-side numpy; the
 pickles are read by ``formats.load_pickle`` (no joblib needed).
 
-Only precomputed optical-flow features are ported (``input_of_feats=True``,
-the eval path); raw flow frames feed the CNN variant of HeadNet, which is
-not ported (ROADMAP.md).
+``of`` holds precomputed optical-flow features (``input_of_feats=True``,
+the eval path), or raw flow frames for the raw-flow HeadNet
+(``input_of_feats=False``), augmented by ``augment_flow`` when training.
 """
 
 from __future__ import annotations
@@ -24,27 +24,46 @@ _SLAM_KEYS = ("aligned_slam_trans", "aligned_slam_rot_quat", "aligned_slam_rot_m
               "ori_slam_trans", "ori_slam_rot_quat", "ori_slam_rot_mat")
 
 
+def augment_flow(flow: np.ndarray, rng: np.random.RandomState, crop_size: int = 224,
+                 scale_range: tuple[int, int] = (230, 384)) -> np.ndarray:
+    """Raw-flow training augmentation (the reference's random rescale, crop
+    and noise): a nearest-neighbour resize to a random square size, a random
+    crop_size crop, plus N(0, 1) noise in float64. The draws, in this order,
+    are JAX's: randint(scale), randint(top), randint(left), normal."""
+    scale = rng.randint(*scale_range)
+    h, w = flow.shape[:2]
+    yi = np.linspace(0, h - 1, scale).astype(int)
+    xi = np.linspace(0, w - 1, scale).astype(int)
+    flow = flow[yi][:, xi]
+    top = rng.randint(0, scale - crop_size)
+    left = rng.randint(0, scale - crop_size)
+    flow = flow[top: top + crop_size, left: left + crop_size]
+    return flow + rng.normal(0.0, 1.0, flow.shape)
+
+
 class HeadPoseSequenceDataset:
     """Sequences with head pose, OF features and attached DROID-SLAM results.
 
     motion_path: pickle of per-sequence records; slam_res_folder: root of
     the DROID-SLAM npys ({scene}/{name}.npy); of_rewrite: (old, new) prefix
     of the OF file paths; window: crop length when training (eval takes
-    whole sequences)."""
+    whole sequences); input_of_feats=False: raw flow frames instead of
+    features, augmented (``augment_flow``) when ``train`` and ``augment``.
+    Window starts come from a ``random.Random(seed)``, the augmentation
+    from a ``np.random.RandomState(seed)`` of its own."""
 
     def __init__(self, motion_path: str, slam_res_folder: str | None = None,
                  of_rewrite: tuple[str, str] | None = None, window: int = 120, train: bool = False,
                  for_eval: bool = True, min_len: int | None = None, require_of_match: bool = False,
-                 input_of_feats: bool = True, seed: int = 0):
-        if not input_of_feats:
-            raise NotImplementedError(
-                "raw optical-flow input (the HeadNet CNN variant) is not ported to the PyTorch "
-                "package yet (see ROADMAP.md)")
+                 input_of_feats: bool = True, augment: bool = True, seed: int = 0):
         self.window = window
         self.train = train
         self.for_eval = for_eval
         self.of_rewrite = of_rewrite
+        self.input_of_feats = input_of_feats
+        self.augment = augment
         self._rng = random.Random(seed)
+        self._aug_rng = np.random.RandomState(seed)
 
         raw = formats.load_motion_dict(motion_path)
         kept = []
@@ -77,8 +96,9 @@ class HeadPoseSequenceDataset:
         return len(self.data)
 
     def __getitem__(self, index: int) -> dict:
-        """head_pose (T+1, 7), head_vels (T, 6), of (T, 512), seq_name,
-        seq_len, and the SLAM fields (T+1, ...) when attached."""
+        """head_pose (T+1, 7), head_vels (T, 6), of (T, 512) or raw flows
+        (T, H, W, 2), seq_name, seq_len, and the SLAM fields (T+1, ...)
+        when attached."""
         rec = self.data[index]
         seq_head_vels = rec["head_vels"][:-1]  # the last velocity is a duplicate
         seq_len = seq_head_vels.shape[0]
@@ -87,10 +107,15 @@ class HeadPoseSequenceDataset:
         else:
             t0 = self._rng.randint(0, seq_len - self.window)
             t1 = t0 + self.window
+        if self.input_of_feats:
+            of = formats.load_of_feats(rec["of_files"][t0:t1], self.of_rewrite)
+        else:
+            aug = (lambda f: augment_flow(f, self._aug_rng)) if (self.train and self.augment) else None
+            of = formats.load_raw_flows(rec["of_files"][t0:t1], self.of_rewrite, augment=aug)
         q = {
             "head_pose": rec["head_qpos"][t0: t1 + 1].astype(np.float32),
             "head_vels": seq_head_vels[t0:t1].astype(np.float32),
-            "of": formats.load_of_feats(rec["of_files"][t0:t1], self.of_rewrite),
+            "of": of,
             "seq_name": rec["seq_name"],
             "seq_len": t1 - t0,
         }

@@ -11,6 +11,8 @@ sequence, as the JAX package does (under ``jax.vmap`` for N > 1); that
 sequential integration runs on the host, once for the batch.
 ``headformer_loss`` is the training loss; it integrates the predicted
 velocities with ``va2rot`` on the tensors' own device, under autograd.
+``HeadFormerWithCNN`` is the raw-flow HeadNet: a ResNet-18 in front of
+``HeadFormer``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from torch import nn
 
 from egoego_release_tpu_torch.models.mlp import MLP
+from egoego_release_tpu_torch.models.resnet import ResNet18, f32_convolutions, flow_to_input
 from egoego_release_tpu_torch.models.transformer import Decoder
 from egoego_release_tpu_torch.ops import rotations as rot
 
@@ -46,6 +49,35 @@ class HeadFormer(nn.Module):
         va = self.action_va_fc(self.action_va_mlp(out))
         dist = self.action_dist_fc(self.action_dist_mlp(out))
         return va, dist
+
+
+class HeadFormerWithCNN(HeadFormer):
+    """The raw-flow HeadNet (the reference's ``input_of_feats=False``
+    path): a ResNet-18 with batch-statistics BatchNorm (the reference's
+    ``running_stats=False``) encodes each flow frame of (B, T, H, W, 2) to
+    ``cnn_fdim`` features, all B x T frames as one batch, since BatchNorm's
+    statistics span them all; then HeadFormer's transformer and heads. Its
+    keys are HeadFormer's, and the ResNet's under ``cnn.``. With
+    ``freeze_cnn`` (the reference's ``freeze_of_cnn``) the ResNet runs
+    under ``no_grad``, so it neither keeps its activations nor gets a
+    gradient, and ``trainer_stage1.freeze_subtrees`` leaves its parameters
+    out of AdamW. The convolutions run in f32 (``f32_convolutions``)."""
+
+    def __init__(self, d_model: int = 256, n_layers: int = 2, n_head: int = 4, d_k: int = 256, d_v: int = 256,
+                 window: int = 60, cnn_fdim: int = 512, mlp_hsize: tuple[int, ...] = (1024, 512, 256),
+                 freeze_cnn: bool = True):
+        super().__init__(d_model, n_layers, n_head, d_k, d_v, window, cnn_fdim, mlp_hsize)
+        self.freeze_cnn = freeze_cnn
+        self.cnn = ResNet18(out_dim=cnn_fdim, running_stats=False)
+
+    def forward(self, flow: torch.Tensor, padding_mask: torch.Tensor):
+        """flow (B, T, H, W, 2), padding_mask (B, T) 1 = real -> HeadFormer's
+        (head angular velocity (B, T, 3), distance scalar (B, T, 1))."""
+        b, t = flow.shape[:2]
+        x = flow_to_input(flow.reshape((b * t,) + flow.shape[2:]))
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not self.freeze_cnn), f32_convolutions():
+            feats = self.cnn(x)
+        return super().forward(feats.reshape(b, t, -1), padding_mask)
 
 
 def va2rot(init_quat: torch.Tensor, head_vels: torch.Tensor, dt: float = 1.0 / 30.0) -> torch.Tensor:

@@ -8,11 +8,13 @@ trainer_amass_head_gravity_normal_estimation.py): AdamW with StepLR(step,
 checkpoint after every epoch, ``{save_dir}/{exp_name}/weights/epoch-<n>.pt``
 in the reference's layout, which ``eval_egoego --headnet_ckpt /
 --gravitynet_ckpt`` load as they are. The JAX package's orbax directories
-are neither read nor written. ``--raw_flow`` (HeadNet from raw flow frames
-through a ResNet-18) is not ported yet (ROADMAP A.7) and raises.
+are neither read nor written. ``--raw_flow`` trains HeadNet from raw flow
+frames (augmented on the host) through a ResNet-18, frozen as in the
+reference (``HeadFormerWithCNN``; its checkpoints hold the ResNet under
+``cnn.`` and load with ``load_stage1_ckpt(..., "headnet_cnn")``).
 
     python -m egoego_release_tpu_torch.training.train_stage1 headnet \\
-        --dataset ares --data_root_folder <root> [--epochs N] [--set ...] [--device cpu]
+        --dataset ares --data_root_folder <root> [--raw_flow] [--epochs N] [--set ...] [--device cpu]
     python -m egoego_release_tpu_torch.training.train_stage1 gravitynet \\
         --motion_path <motion pickle with head_pose records> [--epochs N] [--set ...] [--device cpu]
 """
@@ -28,10 +30,13 @@ import torch
 
 from egoego_release_tpu_torch.data.prefetch import prefetch_to_device
 from egoego_release_tpu_torch.models.denoiser import init_weights_
+from egoego_release_tpu_torch.models.resnet import init_resnet_
 from egoego_release_tpu_torch.ops.fused_step import TorchNoise
 from egoego_release_tpu_torch.training.trainer_stage1 import (
     Stage1Trainer,
+    freeze_subtrees,
     gravitynet_loss_fn,
+    headnet_cnn_loss_fn,
     headnet_loss_fn,
     make_optimizer,
     save_stage1_ckpt,
@@ -44,10 +49,17 @@ from egoego_release_tpu_torch.utils.logging import MetricLogger, save_run_config
 GRAVITYNET_LR_STEP_EPOCHS = 2000  # the reference's StepLR step for GravityNet (the JAX CLI's constant)
 
 
-def _model(cls, m, seed: int, dev):
-    """A stage-1 model of config ``m`` with random weights from ``seed``."""
-    model = cls(d_model=m.d_model, n_layers=m.n_dec_layers, n_head=m.n_head, d_k=m.d_k, d_v=m.d_v, window=m.window)
-    return init_weights_(model, torch.Generator().manual_seed(seed)).to(dev)
+def stage1_model(cls, m, seed: int, dev, **kw):
+    """A stage-1 model of config ``m`` (and ``kw``) with random weights from
+    ``seed``; a ResNet inside gets torchvision's scheme from the same
+    generator."""
+    model = cls(d_model=m.d_model, n_layers=m.n_dec_layers, n_head=m.n_head, d_k=m.d_k, d_v=m.d_v, window=m.window,
+                **kw)
+    gen = torch.Generator().manual_seed(seed)
+    init_weights_(model, gen)
+    if hasattr(model, "cnn"):
+        init_resnet_(model.cnn, gen)
+    return model.to(dev)
 
 
 def _run(cfg, trainer, state, batches, steps_per_epoch: int, num_epochs: int, dev, noise):
@@ -77,16 +89,16 @@ def _run(cfg, trainer, state, batches, steps_per_epoch: int, num_epochs: int, de
 def run_headnet(cfg, dataset_name: str, data_root_folder: str, num_epochs: int, input_of_feats: bool = True,
                 device="cuda"):
     """Train HeadFormer on precomputed OF features of the ARES, GIMO or
-    Kinpoly-RealWorld training split; returns the final Stage1State."""
-    if not input_of_feats:
-        raise NotImplementedError("--raw_flow: HeadNet from raw flow frames (HeadFormerWithCNN, its ResNet-18, "
-                                  "freeze_subtrees) is not ported to the PyTorch package yet (ROADMAP A.7)")
+    Kinpoly-RealWorld training split, or with ``input_of_feats=False``
+    HeadFormerWithCNN on their raw flow frames, augmented by
+    ``augment_flow`` (its ResNet frozen unless the config's headnet has
+    ``freeze_of_cnn`` False, as in JAX); returns the final Stage1State."""
     from egoego_release_tpu_torch.data.headpose import (
         ARESHeadPoseDataset,
         GIMOHeadPoseDataset,
         RealWorldHeadPoseDataset,
     )
-    from egoego_release_tpu_torch.models.headnet import HeadFormer
+    from egoego_release_tpu_torch.models.headnet import HeadFormer, HeadFormerWithCNN
 
     dev = resolve_device(device)
     mk = {"ares": ARESHeadPoseDataset, "gimo": GIMOHeadPoseDataset, "kinpoly": RealWorldHeadPoseDataset}
@@ -94,15 +106,22 @@ def run_headnet(cfg, dataset_name: str, data_root_folder: str, num_epochs: int, 
     ds = mk[dataset_name](data_root_folder, train=True, window=m.window)
     bs = cfg.data.batch_size
     steps_per_epoch = max(1, len(ds) // bs)
-    trainer = Stage1Trainer(headnet_loss_fn, make_optimizer(cfg.train.learning_rate, cfg.train.lr_step_size,
-                                                           cfg.train.lr_gamma, steps_per_epoch))
-    state = trainer.init_state(_model(HeadFormer, m, cfg.train.seed, dev))
+    optimizer = make_optimizer(cfg.train.learning_rate, cfg.train.lr_step_size, cfg.train.lr_gamma, steps_per_epoch)
+    if input_of_feats:
+        trainer, model = Stage1Trainer(headnet_loss_fn, optimizer), stage1_model(HeadFormer, m, cfg.train.seed, dev)
+    else:
+        ds.input_of_feats, ds.augment = False, True  # raw flow frames, augmented
+        freeze = getattr(m, "freeze_of_cnn", True)
+        model = stage1_model(HeadFormerWithCNN, m, cfg.train.seed, dev, freeze_cnn=freeze)
+        trainer = Stage1Trainer(headnet_cnn_loss_fn, optimizer)
+        freeze_subtrees(model, ("cnn",) if freeze else ())
+    state = trainer.init_state(model)
     rng = np.random.RandomState(cfg.train.seed)
 
     def batches():
         """The run's host batches, a fresh permutation each epoch; the OF
-        files are read here, so the prefetch thread overlaps the reading
-        with the step."""
+        files are read (and raw flows augmented) here, so the prefetch
+        thread overlaps that with the step."""
         for _ in range(num_epochs):
             order = rng.permutation(len(ds))
             for s in range(steps_per_epoch):
@@ -130,7 +149,7 @@ def run_gravitynet(cfg, motion_path: str, num_epochs: int, device="cuda"):
     steps_per_epoch = max(1, len(ds) // cfg.data.batch_size)
     trainer = Stage1Trainer(gravitynet_loss_fn, make_optimizer(cfg.train.learning_rate, GRAVITYNET_LR_STEP_EPOCHS,
                                                               cfg.train.lr_gamma, steps_per_epoch))
-    state = trainer.init_state(_model(HeadNormalFormer, m, cfg.train.seed, dev))
+    state = trainer.init_state(stage1_model(HeadNormalFormer, m, cfg.train.seed, dev))
     batches = itertools.islice(ds.batch_iterator(cfg.data.batch_size), steps_per_epoch * num_epochs)
     return _run(cfg, trainer, state, batches, steps_per_epoch, num_epochs, dev, TorchNoise(dev, seed=cfg.train.seed))
 
@@ -143,7 +162,8 @@ def main(argv=None):
     ph.add_argument("--data_root_folder", required=True)
     ph.add_argument("--epochs", type=int, default=250)
     ph.add_argument("--raw_flow", action="store_true",
-                    help="train from raw flow frames through a ResNet-18 (not ported yet: raises)")
+                    help="train from raw flow frames through an inline ResNet-18 with augmentation "
+                         "(input_of_feats=False)")
     pg = sub.add_parser("gravitynet")
     pg.add_argument("--motion_path", required=True)
     pg.add_argument("--epochs", type=int, default=2000)

@@ -24,9 +24,11 @@ source's ``dropout_seed``, with the global RNG forked around the forward,
 as the stage-2 trainer seeds it. HeadNet's loss integrates the predicted
 velocities on the tensors' device (``models.headnet.headformer_loss``).
 
-``headnet_cnn_loss_fn`` and ``freeze_subtrees`` of the JAX module serve the
-raw-flow HeadNet (``HeadFormerWithCNN``, its ResNet-18), which is not
-ported yet (ROADMAP A.7).
+The raw-flow HeadNet (``HeadFormerWithCNN``) trains with
+``headnet_cnn_loss_fn``; ``freeze_subtrees`` freezes its ResNet-18, whose
+parameters then stay out of AdamW (no update, no weight decay, not in the
+clip's norm), as JAX's ``optax.multi_transform`` with ``set_to_zero``
+leaves them.
 """
 
 from __future__ import annotations
@@ -89,6 +91,18 @@ class Stage1Optimizer:
         opt.step()
 
 
+def freeze_subtrees(model: nn.Module, frozen_keys: tuple[str, ...]) -> nn.Module:
+    """Freeze (``requires_grad`` off) every parameter of ``model`` whose
+    dotted name has a component in ``frozen_keys``; ``Stage1Trainer``
+    gives AdamW only the rest. JAX's ``freeze_subtrees`` also freezes the
+    "batch_stats" collection, which has no counterpart here (the
+    batch-statistics BatchNorm keeps no buffers)."""
+    for name, p in model.named_parameters():
+        if set(name.split(".")) & set(frozen_keys):
+            p.requires_grad_(False)
+    return model
+
+
 def make_optimizer(lr: float, step_size_epochs: int, gamma: float = 0.3, steps_per_epoch: int = 1,
                    weight_decay: float = 1e-4) -> Stage1Optimizer:
     """AdamW (weight decay 1e-4, optax's default) with the StepLR schedule
@@ -116,17 +130,21 @@ class Stage1Trainer:
         self.optimizer = optimizer
 
     def init_state(self, model: nn.Module) -> Stage1State:
-        return Stage1State(model, self.optimizer.init(model.parameters()))
+        """AdamW over the parameters that require a gradient (the frozen ones
+        of ``freeze_subtrees`` stay out)."""
+        return Stage1State(model, self.optimizer.init(p for p in model.parameters() if p.requires_grad))
 
     def state_from_dict(self, model: nn.Module, ckpt: dict) -> Stage1State:
         """A state from ``utils.convert.stage1_state_from_jax``'s dict (or a
         checkpoint's): the weights into ``model``, AdamW's count and
-        moments by parameter name, the epoch."""
+        moments by parameter name (of the parameters it trains), the epoch."""
         load_denoiser_weights(model, ckpt["model"])
         state = self.init_state(model)
         adam = ckpt["adam"]
         with torch.no_grad():
             for name, p in model.named_parameters():
+                if not p.requires_grad:
+                    continue
                 st = state.optimizer.state[p]
                 st["step"].fill_(adam["step"])
                 st["exp_avg"].copy_(adam["exp_avg"][name])
@@ -168,6 +186,14 @@ def headnet_loss_fn(model, batch: dict, w_rotation: float = 1.0, w_va: float = 1
                                          hp[:, :, :3], w_rotation=w_rotation, w_va=w_va, w_dist=w_dist,
                                          dist_scale=dist_scale)
     return loss, {"orient": ol, "va": vl, "dist": dl}
+
+
+# The raw-flow HeadNet's loss (JAX: ``headnet_cnn_loss_fn``, which applies
+# the model mutable over its batch statistics and discards them): batch["of"]
+# holds flow frames (B, T, H, W, 2), which HeadFormerWithCNN encodes itself,
+# and its batch-statistics BatchNorm keeps no state, so the closure is
+# HeadFormer's.
+headnet_cnn_loss_fn = headnet_loss_fn
 
 
 def gravitynet_loss_fn(model, batch: dict):

@@ -43,6 +43,7 @@ from egoego_release_tpu_torch.models.transformer import set_dropout_rate
 from egoego_release_tpu_torch.ops.fused_step import TorchNoise
 from egoego_release_tpu_torch.training import train_stage1
 from egoego_release_tpu_torch.training import trainer_stage1 as tts
+from egoego_release_tpu_torch.utils.config import load_config
 from egoego_release_tpu_torch.utils.convert import load_stage1_ckpt, stage1_state_from_jax
 
 HEAD = dict(d_model=32, n_layers=1, n_head=2, d_k=16, d_v=16, window=8, cnn_fdim=24, mlp_hsize=(16,))
@@ -196,11 +197,16 @@ def _check_step(jstate, tstate, kind, lr, rel=1e-5):
     """The port's state after a step against JAX's: AdamW moments within
     ``rel`` of each tensor's max; the parameters' difference is the
     difference of the steps each side's moments imply (the weight decay
-    term is the same on both sides: they start from one state)."""
+    term is the same on both sides: they start from one state). Frozen
+    parameters (no AdamW state on either side) equal JAX's bit for bit."""
     want = stage1_state_from_jax(jstate, kind)
     step = want["adam"]["step"]
     assert tstate.step == step
     for name, p in tstate.model.named_parameters():
+        if not p.requires_grad:
+            assert p not in tstate.optimizer.state and name not in want["adam"]["exp_avg"], name
+            assert torch.equal(p.detach().to(want["model"][name].dtype), want["model"][name]), f"frozen {name} moved"
+            continue
         st = tstate.optimizer.state[p]
         assert int(st["step"]) == step
         mt, vt = st["exp_avg"].double(), st["exp_avg_sq"].double()
@@ -499,11 +505,59 @@ def test_trained_checkpoints_load_into_the_eval_pipeline(fixtures, trained):
             assert torch.equal(v, want[k]), (kind, k)
 
 
-def test_raw_flow_raises_not_implemented(fixtures):
-    _, root, ares, _, _, _ = fixtures
-    with pytest.raises(NotImplementedError, match="A.7"):
-        train_stage1.main(["headnet", "--dataset", "ares", "--data_root_folder", str(ares), "--raw_flow",
-                           "--device", "cpu", "--set", f"logging.save_dir={root / 'raw'}"])
+@pytest.fixture(scope="module")
+def raw_flow_root(fixtures):
+    """An ARES-layout root of 6 sequences of 11 frames whose of_files point
+    into a pool of 4 raw-flow npys (24 x 32 x 2; augment_flow resizes them
+    to 224 x 224 crops)."""
+    cs, root = fixtures[:2]
+    ares = root / "ares_raw"
+    cs.write_ares_fixture(str(ares), np.random.RandomState(3), 6, 11, flow_pool=(4, 24, 32))
+    return ares
+
+
+def test_train_stage1_raw_flow_cli_on_cpu(fixtures, raw_flow_root):
+    """train_stage1 headnet --raw_flow --device cpu, one epoch (3 steps of
+    batch 2 x window 8, augmented flow frames through the frozen ResNet):
+    finite losses, the frozen CNN unchanged and out of AdamW, every other
+    parameter moved; epoch-0.pt holds the ResNet under cnn. and reloads
+    (load_stage1_ckpt "headnet_cnn") as the trained weights."""
+    root = fixtures[1]
+    save = root / "runs_raw"
+    state = train_stage1.main(["headnet", "--dataset", "ares", "--data_root_folder", str(raw_flow_root), "--raw_flow",
+                               "--epochs", "1", "--device", "cpu", "--set", *CLI_SETS, f"logging.save_dir={save}",
+                               "logging.exp_name=raw"])
+    assert isinstance(state.model, thn.HeadFormerWithCNN) and state.model.freeze_cnn
+    assert state.epoch == 1 and state.step == 3
+    logged = [json.loads(line) for line in open(save / "raw" / "metrics.jsonl")]
+    assert len(logged) == 3 and all(np.isfinite(r["loss"]) for r in logged)
+    trained = {p for g in state.optimizer.param_groups for p in g["params"]}
+    cfg = load_config(None, overrides=CLI_SETS)
+    fresh = train_stage1.stage1_model(thn.HeadFormerWithCNN, cfg.headnet, cfg.train.seed, "cpu")
+    for name, p in state.model.named_parameters():
+        before = dict(fresh.named_parameters())[name]
+        if name.startswith("cnn."):
+            assert p not in trained and not p.requires_grad and torch.equal(p, before), name
+        else:
+            assert p in trained and not torch.equal(p, before), name
+    assert sorted(os.listdir(save / "raw" / "weights")) == ["epoch-0.pt"]
+    sd = load_stage1_ckpt(str(save / "raw" / "weights" / "epoch-0.pt"), "headnet_cnn", 2, d_model=32, n_head=2, d_k=16,
+                          d_v=16)
+    assert "cnn.layer4.1.bn2.weight" in sd
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(sd[k], v), k
+    no_cnn = save / "no_cnn.pt"
+    torch.save({"transformer_encoder_state_dict": {k: v for k, v in sd.items() if not k.startswith("cnn.")}}, no_cnn)
+    with pytest.raises(ValueError, match="no cnn"):
+        load_stage1_ckpt(str(no_cnn), "headnet_cnn", 2, d_model=32, n_head=2, d_k=16, d_v=16)
+
+
+def test_train_stage1_raw_flow_needs_cuda_unless_cpu(fixtures, raw_flow_root, monkeypatch):
+    """--raw_flow runs on the card by default and raises without one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_stage1.main(["headnet", "--dataset", "ares", "--data_root_folder", str(raw_flow_root), "--raw_flow",
+                           "--epochs", "1", "--set", *CLI_SETS, f"logging.save_dir={fixtures[1] / 'raw_nocuda'}"])
 
 
 def test_stage1_cli_needs_cuda_unless_cpu(fixtures, monkeypatch):
