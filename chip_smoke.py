@@ -103,7 +103,7 @@ Phases (any failure exits non-zero; nothing is caught):
  13. stage-1 training at the release widths (f32, batch 32) on fixtures
      written here (ARES-layout records with per-frame OF feature npys, a
      pickle of smooth head tracks): ``train_stage1 headnet`` and
-     ``train_stage1 gravitynet`` for 200 steps each (a falling mean loss,
+     ``train_stage1 gravitynet`` for 100 steps each (a falling mean loss,
      no NaN, a checkpoint per epoch, reloaded; every OF batch read by the
      native loader); each step's ms, busy share, peak memory and f32 bound,
      and va2rot's share of the HeadNet step; one step of each, card against
@@ -146,7 +146,7 @@ Phases (any failure exits non-zero; nothing is caught):
      on 256 flows of 360 x 480 (frames/s; its first 64 features card vs CPU
      within 1e-4 of their max; a 64-frame batch's device ms beside its f32
      bound and with cuDNN TF32 on); ``train_stage1 headnet --raw_flow`` at
-     the release widths, batch 32 x window 60, 2 epochs of 4 steps on ARES
+     the release widths, batch 32 x window 60, 1 epoch of 2 steps on ARES
      records whose flows come from a pool of 64 npys of 256 x 320 (finite
      losses, the frozen CNN bit for bit, the rest moved, a checkpoint per
      epoch reloaded; the step's ms, busy share, peak memory, bound and the
@@ -156,8 +156,23 @@ Phases (any failure exits non-zero; nothing is caught):
      pyramid card vs CPU within 5e-4 (device ms, the correlation's share,
      cuDNN in f32 and TF32); ``vposer_decode`` of 20,000 latents card vs CPU (1e-5 of each
      joint's vposer_error_scale) and ``gimo_pose.extract_all`` card vs CPU.
+ 17. preprocessing and the kinematic baselines (no kernel of the port's
+     runs here, and none launches: the products on cuBLAS in f32, the LSTMs
+     and convolutions on cuDNN in f32): ``preprocess.amass process`` on 7
+     AMASS-layout sequences at 60 and 120 fps (SMPL-H at the real sizes; one
+     of two LBS chunks, one on a step that both discard), card vs CPU
+     (joints, trans, head features and the floor within 1e-5, velocities
+     3e-4, contacts equal; frames/s), ``aggregate`` read back;
+     ``preprocess.qpos``, ``preprocess.ares extract`` / ``process`` and
+     ``ego_camera`` card vs CPU; ``train_trajar`` at the CLI's defaults
+     (rnn_hdim 512, fr_num 90, batch 8) for 4 steps (finite, falling,
+     final.pt reloaded), the step's ms, device ms, busy share, launches,
+     peak memory and f32 bound, one step card vs CPU; ``eval_trajar
+     --mujoco_xml`` on final.pt card vs CPU (s/record); ``train_posereg``
+     (LSTM, causal TCN) at the CLI's defaults with the same measures and
+     one step card vs CPU each; ``eval_sweep`` over two statear YAMLs.
 Then one JSON line of per-kernel results (with the training and phase-16
-summaries), and as the last line {"ok": true, "device": {...}}.
+and phase-17 summaries), and as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -174,6 +189,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -468,6 +484,52 @@ def write_smplh_models(root, rng, n_verts=6890, n_faces=13776, n_betas=16, gende
     return root
 
 
+def write_amass_fixture(root, rng, seqs):
+    """AMASS-layout npzs at ``{root}/{subset}/{name}.npz`` for each (subset,
+    name, frames, fps, terrain) of ``seqs``: poses (N, 156) (the root, 21
+    body and 30 hand joints, axis-angle), trans (N, 3), betas (16,), gender,
+    mocap_framerate. Each sequence stands still (pose and root held) for
+    half a second at 20%, 50% and 80% of its length, so its toes rest and
+    the floor fit finds clusters, and moves smoothly in between; a
+    ``terrain`` one stands the last two holds 0.3 m higher (a step), which
+    the fit discards."""
+    for subset, name, frames, fps, terrain in seqs:
+        hold = np.zeros(frames, bool)
+        for c in (0.2, 0.5, 0.8):
+            a = int(c * frames - fps / 4)
+            hold[max(a, 0):a + int(fps / 2)] = True
+        s = np.cumsum(~hold) / fps  # the motion's clock stops while the body holds
+        f, ph = rng.uniform(0.1, 0.4, (1, 51 * 3)), rng.uniform(0, 2 * np.pi, (1, 51 * 3))
+        joints = rng.uniform(0.05, 0.3, (1, 51 * 3)) * np.sin(2 * np.pi * f * s[:, None] + ph)
+        yaw = 0.4 * np.sin(2 * np.pi * 0.07 * s)
+        root_aa = np.stack([np.full(frames, np.pi / 2), np.zeros(frames), yaw], -1)
+        z = 0.9 + (0.3 * (np.arange(frames) > 0.4 * frames) if terrain else 0.0)
+        trans = np.stack([0.8 * s, 0.2 * np.sin(0.5 * s), np.zeros(frames) + z], -1)
+        os.makedirs(os.path.join(root, subset), exist_ok=True)
+        np.savez(os.path.join(root, subset, f"{name}.npz"), poses=np.concatenate([root_aa, joints], -1),
+                 trans=trans, betas=np.zeros(16), gender="male", mocap_framerate=float(fps))
+    return root
+
+
+def write_render_fixture(render_root, processed_root, picks):
+    """The inputs of ``preprocess.ares``: an index pickle whose entries put
+    a window of a processed AMASS npz (``picks``: (scene, seq, the npz's path
+    under ``processed_root``, start frame, frames)) at ``{render_root}/
+    {scene}/{seq}``, and there a raft_flows folder of one (tiny) flow npy a
+    frame. Returns the index pickle's path."""
+    index = {}
+    for i, (scene, seq, path, start, frames) in enumerate(picks):
+        index[i] = {"path": path, "start_frame_idx": start, "num_frames": frames, "scene_name": scene, "seq_name": seq}
+        flows = os.path.join(render_root, scene, seq, "raft_flows")
+        os.makedirs(flows, exist_ok=True)
+        for k in range(frames - 1):
+            np.save(os.path.join(flows, f"{k:05d}.npy"), np.zeros((2, 2, 2), np.float32))
+    path = os.path.join(render_root, "index.p")
+    with open(path, "wb") as f:
+        pickle.dump(index, f)
+    return path
+
+
 # kinpoly's humanoid (humanoid_smpl_neutral_mesh.xml): 24 bodies, depth first
 MUJOCO_BODIES = ("Pelvis", "L_Hip", "L_Knee", "L_Ankle", "L_Toe", "R_Hip", "R_Knee", "R_Ankle", "R_Toe",
                  "Torso", "Spine", "Chest", "Neck", "Head", "L_Thorax", "L_Shoulder", "L_Elbow", "L_Wrist",
@@ -740,14 +802,14 @@ def train_step_agreement(make_state, batch, seed, card, gradients64=None, adam=N
             e = {}
             for key, a, b in (("grad", g_c, g_r), ("grad_free", g_c, g_h), ("grad64", g_c, g64[k]),
                               ("grad64_cpu", g_r, g64[k])):
-                e[key] = float((a - b).abs().max()) / float(b.abs().max())
+                e[key] = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)  # a tensor the loss skips: 0
                 if e[key] > m[key]:
                     m[key], m[key + "_worst"] = e[key], name
             m["grad64_excess"] = max(m["grad64_excess"], e["grad64"] / max(1e-5, 2 * e["grad64_cpu"]))
-            m["grad_l2"] = max(m["grad_l2"], float((g_c - g_h).norm() / g_h.norm()))
+            m["grad_l2"] = max(m["grad_l2"], float((g_c - g_h).norm()) / max(float(g_h.norm()), 1e-30))
             num, den = num + float((g_c - g_h).norm()) ** 2, den + float(g_h.norm()) ** 2
         p_c, p_r = (run["params"][k].detach().cpu().double() for run in (c, r))
-        p_top = float(p_r.abs().max())
+        p_top = max(float(p_r.abs().max()), 1e-30)  # a tensor still at 0 (a bias the loss skips): its error is 0
         # where |g| is well above Adam's eps and its rounding, the first step
         # lr g / (|g| + 1e-8) does not depend on the rounding: compare there
         big = (g_r.abs() >= 1e-3 * float(g_r.abs().max())) & (g_r.abs() >= 1e-6)
@@ -979,7 +1041,7 @@ def train_phase(card, data_dir, eval_data_path, rest_path, check_counts, clear_c
             "padded_windows": n_padded, "card": card}
 
 
-STAGE1_SEQS, STAGE1_FRAMES, STAGE1_EPOCHS = 320, 62, 20  # phase 13: sequences, OF frames each, epochs
+STAGE1_SEQS, STAGE1_FRAMES, STAGE1_EPOCHS = 160, 62, 20  # phase 13: sequences, OF frames each, epochs
 STAGE1_BATCH = 32  # the reference's stage-1 batch
 ARES_ROOT = "/viscam/u/jiamanli/datasets/egomotion_syn_dataset"  # the OF paths' root in the reference's pickles
 
@@ -1210,10 +1272,10 @@ def stage1_phase(card, data_dir, stats_path, rest_path, per_step, c_per_step, cl
         tr, st = trainer_state(dev)
         noise = TorchNoise(dev, seed=7)
         step = lambda: tr.train_step(st, batch_dev, noise)
-        for _ in range(10):
+        for _ in range(3):
             step()
         times = []
-        for _ in range(30):
+        for _ in range(10):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
             step()
@@ -1223,14 +1285,13 @@ def stage1_phase(card, data_dir, stats_path, rest_path, per_step, c_per_step, cl
         r["step_ms"] = statistics.median(times)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(20):
+        for _ in range(5):
             step()
         torch.cuda.synchronize()
-        r["wall_ms"] = (time.perf_counter() - t0) / 20 * 1e3
-        # 5 steps under the profiler: a HeadNet step launches ~12,000 kernels
-        r["device_ms"], kernels = device_time_ms(step, reps=5, chain=True)
+        r["wall_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+        # 3 steps under the profiler: a HeadNet step launches ~12,000 kernels
+        r["device_ms"], r["launches_per_step"] = raw_device_ms(step, reps=3)
         r["device_busy_share"] = r["device_ms"] / r["wall_ms"]
-        r["launches_per_step"] = sum(kernels.values()) / 5
         r["peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20  # model, AdamW, the steps' activations
         r["gflop"] = stage1_step_flops(kind, m, STAGE1_BATCH) / 1e9
         r["bound_ms"] = r["gflop"] * 1e9 / PEAK_F32 * 1e3
@@ -1250,18 +1311,17 @@ def stage1_phase(card, data_dir, stats_path, rest_path, per_step, c_per_step, cl
                 return (time.perf_counter() - t0) * 1e3
 
             integrate()
-            pairs = [(wall(step), wall(integrate)) for _ in range(15)]  # in turns, on one host's load
+            pairs = [(wall(step), wall(integrate)) for _ in range(8)]  # in turns, on one host's load
             r["va2rot_ms"] = statistics.median(v for _, v in pairs)
             r["va2rot_share"] = statistics.median(v / s for s, v in pairs)
-            r["va2rot_device_ms"], vk = device_time_ms(integrate, reps=5, chain=True)
-            r["va2rot_launches"] = sum(vk.values()) / 5
+            r["va2rot_device_ms"], r["va2rot_launches"] = raw_device_ms(integrate, reps=3)
             extra = (f"; va2rot forward + backward alone {r['va2rot_ms']:.3f} ms wall ({r['va2rot_launches']:.0f} "
                      f"launches, device {r['va2rot_device_ms']:.3f} ms), {r['va2rot_share']:.3f} of the step (median "
-                     f"over 15 pairs timed in turns)")
+                     f"over 8 pairs timed in turns)")
         log(f"phase 13: {kind} optimizer step (batch {STAGE1_BATCH}, window {m.window}, f32, dropout on): "
-            f"{r['step_ms']:.3f} ms (median of 30 CUDA-event timings after 10 warm-up steps), wall "
+            f"{r['step_ms']:.3f} ms (median of 10 CUDA-event timings after 3 warm-up steps), wall "
             f"{r['wall_ms']:.3f} ms "
-            f"over 20; device {r['device_ms']:.3f} ms, busy share {r['device_busy_share']:.3f}, "
+            f"over 5; device {r['device_ms']:.3f} ms, busy share {r['device_busy_share']:.3f}, "
             f"{r['launches_per_step']:.0f} device kernels and copies a step; peak {r['peak_mib']:.1f} MiB; bound "
             f"{r['bound_ms']:.3f} ms ({r['gflop']:.2f} GFLOP at {PEAK_F32 / 1e12:.0f} TFLOP/s f32){extra} [{card}]")
         del tr, st, step
@@ -2279,7 +2339,7 @@ def vposer_error_scale(d6, aa=None):
 
 
 OF_FRAMES, OF_HW, OF_BATCH = 256, (360, 480), 64  # phase 16a: flow npys for of_feats, their size, its batch
-RAW_SEQS, RAW_FRAMES, RAW_EPOCHS = 128, 62, 2  # phase 16b: 4 steps an epoch at batch 32, window 60
+RAW_SEQS, RAW_FRAMES, RAW_EPOCHS = 64, 62, 1  # phase 16b: 2 steps an epoch at batch 32, window 60
 RAW_POOL = (64, 256, 320)  # phase 16b: distinct raw-flow npys (h x w x 2) the records point into
 PWC_PAIRS, PWC_HW = 4, (448, 768)  # phase 16c: image pairs of the PWC-Net forward
 GIMO_LATENTS = 20000  # phase 16d: VPoser latents decoded card vs CPU
@@ -2342,7 +2402,7 @@ def optical_flow_phase(card, data_dir):
     max), the device ms of one 64-frame batch beside its f32 bound and with
     cuDNN's TF32 on. (b) ``train_stage1 headnet --raw_flow`` at the release
     widths, batch 32 x window 60 (1,920 frames of 224 x 224 a step), frozen
-    CNN, RAW_EPOCHS epochs of 4 steps: finite losses, the CNN bit for bit,
+    CNN, RAW_EPOCHS epoch of RAW_SEQS // 32 steps: finite losses, the CNN bit for bit,
     the rest moved, a checkpoint per epoch that reloads; the step's wall
     and device ms, busy share, peak memory and bound, the host ms of loading
     and augment_flow; one step at 2 x 60 card vs CPU (train_step_agreement);
@@ -2506,9 +2566,8 @@ def optical_flow_phase(card, data_dir):
         step()
     torch.cuda.synchronize()
     b["wall_ms"] = (time.perf_counter() - t0) / 3 * 1e3
-    b["device_ms"], kernels = device_time_ms(step, reps=2, chain=True)
+    b["device_ms"], b["launches_per_step"] = raw_device_ms(step, reps=2)
     b["device_busy_share"] = b["device_ms"] / b["wall_ms"]
-    b["launches_per_step"] = sum(kernels.values()) / 2
     b["peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
     with f32_convolutions():
         cnn_macs = conv_macs(st.model.cnn, flow_to_input(batch_dev["of"][0, :1])) * STAGE1_BATCH * m.window
@@ -2658,6 +2717,457 @@ def optical_flow_phase(card, data_dir):
         f"card vs CPU {err_npz:.3e} of the scale, the rest bit for bit{at()} [{card}]")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 16 took {out['phase_s']:.1f} s [{card}]")
+    return out
+
+
+# phase 17's AMASS fixture: (subset, name, frames, fps, on a step); train and
+# test subsets, 60 and 120 fps, one sequence of two LBS chunks, one discarded
+BASE_SEQS = (("CMU", "01_01_poses", 600, 60, False), ("KIT", "3_walking_medium01_poses", 3000, 120, False),
+             ("ACCAD", "s007_walk_poses", 900, 120, False), ("BMLmovi", "Subject_1_F_MoSh_walk", 480, 60, False),
+             ("HumanEva", "S1_Walking_1_poses", 720, 60, False), ("Transitions_mocap", "mazen_walk_turn", 600, 60, False),
+             ("EKUT", "stairs_up_01", 600, 60, True))
+TRAJAR_EPOCHS, POSEREG_EPOCHS = 4, 3  # phase 17: one TrajARNet step an epoch (6 records, batch 8); 3 posereg steps one
+BASE_POS_TOL, BASE_VEL_TOL = 1e-5, 3e-4  # phase 17 card vs CPU: poses; velocities (finite differences over 1/30 s)
+
+
+def trajar_step_macs(m, t):
+    """Multiply-adds of one TrajARNet sample over t frames: per frame the
+    context GRU (13 -> H), the step GRU (obs -> H, obs = H + 176), the
+    action MLP on obs || H and action_fc (80); once the context head
+    (H -> mlp -> 155). The FK and the qpos integration are elementwise."""
+    h, (m1, m2) = m.rnn_hdim, m.mlp_hsize
+    d_obs = h + 176
+    frame = 3 * (13 * h + h * h) + 3 * (d_obs * h + h * h) + (d_obs + h) * m1 + m1 * m2 + m2 * 80
+    return t * frame + h * m1 + m1 * m2 + m2 * 155
+
+
+def posereg_step_macs(settings, feat_dim, t):
+    """Multiply-adds of one VideoRegNet sample over t frames: the LSTM's
+    four gates (each direction) or the TCN's convolutions, the MLP and the
+    output layer."""
+    h = settings["v_hdim"]
+    if settings["v_net_type"] == "lstm":
+        hd = h if settings["causal"] else h // 2
+        temporal = 4 * (feat_dim * hd + hd * hd) * (1 if settings["causal"] else 2)
+    else:
+        dims, temporal = (feat_dim, 64, h), 0
+        for a, b in zip(dims[:-1], dims[1:]):
+            temporal += 3 * a * b + 3 * b * b + (a * b if a != b else 0)
+    head = sum(a * b for a, b in zip((h,) + tuple(settings["mlp_dim"]), tuple(settings["mlp_dim"]) + (76,)))
+    return t * (temporal + head)
+
+
+class KinematicTrainer:
+    """train_step_agreement's view of a baseline's optimizer step:
+    ``step(model, optimizer, batch)`` on device tensors -> loss; Adam(W) at
+    ``lr`` with weight decay ``wd``."""
+
+    def __init__(self, step, lr, wd=0.0):
+        self.step, self.lr, self.wd = step, lr, wd
+
+    def train_step(self, state, batch, noise):
+        import torch
+
+        dev = next(state.model.parameters()).device
+        loss = self.step(state.model, state.optimizer, {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+        return state, torch.as_tensor(loss)
+
+
+def kinematic_gradients64(loss_of, clip=None):
+    """train_step_agreement's float64 reference for a baseline: the loss
+    ``loss_of(model, batch)`` and the (clipped at ``clip``) gradients of
+    ``make_state``'s weights in float64 on the CPU, taking the branches
+    ``replay``."""
+    def gradients64(make_state, batch, seed, replay):
+        import torch
+
+        from egoego_release_tpu_torch.training.trainer_stage1 import clip_by_global_norm_
+
+        _, state = make_state(torch.device("cpu"))
+        model = state.model.double()
+        b = {k: torch.as_tensor(v).double() for k, v in batch.items()}
+        with branch_mode(replay), float64_mode():
+            loss = loss_of(model, b)
+            loss.backward()
+            for p in model.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grads = [p.grad for _, p in trained_parameters(model)]
+            if clip:
+                clip_by_global_norm_(grads, clip)
+        return float(loss.detach()), [g.detach() for g in grads]
+
+    return gradients64
+
+
+def raw_device_ms(fn, reps=1):
+    """Device ms of one call of fn and its count of device kernels and
+    copies, summed from the profiler's raw CUPTI records: key_averages
+    builds an event tree that takes minutes for a TrajARNet step (~260,000
+    kernels). device_time_ms where the profiler saw no device event."""
+    import torch
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
+    if not evs:
+        ms, kernels = device_time_ms(fn, reps, chain=True)
+        return ms, sum(kernels.values()) / reps
+    return sum(e.duration_ns() for e in evs) / reps / 1e6, len(evs) / reps
+
+
+def step_profile(step, dev, warmup, timed, walled, profiled):
+    """A training step's CUDA-event ms (median), wall ms, device ms
+    (``raw_device_ms``), launches a step, busy share and peak memory over
+    what was allocated before."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(warmup):
+        step()
+    times = []
+    for _ in range(timed):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        step()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(walled):
+        step()
+    torch.cuda.synchronize()
+    r = {"step_ms": statistics.median(times), "wall_ms": (time.perf_counter() - t0) / walled * 1e3}
+    r["device_ms"], r["launches_per_step"] = raw_device_ms(step, reps=profiled)
+    r["device_busy_share"] = r["device_ms"] / r["wall_ms"]
+    r["peak_mib"] = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+    return r
+
+
+def agreement_log(what, errs):
+    """Phase 17's line for one train_step_agreement; raises where a bound of
+    STEP_BOUNDS is passed (the free run's L2 distances held only where no
+    branch flipped)."""
+    log(f"phase 17: {what} one step, card vs CPU (bounds in brackets): loss {errs['loss']:.3e} "
+        f"[{STEP_BOUNDS['loss']}]; {errs['branch_calls']} relu calls, {errs['flips']} entries where the CPU took the "
+        f"other branch, {errs['forced']} forced, inputs within {errs['flip_input']:.3e} [{STEP_BOUNDS['flip_input']}]; "
+        f"gradients against float64: card {errs['grad64']:.3e} ({errs['grad64_worst']}), CPU {errs['grad64_cpu']:.3e}, "
+        f"ratio {errs['grad64_excess']:.3f} [{STEP_BOUNDS['grad64_excess']}]; parameters {errs['param']:.3e} over "
+        f"{errs['param_share']:.4f} of the entries [{STEP_BOUNDS['param']}], each side's Adam from its own moments "
+        f"{errs['adam']:.3e} [{STEP_BOUNDS['adam']}]; as each side runs: gradients {errs['grad_l2_all']:.3e} "
+        f"[{STEP_BOUNDS['grad_l2_all']}], worst tensor {errs['grad_l2']:.3e} [{STEP_BOUNDS['grad_l2']}]")
+    free = ("grad_l2_all", "grad_l2") if errs["flips"] else ()
+    bad = {k: errs[k] for k, lim in STEP_BOUNDS.items() if k != "wk_bias" and not errs[k] <= lim and k not in free}
+    if bad:
+        raise AssertionError(f"phase 17: {what}: card and CPU steps disagree: {bad}")
+    return {k: v for k, v in errs.items() if k != "flip_calls"}
+
+
+def baselines_phase(card, data_dir, clear_counts):
+    """Phase 17: the preprocessing CLIs and the kinematic baselines at the
+    release widths on fixtures written here (no kernel of the port's runs:
+    the products on cuBLAS in f32, the LSTMs and convolutions on cuDNN in
+    f32). (a) ``preprocess.amass process`` on BASE_SEQS (SMPL-H at the real
+    sizes), card and CPU: the same files (the step discarded by both),
+    joints, trans and the head features within BASE_POS_TOL (velocities
+    BASE_VEL_TOL), the floor heights within BASE_POS_TOL, the contacts
+    equal; frames/s; ``aggregate`` and the three pickles read back. (b)
+    ``preprocess.qpos`` on the motion pickle, card vs CPU. (c)
+    ``preprocess.ares extract`` and ``process`` on windows of (a)'s npzs,
+    and ``ego_camera`` on one motion folder, card vs CPU. (d)
+    ``train_trajar`` at the CLI's defaults (rnn_hdim 512, mlp (1024, 512),
+    fr_num 90, batch 8, f32) for TRAJAR_EPOCHS steps: finite losses, the
+    last three's mean below the first three's, final.pt reloaded; the
+    step's ms, device ms, busy share, launches, peak memory and f32 bound;
+    one step card vs CPU (train_step_agreement). (e) ``eval_trajar
+    --mujoco_xml`` on final.pt, card vs CPU, s/record. (f) ``train_posereg``
+    (LSTM, and causal TCN) at the CLI's defaults on the expert records and
+    a feature pickle, the same measures and one step card vs CPU each. (g)
+    ``eval_sweep`` over two statear YAMLs. Returns the summary."""
+    import torch
+
+    from egoego_release_tpu_torch.data.formats import load_motion_dict, load_pickle, save_pickle
+    from egoego_release_tpu_torch.data.kinpoly import StateARDataset
+    from egoego_release_tpu_torch.eval import eval_sweep, eval_trajar
+    from egoego_release_tpu_torch.eval.build import load_rest_offsets
+    from egoego_release_tpu_torch.models import trajar as tj
+    from egoego_release_tpu_torch.models.init import flax_init_
+    from egoego_release_tpu_torch.models.posereg import VideoRegNet, posereg_loss
+    from egoego_release_tpu_torch.models.resnet import f32_convolutions
+    from egoego_release_tpu_torch.ops import cuda_kernels as ck
+    from egoego_release_tpu_torch.preprocess import amass, ares, ego_camera, qpos
+    from egoego_release_tpu_torch.training import train_posereg, train_trajar
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    t_phase = time.perf_counter()
+    at = lambda: f"; {time.perf_counter() - t_phase:.0f} s into phase 17"
+    root = os.path.join(data_dir, "baselines")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = {"card": card}
+    clear_counts()
+
+    # (a) AMASS: process on the card and on the CPU, aggregate
+    rng = np.random.RandomState(41)
+    smplh = write_smplh_models(os.path.join(root, "smplh"), rng, genders=("male",))
+    write_amass_fixture(os.path.join(root, "raw"), rng, BASE_SEQS)
+    frames_in = sum(s[2] for s in BASE_SEQS)
+    runs = {}
+    for name, where in (("card", "cuda"), ("cpu", "cpu")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        written = amass.main(["process", "--amass_root", os.path.join(root, "raw"), "--smplh_path", smplh, "--out",
+                              os.path.join(root, f"amass_{name}"), "--device", where])
+        torch.cuda.synchronize()
+        runs[name] = {"s": time.perf_counter() - t0, "files": sorted(os.path.relpath(p, os.path.join(
+            root, f"amass_{name}")) for p in written)}
+    if runs["card"]["files"] != runs["cpu"]["files"] or len(runs["card"]["files"]) != len(BASE_SEQS) - 1:
+        raise AssertionError(f"phase 17a: card wrote {runs['card']['files']}, CPU {runs['cpu']['files']}")
+    errs = {"joints": 0.0, "trans": 0.0, "floor": 0.0, "head": 0.0, "head_vels": 0.0}
+    contacts_equal, frames_out = True, 0
+    for f in runs["card"]["files"]:
+        c, h = (np.load(os.path.join(root, f"amass_{n}", f)) for n in ("card", "cpu"))
+        frames_out += c["trans"].shape[0]
+        errs["joints"] = max(errs["joints"], float(np.abs(c["joints"] - h["joints"]).max()))
+        errs["trans"] = max(errs["trans"], float(np.abs(c["trans"] - h["trans"]).max()))
+        errs["floor"] = max(errs["floor"], abs(float(c["floor_height"]) - float(h["floor_height"])))
+        for k in ("head_qpos", "global_head_rot_6d", "global_head_trans", "global_head_rot_6d_diff",
+                  "global_head_trans_diff"):
+            errs["head"] = max(errs["head"], float(np.abs(c[k] - h[k]).max()))
+        errs["head_vels"] = max(errs["head_vels"], float(np.abs(c["head_vels"] - h["head_vels"]).max()))
+        contacts_equal &= bool(np.array_equal(c["contacts"], h["contacts"])) and bool(c["contacts"].any())
+    motion = os.path.join(root, "amass_card", "amass_smplh_motion.p")
+    amass.main(["aggregate", "--processed_root", os.path.join(root, "amass_card"), "--out", motion])
+    split = {p: len(load_motion_dict(os.path.join(root, "amass_card", p + "amass_smplh_motion.p")))
+             for p in ("", "train_", "test_")}
+    a = out["amass"] = {"frames_in": frames_in, "frames_out": frames_out, "card_s": runs["card"]["s"],
+                        "cpu_s": runs["cpu"]["s"], "frames_per_s": frames_in / runs["card"]["s"],
+                        "cpu_frames_per_s": frames_in / runs["cpu"]["s"], "card_vs_cpu": errs, "pickles": split}
+    bad = [k for k, v in errs.items() if not v <= (BASE_VEL_TOL if k == "head_vels" else BASE_POS_TOL)]
+    if bad or not contacts_equal or split != {"": 6, "train_": 4, "test_": 2}:
+        raise AssertionError(f"phase 17a: card vs CPU {errs}, contacts equal {contacts_equal}, pickles {split}")
+    log(f"phase 17a: preprocess.amass process, {len(BASE_SEQS)} AMASS sequences ({frames_in} frames at 60 / 120 fps, "
+        f"one of two LBS chunks; SMPL-H 6890 vertices, 52 joints): card {a['card_s']:.2f} s ({a['frames_per_s']:.0f} "
+        f"frames/s, the host's floor fit and the npz writes included), CPU {a['cpu_s']:.2f} s; the same "
+        f"{len(runs['card']['files'])} files (the step discarded by both); card vs CPU: joints {errs['joints']:.3e}, "
+        f"trans {errs['trans']:.3e}, floor height {errs['floor']:.3e}, head features {errs['head']:.3e} (bound "
+        f"{BASE_POS_TOL}), head_vels {errs['head_vels']:.3e} (bound {BASE_VEL_TOL}); contacts equal; aggregate read "
+        f"back {split}{at()} [{card}]")
+
+    # (b) the expert pickle, card vs CPU
+    rest_path = os.path.join(root, "rest.npy")
+    rest = load_rest_offsets(smplh, None)
+    np.save(rest_path, rest)
+    experts = {}
+    for name, where in (("card", "cuda"), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        experts[name] = qpos.main(["--motion_path", motion, "--out", os.path.join(root, f"expert_{name}.p"),
+                                   "--rest_offsets", rest_path, "--device", where])
+        if name == "card":
+            out["qpos_card_s"] = time.perf_counter() - t0
+    e_pos = e_vel = 0.0
+    for key, rec in experts["card"].items():
+        for k, v in rec.items():
+            if k != "seq_name":
+                e = float(np.abs(v - experts["cpu"][key][k]).max())
+                e_vel, e_pos = (max(e_vel, e), e_pos) if k in ("qvel", "head_vels") else (e_vel, max(e_pos, e))
+    expert = os.path.join(root, "expert_card.p")
+    if sorted(load_pickle(expert)) != sorted(experts["cpu"]) or not e_pos <= BASE_POS_TOL or not e_vel <= BASE_VEL_TOL:
+        raise AssertionError(f"phase 17b: expert records card vs CPU {e_pos}, {e_vel}")
+    out["qpos"] = {"records": len(experts["card"]), "card_vs_cpu": e_pos, "card_vs_cpu_vel": e_vel}
+    log(f"phase 17b: preprocess.qpos, {len(experts['card'])} records in {out['qpos_card_s']:.2f} s on the card; card vs "
+        f"CPU: qpos, head poses, object poses {e_pos:.3e} (bound {BASE_POS_TOL}), qvel and head_vels {e_vel:.3e} "
+        f"(bound {BASE_VEL_TOL}){at()}")
+
+    # (c) ARES extract + process, ego_camera
+    npzs = runs["card"]["files"]
+    picks = [("office_0", "seqA", npzs[0], 10, 120), ("frl_apartment_0", "seqB", npzs[1], 0, 200),
+             ("frl_apartment_0", "seqC", npzs[2], 30, 90)]
+    ares_out = {}
+    for name, where in (("card", "cuda"), ("cpu", "cpu")):
+        render = os.path.join(root, f"render_{name}")
+        index = write_render_fixture(render, os.path.join(root, "amass_card"), picks)
+        ares.main(["extract", "--amass_processed_root", os.path.join(root, "amass_card"), "--rendered_root", render,
+                   "--index_pkl", index])
+        os.remove(index)
+        ares.main(["process", "--rendered_root", render, "--smplh_path", smplh, "--out",
+                   os.path.join(root, f"ares_{name}"), "--device", where])
+        ares_out[name] = load_pickle(os.path.join(root, f"ares_{name}", "ares_smplh_motion.p"))
+    e_ares = max(float(np.abs(np.asarray(v) - np.asarray(ares_out["cpu"][key][k])).max())
+                 for key, rec in ares_out["card"].items() for k, v in rec.items()
+                 if isinstance(v, np.ndarray) and k != "head_vels")
+    cam = {}
+    src = np.load(os.path.join(root, "amass_card", npzs[0]))
+    for name, where in (("card", "cuda"), ("cpu", "cpu")):
+        d = os.path.join(root, f"camera_{name}", "motion0")
+        os.makedirs(d)
+        t = src["trans"].shape[0]
+        np.savez(os.path.join(d, "motion_seq.npz"), root_orient=src["root_orient"],
+                 pose_body=src["pose_body"].reshape(t, 21, 3), joints=src["joints"])
+        ego_camera.main(["--data_dir", os.path.dirname(d), "--device", where])
+        cam[name] = np.load(os.path.join(d, "camera_poses.npz"))
+    e_cam = max(float(np.abs(cam["card"][k] - cam["cpu"][k]).max()) for k in cam["cpu"].files)
+    if sorted(ares_out["card"]) != sorted(ares_out["cpu"]) or len(ares_out["card"]) != 3 or not e_ares <= BASE_POS_TOL \
+            or not e_cam <= BASE_POS_TOL:
+        raise AssertionError(f"phase 17c: ARES {sorted(ares_out['card'])} card vs CPU {e_ares}, camera {e_cam}")
+    out["ares"] = {"seqs": len(ares_out["card"]), "card_vs_cpu": e_ares, "camera_card_vs_cpu": e_cam}
+    log(f"phase 17c: preprocess.ares extract + process on 3 rendered windows (one in a test scene): card vs CPU "
+        f"{e_ares:.3e}; ego_camera on a {t}-frame motion: card vs CPU {e_cam:.3e} (bound {BASE_POS_TOL}){at()}")
+
+    # (d) train_trajar at the CLI's defaults
+    save = os.path.join(root, "trajar")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, losses = train_trajar.main(["--expert_path", expert, "--rest_offsets", rest_path, "--epochs",
+                                       str(TRAJAR_EPOCHS), "--save_dir", save, "--device", "cuda"])
+    torch.cuda.synchronize()
+    dt_run = time.perf_counter() - t0
+    reloaded = train_trajar.load_trajar(os.path.join(save, "final.pt"), rest)
+    same = all(torch.equal(v, model.state_dict()[k].cpu()) for k, v in reloaded.state_dict().items())
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    if len(losses) != TRAJAR_EPOCHS or not all(map(math.isfinite, losses)) or not last < first or not same:
+        raise AssertionError(f"phase 17d: train_trajar losses {losses}, final.pt reloaded {same}")
+    d = out["trajar"] = {"run_s": dt_run, "losses": losses}
+    ds = StateARDataset(expert, fr_num=90, train=True, seed=5)
+    batch = next(ds.batch_iterator(8))
+    batch_dev = train_trajar.to_device(batch, dev)
+
+    def trajar_state(where):
+        m = tj.init_trajar_(tj.TrajARNet(rest_offsets=rest), torch.Generator().manual_seed(3)).to(where)
+        return KinematicTrainer(train_trajar.train_step, 5e-4), types.SimpleNamespace(
+            model=m, optimizer=train_trajar.make_optimizer(m, 5e-4))
+
+    tr, st = trajar_state(dev)
+    d.update(step_profile(lambda: tr.step(st.model, st.optimizer, batch_dev), dev, 1, 2, 1, 1))
+    d["gflop"] = 6 * trajar_step_macs(st.model, 90) * 8 / 1e9
+    d["bound_ms"] = d["gflop"] * 1e9 / PEAK_F32 * 1e3
+    log(f"phase 17d: train_trajar, CLI defaults (rnn_hdim 512, mlp (1024, 512), fr_num 90, batch 8, f32), "
+        f"{TRAJAR_EPOCHS} steps in {dt_run:.2f} s: losses {[round(v, 4) for v in losses]}; final.pt reloaded bit for "
+        f"bit. One step (90 frames forward and backward): {d['step_ms']:.2f} ms (median of 2 CUDA-event timings after "
+        f"1), wall {d['wall_ms']:.2f} ms over 1; device {d['device_ms']:.3f} ms, busy share "
+        f"{d['device_busy_share']:.3f}, {d['launches_per_step']:.0f} device kernels and copies a step; peak "
+        f"{d['peak_mib']:.1f} MiB; bound {d['bound_ms']:.4f} ms ({d['gflop']:.2f} GFLOP at {PEAK_F32 / 1e12:.0f} "
+        f"TFLOP/s f32){at()} [{card}]")
+    del tr, st
+    pick = {k: v[:2] for k, v in batch.items()}
+    d["card_vs_cpu"] = agreement_log("train_trajar", train_step_agreement(
+        trajar_state, pick, 0, dev, adam=lambda tr: (tr.lr, tr.wd), gradients64=kinematic_gradients64(
+            lambda m, b: tj.trajar_loss(m({k: b[k] for k in tj.STEP_KEYS}, init_qpos=b["qpos"][:, 0]), b["qpos"],
+                                        m.rest_offsets), clip=1.0)))
+
+    # (e) eval_trajar --mujoco_xml on final.pt, card vs CPU
+    xml = write_humanoid_xml(os.path.join(root, "humanoid.xml"), smpl_rest_to_mujoco(rest))
+    means, times = {}, {}
+    for name, where in (("card", "cuda"), ("cpu", "cpu")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        means[name] = eval_trajar.main(["--expert_path", expert, "--ckpt", os.path.join(save, "final.pt"),
+                                        "--rest_offsets", rest_path, "--mujoco_xml", xml, "--max_seqs", "3", "--out_dir",
+                                        os.path.join(root, f"eval_{name}"), "--device", where])
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+    n_rec = 3  # of the 6 records: --max_seqs 3
+    qm = {n: json.load(open(os.path.join(root, f"eval_{n}", "trajar_baseline_res.json")))["qpos_metrics"]
+          for n in means}
+    e_eval = max(abs(means["card"][k] - v) / max(1.0, abs(v)) for k, v in means["cpu"].items())
+    e_qm = max(abs(qm["card"][k] - v) / max(1.0, abs(v)) for k, v in qm["cpu"].items())
+    if sorted(means["card"]) != sorted(means["cpu"]) or means["card"]["diverged"] != 0.0 or not e_eval <= 1e-4 \
+            or not e_qm <= 1e-4:
+        raise AssertionError(f"phase 17e: eval_trajar card vs CPU {e_eval}, {e_qm}: {means}")
+    out["eval_trajar"] = {"records": n_rec, "s_per_record": times["card"] / n_rec,
+                          "cpu_s_per_record": times["cpu"] / n_rec, "mpjpe": means["card"]["mpjpe"],
+                          "qpos_mpjpe": qm["card"]["mpjpe"], "card_vs_cpu": e_eval, "qpos_card_vs_cpu": e_qm}
+    log(f"phase 17e: eval_trajar --mujoco_xml on final.pt, {n_rec} records of 90 frames: card "
+        f"{times['card'] / n_rec:.3f} s/record, CPU {times['cpu'] / n_rec:.3f} s/record; mpjpe "
+        f"{means['card']['mpjpe']:.1f} mm (qpos path {qm['card']['mpjpe']:.1f} mm); card vs CPU means {e_eval:.3e}, "
+        f"qpos path {e_qm:.3e} (bound 1e-4 of max(1, |mean|)){at()} [{card}]")
+
+    # (f) train_posereg, LSTM and causal TCN, at the CLI's defaults
+    feat_rng = np.random.RandomState(43)
+    feats = {k: feat_rng.randn(r["qpos"].shape[0], 512).astype(np.float32) for k, r in load_pickle(expert).items()}
+    save_pickle(feats, os.path.join(root, "feats.p"))
+    out["posereg"] = {}
+    for mode, extra in (("lstm", ["--v_net_type", "lstm"]), ("tcn_causal", ["--v_net_type", "tcn", "--causal"])):
+        argv = ["--expert_path", expert, "--of_feats_path", os.path.join(root, "feats.p"), "--epochs",
+                str(POSEREG_EPOCHS), "--save_dir", os.path.join(root, f"posereg_{mode}"), "--save_interval", "1",
+                "--device", "cuda"] + extra
+        opt = train_posereg.parse_opt(argv)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train_posereg.train(opt)
+        torch.cuda.synchronize()
+        p = out["posereg"][mode] = {"run_s": time.perf_counter() - t0, "losses": res["losses"]}
+        of, qp = train_posereg.load_windows(expert, os.path.join(root, "feats.p"), 90)
+        ck_path = os.path.join(root, f"posereg_{mode}", f"epoch_{POSEREG_EPOCHS}.pt")
+        saved = torch.load(ck_path, weights_only=False)
+        net = VideoRegNet(**saved["settings"])
+        net.load_state_dict(saved["model"])
+        same = all(torch.equal(v, res["net"].state_dict()[k].cpu()) for k, v in net.state_dict().items())
+        if not all(map(math.isfinite, res["losses"])) or not same:
+            raise AssertionError(f"phase 17f: train_posereg {mode}: losses {res['losses']}, reloaded {same}")
+        of_b, q_b = (torch.as_tensor(a[:8], device=dev) for a in (of, qp))
+        settings = saved["settings"]
+
+        def posereg_state(where, settings=settings):
+            n = flax_init_(VideoRegNet(**settings), torch.Generator().manual_seed(3)).to(where).train()
+            return KinematicTrainer(lambda m, o, b: train_posereg.train_step(m, o, b["of"], b["qpos"]), 1e-3, 1e-4), \
+                types.SimpleNamespace(model=n, optimizer=torch.optim.AdamW(n.parameters(), lr=1e-3, weight_decay=1e-4))
+
+        tr, st = posereg_state(dev)
+        with f32_convolutions():
+            p.update(step_profile(lambda: train_posereg.train_step(st.model, st.optimizer, of_b, q_b), dev, 3, 10, 10,
+                                  5))
+            p["gflop"] = 6 * posereg_step_macs(settings, 512, 90) * 8 / 1e9
+            p["bound_ms"] = p["gflop"] * 1e9 / PEAK_F32 * 1e3
+            log(f"phase 17f: train_posereg {mode}, CLI defaults (v_hdim 128, fr_num 90, batch 8, f32 on cuDNN), "
+                f"{len(of)} windows, {POSEREG_EPOCHS} epochs = {len(res['losses'])} steps in {p['run_s']:.2f} s: losses "
+                f"{[round(v, 3) for v in res['losses']]}; epoch_{POSEREG_EPOCHS}.pt reloaded bit for bit. One step: "
+                f"{p['step_ms']:.3f} ms (CUDA events), wall {p['wall_ms']:.3f} ms (the loss read each step, as the "
+                f"CLI does); device {p['device_ms']:.3f} ms, busy share {p['device_busy_share']:.3f}, "
+                f"{p['launches_per_step']:.0f} device kernels and copies a step; peak {p['peak_mib']:.1f} MiB; bound "
+                f"{p['bound_ms']:.4f} ms ({p['gflop']:.3f} GFLOP at {PEAK_F32 / 1e12:.0f} TFLOP/s f32){at()} [{card}]")
+            del tr, st
+            p["card_vs_cpu"] = agreement_log(f"train_posereg {mode}", train_step_agreement(
+                posereg_state, {"of": of[:2], "qpos": qp[:2]}, 0, dev, adam=lambda tr: (tr.lr, tr.wd),
+                gradients64=kinematic_gradients64(lambda m, b: posereg_loss(m(b["of"]), b["qpos"]))))
+
+    # (g) eval_sweep over two statear YAMLs
+    import yaml
+
+    takes = sorted(load_pickle(expert))
+    os.makedirs(os.path.join(root, "sweep", "meta"))
+    yaml.safe_dump({"train": takes[:3], "test": takes[3:], "action_type": {t: "walk" for t in takes}},
+                   open(os.path.join(root, "sweep", "meta", "mocap_meta.yml"), "w"))
+    cfgs = []
+    for i, fr in enumerate((90, 60)):
+        cfg = os.path.join(root, "sweep", f"statear_v{i}.yml")
+        yaml.safe_dump({"dataset_path": os.path.join(root, "sweep"), "meta_id": "mocap_meta", "fr_num": fr,
+                        "model_specs": {"rnn_hdim": 512}}, open(cfg, "w"))
+        cfgs.append(cfg)
+    t0 = time.perf_counter()
+    sweep = eval_sweep.main(["--configs", *cfgs, "--expert_path", expert, "--ckpt_pattern",
+                             os.path.join(save, "final.pt"), "--rest_offsets", rest_path, "--max_takes", "2", "--out",
+                             os.path.join(root, "sweep", "res.json"), "--device", "cuda"])
+    dt_sweep = time.perf_counter() - t0
+    if sorted(sweep) != ["statear_v0", "statear_v1"] or any(r.get("num_takes") != 2 or not
+                                                           math.isfinite(r["mean"]["mpjpe"]) for r in sweep.values()):
+        raise AssertionError(f"phase 17g: eval_sweep {sweep}")
+    out["eval_sweep"] = {"s": dt_sweep, "takes": {k: v["num_takes"] for k, v in sweep.items()}}
+    launched = {**dict(ck.launch_counts), **dict(ck.kernel_launches)}
+    if any(launched.values()):
+        raise AssertionError(f"phase 17: a kernel of the port's launched: {launched}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 17g: eval_sweep over 2 statear YAMLs (fr_num 90 and 60, 2 of {len(takes) - 3} test takes each) in "
+        f"{dt_sweep:.2f} s; no kernel "
+        f"of the port's launched in phase 17; phase 17 took {out['phase_s']:.1f} s [{card}]")
     return out
 
 
@@ -3790,6 +4300,9 @@ def main() -> int:
     # -- phase 16: optical flow, the raw-flow HeadNet, GIMO ------------------
     optical_flow = optical_flow_phase(card, data_dir)
 
+    # -- phase 17: preprocessing and the kinematic baselines ----------------
+    baselines = baselines_phase(card, data_dir, clear_counts)
+
     replaces = {"stem_layer": "egoego_release_tpu/ops/fused_step.py:126",
                 "decoder_layer": "egoego_release_tpu/ops/fused_layer.py:113",
                 "layer_epilogue": "egoego_release_tpu/ops/fused_step.py:160",
@@ -3861,7 +4374,7 @@ def main() -> int:
                       "act_bf16": {k: v for k, v in act.items() if k != "wrappers"},
                       "stage1_training": stage1_training, "outputs": outputs,
                       "parallel": {k: v for k, v in parallel.items() if k != "kernels"},
-                      "optical_flow": optical_flow}))
+                      "optical_flow": optical_flow, "baselines": baselines}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -9,7 +9,9 @@ loader, as there).
 The reference writes these files with joblib, which stores numpy arrays as
 raw bytes between pickle opcodes. ``load_pickle`` reads both that layout
 (uncompressed) and plain pickles with the standard library and numpy, so
-the port needs no joblib.
+the port needs no joblib. What the port writes (``save_pickle``: the
+motion, expert and norm-stats pickles) is a plain pickle, which the JAX
+package's ``joblib.load`` reads as well.
 """
 
 from __future__ import annotations
@@ -75,6 +77,12 @@ def load_pickle(path: str):
         return _Unpickler(fh).load()
 
 
+def save_pickle(obj, path: str) -> None:
+    """A plain pickle at ``path``."""
+    with open(path, "wb") as fh:
+        pickle.dump(obj, fh)
+
+
 def load_motion_dict(path: str) -> dict:
     """Load a reference-format motion pickle ({index: record})."""
     return load_pickle(path)
@@ -85,6 +93,12 @@ def load_norm_stats(path: str, device="cpu") -> NormStats:
     d = load_pickle(path)
     r = lambda k: torch.as_tensor(np.asarray(d[k], np.float32).reshape(22, 3), device=device)
     return NormStats(jpos_min=r("global_jpos_min"), jpos_max=r("global_jpos_max"))
+
+
+def save_norm_stats(path: str, stats_dict: dict) -> None:
+    """The min/max stats dict as a plain pickle (JAX ``data/formats.py:47``
+    writes it with joblib); ``load_norm_stats`` and JAX's read it."""
+    save_pickle(stats_dict, path)
 
 
 def load_droidslam(path: str):

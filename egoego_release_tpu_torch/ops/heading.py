@@ -1,5 +1,5 @@
 """Heading extraction and per-window canonicalization (port of
-egoego_release_tpu/ops/heading.py ``get_heading_quat`` and
+egoego_release_tpu/ops/heading.py ``get_heading_quat``, ``de_heading`` and
 ``rotate_at_frame``)."""
 
 from __future__ import annotations
@@ -14,6 +14,11 @@ def get_heading_quat(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     renormalized (JAX ``ops/heading.py:23``)."""
     heading = q * q.new_tensor([1.0, 0.0, 0.0, 1.0])
     return heading / torch.linalg.norm(heading, dim=-1, keepdim=True).clamp_min(eps)
+
+
+def de_heading(q: torch.Tensor) -> torch.Tensor:
+    """``q`` without its heading: heading(q)^-1 * q (JAX ``ops/heading.py:34``)."""
+    return rot.quat_multiply(rot.quat_invert(get_heading_quat(q)), q)
 
 
 def rotate_at_frame(trans: torch.Tensor, quat: torch.Tensor, cano_t_idx: int = 0,

@@ -109,7 +109,12 @@ def quat_to_matrix(q: Tensor) -> Tensor:
 
 
 def _sqrt_positive_part(x: Tensor) -> Tensor:
-    return torch.sqrt(torch.clamp_min(x, 0.0))
+    """sqrt(max(x, 0)) with a zero gradient where x <= 0. The candidates of
+    ``matrix_to_quat`` that are not chosen get a zero gradient, but sqrt's
+    infinite one at 0 would turn that into NaN: JAX's twin does, whenever a
+    rotation about one axis rounds to 0 (the values are the same)."""
+    pos = x > 0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, torch.ones_like(x))), torch.zeros_like(x))
 
 
 def matrix_to_quat(m: Tensor) -> Tensor:

@@ -45,6 +45,17 @@ from egoego_release_tpu_torch.models.headnet import headformer_loss, padding_mas
 from egoego_release_tpu_torch.utils.convert import load_denoiser_weights
 
 
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm in place: g / norm * max_norm where the
+    global norm exceeds max_norm, else g, on the device. Returns the norm."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    over = norm >= max_norm
+    one = torch.ones_like(norm)
+    torch._foreach_div_(grads, torch.where(over, norm, one))
+    torch._foreach_mul_(grads, torch.where(over, torch.full_like(norm, max_norm), one))
+    return norm
+
+
 @dataclass
 class Stage1Optimizer:
     """optax.chain(clip_by_global_norm(max_norm), adamw(schedule)) on a
@@ -72,14 +83,8 @@ class Stage1Optimizer:
         return opt
 
     def clip_(self, grads: list[torch.Tensor]) -> torch.Tensor:
-        """optax.clip_by_global_norm in place: g / norm * max_norm where
-        the global norm exceeds max_norm, else g. Returns the norm."""
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        over = norm >= self.max_norm
-        one = torch.ones_like(norm)
-        torch._foreach_div_(grads, torch.where(over, norm, one))
-        torch._foreach_mul_(grads, torch.where(over, torch.full_like(norm, self.max_norm), one))
-        return norm
+        """``clip_by_global_norm_`` at max_norm. Returns the norm."""
+        return clip_by_global_norm_(grads, self.max_norm)
 
     def step(self, opt: torch.optim.AdamW, count: int) -> None:
         """Clip the gradients of ``opt``'s parameters and take optimizer step

@@ -1,6 +1,6 @@
-"""The typed config tree of the training CLIs (port of
-egoego_release_tpu/utils/config.py without ``KinpolyConfig``, which waits
-for the kinematic baselines).
+"""The typed config tree of the training CLIs, and ``KinpolyConfig``, the
+kinpoly experiment YAMLs of the kinematic baselines (port of
+egoego_release_tpu/utils/config.py).
 
 Frozen dataclasses built from a YAML file or a dict plus dotted
 ``a.b=c`` overrides; ``save_yaml`` writes the run's settings as the
@@ -160,3 +160,83 @@ def save_yaml(cfg, path: str) -> None:
 
     with open(path, "w") as f:
         yaml.safe_dump(to_dict(cfg), f, sort_keys=False)
+
+
+class KinpolyConfig:
+    """Read-only view over a kinpoly experiment YAML (the reference's
+    `Config` — kinpoly/relive/utils/statear_smpl_config.py — minus the
+    hardcoded base_dir and construction-time directory creation).
+
+    Exposes the YAML keys as attributes with .get()-style defaults; the
+    commonly used groups (model_specs, policy_specs, loss weights, data
+    paths) pass through unchanged so existing kinpoly YAMLs load as-is.
+    """
+
+    def __init__(self, path_or_dict):
+        if isinstance(path_or_dict, str):
+            import yaml
+
+            with open(path_or_dict) as f:
+                self._d = yaml.safe_load(f) or {}
+        else:
+            self._d = dict(path_or_dict)
+
+    def __getattr__(self, name):
+        try:
+            return self._d[name]
+        except KeyError:
+            raise AttributeError(name) from None
+
+    def get(self, name, default=None):
+        return self._d.get(name, default)
+
+    @property
+    def model_specs(self) -> dict:
+        return self._d.get("model_specs", {})
+
+    @property
+    def policy_specs(self) -> dict:
+        return self._d.get("policy_specs", {})
+
+    def data_file(self, wild: bool = False) -> str:
+        """data_file / data_wild_file selection (statear_smpl_config.py:42-49)."""
+        if wild:
+            return self._d.get("data_wild_file", "real_annotations")
+        return self._d.get("data_file", "mocap_annotations")
+
+    def meta_id(self, wild: bool = False) -> str:
+        return self._d.get("meta_wild_id" if wild else "meta_id", "mocap_meta")
+
+    def load_meta(self, meta_path: str | None = None, data_dir: str | None = None,
+                  wild: bool = False) -> dict:
+        """Load the dataset meta YAML (take lists, per-take action types,
+        object map) the statear configs reference
+        (statear_smpl_config.py:54-66).  meta_path overrides the conventional
+        {data_dir}/meta/{meta_id}.yml location."""
+        import os.path as osp
+
+        import yaml
+
+        if meta_path is None:
+            data_dir = data_dir or self._d.get("dataset_path", ".")
+            meta_path = osp.join(data_dir, "meta", self.meta_id(wild) + ".yml")
+        with open(meta_path) as f:
+            meta = yaml.safe_load(f) or {}
+        return meta
+
+    @staticmethod
+    def resolve_takes(meta: dict) -> dict:
+        """{'train': [...], 'test': [...]} take lists with per-take actions
+        attached, mirroring Config's take resolution
+        (statear_smpl_config.py:58-66)."""
+        action_type = meta.get("action_type", {})
+        takes = {}
+        for split in ("train", "test"):
+            takes[split] = [
+                {"take": t, "action": action_type.get(t, "all")}
+                for t in meta.get(split, [])
+            ]
+        return takes
+
+    def as_dict(self) -> dict:
+        return dict(self._d)

@@ -18,6 +18,11 @@
   ``pwcnet_state_dict_from_jax``: flax trees of the optical-flow models ->
   torchvision's / the reference's ``state_dict`` keys (HWIO kernels ->
   OIHW; a transposed convolution's (kh, kw, in, out) -> (in, out, kh, kw)).
+* ``trajar_state_dict_from_jax``, ``posereg_state_dict_from_jax``: flax
+  trees of the kinematic baselines (no released weights exist) ->
+  ``models.trajar.TrajARNet`` / ``models.posereg.VideoRegNet``: the GRU
+  and LSTM gates stacked in torch's order, a Conv (k, in, out) -> Conv1d
+  (out, in, k).
 """
 
 from __future__ import annotations
@@ -81,6 +86,71 @@ def _mlp(sd, prefix, tree):
     while f"affine_{i}" in tree:
         _dense(sd, f"{prefix}.affine_layers.{i}", tree[f"affine_{i}"])
         i += 1
+
+
+def _gru(sd, key, leaf):
+    """A flax ``GRUCell`` (ir, iz, in with biases; hr, hz without; hn with)
+    -> ``nn.GRUCell``: gates in r, z, n order, ``bias_hh`` = [0, 0, hn]."""
+    sd[key + ".weight_ih"] = _t(np.concatenate([np.asarray(leaf[g]["kernel"]).T for g in ("ir", "iz", "in")]))
+    sd[key + ".weight_hh"] = _t(np.concatenate([np.asarray(leaf[g]["kernel"]).T for g in ("hr", "hz", "hn")]))
+    sd[key + ".bias_ih"] = _t(np.concatenate([leaf[g]["bias"] for g in ("ir", "iz", "in")]))
+    hn = np.asarray(leaf["hn"]["bias"])
+    sd[key + ".bias_hh"] = _t(np.concatenate([np.zeros_like(hn), np.zeros_like(hn), hn]))
+
+
+def _lstm(sd, key, leaf, suffix):
+    """A flax ``OptimizedLSTMCell`` (input kernels ii, if, ig, io without
+    bias; hidden kernels hi, hf, hg, ho with) -> one direction of
+    ``nn.LSTM``: gates in i, f, g, o order, ``bias_ih`` = 0."""
+    sd[f"{key}.weight_ih_l0{suffix}"] = _t(np.concatenate([np.asarray(leaf["i" + g]["kernel"]).T for g in "ifgo"]))
+    sd[f"{key}.weight_hh_l0{suffix}"] = _t(np.concatenate([np.asarray(leaf["h" + g]["kernel"]).T for g in "ifgo"]))
+    bias = np.concatenate([leaf["h" + g]["bias"] for g in "ifgo"])
+    sd[f"{key}.bias_ih_l0{suffix}"] = _t(np.zeros_like(bias))
+    sd[f"{key}.bias_hh_l0{suffix}"] = _t(bias)
+
+
+def _conv1d(sd, key, leaf):
+    """A flax 1-D Conv kernel (k, in, out) -> ``Conv1d`` (out, in, k)."""
+    sd[key + ".weight"] = _t(np.transpose(np.asarray(leaf["kernel"]), (2, 1, 0)))
+    sd[key + ".bias"] = _t(leaf["bias"])
+
+
+def trajar_state_dict_from_jax(params) -> dict[str, torch.Tensor]:
+    """{"params": {...}} of JAX's ``TrajARNet`` -> ``models.trajar.TrajARNet``'s
+    state_dict (``rest_offsets`` is a buffer outside it)."""
+    p = params["params"]
+    sd = {}
+    _gru(sd, "context_gru", p["context"]["context_gru"])
+    _mlp(sd, "context_mlp", p["context_mlp"])
+    _dense(sd, "context_fc", p["context_fc"])
+    _gru(sd, "action_gru", p["ar"]["action_gru"])
+    _mlp(sd, "action_mlp", p["ar"]["action_mlp"])
+    _dense(sd, "action_fc", p["ar"]["action_fc"])
+    return sd
+
+
+def posereg_state_dict_from_jax(variables) -> dict[str, torch.Tensor]:
+    """{"params": {...}} (and "batch_stats" with the ResNet) of JAX's
+    ``VideoRegNet`` -> ``models.posereg.VideoRegNet``'s state_dict. flax names
+    the LSTM cells by order: ``BiLSTM_0/OptimizedLSTMCell_0`` is the forward
+    half, ``_1`` the backward one (``*_reverse``)."""
+    p = variables["params"]
+    sd = {}
+    if "BiLSTM_0" in p:
+        for i, suffix in enumerate(("", "_reverse")):
+            _lstm(sd, "v_net", p["BiLSTM_0"][f"OptimizedLSTMCell_{i}"], suffix)
+    elif "CausalLSTM_0" in p:
+        _lstm(sd, "v_net", p["CausalLSTM_0"]["OptimizedLSTMCell_0"], "")
+    else:
+        for block, convs in p["v_net"].items():
+            for name, leaf in convs.items():
+                _conv1d(sd, f"v_net.{block}.{name}", leaf)
+    if "cnn" in p:
+        cnn = resnet18_state_dict_from_jax({"params": p["cnn"], "batch_stats": variables["batch_stats"]["cnn"]})
+        sd.update({f"cnn.{k}": v for k, v in cnn.items()})
+    _mlp(sd, "mlp", p["mlp"])
+    _dense(sd, "linear", p["linear"])
+    return sd
 
 
 def denoiser_state_dict_from_jax(params) -> dict[str, torch.Tensor]:

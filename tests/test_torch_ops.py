@@ -187,14 +187,70 @@ def _imports(path):
 
 def test_port_imports_no_jax():
     files = sorted((REPO / "egoego_release_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 15
+    assert len(files) > 70
+    names = {str(f.relative_to(REPO / "egoego_release_tpu_torch")) for f in files[:-1]}
+    assert names >= {f"preprocess/{m}.py" for m in ("amass", "qpos", "ares", "ego_camera", "augment", "mocap_skeleton")}
+    assert names >= {"models/trajar.py", "models/posereg.py", "training/train_trajar.py", "training/train_posereg.py",
+                     "eval/eval_trajar.py", "eval/eval_sweep.py", "data/kinpoly.py"}
     for f in files:
         for mod in _imports(f):
             root = mod.split(".")[0]
-            assert root not in ("jax", "jaxlib", "flax", "optax", "egoego_release_tpu"), (f, mod)
+            assert root not in ("jax", "jaxlib", "flax", "optax", "orbax", "joblib", "egoego_release_tpu"), (f, mod)
 
 
-@pytest.mark.parametrize("entry", ["diffusion", "build", "cli", "train"])
+def _slice15_entry(entry, tmp_path):
+    """A call of one of slice 15's entry points on a tiny fixture, taking the
+    device keywords of ``test_entry_points_need_cuda_unless_cpu``'s make()."""
+    import importlib.util
+
+    from egoego_release_tpu_torch.data.formats import save_pickle
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    rng = np.random.RandomState(0)
+    rest = tmp_path / "rest.npy"
+    dev = lambda kw: ["--device", kw["device"]] if kw else []
+    if entry == "amass":
+        from egoego_release_tpu_torch.preprocess import amass
+
+        cs.write_smplh_models(str(tmp_path / "smplh"), rng, n_verts=104, n_faces=8, genders=("male",))
+        cs.write_amass_fixture(str(tmp_path / "raw"), rng, [("CMU", "walk", 150, 60, False)])
+        return lambda **kw: amass.main(["process", "--amass_root", str(tmp_path / "raw"), "--smplh_path",
+                                        str(tmp_path / "smplh"), "--out", str(tmp_path / "out")] + dev(kw))
+    if entry == "qpos":
+        from egoego_release_tpu_torch.preprocess import qpos
+
+        cs.smooth_motion_pickle(str(tmp_path / "motion.p"), rng, 1)
+        return lambda **kw: qpos.main(["--motion_path", str(tmp_path / "motion.p"), "--out", str(tmp_path / "e.p"),
+                                       "--rest_offsets", str(rest)] + dev(kw))
+    t = 8
+    expert = {"take": {"seq_name": "take", "qpos": np.tile(np.r_[0, 0, 0.9, 1, 0, 0, 0, np.full(69, 0.1)], (t, 1)),
+                       "qvel": np.zeros((t - 1, 75)), "head_pose": np.tile([0, 0, 1.5, 1, 0, 0, 0], (t, 1)),
+                       "head_vels": np.zeros((t, 6)), "obj_pose": np.tile([0, 0, 0, 1, 0, 0, 0], (t, 1)),
+                       "obj_head_relative_poses": np.zeros((t, 7))}}
+    save_pickle({k: {n: np.asarray(v, np.float32) if n != "seq_name" else v for n, v in r.items()}
+                 for k, r in expert.items()}, str(tmp_path / "expert.p"))
+    if entry == "train_trajar":
+        from egoego_release_tpu_torch.training import train_trajar
+
+        return lambda **kw: train_trajar.main(["--expert_path", str(tmp_path / "expert.p"), "--rest_offsets",
+                                               str(rest), "--epochs", "1", "--fr_num", "4", "--batch_size", "1",
+                                               "--save_dir", str(tmp_path / "trajar")] + dev(kw))
+    if entry == "train_posereg":
+        from egoego_release_tpu_torch.training import train_posereg
+
+        save_pickle({"take": rng.randn(t, 16).astype(np.float32)}, str(tmp_path / "feats.p"))
+        return lambda **kw: train_posereg.main(["--expert_path", str(tmp_path / "expert.p"), "--of_feats_path",
+                                                str(tmp_path / "feats.p"), "--fr_num", "4", "--epochs", "1"] + dev(kw))
+    from egoego_release_tpu_torch.eval import eval_trajar
+
+    return lambda **kw: eval_trajar.main(["--expert_path", str(tmp_path / "expert.p"), "--rest_offsets", str(rest),
+                                          "--fr_num", "4", "--rnn_hdim", "8", "--out_dir", str(tmp_path)] + dev(kw))
+
+
+@pytest.mark.parametrize("entry", ["diffusion", "build", "cli", "train", "amass", "qpos", "train_trajar",
+                                   "train_posereg", "eval_trajar"])
 def test_entry_points_need_cuda_unless_cpu(entry, tmp_path, monkeypatch):
     """Without CUDA the entry points raise on their default device and run
     when the caller passes device='cpu'."""
@@ -221,7 +277,7 @@ def test_entry_points_need_cuda_unless_cpu(entry, tmp_path, monkeypatch):
                     "--rest_offsets", str(rest)] + (["--device", kw["device"]] if kw else [])
             joblib.dump({}, tmp_path / "none.p")
             return eval_stage2.run(eval_stage2.parse_opt(argv + ["--out_dir", str(tmp_path)]))
-    else:
+    elif entry == "train":
         from egoego_release_tpu_torch.training import train_diffusion
 
         motion = np.random.RandomState(0).uniform(-0.2, 0.2, (40, 69)).astype(np.float32)
@@ -234,6 +290,8 @@ def test_entry_points_need_cuda_unless_cpu(entry, tmp_path, monkeypatch):
                  "stage2.d_k=8", "stage2.d_v=8", "stage2.n_dec_layers=2", "stage2.timesteps=2",
                  "data.batch_size=2", "train.num_steps=1", f"data.rest_offsets={rest}",
                  f"logging.save_dir={tmp_path / 'runs'}"] + (["--device", kw["device"]] if kw else []))
+    else:
+        make = _slice15_entry(entry, tmp_path)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make()
     assert make(device="cpu") is not None
