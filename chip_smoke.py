@@ -171,8 +171,21 @@ Phases (any failure exits non-zero; nothing is caught):
      --mujoco_xml`` on final.pt card vs CPU (s/record); ``train_posereg``
      (LSTM, causal TCN) at the CLI's defaults with the same measures and
      one step card vs CPU each; ``eval_sweep`` over two statear YAMLs.
+ 18. a pred_noise model and the kinematic RL group (``rl_phase``): the
+     update launch of a pred_noise model (the kStep epilogue's own
+     instantiation, x0 = r1 x - r2 out before the clip) in f32 and bf16 at
+     64 x 121 tokens against its plain version, its device ms beside the
+     pred_x0 instantiation's; a DDPM-1000 chain of a pred_noise model on 8
+     windows with exact launch counts, its first 20 steps card vs CPU; the
+     control laws on 1,024 humanoid states card vs CPU; one PPO iteration at
+     ``train_agent``'s defaults on phase 17's expert records card vs CPU
+     (float64) and timed in f32 (ms, device ms, busy share, launches, peak
+     memory, bound); one TRPO iteration card vs CPU; ``python -m
+     egoego_release_tpu_torch.rl.train_agent`` for 2 iterations, its .pt
+     reloaded; no kernel of the port's launches on the RL paths. MuJoCo is
+     not on the card's machine: the physics group is held on the CPU alone.
 Then one JSON line of per-kernel results (with the training and phase-16
-and phase-17 summaries), and as the last line {"ok": true, "device": {...}}.
+to phase-18 summaries), and as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -208,7 +221,7 @@ TOL_F32 = 1e-4         # f32 kernel vs plain: summation order only
 TOL_BF16 = 2e-2        # bf16 kernel vs plain: a bf16 rounding may flip where sums differ in order
 UPDATE = (0.9, 0.1, 0.05)  # a1, a2, a3 of the epilogue's update check: x0 dominates
 WG_EPILOGUES = ("bias", "layer_norm", "stem", "step", "layer_norm res_bf16", "layer_norm bf16_out",
-                "layer_norm bf16", "partial")  # csrc/gemm.cu WgEpilogue, in order
+                "layer_norm bf16", "partial", "step pred_noise")  # csrc/gemm.cu WgEpilogue, in order
 ATTN_KEY_TILES = (32, 64, 128)  # csrc/attention.cu attention_wgmma_kernel<NK>
 ATTN_SHAPES = ((BATCH, 121), (BATCH, 31), (1, 121))  # (windows, tokens) of the layer's attention timed in phase 2
 
@@ -537,25 +550,49 @@ MUJOCO_BODIES = ("Pelvis", "L_Hip", "L_Knee", "L_Ankle", "L_Toe", "R_Hip", "R_Kn
 MUJOCO_PARENTS = (-1, 0, 1, 2, 3, 0, 5, 6, 7, 0, 9, 10, 11, 12, 11, 14, 15, 16, 17, 11, 19, 20, 21, 22)
 
 
-def write_humanoid_xml(path, rest_pos):
+def write_humanoid_xml(path, rest_pos, physics=False):
     """A MuJoCo model XML of kinpoly's humanoid body tree (MUJOCO_BODIES,
     MUJOCO_PARENTS), each body at its world rest position ``rest_pos[b]``
     (24, 3), with three hinges in z, y, x order; the layout that
-    ``ops.mujoco_xml.load_mujoco_skeleton`` reads."""
+    ``ops.mujoco_xml.load_mujoco_skeleton`` reads. ``physics``: a model
+    MuJoCo simulates, in the global-coordinate convention of kinpoly's own
+    XML (``ops.mujoco_compat`` converts it): a 1/450 s step, a capsule from
+    each body to each child (a sphere on a leaf), colliding with the floor
+    plane and not with each other, and a motor on every hinge."""
     import xml.etree.ElementTree as ET
 
+    fmt = lambda v: " ".join(f"{float(x):.6f}" for x in v)
     model = ET.Element("mujoco", model="humanoid")
+    if physics:
+        ET.SubElement(model, "compiler", coordinate="global", angle="radian")
+        ET.SubElement(model, "option", timestep=f"{1.0 / 450.0:.11f}")
     bodies = [ET.SubElement(model, "worldbody")]
+    if physics:
+        ET.SubElement(bodies[0], "geom", name="floor", type="plane", size="100 100 0.2", contype="0",
+                      conaffinity="1")
     for b, (name, parent) in enumerate(zip(MUJOCO_BODIES, MUJOCO_PARENTS)):
         body = ET.SubElement(bodies[parent + 1] if parent >= 0 else bodies[0], "body", name=name,
-                             pos=" ".join(f"{float(x):.6f}" for x in rest_pos[b]))
+                             pos=fmt(rest_pos[b]))
         if parent < 0:
             ET.SubElement(body, "freejoint", name="root")
         else:
             for axis, vec in (("z", "0 0 1"), ("y", "0 1 0"), ("x", "1 0 0")):
-                ET.SubElement(body, "joint", name=f"{name}_{axis}", type="hinge", axis=vec,
-                              pos=" ".join(f"{float(x):.6f}" for x in rest_pos[b]))
+                ET.SubElement(body, "joint", name=f"{name}_{axis}", type="hinge", axis=vec, pos=fmt(rest_pos[b]))
+        if physics:
+            ends = [np.asarray(rest_pos[c], np.float64) for c, pc in enumerate(MUJOCO_PARENTS) if pc == b]
+            ends = [e for e in ends if np.linalg.norm(e - rest_pos[b]) > 1e-3]
+            for e in ends:
+                ET.SubElement(body, "geom", type="capsule", size="0.04", contype="1", conaffinity="0",
+                              fromto=f"{fmt(rest_pos[b])} {fmt(e)}")
+            if not ends:
+                ET.SubElement(body, "geom", type="sphere", size="0.05", contype="1", conaffinity="0",
+                              pos=fmt(rest_pos[b]))
         bodies.append(body)
+    if physics:
+        actuators = ET.SubElement(model, "actuator")
+        for name in MUJOCO_BODIES[1:]:
+            for axis in "zyx":
+                ET.SubElement(actuators, "motor", name=f"{name}_{axis}", joint=f"{name}_{axis}", gear="1")
     ET.ElementTree(model).write(path)
     return path
 
@@ -3171,6 +3208,292 @@ def baselines_phase(card, data_dir, clear_counts):
     return out
 
 
+RL_WINDOWS, RL_CHECKED_STEPS = 8, 20  # phase 18a: windows of the pred_noise DDPM-1000 chain; its steps held card vs CPU
+RL_STATES = 1024                      # phase 18b: states of the control laws, card vs CPU
+RL_T_CHECK = 100                      # phase 18a: the timestep whose update scalars the kStep launches take
+
+
+def ppo_iteration_flops(obs_dim, action_dim, hsize, envs, horizon, epochs):
+    """f32 operations of one PPO iteration's products: the policy and value
+    MLPs forward at every rollout step (and the value once more at its
+    end), then per epoch both forward and backward (3x the forward) over
+    the envs x horizon samples. The env's FK, rewards and Adam are
+    elementwise."""
+    def macs(dims):
+        return sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+
+    per_sample = macs((obs_dim,) + tuple(hsize) + (action_dim,)) + macs((obs_dim,) + tuple(hsize) + (1,))
+    return 2 * per_sample * envs * (horizon + 1 + 3 * epochs * horizon)
+
+
+def rl_phase(card, data_dir, expert_path, rest_path, clear_counts):
+    """Phase 18: the pred_noise update of the step kernels, the control
+    laws and the kinematic RL group at the release widths. (a) The kStep
+    launch of a pred_noise model (its own instantiation) at BATCH x 121
+    tokens in f32 and bf16: ``layer_epilogue`` with the five scalars against
+    its plain version (TOL_F32 / TOL_BF16), counted once and under
+    ck.STEP_NOISE; the launch's device ms beside the pred_x0
+    instantiation's; a DDPM-1000 chain of a pred_noise model on RL_WINDOWS
+    windows with exact launch counts, and its first RL_CHECKED_STEPS steps
+    card vs CPU (1e-3). (b) ``compute_torque`` and ``rfc_implicit_force`` on
+    RL_STATES states of the humanoid (nv 75), card vs CPU (1e-4 of the
+    max). (c) One PPO iteration at ``train_agent``'s defaults (16 envs,
+    horizon 32, 5 epochs, hsize (512, 256), dynamic_supervision_v3) on
+    phase 17's expert records, card vs CPU in float64 on the same noise
+    (parameters within 1e-4 of each tensor's max: in f32 Adam's first steps
+    move an entry whose gradient is rounding noise by +-lr), then timed in
+    f32: ms, wall ms, device ms, busy share, launches, peak memory and the
+    f32 bound. (d) One TRPO iteration, card vs CPU in float64. (e) ``python
+    -m egoego_release_tpu_torch.rl.train_agent`` for 2 iterations, its
+    iter-2.pt reloaded. No kernel of the port's launches on (b)-(e)."""
+    import copy
+
+    import torch
+    import yaml
+
+    from egoego_release_tpu_torch.data.kinpoly import StateARDataset
+    from egoego_release_tpu_torch.diffusion.gaussian_diffusion import (
+        CondGaussianDiffusion, DiffusionConfig, head_condition_mask)
+    from egoego_release_tpu_torch.ops import cuda_kernels as ck
+    from egoego_release_tpu_torch.ops import fused_step as fs
+    from egoego_release_tpu_torch.ops.fused_layer import kernel_weight
+    from egoego_release_tpu_torch.rl import control, train_agent, trpo
+    from egoego_release_tpu_torch.utils.config import KinpolyConfig
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    t_phase = time.perf_counter()
+    at = lambda: f"; {time.perf_counter() - t_phase:.0f} s into phase 18"
+    root = os.path.join(data_dir, "rl")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = {"card": card}
+
+    # (a) the pred_noise update of the step kernels
+    cfg = DiffusionConfig(objective="pred_noise")
+    diff = CondGaussianDiffusion(cfg, device=dev, seed=5)
+    b, t, d, dm = BATCH, cfg.window, cfg.d_feats, cfg.d_model
+    kw = dict(n_head=cfg.n_head, d_k=cfg.d_k, d_v=cfg.d_v)
+    g = torch.Generator(device=dev).manual_seed(18)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)
+    h, x, noise, ipv = rn(b, t + 1, dm), rn(b, t, d), rn(b, t, d), rn(b, t, d)
+    mask = torch.ones(b, t + 1, device=dev)
+    ipm = torch.zeros(b, t, device=dev)
+    ipm[:, :cfg.overlap_frames] = 1.0
+    sched = dict(fs.ddpm_scalars(diff.consts, cfg.timesteps, pred_noise=True))
+    scal5 = sched[RL_T_CHECK]
+    a = out["pred_noise"] = {"t": RL_T_CHECK, "scalars": list(scal5)}
+    for bf16 in (False, True):
+        prep = fs.prepare_step_params(diff.model, bf16)
+        name = "bf16" if bf16 else "f32"
+        tol = TOL_BF16 if bf16 else TOL_F32
+        clear_counts()
+        ck.gemm_modes.clear()
+        got = fs.layer_epilogue(h, mask, x, noise, scal5, ipv, ipm, prep, **kw)
+        counts = (dict(ck.launch_counts), dict(ck.kernel_launches), dict(ck.gemm_modes))
+        want = fs.layer_epilogue_plain(h, mask, x, noise, scal5, ipv, ipm, prep, **kw)
+        want_c = ({"gemm_wgmma": 5, "attention_wgmma": 1} if bf16 else {"gemm_tf32x3": 5, "mha": 1})
+        err = float((got - want).abs().max())
+        x0 = (scal5[3] * x - scal5[4] * (fs.linear_plain(fs.decoder_layer_plain(
+            h, mask, prep["layers"][-1], **kw)[:, 1:].reshape(b * t, -1), prep["lw"][:d]) + prep["lb"]).reshape(b, t, d))
+        live = float((x0.abs() < 1).float().mean())
+        if counts[:2] != ({"layer_epilogue": 1}, want_c) or counts[2].get(ck.STEP_NOISE) != 1 or ck.STEP in counts[2] \
+                or not err <= tol or live < 0.5:
+            raise AssertionError(f"phase 18a: pred_noise layer_epilogue {name}: counts {counts}, max|kernel - plain| "
+                                 f"{err} (bound {tol}), unclipped share of x0 {live}")
+        # the update's GEMM launch alone, in each instantiation
+        hb = h.reshape(b * (t + 1), dm).to(prep["lw"].dtype)
+        xc = rn(b, t, d)
+        xa = fs.pack_xa(x, xc, prep["wst"].shape[1], prep["wst"].dtype)
+        step = torch.empty(b * t, d, device=dev)
+        launch = lambda scal: ck.gemm(ck.STEP, hb, kernel_weight(prep, "lw"), prep["lb"], step, M=b * t, x=x,
+                                      noise=noise, ipv=ipv, ipm=ipm, t_data=t, scal=scal, out_b=xa)
+        launch(scal5)
+        err_launch = float((step.reshape(b, t, d) - fs.step_update_plain(
+            hb.float().reshape(b, t + 1, dm), x, noise, scal5, ipv, ipm, prep)).abs().max())
+        if not err_launch <= tol:
+            raise AssertionError(f"phase 18a: pred_noise STEP launch {name}: {err_launch} > {tol}")
+        ms_noise, _ = device_time_ms(lambda: launch(scal5))
+        ms_x0, _ = device_time_ms(lambda: launch(scal5[:3]))
+        ms_noise2, _ = device_time_ms(lambda: launch(scal5))
+        a[name] = {"max_abs_err": err, "bound": tol, "launch_max_abs_err": err_launch, "unclipped_x0": live,
+                   "step_launch_device_ms": (ms_noise + ms_noise2) / 2, "step_launch_pred_x0_device_ms": ms_x0}
+        log(f"phase 18a: layer_epilogue pred_noise {b} x {t + 1} tokens {name} (t = {RL_T_CHECK}): max|kernel - plain| "
+            f"{err:.3e} (bound {tol}), its STEP launch alone {err_launch:.3e}; {live:.2f} of x0 unclipped; counted "
+            f"{counts[0]}, {counts[1]}, GEMM modes {counts[2]}. The STEP launch's device ms: pred_noise "
+            f"{ms_noise:.4f} / {ms_noise2:.4f}, pred_x0 {ms_x0:.4f} [{card}]")
+
+    # the DDPM-1000 chain of a pred_noise model on RL_WINDOWS windows (f32, every CLI's default)
+    x_start = (torch.rand(RL_WINDOWS, t, d, generator=g, device=dev) * 2 - 1)
+    cond = head_condition_mask(RL_WINDOWS, t, device=dev)
+    clear_counts()
+    ck.gemm_modes.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xs = diff.p_sample_loop(x_start, cond, noise=fs.TorchNoise(dev, seed=7))
+    torch.cuda.synchronize()
+    dt_chain = time.perf_counter() - t0
+    steps = cfg.timesteps
+    want = {"stem_layer": steps, "decoder_layer": steps * (cfg.n_dec_layers - 2), "layer_epilogue": steps}
+    want_c = {"gemm_tf32x3": steps * (4 * cfg.n_dec_layers + 2), "mha": steps * cfg.n_dec_layers}
+    got, got_c, modes = {k: ck.launch_counts[k] for k in want}, dict(ck.kernel_launches), dict(ck.gemm_modes)
+    if got != want or got_c != want_c or modes.get(ck.STEP_NOISE) != steps or ck.STEP in modes:
+        raise AssertionError(f"phase 18a: pred_noise chain counts {got}, {got_c}, {modes}")
+    if not bool(torch.isfinite(xs).all()) or float(xs.abs().max()) > 10:
+        raise AssertionError("phase 18a: the pred_noise chain's output is not finite or not in range")
+
+    def first_steps(dd, n):
+        """The first n steps of the chain above on dd's device, drawing from
+        a CPU TorchNoise (fused_p_sample_loop's body, the schedule cut)."""
+        dv = dd.device
+        src = fs.TorchNoise(cpu, seed=9)
+        shape = x_start.shape
+        xs_d, cond_d = x_start.to(dv), cond.to(dv)
+        xk = src.initial(shape).to(dv)
+        xc = (xs_d * (1.0 - cond_d) + cond_d * src.cond(shape).to(dv)).contiguous()
+        prep = dd.step_params()
+        sch = fs.ddpm_scalars(dd.consts, cfg.timesteps, pred_noise=True)[:n]
+        embs = fs.noise_level_embeddings(dd.model, [s[0] for s in sch])
+        m = torch.ones(shape[0], t + 1, device=dv)
+        pos = prep["pos_table"][1: t + 2].contiguous()
+        xa = fs.pack_xa(xk, xc, prep["wst"].shape[1], prep["wst"].dtype) if dv.type == "cuda" else None
+        for i, (_, sc) in enumerate(sch):
+            xk = fs.fused_denoise_step(xk, xc, embs[i], pos, m, src.step(shape).to(dv), sc, None, None, prep, xa=xa,
+                                       **kw)
+        return xk
+
+    host = CondGaussianDiffusion(cfg, device=cpu, model=copy.deepcopy(diff.model).cpu())
+    err_steps = float((first_steps(diff, RL_CHECKED_STEPS).cpu() - first_steps(host, RL_CHECKED_STEPS)).abs().max())
+    a["chain"] = {"windows": RL_WINDOWS, "steps": steps, "s": dt_chain, "counts": got,
+                  "card_vs_cpu_first_steps": err_steps}
+    log(f"phase 18a: DDPM-{steps} chain of a pred_noise model, {RL_WINDOWS} windows x {t} frames, f32: {dt_chain:.2f} s "
+        f"({dt_chain / steps * 1e3:.3f} ms a step, wall); launches {got}, C entries {got_c}, GEMM "
+        f"modes {modes} (STEP_NOISE = {ck.STEP_NOISE}); its first {RL_CHECKED_STEPS} steps card vs CPU "
+        f"{err_steps:.3e} (bound 1e-3){at()} [{card}]")
+    if not err_steps <= 1e-3:
+        raise AssertionError(f"phase 18a: the first steps card vs CPU disagree by {err_steps}")
+    del diff, host
+
+    # (b) the control laws, card vs CPU
+    clear_counts()
+    rng = np.random.RandomState(18)
+    nv, ndof = 75, 69
+    am = rng.randn(RL_STATES, nv, nv) * 0.3
+    inp = {"ctrl": rng.randn(RL_STATES, ndof) * 0.3,
+           "qpos": np.concatenate([rng.randn(RL_STATES, 3), smooth_quats(rng, RL_STATES),
+                                   rng.uniform(-np.pi, np.pi, (RL_STATES, ndof))], -1),
+           "qvel": rng.randn(RL_STATES, nv) * 0.5,
+           "base_pos": rng.uniform(-3 * np.pi, 3 * np.pi, (RL_STATES, ndof)),
+           "M": am @ np.swapaxes(am, -1, -2) + np.eye(nv) * 5.0, "C": rng.randn(RL_STATES, nv) * 10,
+           "jkp": rng.uniform(100, 1000, ndof), "jkd": rng.uniform(10, 100, ndof)}
+    vf, rq = rng.randn(RL_STATES, 6) * 2, smooth_quats(rng, RL_STATES)
+    res = {}
+    for where in (dev, cpu):
+        ts = {k: torch.as_tensor(v, dtype=torch.float32, device=where) for k, v in inp.items()}
+        res[where.type] = (control.compute_torque(**ts, dt=1.0 / 450.0),
+                           control.rfc_implicit_force(torch.as_tensor(vf, dtype=torch.float32, device=where),
+                                                      torch.as_tensor(rq, dtype=torch.float32, device=where),
+                                                      100.0, 100.0))
+    errs = [float((c.cpu() - h_).abs().max()) / float(h_.abs().max()) for c, h_ in zip(res["cuda"], res["cpu"])]
+    ts = {k: torch.as_tensor(v, dtype=torch.float32, device=dev) for k, v in inp.items()}
+    ms_torque, _ = device_time_ms(lambda: control.compute_torque(**ts, dt=1.0 / 450.0), reps=5, chain=True)
+    out["control"] = {"states": RL_STATES, "torque_rel_err": errs[0], "rfc_rel_err": errs[1],
+                      "torque_device_ms": ms_torque}
+    log(f"phase 18b: compute_torque and rfc_implicit_force on {RL_STATES} states (nv {nv}, ndof {ndof}), card vs CPU: "
+        f"{errs[0]:.3e}, {errs[1]:.3e} of the max (bound 1e-4); compute_torque {ms_torque:.4f} device ms for the "
+        f"batch [{card}]")
+    if not max(errs) <= 1e-4:
+        raise AssertionError(f"phase 18b: control laws card vs CPU {errs}")
+
+    # (c) PPO at train_agent's defaults on phase 17's expert records
+    rest = np.load(rest_path)
+    kcfg = KinpolyConfig({"fr_num": 90})
+    num_envs = 16
+    ds = StateARDataset(expert_path, fr_num=90, train=True, seed=0)
+    batch = train_agent.make_expert_batch(ds, num_envs, np.random.RandomState(0))
+
+    def agent_on(where, make_agent, f64):
+        env, agent = train_agent.build_from_config(kcfg, rest, num_envs, device=where)
+        if make_agent is not None:
+            agent = make_agent(env)
+        state = agent.init_state(torch.Generator().manual_seed(1))
+        expert = {k: v.to(where) for k, v in batch.items()}
+        if f64:
+            env.rest_offsets = env.rest_offsets.double()
+            state = agent.state_for(state["policy"].double(), state["value"].double())
+            expert = {k: v.double() for k, v in expert.items()}
+        return env, agent, state, expert
+
+    def card_vs_cpu(what, make_agent=None):
+        params = {}
+        for where in (dev, cpu):
+            env, agent, state, expert = agent_on(where, make_agent, True)
+            state, _, m = agent.iterate(state, fs.TorchNoise(cpu, seed=3), env.reset(expert["qpos"][0]), expert)
+            params[where.type] = {k: v.detach().cpu() for k, v in
+                                  list(state["policy"].state_dict().items()) + [
+                                      ("value." + k, v) for k, v in state["value"].state_dict().items()]}
+            params[where.type + "_metrics"] = {k: float(v) for k, v in m.items()}
+        err = max(float((params["cuda"][k] - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+                  for k, v in params["cpu"].items())
+        log(f"phase 18{what[0]}: one {what[1]} iteration, card vs CPU in float64 on the same noise: parameters within "
+            f"{err:.3e} of each tensor's max (bound 1e-4); metrics card {params['cuda_metrics']}, CPU "
+            f"{params['cpu_metrics']}{at()}")
+        if not err <= 1e-4:
+            raise AssertionError(f"phase 18{what[0]}: {what[1]} card vs CPU {err}")
+        return err, params["cuda_metrics"]
+
+    clear_counts()
+    p = out["ppo"] = {"envs": num_envs, "horizon": 32, "epochs": 5, "hsize": [512, 256]}
+    p["card_vs_cpu"], _ = card_vs_cpu(("c", "PPO"))
+    env, agent, state, expert = agent_on(dev, None, False)
+    noise = fs.TorchNoise(dev, seed=4)
+    metrics = []
+    it = lambda: metrics.append(agent.iterate(state, noise, env.reset(expert["qpos"][0]), expert)[2])
+    p.update(step_profile(it, dev, 1, 3, 3, 1))
+    p["iteration_ms"] = p.pop("step_ms")
+    p["launches_per_iteration"] = p.pop("launches_per_step")
+    p["gflop"] = ppo_iteration_flops(env.obs_dim, env.action_dim, (512, 256), num_envs, 32, 5) / 1e9
+    p["bound_ms"] = p["gflop"] * 1e9 / PEAK_F32 * 1e3
+    p["reward_mean"] = [float(m["reward_mean"]) for m in metrics]
+    log(f"phase 18c: PPO iteration at train_agent's defaults (16 envs, horizon 32, 5 epochs, hsize (512, 256), "
+        f"dynamic_supervision_v3, f32) on phase 17's expert records: {p['iteration_ms']:.1f} ms (median of 3 CUDA-event "
+        f"timings after 1), wall {p['wall_ms']:.1f} ms over 3; device {p['device_ms']:.3f} ms, busy share "
+        f"{p['device_busy_share']:.3f}, {p['launches_per_iteration']:.0f} device kernels and copies an iteration; peak "
+        f"{p['peak_mib']:.1f} MiB; bound {p['bound_ms']:.4f} ms ({p['gflop']:.3f} GFLOP at {PEAK_F32 / 1e12:.0f} "
+        f"TFLOP/s f32); mean rewards {[round(v, 4) for v in p['reward_mean']]}{at()} [{card}]")
+    del env, agent, state, expert
+
+    # (d) one TRPO iteration, card vs CPU
+    out["trpo"] = {"card_vs_cpu": card_vs_cpu(("d", "TRPO"), lambda env: trpo.TRPOAgent(env, hsize=(512, 256)))[0]}
+
+    # (e) the train_agent CLI for 2 iterations
+    yml = os.path.join(root, "statear.yml")
+    with open(yml, "w") as f:
+        yaml.safe_dump({"fr_num": 90, "policy_specs": {"reward_id": "dynamic_supervision_v3"}}, f)
+    save = os.path.join(root, "agent")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "egoego_release_tpu_torch.rl.train_agent", "--cfg", yml,
+                          "--expert_path", expert_path, "--rest_offsets", rest_path, "--iters", "2", "--save_dir",
+                          save, "--device", "cuda"], cwd=REPO, capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=REPO))
+    dt_cli = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"phase 18e: train_agent exited {run.returncode}: {run.stderr[-2000:]}")
+    policy, value = train_agent.load_agent(os.path.join(save, "iter-2.pt"), dev)
+    obs = torch.zeros(4, policy.mlp.affine_layers[0].in_features, device=dev)
+    finite = bool(torch.isfinite(policy(obs)[0]).all()) and bool(torch.isfinite(value(obs)).all())
+    if sorted(os.listdir(save)) != ["iter-2.pt"] or not finite:
+        raise AssertionError(f"phase 18e: train_agent wrote {sorted(os.listdir(save))}, finite {finite}")
+    out["train_agent"] = {"s": dt_cli, "log": run.stdout.strip().splitlines()[-2:]}
+    launched = {**dict(ck.launch_counts), **dict(ck.kernel_launches)}
+    if any(launched.values()):
+        raise AssertionError(f"phase 18: a kernel of the port's launched on the RL paths: {launched}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 18e: python -m egoego_release_tpu_torch.rl.train_agent --iters 2 --device cuda in {dt_cli:.1f} s (the "
+        f"process's start included): {out['train_agent']['log']}; iter-2.pt reloaded; no kernel of the port's "
+        f"launched in 18b-18e; phase 18 took {out['phase_s']:.1f} s [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4303,6 +4626,11 @@ def main() -> int:
     # -- phase 17: preprocessing and the kinematic baselines ----------------
     baselines = baselines_phase(card, data_dir, clear_counts)
 
+    # -- phase 18: pred_noise sampling, the control laws, kinematic RL -------
+    rl = rl_phase(card, data_dir, os.path.join(data_dir, "baselines", "expert_card.p"),
+                  os.path.join(data_dir, "baselines", "rest.npy"), clear_counts)
+    results["layer_epilogue"]["pred_noise"] = rl["pred_noise"]
+
     replaces = {"stem_layer": "egoego_release_tpu/ops/fused_step.py:126",
                 "decoder_layer": "egoego_release_tpu/ops/fused_layer.py:113",
                 "layer_epilogue": "egoego_release_tpu/ops/fused_step.py:160",
@@ -4341,7 +4669,7 @@ def main() -> int:
             **{key: r[key] for key in ("device_ms", "library_device_ms", "bound_f32_core_ms", "per_shape",
                                        "mma_sync_tf32_tflops", "launch_table", "gemm_launch", "attention_launch",
                                        "c_kernels", "launches_path_e", "max_abs_err_path_e", "act_bf16", "f32",
-                                       "f32_launch_table") if key in r},
+                                       "f32_launch_table", "pred_noise") if key in r},
         })
     # the tensor-parallel layer's own launches: the 64 x 121-token, tp 2 rows
     # of phase 15 (bf16 PARTIAL fc; residual_layernorm with an f32 residual),
@@ -4374,7 +4702,8 @@ def main() -> int:
                       "act_bf16": {k: v for k, v in act.items() if k != "wrappers"},
                       "stage1_training": stage1_training, "outputs": outputs,
                       "parallel": {k: v for k, v in parallel.items() if k != "kernels"},
-                      "optical_flow": optical_flow, "baselines": baselines}))
+                      "optical_flow": optical_flow, "baselines": baselines,
+                      "rl": {k: v for k, v in rl.items() if k != "pred_noise"}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -75,6 +75,11 @@
 //    with the loads of eight pieces in flight before it stores any (an L2
 //    prefetch of the span at the tile's start, tried, moved nothing); then
 //    it writes bf16(x_next) into the x part of xa, 16 bytes a store.
+//    A pred_noise model's output is the noise, not x0: its update (step_noise,
+//    two more scalars r1, r2) stages the unclipped A W + b and takes x0 =
+//    clip(r1 x - r2 (A W + b)) in the pass that already reads x, one more
+//    multiply-add an element. It is an instantiation of its own
+//    (kEpiStepNoise), so the pred_x0 epilogue keeps its code.
 //  - kPartial (fc and w2 of a tensor-parallel layer): the f32 product A W
 //    alone, no bias, in the LayerNorm modes' 64 x 512 tiles, stored from
 //    the fragment. Each tp rank holds a slice of K, so its product is a
@@ -145,7 +150,7 @@ enum GemmMode : int {
   kBiasRelu = 1,  // out = max(A W + b, 0)
   kLayerNorm = 2, // out = LN(A W + b + res) * mask[row]        (block owns rows)
   kStem = 3,      // out[b, 0] = emb + pos[0]; out[b, t+1] = [x|xc][b, t] W + b + pos[t+1]
-  kStep = 4,      // out = a1 clip(A[b, t+1] W + b) + a2 x + a3 noise, then inpaint
+  kStep = 4,      // out = a1 clip(A[b, t+1] W + b) + a2 x + a3 noise, then inpaint (step_noise: x0 = clip(r1 x - r2 (A W + b)))
   kPartial = 5,   // out = A W (f32; no bias: a tensor-parallel partial sum)
 };
 
@@ -173,7 +178,9 @@ struct GemmArgs {
   int mode;
   int t_data;             // kStem/kStep: frames per window (tokens = t_data + 1)
   int kernel;             // set by the C entries: the GemmKernel launched
+  int step_noise;         // kStep: the output is a noise prediction (x0 = r1 x - r2 out before the clip)
   float c1, c2, c3;       // kStep: the update scalars a1, a2, a3
+  float c4, c5;           // kStep with step_noise: r1, r2
 };
 
 enum GemmKernel : int { kKernelCudaCores = 0, kKernelWgmma = 1, kKernelTf32x3 = 2 };
@@ -232,10 +239,13 @@ __device__ __forceinline__ float epilogue_value(const GemmArgs& p, float v, int 
 // out_b is given); with bf16 activations kEpiLnResBf16 a bf16 residual,
 // kEpiLnBf16Out an output that leaves as out_b alone, kEpiLnBf16 both. The
 // f32 kernel takes the same choice as a template argument.
-// kEpiPartial is kPartial's, in both kernels.
+// kEpiPartial is kPartial's, in both kernels. kStep takes kEpiStep, or
+// kEpiStepNoise with step_noise.
 enum WgEpilogue : int {
-  kEpiBias, kEpiLayerNorm, kEpiStem, kEpiStep, kEpiLnResBf16, kEpiLnBf16Out, kEpiLnBf16, kEpiPartial
+  kEpiBias, kEpiLayerNorm, kEpiStem, kEpiStep, kEpiLnResBf16, kEpiLnBf16Out, kEpiLnBf16, kEpiPartial, kEpiStepNoise
 };
+
+__host__ __device__ constexpr bool step_epilogue(int e) { return e == kEpiStep || e == kEpiStepNoise; }
 
 __host__ __device__ constexpr bool ln_epilogue(int e) {
   return e == kEpiLayerNorm || (e >= kEpiLnResBf16 && e <= kEpiLnBf16);
@@ -351,7 +361,7 @@ template <int BM, int BN, int STAGES, int EPI>
 struct WgTile {
   static constexpr int kEpi = EPI;
   static constexpr bool kTf32 = false;  // bf16 operands (TfTile: gemm_tf32x3_kernel's f32 layouts)
-  static constexpr bool kSplitN = ln_epilogue(EPI) || EPI == kEpiStep || EPI == kEpiPartial;
+  static constexpr bool kSplitN = ln_epilogue(EPI) || step_epilogue(EPI) || EPI == kEpiPartial;
   static constexpr int kWN = kSplitN ? BN / 2 : BN;  // columns of one warpgroup's m64nWNk16
   static constexpr int kWBox = BN > 256 ? 256 : BN;  // rows of W in one TMA box
   static_assert(BM == (kSplitN ? 64 : 128) && kWN % 8 == 0 && kWN <= 256 && BN % kWBox == 0,
@@ -360,7 +370,7 @@ struct WgTile {
   static constexpr size_t kRing = (size_t)STAGES * kStage;
   // staging: per warpgroup (bias/ReLU, stem), or the block's x0 tile (step)
   static constexpr int kStageWg = EPI == kEpiBias ? OutStage::kBytes : EPI == kEpiStem ? F32Stage::kBytes : 0;
-  static constexpr size_t kOut = EPI == kEpiStep ? (size_t)BM * BN * 4 : 2 * kStageWg;
+  static constexpr size_t kOut = step_epilogue(EPI) ? (size_t)BM * BN * 4 : 2 * kStageWg;
   // ring (1024-byte aligned for the swizzle), staging, barriers
   static constexpr size_t kSmem = kRing + kOut + 2 * STAGES * sizeof(uint64_t) + 1024;
   static_assert(kSmem <= 227 * 1024, "shared memory of one block");
@@ -684,11 +694,13 @@ __device__ __forceinline__ void wgmma_epilogue(const GemmArgs& p, float (&acc)[T
               __floats2bfloat162_rn(v0, v1);
       }
     }
-  } else {  // kEpiStep: the two warpgroups hold the two column halves of the same 64 product rows
+  } else {  // kEpiStep(Noise): the two warpgroups hold the two column halves of the same 64 product rows
     // Product row r is token k = r % (T+1) of window r / (T+1): token 0 is
     // dropped, token k > 0 is output row (r / (T+1)) T + k - 1, so the tile's
     // output rows are one contiguous span [o_lo, o_hi), and its outputs one
-    // flat span of the (M, N) arrays. xs holds the span's x0, then x_next.
+    // flat span of the (M, N) arrays. xs holds the span's x0 (kEpiStepNoise:
+    // the unclipped A W + b), then x_next.
+    constexpr bool noise_model = T::kEpi == kEpiStepNoise;
     float* xs = reinterpret_cast<float*>(stage);
     const int t = p.t_data, tt = t + 1, rows = prod_rows(p), tid = threadIdx.x;
     const int o_lo = step_span_lo(m0, t), o_hi = step_span_hi(m0, rows, t);
@@ -702,8 +714,11 @@ __device__ __forceinline__ void wgmma_epilogue(const GemmArgs& p, float (&acc)[T
           const int C = c + 8 * j;
           if (C < p.N) {
             const float2 b = *reinterpret_cast<const float2*>(p.bias + C);
-            *reinterpret_cast<float2*>(dst + C) = make_float2(fminf(fmaxf(acc[4 * j + 2 * h] + b.x, -1.f), 1.f),
-                                                              fminf(fmaxf(acc[4 * j + 2 * h + 1] + b.y, -1.f), 1.f));
+            if constexpr (noise_model)
+              *reinterpret_cast<float2*>(dst + C) = make_float2(acc[4 * j + 2 * h] + b.x, acc[4 * j + 2 * h + 1] + b.y);
+            else
+              *reinterpret_cast<float2*>(dst + C) = make_float2(fminf(fmaxf(acc[4 * j + 2 * h] + b.x, -1.f), 1.f),
+                                                                fminf(fmaxf(acc[4 * j + 2 * h + 1] + b.y, -1.f), 1.f));
           }
         }
       }
@@ -717,6 +732,7 @@ __device__ __forceinline__ void wgmma_epilogue(const GemmArgs& p, float (&acc)[T
     const bool inpaint = p.ipv != nullptr;
     float* out = static_cast<float*>(p.out);
     auto next = [&](float x0, float x, float nz, float v, float m) {
+      if constexpr (noise_model) x0 = fminf(fmaxf(__fsub_rn(__fmul_rn(p.c4, x), __fmul_rn(p.c5, x0)), -1.f), 1.f);
       const float xn = __fadd_rn(__fadd_rn(__fmul_rn(p.c1, x0), __fmul_rn(p.c2, x)), __fmul_rn(p.c3, nz));
       return inpaint ? xn + m * (v - xn) : xn;
     };
@@ -896,7 +912,7 @@ template <int BM, int BN, int STAGES, int EPI>
 struct TfTile {
   static constexpr int kEpi = EPI;
   static constexpr bool kTf32 = true;
-  static constexpr bool kSplitN = ln_epilogue(EPI) || EPI == kEpiStep || EPI == kEpiPartial;
+  static constexpr bool kSplitN = ln_epilogue(EPI) || step_epilogue(EPI) || EPI == kEpiPartial;
   static constexpr int kWN = kSplitN ? BN / 2 : BN;  // columns of one warpgroup's m64nWNk8
   static constexpr int kWBox = BN > 256 ? 256 : BN;  // rows of W in one TMA box
   static constexpr int kChunk = kWN == 104 ? 104 : 128;  // columns of a k-tile's products in registers
@@ -906,7 +922,7 @@ struct TfTile {
   static_assert(kA % 512 == 0 && kB % 512 == 0, "sub-tiles on the 64-byte swizzle's 512-byte period");
   static constexpr size_t kRing = (size_t)STAGES * kStage;
   static constexpr int kStageWg = EPI == kEpiStem ? F32Stage::kBytes : 0;
-  static constexpr size_t kOut = EPI == kEpiStep ? (size_t)BM * BN * 4 : 2 * kStageWg;
+  static constexpr size_t kOut = step_epilogue(EPI) ? (size_t)BM * BN * 4 : 2 * kStageWg;
   static constexpr size_t kSmem = kRing + kOut + 2 * STAGES * sizeof(uint64_t) + 1024;
   static_assert(kSmem <= 227 * 1024, "shared memory of one block");
 };
@@ -1295,14 +1311,14 @@ static cudaError_t tf32_route(const GemmArgs& p, cudaStream_t s) {
             aligned16(p.x) && aligned16(p.noise) && aligned16(p.ipv) && (p.ipv == nullptr || p.ipm != nullptr) &&
             (p.out_b == nullptr || (p.ldb >= p.N && p.ldb % 2 == 0))))
         return cudaErrorInvalidValue;
-      return launch_tf32<64, 208, 4, kEpiStep>(p, s);
+      return p.step_noise ? launch_tf32<64, 208, 4, kEpiStepNoise>(p, s) : launch_tf32<64, 208, 4, kEpiStep>(p, s);
   }
 }
 
 // The argument checks both C entries share.
 static bool valid_args(const GemmArgs& p) {
   if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.mode < kBias || p.mode > kPartial ||
-      ((p.mode == kStem || p.mode == kStep) && p.t_data <= 0))
+      ((p.mode == kStem || p.mode == kStep) && p.t_data <= 0) || (p.step_noise && p.mode != kStep))
     return false;
   // a bf16 residual, and an output that leaves as its bf16 copy alone, only in kLayerNorm
   return !((p.res_bf16 && p.mode != kLayerNorm) || (p.out == nullptr && (p.mode != kLayerNorm || p.out_b == nullptr)));
@@ -1359,7 +1375,7 @@ extern "C" int egoego_gemm(egoego::GemmArgs* p, void* stream) {
             (size_t)p->M * p->N < (1u << 31) && aligned16(p->x) && aligned16(p->noise) && aligned16(p->ipv) &&
             (p->ipv == nullptr || p->ipm != nullptr) && (p->out_b == nullptr || p->ldb >= p->N)))
         return invalid;
-      err = launch_wgmma<64, 208, 4, kEpiStep>(*p, s);
+      err = p->step_noise ? launch_wgmma<64, 208, 4, kEpiStepNoise>(*p, s) : launch_wgmma<64, 208, 4, kEpiStep>(*p, s);
   }
   if (err == cudaSuccess) p->kernel = kKernelWgmma;
   return (int)err;
@@ -1367,12 +1383,14 @@ extern "C" int egoego_gemm(egoego::GemmArgs* p, void* stream) {
 
 // gemm_f32_kernel (f32 on the CUDA cores) on an f32-compute product: off
 // the route, for timing beside gemm_tf32x3_kernel. w is W itself (w_lo is
-// not read); in kStem A is the f32 xa; kStep writes no out_b.
+// not read); in kStem A is the f32 xa; kStep writes no out_b and takes no
+// step_noise.
 extern "C" int egoego_gemm_cuda_cores(egoego::GemmArgs* p, void* stream) {
   using namespace egoego;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   p->kernel = -1;
-  if (!valid_args(*p) || p->compute_bf16 || p->a_bf16 || p->out_bf16 || (p->out_b != nullptr && p->out != nullptr) ||
+  if (!valid_args(*p) || p->compute_bf16 || p->a_bf16 || p->out_bf16 || p->step_noise ||
+      (p->out_b != nullptr && p->out != nullptr) ||
       (p->mode == kLayerNorm && p->N > 512))
     return (int)cudaErrorInvalidValue;
   cudaError_t err;

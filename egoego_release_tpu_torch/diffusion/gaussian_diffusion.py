@@ -69,9 +69,13 @@ class DiffusionConfig:
     d_v: int = 256
     window: int = 120
     timesteps: int = 1000
-    objective: str = "pred_x0"       # training target; the samplers take pred_x0 only
+    # training target; DDIM samples pred_x0 models only
+    objective: str = "pred_x0"
     beta_schedule: str = "cosine"
     loss_type: str = "l1"
+    # the loss weight (k + snr) ** -gamma of each timestep; gamma 0 = 1
+    p2_loss_weight_gamma: float = 0.0
+    p2_loss_weight_k: float = 1.0
     # recompute each decoder layer in the backward pass (training memory)
     remat: bool = False
     overlap_frames: int = 10
@@ -130,7 +134,8 @@ def fused_layer_p_sample_loop(diff, x_start, cond_mask, padding_mask=None, inpai
                               inpaint_mask=None, *, noise, ddim_steps: int | None = None,
                               eta: float = 0.0) -> torch.Tensor:
     """The reverse chain of the ``--fused`` mode: per step the denoiser
-    through ``fused_denoiser_apply``, x0 clipped to [-1, 1], then
+    through ``fused_denoiser_apply``, x0 (a pred_noise output converted,
+    r1 x - r2 out) clipped to [-1, 1], then
     x_next = a1 x0 + a2 x_t + a3 noise with the step path's host scalars
     (the DDPM posterior update, or the DDIM one written the same way),
     then the inpaint. Noise is drawn as the step path draws it."""
@@ -140,15 +145,18 @@ def fused_layer_p_sample_loop(diff, x_start, cond_mask, padding_mask=None, inpai
     x = draw(noise.initial)
     x_cond = x_start * (1.0 - cond_mask) + cond_mask * draw(noise.cond)
     if ddim_steps is None:
-        sched = ddpm_scalars(diff.consts, cfg.timesteps)
+        sched = ddpm_scalars(diff.consts, cfg.timesteps, cfg.objective == "pred_noise")
     else:
         sched = ddim_scalars(diff.consts, cfg.timesteps, ddim_steps, eta)
     layers = diff.fused_layer_params()
-    for t, (a1, a2, a3) in sched:
+    for t, scal in sched:
         noise_t = torch.full((shape[0],), t, dtype=torch.int64, device=x.device)
-        x0 = fused_denoiser_apply(diff.model, torch.cat([x, x_cond], dim=-1), noise_t,
-                                  padding_mask, cfg, layers=layers).clamp(-1.0, 1.0)
-        x = a1 * x0 + a2 * x + a3 * draw(noise.step)
+        out = fused_denoiser_apply(diff.model, torch.cat([x, x_cond], dim=-1), noise_t,
+                                   padding_mask, cfg, layers=layers)
+        if len(scal) == 5:
+            out = scal[3] * x - scal[4] * out
+        a1, a2, a3 = scal[:3]
+        x = a1 * out.clamp(-1.0, 1.0) + a2 * x + a3 * draw(noise.step)
         if inpaint_value is not None:
             x = torch.where(inpaint_mask > 0, inpaint_value, x)
     return x
@@ -164,7 +172,8 @@ class CondGaussianDiffusion:
             raise ValueError(f"compute_dtype must be bfloat16 or float32, got {cfg.compute_dtype!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.consts = make_diffusion_constants(cfg.timesteps, cfg.beta_schedule)
+        self.consts = make_diffusion_constants(cfg.timesteps, cfg.beta_schedule, cfg.p2_loss_weight_gamma,
+                                               cfg.p2_loss_weight_k)
         self._loss_consts = {k: torch.as_tensor(getattr(self.consts, k), device=self.device) for k in (
             "sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod", "p2_loss_weight")}
         if model is None:
@@ -262,8 +271,12 @@ class CondGaussianDiffusion:
         through the denoiser), run as chunks of N in sequence, each with
         its own source from ``noise.split`` (JAX: ``jax.random.split(key,
         k)``), and sliced back."""
-        if self.cfg.objective != "pred_x0":
-            raise NotImplementedError(f"the samplers take pred_x0 models only, not {self.cfg.objective!r}")
+        if self.cfg.objective not in ("pred_x0", "pred_noise"):
+            raise ValueError(self.cfg.objective)
+        # JAX's DDIM treats the output as x0 whatever the objective; the
+        # port converts on every DDPM route and refuses a noise model here
+        if self.cfg.objective == "pred_noise" and "ddim_steps" in kw:
+            raise NotImplementedError("the DDIM sampler takes pred_x0 models only, not 'pred_noise'")
         if self.cfg.fused_transformer:
             loop = fused_layer_p_sample_loop
         else:

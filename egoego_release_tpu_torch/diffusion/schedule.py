@@ -32,13 +32,16 @@ class DiffusionConstants(NamedTuple):
     alphas_cumprod_prev: np.ndarray
     sqrt_alphas_cumprod: np.ndarray
     sqrt_one_minus_alphas_cumprod: np.ndarray
+    sqrt_recip_alphas_cumprod: np.ndarray
+    sqrt_recipm1_alphas_cumprod: np.ndarray
     posterior_log_variance_clipped: np.ndarray
     posterior_mean_coef1: np.ndarray
     posterior_mean_coef2: np.ndarray
     p2_loss_weight: np.ndarray
 
 
-def make_diffusion_constants(timesteps: int = 1000, beta_schedule: str = "cosine") -> DiffusionConstants:
+def make_diffusion_constants(timesteps: int = 1000, beta_schedule: str = "cosine",
+                             p2_loss_weight_gamma: float = 0.0, p2_loss_weight_k: float = 1.0) -> DiffusionConstants:
     if beta_schedule == "linear":
         betas = linear_beta_schedule(timesteps)
     elif beta_schedule == "cosine":
@@ -56,9 +59,11 @@ def make_diffusion_constants(timesteps: int = 1000, beta_schedule: str = "cosine
         alphas_cumprod_prev=f32(alphas_cumprod_prev),
         sqrt_alphas_cumprod=f32(np.sqrt(alphas_cumprod)),
         sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - alphas_cumprod)),
+        sqrt_recip_alphas_cumprod=f32(np.sqrt(1.0 / alphas_cumprod)),
+        sqrt_recipm1_alphas_cumprod=f32(np.sqrt(1.0 / alphas_cumprod - 1)),
         posterior_log_variance_clipped=f32(np.log(np.clip(posterior_variance, 1e-20, None))),
         posterior_mean_coef1=f32(betas * np.sqrt(alphas_cumprod_prev) / (1.0 - alphas_cumprod)),
         posterior_mean_coef2=f32((1.0 - alphas_cumprod_prev) * np.sqrt(alphas) / (1.0 - alphas_cumprod)),
-        # the reference's default p2 gamma of 0: (k + snr) ** -0 = 1 at every t
-        p2_loss_weight=np.ones(timesteps, dtype=np.float32),
+        # (k + snr) ** -gamma; the default gamma 0 gives 1 at every t
+        p2_loss_weight=f32((p2_loss_weight_k + alphas_cumprod / (1 - alphas_cumprod)) ** -p2_loss_weight_gamma),
     )

@@ -7,12 +7,14 @@ the SMPL FK of the prediction and of the GT, and the metric suite of the
 EgoEgo eval (``eval.metrics.compute_metrics_for_smpl``), so the baseline and
 the diffusion pipeline are compared on the same numbers. A rollout whose FK
 is not finite is reported as diverged. ``--mujoco_xml`` adds the kinpoly
-qpos-path suite over that skeleton (``eval.qpos_metrics``).
-``--physics_metrics`` needs the simulator-grounded suite of the physics
-group, which the port does not have yet: it raises.
+qpos-path suite over that skeleton (``eval.qpos_metrics``), and with
+``--physics_metrics`` the simulator-grounded suite (``eval.physics_metrics``:
+penetration, foot sliding and interaction success from MuJoCo's contacts, on
+the host).
 
     python -m egoego_release_tpu_torch.eval.eval_trajar --expert_path mocap_annotations.p \\
-        --ckpt results/trajar/final.pt --rest_offsets rest.npy [--mujoco_xml humanoid.xml] [--device cpu]
+        --ckpt results/trajar/final.pt --rest_offsets rest.npy [--mujoco_xml humanoid.xml [--physics_metrics
+        [--obj_bodies Chair Step]]] [--device cpu]
 """
 
 from __future__ import annotations
@@ -30,11 +32,6 @@ from egoego_release_tpu_torch.models.trajar import STEP_KEYS, TrajARNet, init_tr
 from egoego_release_tpu_torch.ops import fk as fk_mod
 from egoego_release_tpu_torch.ops import geometry
 from egoego_release_tpu_torch.utils.device import resolve_device
-
-PHYSICS_UNPORTED = ("--physics_metrics needs the simulator-grounded metric suite (eval/physics_metrics.py on "
-                    "rl/mujoco_env.py), which belongs to the physics group of ROADMAP A.7 and is not ported to "
-                    "egoego_release_tpu_torch yet")
-
 
 @torch.no_grad()
 def eval_record(model: TrajARNet, rec: dict, rest_offsets, return_qpos: bool = False):
@@ -80,10 +77,47 @@ def load_or_init(ckpt: str | None, rest_offsets, rnn_hdim: int, mlp_hsize=(1024,
     return init_trajar_(model, torch.Generator().manual_seed(seed)).to(device).eval()
 
 
+def physics_metrics(xml_path: str, qpos_records: dict, obj_bodies: tuple[str, ...] = ()) -> dict:
+    """The simulator-grounded suite over the rollouts (JAX
+    ``eval/eval_trajar.py:121-165``; eval_amass_metrics.py's
+    compute_physcis_metris and compute_obj_interact): per record the
+    penetration and foot sliding of the prediction and of the GT, and the
+    interaction success of its action (the take name's prefix before
+    ``-``); returns their means. MuJoCo runs on the host; the env's control
+    laws, which this suite never steps, are put on the CPU beside it."""
+    from egoego_release_tpu_torch.eval.physics_metrics import compute_physics_metrics, interaction_success
+    from egoego_release_tpu_torch.rl.mujoco_env import MujocoHumanoidEnv
+
+    env = MujocoHumanoidEnv(xml_path, residual_force=False, device="cpu")
+    phys_agg: dict[str, list] = {}
+    for name, rec in qpos_records.items():
+        obj_pose = rec.get("obj_pose")
+        # object qpos goes into the simulation only where the model has
+        # slots for it (the plain humanoid XML has none)
+        obj_pose_sim = None
+        if obj_pose is not None:
+            extra = env.model.nq - rec["qpos"].shape[1]
+            if extra > 0:
+                obj_pose_sim = np.asarray(obj_pose)[:, :extra]
+        pm_pred = compute_physics_metrics(env, rec["qpos"], obj_pose=obj_pose_sim)
+        pm_gt = compute_physics_metrics(env, rec["qpos_gt"], obj_pose=obj_pose_sim)
+        action = name.split("-")[0] if "-" in name else "None"
+        try:
+            succ = interaction_success(action, pm_pred["pen_seq_info"], rec["qpos"], pm_pred["head_pose"],
+                                       head_pose_gt=pm_gt["head_pose"], obj_pose=obj_pose, env=env,
+                                       obj_body_names=obj_bodies)
+            phys_agg.setdefault("succ", []).append(float(succ))
+        except ValueError as e:
+            # an object-action take without object data or bodies on this model
+            print(f"{name}: success not scoreable ({e})")
+        for k, v in (("pen_pred", pm_pred["pen"]), ("pen_gt", pm_gt["pen"]), ("slide_pred", pm_pred["sliding"]),
+                     ("slide_gt", pm_gt["sliding"])):
+            phys_agg.setdefault(k, []).append(v)
+    return {k: float(np.mean(v)) for k, v in phys_agg.items()}
+
+
 def run(opt) -> dict:
     """The CLI: returns the mean of each metric (JAX ``eval/eval_trajar.py:64``)."""
-    if opt.physics_metrics:
-        raise NotImplementedError(PHYSICS_UNPORTED)
     dev = resolve_device(opt.device)
     from egoego_release_tpu_torch.eval.build import load_rest_offsets
 
@@ -121,6 +155,11 @@ def run(opt) -> dict:
         result["qpos_metrics"] = {k: float(np.mean(v)) for k, v in qpos_md.items() if k != "single_jpe"}
         print("qpos-path mpjpe: %.2f mm, slide_pred: %.2f" % (qpos_md["mpjpe"], qpos_md["slide_pred"]))
 
+    if qpos_records and opt.physics_metrics:
+        result["physics_metrics"] = physics_metrics(opt.mujoco_xml, qpos_records, tuple(opt.obj_bodies or ()))
+        print("physics: pen_pred=%.2fmm succ=%.2f" % (result["physics_metrics"]["pen_pred"],
+                                                      result["physics_metrics"]["succ"]))
+
     os.makedirs(opt.out_dir, exist_ok=True)
     with open(os.path.join(opt.out_dir, "trajar_baseline_res.json"), "w") as f:
         json.dump(result, f, indent=2)
@@ -141,9 +180,10 @@ def parse_opt(argv=None):
                    help="humanoid XML; when given, also report the kinpoly qpos-path metric suite "
                         "(eval/qpos_metrics.py)")
     p.add_argument("--physics_metrics", action="store_true",
-                   help="the simulator-grounded suite of the physics group: not ported yet, raises")
+                   help="with --mujoco_xml: also run the simulator-grounded penetration/sliding/success suite "
+                        "(eval/physics_metrics.py; needs mujoco)")
     p.add_argument("--obj_bodies", nargs="*", default=None,
-                   help="object body names for the physics suite's success scoring (with --physics_metrics)")
+                   help="object body names on the XML for sit/avoid/step success scoring (e.g. Chair Step)")
     p.add_argument("--out_dir", default="./results")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)

@@ -52,7 +52,8 @@ launch_counts: Counter = Counter()
 # kernel that ``attention`` picks (``attention_route``); "mha";
 # "residual_layernorm".
 kernel_launches: Counter = Counter()
-# GEMM launches by epilogue mode (BIAS ... PARTIAL), counted with kernel_launches
+# GEMM launches by epilogue mode (BIAS ... PARTIAL; a pred_noise update under
+# STEP_NOISE), counted with kernel_launches
 gemm_modes: Counter = Counter()
 
 # csrc/gemm.cu GemmKernel, by launch name
@@ -69,6 +70,9 @@ WGMMA_MAX_TOKENS = 128  # keys in one m64n128 score accumulator, K and V in shar
 # products of a DecoderLayer; PARTIAL the bare product of a tensor-parallel
 # layer's fc and w2
 BIAS, BIAS_RELU, LAYER_NORM, STEM, STEP, PARTIAL = range(6)
+# the key under which gemm_modes counts a STEP launch of a pred_noise model
+# (five update scalars: its own epilogue instantiation); never passed to C
+STEP_NOISE = 6
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -92,8 +96,8 @@ class GemmArgs(ctypes.Structure):
         "a", "w", "w_lo", "bias", "res", "ln_s", "ln_b", "row_mask", "pos", "emb",
         "x", "noise", "ipv", "ipm", "out", "out_b")] + [(name, ctypes.c_int) for name in (
         "M", "N", "K", "lda", "ldw", "ldo", "ldb", "a_bf16", "out_bf16",
-        "compute_bf16", "res_bf16", "mode", "t_data", "kernel")] + [(name, ctypes.c_float) for name in (
-        "c1", "c2", "c3")]
+        "compute_bf16", "res_bf16", "mode", "t_data", "kernel", "step_noise")] + [(name, ctypes.c_float) for name in (
+        "c1", "c2", "c3", "c4", "c5")]
 
 
 class AttnArgs(ctypes.Structure):
@@ -229,7 +233,8 @@ def gemm_args(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, o
               emb=None, x=None, noise=None, ipv=None, ipm=None, out_b=None, t_data: int = 0,
               scal=(0.0, 0.0, 0.0), cores: bool = False) -> GemmArgs:
     """Check one ``gemm`` call's layout and return its argument struct
-    (``cores``: for ``gemm_cuda_cores``, with W itself in f32)."""
+    (``cores``: for ``gemm_cuda_cores``, with W itself in f32). ``scal``:
+    STEP's three update scalars, or five for a pred_noise model."""
     f32, bf16 = torch.float32, torch.bfloat16
     _layout(w, (f32, bf16), what="w")
     _layout(bias, f32, what="bias")
@@ -271,6 +276,9 @@ def gemm_args(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, o
         if t.numel() != M * N:
             raise ValueError(f"{name}: need {M}x{N} elements, got {tuple(t.shape)}")
     if mode == STEP:
+        if len(scal) not in (3, 5) or (cores and len(scal) == 5):
+            raise ValueError(f"scal: STEP takes (a1, a2, a3) or, on the tensor-core kernels, (a1, a2, a3, r1, r2); "
+                             f"got {len(scal)} scalars")
         if ipv is not None:
             _layout(ipm, f32, what="ipm")
             if ipm.numel() != M:
@@ -319,7 +327,8 @@ def gemm_args(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, o
         out=_ptr(out), out_b=_ptr(out_b), M=M, N=N, K=K, lda=lda, ldw=w.shape[1], ldo=N, ldb=ldb,
         a_bf16=int(a.dtype == bf16), out_bf16=int(out is not None and out.dtype == bf16),
         compute_bf16=int(is_bf16), res_bf16=int(res is not None and res.dtype == bf16), mode=mode, t_data=t_data,
-        c1=scal[0], c2=scal[1], c3=scal[2],
+        step_noise=int(mode == STEP and len(scal) == 5), c1=scal[0], c2=scal[1], c3=scal[2],
+        c4=scal[3] if len(scal) == 5 else 0.0, c5=scal[4] if len(scal) == 5 else 0.0,
     )
 
 
@@ -328,7 +337,7 @@ def _launch_gemm(entry: str, args: GemmArgs, device) -> None:
     with torch.cuda.device(device):
         _check(getattr(_lib("gemm"), entry)(ctypes.byref(args), stream), "gemm")
     kernel_launches[GEMM_KERNELS[args.kernel]] += 1
-    gemm_modes[args.mode] += 1
+    gemm_modes[STEP_NOISE if args.step_noise else args.mode] += 1
 
 
 def gemm(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -353,7 +362,9 @@ def gemm(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     - STEP: A = the last layer's output (B (T+1), K) (its bf16 copy in
       bf16); x, noise, ipv, out (B T, N) f32, 16-byte aligned; N even and
       at most 208; ``out_b`` (optional) receives x_next, rounded to the
-      compute dtype, in the first N columns of its rows (xa).
+      compute dtype, in the first N columns of its rows (xa). ``scal`` =
+      (a1, a2, a3), or (a1, a2, a3, r1, r2) for a pred_noise model: x0 =
+      clip(r1 x - r2 (A W^T + b)), on an epilogue instantiation of its own.
 
     ``out_b`` of LAYER_NORM: bf16 (M, N), the f32 output rounded. With bf16
     inter-layer activations LAYER_NORM's residual ``res`` may be bf16 (read
@@ -362,8 +373,8 @@ def gemm(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     only ``out_b`` taken). Returns ``out``, or ``out_b`` when ``out`` is
     None. A layout the kernels cannot take raises here or in the C entry;
     nothing falls back to another kernel. While tracing, ``scal`` may be a
-    CPU f32 tensor of the three floats (an exported reverse loop indexes its
-    table)."""
+    CPU f32 tensor of the three or five floats (an exported reverse loop
+    indexes its table)."""
     if tracing():
         if mode != STEP:
             scal = None
@@ -579,7 +590,10 @@ def gemm_plain(mode, a, w, bias, out, *, M, a2=None, res=None, ln_s=None, ln_b=N
     elif mode == STEP:
         b = M // t_data
         p = prod(a.reshape(b, t_data + 1, -1)[:, 1:])
-        x0 = torch.clamp(p + bias, -1.0, 1.0)
+        p = p + bias
+        if len(scal) == 5:  # a pred_noise output to x0
+            p = scal[3] * x.reshape(M, N) - scal[4] * p
+        x0 = torch.clamp(p, -1.0, 1.0)
         y = scal[0] * x0 + scal[1] * x.reshape(M, N) + scal[2] * noise.reshape(M, N)
         if ipv is not None:
             y = y + ipm.reshape(M, 1) * (ipv.reshape(M, N) - y)

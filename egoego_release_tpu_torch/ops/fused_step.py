@@ -15,6 +15,10 @@ One reverse step is ``n_dec_layers`` kernel calls, as on the TPU:
 
 DDPM  a1 = posterior_mean_coef1[t], a2 = posterior_mean_coef2[t],
       a3 = [t > 0] exp(0.5 posterior_log_variance_clipped[t])
+      and, for a pred_noise model, whose output is the noise and not x0,
+      x0 = clip(r1 x_t - r2 out) with r1 = sqrt_recip_alphas_cumprod[t],
+      r2 = sqrt_recipm1_alphas_cumprod[t] (five scalars a step; its own
+      instantiation of the update's kernel epilogue)
 DDIM  a2 = sqrt(max(1 - ac_prev - sigma^2, 0)) / sqrt(1 - ac_t),
       a1 = sqrt(ac_prev) - a2 sqrt(ac_t),  a3 = sigma
 
@@ -161,11 +165,16 @@ def stem_layer(x, xc, emb, pos, mask, prep, *, n_head, d_k, d_v, with_copy=False
 
 def step_update_plain(h, x, noise, scal, ipv, ipm, prep):
     """linear_out on tokens 1..T of h (B, T+1, d_model), x0 clipped to
-    [-1, 1], x_next = a1 x0 + a2 x + a3 noise, then the inpaint."""
+    [-1, 1], x_next = a1 x0 + a2 x + a3 noise, then the inpaint. ``scal``
+    (a1, a2, a3), or (a1, a2, a3, r1, r2) for a pred_noise model, whose
+    output converts to x0 = r1 x - r2 out before the clip."""
     bsz, t, d = x.shape
     feat = h[:, 1: t + 1].reshape(bsz * t, -1)
-    x0 = torch.clamp(linear_plain(feat, prep["lw"][:d]) + prep["lb"], -1.0, 1.0).reshape(bsz, t, d)
-    a1, a2, a3 = scal
+    out = (linear_plain(feat, prep["lw"][:d]) + prep["lb"]).reshape(bsz, t, d)
+    if len(scal) == 5:
+        out = scal[3] * x - scal[4] * out
+    x0 = torch.clamp(out, -1.0, 1.0)
+    a1, a2, a3 = scal[:3]
     xn = a1 * x0 + a2 * x + a3 * noise
     if ipv is not None:
         xn = xn + ipm[..., None] * (ipv - xn)
@@ -223,13 +232,17 @@ def fused_denoise_step(x, xc, emb, pos, mask, noise, scal, ipv, ipm, prep, *, n_
 # -- schedule scalars (host, f32) ----------------------------------------
 
 
-def ddpm_scalars(consts, timesteps: int):
-    """[(t, (a1, a2, a3))] for t = T-1 .. 0."""
+def ddpm_scalars(consts, timesteps: int, pred_noise: bool = False):
+    """[(t, (a1, a2, a3))] for t = T-1 .. 0; with ``pred_noise``
+    [(t, (a1, a2, a3, r1, r2))], r1 and r2 the conversion of a noise
+    prediction to x0 (JAX's ``_p_mean_variance``)."""
     out = []
     for t in range(timesteps - 1, -1, -1):
         a3 = np.exp(np.float32(0.5) * consts.posterior_log_variance_clipped[t]) if t else np.float32(0.0)
-        out.append((t, (float(consts.posterior_mean_coef1[t]),
-                        float(consts.posterior_mean_coef2[t]), float(a3))))
+        scal = (float(consts.posterior_mean_coef1[t]), float(consts.posterior_mean_coef2[t]), float(a3))
+        if pred_noise:
+            scal += (float(consts.sqrt_recip_alphas_cumprod[t]), float(consts.sqrt_recipm1_alphas_cumprod[t]))
+        out.append((t, scal))
     return out
 
 
@@ -346,7 +359,7 @@ def fused_p_sample_loop(diff, x_start, cond_mask, padding_mask=None, inpaint_val
         ipv = ipm = None
 
     if ddim_steps is None:
-        sched = ddpm_scalars(diff.consts, cfg.timesteps)
+        sched = ddpm_scalars(diff.consts, cfg.timesteps, cfg.objective == "pred_noise")
     else:
         sched = ddim_scalars(diff.consts, cfg.timesteps, ddim_steps, eta)
     embs = noise_level_embeddings(diff.model, [s[0] for s in sched])

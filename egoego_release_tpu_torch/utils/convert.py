@@ -23,6 +23,12 @@
   ``models.trajar.TrajARNet`` / ``models.posereg.VideoRegNet``: the GRU
   and LSTM gates stacked in torch's order, a Conv (k, in, out) -> Conv1d
   (out, in, k).
+* ``policy_state_dict_from_jax``, ``value_state_dict_from_jax``: flax trees
+  of the RL policy (``GaussianPolicy``: MLP, ``fc``, ``log_std``; or
+  ``MCPPolicy``: the primitives, their output layers and the composer) and
+  the value net -> ``rl.ppo``'s modules; ``policy_params_from_state_dict``
+  and ``value_params_from_state_dict`` are their inverses, so that both
+  packages run on the same weights from either side.
 """
 
 from __future__ import annotations
@@ -127,6 +133,78 @@ def trajar_state_dict_from_jax(params) -> dict[str, torch.Tensor]:
     _mlp(sd, "action_mlp", p["ar"]["action_mlp"])
     _dense(sd, "action_fc", p["ar"]["action_fc"])
     return sd
+
+
+def policy_state_dict_from_jax(params) -> dict[str, torch.Tensor]:
+    """{"params": {...}} of JAX's ``GaussianPolicy`` or ``MCPPolicy`` ->
+    ``rl.ppo.GaussianPolicy`` / ``MCPPolicy``'s state_dict."""
+    p = params["params"]
+    sd = {}
+    if "MLP_0" in p:
+        _mlp(sd, "mlp", p["MLP_0"])
+        _dense(sd, "fc", p["fc"])
+    else:
+        i = 0
+        while f"primitive_{i}" in p:
+            _mlp(sd, f"primitives.{i}", p[f"primitive_{i}"])
+            _dense(sd, f"primitive_outs.{i}", p[f"primitive_{i}_out"])
+            i += 1
+        _mlp(sd, "composer", p["composer"])
+        _dense(sd, "composer_out", p["composer_out"])
+    sd["log_std"] = _t(p["log_std"])
+    return sd
+
+
+def value_state_dict_from_jax(params) -> dict[str, torch.Tensor]:
+    """{"params": {...}} of JAX's ``ValueNet`` -> ``rl.ppo.ValueNet``'s state_dict."""
+    sd = {}
+    _mlp(sd, "mlp", params["params"]["MLP_0"])
+    _dense(sd, "fc", params["params"]["fc"])
+    return sd
+
+
+def _flax_tree(sd: dict, rename) -> dict:
+    """A state_dict -> a flax {"params": ...} tree of float32 numpy:
+    ``rename(module path)`` gives the leaf's path in the tree (a tuple);
+    Linear weights become (in, out) kernels."""
+    tree = {}
+    for key, v in sd.items():
+        v = v.detach().cpu().numpy().astype(np.float32)
+        mod, _, leaf = key.rpartition(".")
+        path, leaf = (rename(mod), {"weight": "kernel", "bias": "bias"}[leaf]) if mod else ((), key)
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = v.T if leaf == "kernel" else v
+    return {"params": tree}
+
+
+def _rl_path(mod: str) -> tuple:
+    """``rl.ppo`` module paths -> flax names: ``mlp.affine_layers.i`` ->
+    (MLP_0, affine_i); ``primitives.k.affine_layers.i`` -> (primitive_k,
+    affine_i); ``primitive_outs.k`` -> (primitive_k_out,);
+    ``composer.affine_layers.i`` -> (composer, affine_i)."""
+    parts = mod.split(".")
+    if parts[0] == "mlp":
+        return "MLP_0", f"affine_{parts[2]}"
+    if parts[0] == "primitives":
+        return f"primitive_{parts[1]}", f"affine_{parts[3]}"
+    if parts[0] == "primitive_outs":
+        return (f"primitive_{parts[1]}_out",)
+    if parts[0] == "composer" and len(parts) > 1:
+        return "composer", f"affine_{parts[2]}"
+    return (parts[0],)
+
+
+def policy_params_from_state_dict(sd: dict) -> dict:
+    """``rl.ppo.GaussianPolicy`` / ``MCPPolicy``'s state_dict -> JAX's
+    {"params": ...} (the inverse of ``policy_state_dict_from_jax``)."""
+    return _flax_tree(sd, _rl_path)
+
+
+def value_params_from_state_dict(sd: dict) -> dict:
+    """``rl.ppo.ValueNet``'s state_dict -> JAX's {"params": ...}."""
+    return _flax_tree(sd, _rl_path)
 
 
 def posereg_state_dict_from_jax(variables) -> dict[str, torch.Tensor]:

@@ -13,10 +13,9 @@ from egoego_release_tpu_torch.diffusion.gaussian_diffusion import DiffusionConfi
 
 PORT = {f.name: getattr(DiffusionConfig(), f.name) for f in dataclasses.fields(DiffusionConfig)}
 JAX = {f.name: getattr(JConfig(), f.name) for f in dataclasses.fields(JConfig)}
-# JAX only: the p2 loss weight's gamma and k (the port's schedule fixes them
-# at JAX's defaults, 0 and 1), and fused_step (the port's samplers always
-# run the step kernels unless fused_transformer is set)
-JAX_ONLY = {"p2_loss_weight_gamma", "p2_loss_weight_k", "fused_step"}
+# JAX only: fused_step (the port's samplers always run the step kernels
+# unless fused_transformer is set)
+JAX_ONLY = {"fused_step"}
 PORT_ONLY = set()
 
 
@@ -32,4 +31,5 @@ def test_default_numerics_are_f32():
 def test_fields_only_one_side_has():
     assert set(JAX) - set(PORT) == JAX_ONLY
     assert set(PORT) - set(JAX) == PORT_ONLY
-    assert (JAX["p2_loss_weight_gamma"], JAX["p2_loss_weight_k"], JAX["fused_step"]) == (0.0, 1.0, False)
+    assert JAX["fused_step"] is False
+    assert (PORT["p2_loss_weight_gamma"], PORT["p2_loss_weight_k"]) == (0.0, 1.0)

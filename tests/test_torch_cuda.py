@@ -63,6 +63,9 @@ def test_step_kernels_match_plain(card, bf16, frames, d_head):
         # x0 alone (a1 = 1, no inpaint), then the update with the inpaint
         (fs.layer_epilogue, fs.layer_epilogue_plain, (h, mask, x, noise, (1.0, 0.0, 0.0), None, None, prep)),
         (fs.layer_epilogue, fs.layer_epilogue_plain, (h, mask, x, noise, (0.9, 0.1, 0.05), ipv, ipm, prep)),
+        # a pred_noise model's update (x0 = r1 x - r2 out; its own instantiation)
+        (fs.layer_epilogue, fs.layer_epilogue_plain, (h, mask, x, noise, (0.9, 0.1, 0.05, 1.02, 0.17), ipv, ipm,
+                                                      prep)),
     ]
     for wrapper, plain, args in cases:
         ck.launch_counts.clear()

@@ -544,9 +544,14 @@ def test_trained_checkpoint_loads_and_evaluates(tmp_path):
 
 
 def test_samplers_refuse_pred_noise():
+    """The DDIM sampler refuses a pred_noise model (JAX's DDIM treats its
+    output as x0); the DDPM routes sample it (tests/test_torch_pred_noise.py)."""
     diff = CondGaussianDiffusion(DiffusionConfig(**SMALL, objective="pred_noise"), device="cpu")
-    with pytest.raises(NotImplementedError, match="pred_x0"):
-        diff.p_sample_loop(torch.zeros(1, 12, 198), head_condition_mask(1, 12), noise=TorchNoise("cpu"))
+    with pytest.raises(NotImplementedError, match="DDIM sampler takes pred_x0"):
+        diff.p_sample_loop_ddim(torch.zeros(1, 12, 198), head_condition_mask(1, 12), num_steps=3,
+                                noise=TorchNoise("cpu"))
+    out = diff.p_sample_loop(torch.zeros(1, 12, 198), head_condition_mask(1, 12), noise=TorchNoise("cpu"))
+    assert out.shape == (1, 12, 198) and bool(torch.isfinite(out).all())
 
 
 # -- config and logging ----------------------------------------------------

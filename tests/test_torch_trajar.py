@@ -359,12 +359,17 @@ def test_eval_trajar_matches_jax(setup, tmp_path, monkeypatch):
 
 
 def test_eval_trajar_physics_metrics_raises_and_random_init_warns(setup, tmp_path, capsys):
+    """--physics_metrics without --mujoco_xml adds nothing, as in JAX (the
+    suite runs over the qpos records that --mujoco_xml keeps; the flag
+    itself is held against JAX in tests/test_torch_physics.py)."""
+    import json
+
     from egoego_release_tpu_torch.eval import eval_trajar as te
 
     argv = ["--expert_path", str(setup["root"] / "expert.p"), "--rest_offsets", str(setup["root"] / "rest.npy"),
             "--fr_num", str(FR), "--rnn_hdim", str(HDIM), "--out_dir", str(tmp_path), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="physics group of ROADMAP A.7"):
-        te.run(te.parse_opt(argv + ["--physics_metrics"]))
+    te.run(te.parse_opt(argv + ["--physics_metrics", "--max_seqs", "1"]))
+    assert "physics_metrics" not in json.load(open(tmp_path / "trajar_baseline_res.json"))
     res = te.run(te.parse_opt(argv + ["--max_seqs", "1"]))
     assert "WARNING: no TrajARNet checkpoint" in capsys.readouterr().out
     assert set(res) >= {"diverged"}
