@@ -103,7 +103,7 @@ Phases (any failure exits non-zero; nothing is caught):
  13. stage-1 training at the release widths (f32, batch 32) on fixtures
      written here (ARES-layout records with per-frame OF feature npys, a
      pickle of smooth head tracks): ``train_stage1 headnet`` and
-     ``train_stage1 gravitynet`` for 100 steps each (a falling mean loss,
+     ``train_stage1 gravitynet`` for 50 steps each (a falling mean loss,
      no NaN, a checkpoint per epoch, reloaded; every OF batch read by the
      native loader); each step's ms, busy share, peak memory and f32 bound,
      and va2rot's share of the HeadNet step; one step of each, card against
@@ -132,7 +132,7 @@ Phases (any failure exits non-zero; nothing is caught):
      the CUDA-core kernel); each custom op through
      torch.ops against its ctypes wrapper, bit for bit; two gloo ranks on
      cuda:0 running ``eval_stage2`` through the library (dp 2
-     --fused_step, tp 2 in f32 and with --fused_step; DDIM-50 on 16
+     --fused_step, tp 2 in f32 and with --fused_step; DDIM-25 on 16
      sequences) with each rank's exact launch counts (no LayerNorm
      epilogue under tp) and the chain against the unsharded card run; one
      training step at dp 2 and at tp 2 against the unsharded card step;
@@ -146,7 +146,7 @@ Phases (any failure exits non-zero; nothing is caught):
      on 256 flows of 360 x 480 (frames/s; its first 64 features card vs CPU
      within 1e-4 of their max; a 64-frame batch's device ms beside its f32
      bound and with cuDNN TF32 on); ``train_stage1 headnet --raw_flow`` at
-     the release widths, batch 32 x window 60, 1 epoch of 2 steps on ARES
+     the release widths, batch 32 x window 60, 1 epoch of 1 step on ARES
      records whose flows come from a pool of 64 npys of 256 x 320 (finite
      losses, the frozen CNN bit for bit, the rest moved, a checkpoint per
      epoch reloaded; the step's ms, busy share, peak memory, bound and the
@@ -184,8 +184,18 @@ Phases (any failure exits non-zero; nothing is caught):
      egoego_release_tpu_torch.rl.train_agent`` for 2 iterations, its .pt
      reloaded; no kernel of the port's launches on the RL paths. MuJoCo is
      not on the card's machine: the physics group is held on the CPU alone.
+ 19. the physics trainer (``physics_rl_phase``; no kernel of the port's
+     launches): one ``PhysicsPPO`` update over 4 rollouts x 90 steps at
+     hsize (256, 128), 5 epochs, for the Gaussian actor on the UHC
+     observation v2 (571 wide) and the MCP actor, and ``ARAgentPPO``'s
+     (80-wide actions), each card vs CPU in float64 (1e-4 of each tensor's
+     max) and timed in f32 (ms, device ms, busy share, launches, peak
+     memory, bound); the per-step ``act`` call and kinematic reward on the
+     card and on the CPU (ms, launches, busy share); ``python -m
+     egoego_release_tpu_torch.rl.train_physics_agent --iters 2`` where
+     ``mujoco`` imports (the card's machine has none: one line says so).
 Then one JSON line of per-kernel results (with the training and phase-16
-to phase-18 summaries), and as the last line {"ok": true, "device": {...}}.
+to phase-19 summaries), and as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1078,7 +1088,7 @@ def train_phase(card, data_dir, eval_data_path, rest_path, check_counts, clear_c
             "padded_windows": n_padded, "card": card}
 
 
-STAGE1_SEQS, STAGE1_FRAMES, STAGE1_EPOCHS = 160, 62, 20  # phase 13: sequences, OF frames each, epochs
+STAGE1_SEQS, STAGE1_FRAMES, STAGE1_EPOCHS = 160, 62, 10  # phase 13: sequences, OF frames each, epochs
 STAGE1_BATCH = 32  # the reference's stage-1 batch
 ARES_ROOT = "/viscam/u/jiamanli/datasets/egomotion_syn_dataset"  # the OF paths' root in the reference's pickles
 
@@ -1618,7 +1628,7 @@ def outputs_phase(card, data_dir, stats_path, rest_path, kin_root, kin_gt_path, 
 
 
 TP_TOKENS = (121, 31)        # phase 15: tokens a window of the kernels' tp shapes (the release window, the tail)
-PAR_SEQS, PAR_DDIM = 16, 50   # phase 15: sequences and DDIM steps of the sharded eval_stage2 runs
+PAR_SEQS, PAR_DDIM = 16, 25   # phase 15: sequences and DDIM steps of the sharded eval_stage2 runs
 TRAIN_WINDOWS = 16            # phase 15: windows of the sharded training step (micro-batch 8 x grad-accum 2)
 E2E_B, E2E_T = 4, 16          # phase 15: export_e2e's batch and frames
 SERVE_B, SERVE_T = 64, 140    # phase 15: the export CLI's default batch and frames
@@ -1702,13 +1712,13 @@ def parallel_phase(card, data_dir, data_path, stats_path, rest_path, clear_count
     against its plain version, counted once, timed beside its bound and
     the library call; each custom op through torch.ops bit for bit against
     its ctypes wrapper. (b) Two gloo ranks on cuda:0 running eval_stage2
-    through the library (16 sequences, DDIM-50): dp 2 --fused_step, tp 2 in
+    through the library (16 sequences, DDIM-25): dp 2 --fused_step, tp 2 in
     f32 and --fused_step, each rank's exact launch counts (no LayerNorm
     epilogue under tp), and the chain on fixed head poses against the
     unsharded card run. (c) One training step at dp 2 x tp 1 and dp 1 x tp
     2 against the unsharded card step. (d) The chain exported by the
     export CLI at its defaults (64 x 140 frames, DDPM-1000, f32) and
-    export_e2e (4 x 16 frames, DDIM-50, bf16), each saved, loaded and
+    export_e2e (4 x 16 frames, DDIM-25, bf16), each saved, loaded and
     called on the card against the live run for one seed, with the kernels
     launched inside the loaded program counted; export, load and call
     seconds and bytes. Returns the summary."""
@@ -2044,7 +2054,7 @@ def parallel_phase(card, data_dir, data_path, stats_path, rest_path, clear_count
              (jpos, jquat), lambda jp, jq: pipe.diffusion.sample_sliding_window_w_canonical(
                  jp, jq, pipe.stats, pipe.rest_offsets, noise=DefaultNoise(dev)),
              {k: 2 * 1000 * v for k, v in per_step("gemm_tf32x3", "mha").items()})
-    # the whole system, bf16 (--fused_step's numerics), DDIM-50, one window
+    # the whole system, bf16 (--fused_step's numerics), DDIM-25, one window
     pipe = build_pipeline(stats_path=stats_path, rest_offsets_path=rest_path, sampler="ddim", ddim_steps=PAR_DDIM,
                           compute_dtype="bfloat16", device=dev)
     s1 = {"of": rn(E2E_B, E2E_T - 1, 512), "init_quat": F.normalize(rn(E2E_B, 4), dim=-1),
@@ -2376,7 +2386,7 @@ def vposer_error_scale(d6, aa=None):
 
 
 OF_FRAMES, OF_HW, OF_BATCH = 256, (360, 480), 64  # phase 16a: flow npys for of_feats, their size, its batch
-RAW_SEQS, RAW_FRAMES, RAW_EPOCHS = 64, 62, 1  # phase 16b: 2 steps an epoch at batch 32, window 60
+RAW_SEQS, RAW_FRAMES, RAW_EPOCHS = 32, 62, 1  # phase 16b: 1 step an epoch at batch 32, window 60
 RAW_POOL = (64, 256, 320)  # phase 16b: distinct raw-flow npys (h x w x 2) the records point into
 PWC_PAIRS, PWC_HW = 4, (448, 768)  # phase 16c: image pairs of the PWC-Net forward
 GIMO_LATENTS = 20000  # phase 16d: VPoser latents decoded card vs CPU
@@ -2764,6 +2774,7 @@ BASE_SEQS = (("CMU", "01_01_poses", 600, 60, False), ("KIT", "3_walking_medium01
              ("HumanEva", "S1_Walking_1_poses", 720, 60, False), ("Transitions_mocap", "mazen_walk_turn", 600, 60, False),
              ("EKUT", "stairs_up_01", 600, 60, True))
 TRAJAR_EPOCHS, POSEREG_EPOCHS = 4, 3  # phase 17: one TrajARNet step an epoch (6 records, batch 8); 3 posereg steps one
+TRAJAR_EVAL_SEQS = 2  # phase 17e: records of eval_trajar on each device
 BASE_POS_TOL, BASE_VEL_TOL = 1e-5, 3e-4  # phase 17 card vs CPU: poses; velocities (finite differences over 1/30 s)
 
 
@@ -3107,11 +3118,11 @@ def baselines_phase(card, data_dir, clear_counts):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         means[name] = eval_trajar.main(["--expert_path", expert, "--ckpt", os.path.join(save, "final.pt"),
-                                        "--rest_offsets", rest_path, "--mujoco_xml", xml, "--max_seqs", "3", "--out_dir",
+                                        "--rest_offsets", rest_path, "--mujoco_xml", xml, "--max_seqs", str(TRAJAR_EVAL_SEQS), "--out_dir",
                                         os.path.join(root, f"eval_{name}"), "--device", where])
         torch.cuda.synchronize()
         times[name] = time.perf_counter() - t0
-    n_rec = 3  # of the 6 records: --max_seqs 3
+    n_rec = TRAJAR_EVAL_SEQS  # of the 6 records
     qm = {n: json.load(open(os.path.join(root, f"eval_{n}", "trajar_baseline_res.json")))["qpos_metrics"]
           for n in means}
     e_eval = max(abs(means["card"][k] - v) / max(1.0, abs(v)) for k, v in means["cpu"].items())
@@ -3491,6 +3502,239 @@ def rl_phase(card, data_dir, expert_path, rest_path, clear_counts):
     log(f"phase 18e: python -m egoego_release_tpu_torch.rl.train_agent --iters 2 --device cuda in {dt_cli:.1f} s (the "
         f"process's start included): {out['train_agent']['log']}; iter-2.pt reloaded; no kernel of the port's "
         f"launched in 18b-18e; phase 18 took {out['phase_s']:.1f} s [{card}]")
+    return out
+
+
+PHYS_ROLLOUTS, PHYS_HORIZON = 4, 90   # phase 19: the rollouts of one update (the JAX CLI's horizon)
+PHYS_HSIZE, PHYS_EPOCHS = (256, 128), 5  # PhysicsPPO's defaults
+PHYS_ACT_CALLS = 200                  # phase 19c: timed act / reward calls on each device
+
+
+def physics_shapes(device):
+    """What ``PhysicsPPO`` reads of a ``PhysicsImitation``, where MuJoCo is
+    absent: the model of ``write_humanoid_xml(..., physics=True)`` (nq 76,
+    nv 75, 69 motors, world + 24 bodies) with the residual force (75-wide
+    actions), and the session's device."""
+    import torch
+
+    env = types.SimpleNamespace(ndof=69, nv=75, action_dim=75, model=types.SimpleNamespace(nq=76, nbody=25))
+    return types.SimpleNamespace(env=env, device=torch.device(device))
+
+
+def physics_batches(agent, state, rng):
+    """PHYS_ROLLOUTS rollouts of PHYS_HORIZON steps in ``batch_of``'s layout
+    from ``agent``'s initial policy on the CPU: raw observations, their
+    filtered copies, sampled actions with their f32 log-probabilities and
+    values, rewards in [0, 1]; the second rollout fails once (a fail-safe
+    reset's done) and the last ends early."""
+    import torch
+
+    from egoego_release_tpu_torch.rl.ppo import gaussian_logprob
+    from egoego_release_tpu_torch.rl.train_physics_agent import batch_of
+    from egoego_release_tpu_torch.rl.trpo import ZFilter
+
+    out = []
+    zf = ZFilter.init(agent.obs_dim)
+    for i in range(PHYS_ROLLOUTS):
+        h = PHYS_HORIZON - (23 if i == PHYS_ROLLOUTS - 1 else 0)
+        raw = torch.from_numpy((rng.randn(h + 1, agent.obs_dim) * 1.5).astype(np.float32))
+        with torch.no_grad():
+            obs = ZFilter.apply(zf, raw)
+            mean, log_std = state["policy"](obs[:h])
+            act = mean + torch.exp(log_std) * torch.from_numpy(rng.randn(*mean.shape).astype(np.float32))
+            logp, val = gaussian_logprob(mean, log_std, act), state["value"](obs)
+        dones = [False] * h
+        if i == 1:
+            dones[44] = True
+        if i == PHYS_ROLLOUTS - 1:
+            dones[-1] = True
+        out.append(batch_of(list(raw[:h].numpy()), list(obs[:h].numpy()), list(act.numpy()), logp.tolist(),
+                            val[:h].tolist(), rng.uniform(0, 1, h).tolist(), dones, float(val[h])))
+    return out
+
+
+def linear_macs(*modules):
+    """Multiply-adds of one sample through every Linear of the modules."""
+    import torch
+
+    return sum(m.weight.numel() for mod in modules for m in mod.modules() if isinstance(m, torch.nn.Linear))
+
+
+def physics_rl_phase(card, data_dir, expert_path, rest_path, clear_counts):
+    """Phase 19: the physics trainer (``rl.train_physics_agent``) at the JAX
+    CLI's widths, on the card machine, which has no MuJoCo. (a) One
+    ``PhysicsPPO`` update (``update_batches``: the observation filter, GAE,
+    5 epochs of Adam on the clipped objective and the value) over
+    PHYS_ROLLOUTS x PHYS_HORIZON steps of 76/75-DOF-shaped observations
+    made from a seed, hsize (256, 128), for the Gaussian actor on the UHC
+    observation v2 and for the MCP actor (8 primitives): card vs CPU in
+    float64 on the same batch (each parameter tensor within 1e-4 of its
+    max), then timed in f32: ms, device ms, busy share, launches, peak
+    memory, the f32 bound. (b) ``ARAgentPPO``'s update (80-wide actions,
+    the AR observation) the same way. (c) The per-step calls of a host
+    rollout on the card and on the CPU: ``PhysicsPPO.act`` (the
+    observation in, the filter, the policy's sample, log-probability and
+    value, one copy out) and the kinematic reward
+    (``imitation.KinematicReward``, dynamic_supervision_v4: the target's
+    FK, the reward, one copy out): ms a call, launches a call, the card's
+    busy share. (d) ``python -m egoego_release_tpu_torch.rl.
+    train_physics_agent --iters 2`` on a physics MJCF and phase 17's expert
+    records where ``mujoco`` imports; else one line says so. No kernel of
+    the port's launches in (a)-(d)."""
+    import copy
+    import importlib.util
+
+    import torch
+
+    from egoego_release_tpu_torch.ops import cuda_kernels as ck
+    from egoego_release_tpu_torch.ops.fused_step import TorchNoise
+    from egoego_release_tpu_torch.ops.mujoco_xml import load_mujoco_skeleton
+    from egoego_release_tpu_torch.rl import ar_obs as AO
+    from egoego_release_tpu_torch.rl.imitation import KinematicReward
+    from egoego_release_tpu_torch.rl.train_physics_agent import ARAgentPPO, PhysicsPPO
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    t_phase = time.perf_counter()
+    at = lambda: f"; {time.perf_counter() - t_phase:.0f} s into phase 19"
+    root = os.path.join(data_dir, "physics_rl")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = {"card": card, "rollouts": PHYS_ROLLOUTS, "horizon": PHYS_HORIZON, "hsize": list(PHYS_HSIZE),
+           "epochs": PHYS_EPOCHS}
+    clear_counts()
+    rng = np.random.RandomState(19)
+    # the AR observation's width: get_ar_obs_v1 on a state of the humanoid's shapes
+    ar_obs_dim = len(AO.get_ar_obs_v1(
+        {"qpos": np.r_[0, 0, 1, 1, np.zeros(72)], "qvel": np.zeros(75), "wbpos": np.zeros(72),
+         "wbquat": np.tile([1.0, 0, 0, 0], 24)},
+        {"head_pose": np.tile([0, 0, 1.6, 1, 0, 0, 0], (2, 1)), "head_vels": np.zeros((2, 6)),
+         "obj_head_relative_poses": np.zeros((2, 7)), "action_one_hot": np.zeros((2, 1))}, 0,
+        head_idx=MUJOCO_BODIES.index("Head")))
+
+    def make(where, kind):
+        kw = dict(hsize=PHYS_HSIZE, epochs=PHYS_EPOCHS)
+        if kind == "ar":
+            return ARAgentPPO(types.SimpleNamespace(im=physics_shapes(where)), ar_obs_dim, **kw)
+        return PhysicsPPO(physics_shapes(where), obs_v=2, actor_type=kind, **kw)
+
+    def update_case(name, kind):
+        """(a)/(b) for one agent: card vs CPU in float64, then the f32 timing."""
+        host = make(cpu, kind)
+        state = host.init_state(torch.Generator().manual_seed(19))
+        batches = physics_batches(host, state, rng)
+        params = {}
+        for where in (dev, cpu):
+            agent = make(where, kind)
+            st = agent.state_for(copy.deepcopy(state["policy"]).to(where).double(),
+                                 copy.deepcopy(state["value"]).to(where).double())
+            agent.zfilter = {k: v.double() for k, v in agent.zfilter.items()}
+            b64 = [dict(b, obs=b["obs"].astype(np.float64), actions=b["actions"].astype(np.float64)) for b in batches]
+            st, m = agent.update_batches(st, b64)
+            params[where.type] = {f"{k}.{n}": v.detach().cpu() for k in ("policy", "value")
+                                  for n, v in st[k].state_dict().items()}
+            params[where.type + "_metrics"] = m
+        err = max(float((params["cuda"][k] - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+                  for k, v in params["cpu"].items())
+        moved = max(float((params["cpu"][f"policy.{n}"] - v).abs().max()) for n, v in state["policy"].state_dict().items())
+        agent = make(dev, kind)
+        st = agent.state_for(copy.deepcopy(state["policy"]).to(dev), copy.deepcopy(state["value"]).to(dev))
+        r = step_profile(lambda: agent.update_batches(st, batches), dev, 1, 3, 3, 1)
+        n = sum(len(b["rewards"]) for b in batches)
+        gflop = 2 * linear_macs(st["policy"], st["value"]) * n * 3 * PHYS_EPOCHS / 1e9
+        r.update(card_vs_cpu=err, samples=n, obs_dim=agent.obs_dim, action_dim=agent.action_dim, gflop=gflop,
+                 bound_ms=gflop * 1e9 / PEAK_F32 * 1e3, update_ms=r.pop("step_ms"),
+                 launches_per_update=r.pop("launches_per_step"), policy_moved=moved)
+        log(f"phase 19{'b' if kind == 'ar' else 'a'}: {name} update ({n} steps of {PHYS_ROLLOUTS} rollouts, obs "
+            f"{agent.obs_dim}, actions {agent.action_dim}, hsize {PHYS_HSIZE}, {PHYS_EPOCHS} epochs): card vs CPU in "
+            f"float64 {err:.3e} of each tensor's max (bound 1e-4; the policy moved {moved:.3e}); f32 "
+            f"{r['update_ms']:.2f} ms (median of 3 CUDA-event timings after 1), wall {r['wall_ms']:.2f} ms over 3; "
+            f"device {r['device_ms']:.3f} ms, busy share {r['device_busy_share']:.3f}, "
+            f"{r['launches_per_update']:.0f} device kernels and copies an update; peak {r['peak_mib']:.1f} MiB; bound "
+            f"{r['bound_ms']:.4f} ms ({gflop:.3f} GFLOP at {PEAK_F32 / 1e12:.0f} TFLOP/s f32){at()} [{card}]")
+        if not err <= 1e-4 or not moved > 0:
+            raise AssertionError(f"phase 19: {name} update card vs CPU {err}, the policy moved {moved}")
+        return r
+
+    out["gauss_obs_v2"] = update_case("PhysicsPPO gauss obs_v 2", "gauss")
+    out["mcp"] = update_case("PhysicsPPO mcp (8 primitives) obs_v 2", "mcp")
+    out["ar_agent"] = update_case("ARAgentPPO", "ar")
+
+    # (c) the per-step calls of a host rollout, on each device
+    xml = write_humanoid_xml(os.path.join(root, "humanoid.xml"), smpl_rest_to_mujoco(np.load(rest_path)),
+                             physics=True)
+    host = make(cpu, "gauss")
+    state = host.init_state(torch.Generator().manual_seed(20))
+    raws = (rng.randn(PHYS_ACT_CALLS, host.obs_dim) * 1.5).astype(np.float32)
+    qpos = np.zeros((PHYS_ACT_CALLS, 76))
+    qpos[:, 2], qpos[:, 3] = 0.95, 1.0
+    qpos[:, 7:] = rng.uniform(-0.3, 0.3, (PHYS_ACT_CALLS, 69))
+    sims = [{"head_pose": np.r_[rng.randn(3) * 0.1 + [0, 0, 1.5], 1.0, 0, 0, 0], "bquat": np.tile([1.0, 0, 0, 0], (24, 1)),
+             "prev_bquat": np.tile([1.0, 0, 0, 0], (24, 1)), "wbpos": rng.randn(24, 3) * 0.3}
+            for _ in range(PHYS_ACT_CALLS)]
+    per = {}
+    for where in (dev, cpu):
+        agent = make(where, "gauss")
+        st = agent.state_for(copy.deepcopy(state["policy"]).to(where), copy.deepcopy(state["value"]).to(where))
+        noise = TorchNoise(where, 3)
+        zf = agent.zfilter
+        rew = KinematicReward(load_mujoco_skeleton(xml, device=where), "dynamic_supervision_v4", None, 69, 1 / 30,
+                              where)
+        calls = {"act": lambda i: agent.act(st, zf, raws[i], noise), "reward": lambda i: rew(sims[i], qpos[i])}
+        res = {}
+        for what, fn in calls.items():
+            for i in range(10):
+                fn(i)
+            t0 = time.perf_counter()
+            for i in range(PHYS_ACT_CALLS):
+                fn(i)
+            ms = (time.perf_counter() - t0) / PHYS_ACT_CALLS * 1e3
+            r = {"ms": ms}
+            if where.type == "cuda":
+                it = iter(range(PHYS_ACT_CALLS))
+                r["device_ms"], r["launches"] = raw_device_ms(lambda: fn(next(it)), reps=50)
+                r["device_busy_share"] = r["device_ms"] / ms
+            else:
+                with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+                    for i in range(20):
+                        fn(i)
+                r["aten_ops"] = sum(1 for e in prof.events() if e.cpu_parent is None and e.name.startswith("aten::")) / 20
+            res[what] = r
+        per[where.type] = res
+    out["per_step"] = per
+    c, h = per["cuda"], per["cpu"]
+    log(f"phase 19c: per control step, act (obs {host.obs_dim} -> actions {host.action_dim}, hsize {PHYS_HSIZE}): card "
+        f"{c['act']['ms']:.4f} ms a call ({c['act']['launches']:.1f} device kernels and copies, device "
+        f"{c['act']['device_ms']:.4f} ms, busy share {c['act']['device_busy_share']:.3f}), CPU {h['act']['ms']:.4f} ms "
+        f"({h['act']['aten_ops']:.1f} top-level aten ops); the v4 kinematic reward: card {c['reward']['ms']:.4f} ms "
+        f"({c['reward']['launches']:.1f} kernels and copies, device {c['reward']['device_ms']:.4f} ms, busy share "
+        f"{c['reward']['device_busy_share']:.3f}), CPU {h['reward']['ms']:.4f} ms ({h['reward']['aten_ops']:.1f} "
+        f"aten ops); card / CPU per step {(c['act']['ms'] + c['reward']['ms']) / (h['act']['ms'] + h['reward']['ms']):.2f}"
+        f"{at()} [{card}]")
+
+    # (d) the trainer end to end, where MuJoCo imports
+    if importlib.util.find_spec("mujoco") is None:
+        out["train_physics_agent"] = "not run: mujoco does not import on this machine"
+        log("phase 19d: mujoco does not import on this machine: python -m egoego_release_tpu_torch.rl."
+            "train_physics_agent not run (its MuJoCo rollouts are held against JAX on the CPU, "
+            "tests/test_torch_physics_rl.py)")
+    else:
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "egoego_release_tpu_torch.rl.train_physics_agent", "--xml", xml,
+                              "--expert_path", expert_path, "--iters", "2", "--device", "cuda"], cwd=REPO,
+                             capture_output=True, text=True, env=dict(os.environ, PYTHONPATH=REPO))
+        if run.returncode != 0:
+            raise AssertionError(f"phase 19d: train_physics_agent exited {run.returncode}: {run.stderr[-2000:]}")
+        lines = [ln for ln in run.stdout.splitlines() if ln.startswith("iter ")]
+        if len(lines) != 2:
+            raise AssertionError(f"phase 19d: train_physics_agent printed {run.stdout[-2000:]}")
+        out["train_physics_agent"] = {"s": time.perf_counter() - t0, "log": lines}
+        log(f"phase 19d: python -m egoego_release_tpu_torch.rl.train_physics_agent --iters 2 --device cuda in "
+            f"{out['train_physics_agent']['s']:.1f} s: {lines}")
+    launched = {**dict(ck.launch_counts), **dict(ck.kernel_launches)}
+    if any(launched.values()):
+        raise AssertionError(f"phase 19: a kernel of the port's launched on the physics RL paths: {launched}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 19: no kernel of the port's launched in 19a-19d; phase 19 took {out['phase_s']:.1f} s [{card}]")
     return out
 
 
@@ -4631,6 +4875,10 @@ def main() -> int:
                   os.path.join(data_dir, "baselines", "rest.npy"), clear_counts)
     results["layer_epilogue"]["pred_noise"] = rl["pred_noise"]
 
+    # -- phase 19: the physics trainer (its updates and per-step calls) ------
+    physics_rl = physics_rl_phase(card, data_dir, os.path.join(data_dir, "baselines", "expert_card.p"),
+                                  os.path.join(data_dir, "baselines", "rest.npy"), clear_counts)
+
     replaces = {"stem_layer": "egoego_release_tpu/ops/fused_step.py:126",
                 "decoder_layer": "egoego_release_tpu/ops/fused_layer.py:113",
                 "layer_epilogue": "egoego_release_tpu/ops/fused_step.py:160",
@@ -4703,7 +4951,7 @@ def main() -> int:
                       "stage1_training": stage1_training, "outputs": outputs,
                       "parallel": {k: v for k, v in parallel.items() if k != "kernels"},
                       "optical_flow": optical_flow, "baselines": baselines,
-                      "rl": {k: v for k, v in rl.items() if k != "pred_noise"}}))
+                      "rl": {k: v for k, v in rl.items() if k != "pred_noise"}, "physics_rl": physics_rl}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -181,6 +181,24 @@ def fit_value(value: nn.Module, opt: torch.optim.Optimizer, obs_f, ret_f, epochs
     return vl.detach()
 
 
+def clipped_epochs(state: dict, obs_f, act_f, logp_f, adv_f, ret_f, epochs: int, clip_eps: float):
+    """``epochs`` full-batch Adam steps of the policy's clipped objective,
+    each followed by one of the value's squared error (JAX: a ``lax.scan``
+    over the epochs). Updates ``state``'s modules and optimizers in place;
+    returns the last epoch's losses, before its steps, as device scalars."""
+    policy, p_opt = state["policy"], state["p_opt"]
+    for _ in range(epochs):
+        p_opt.zero_grad(set_to_none=False)
+        mean, log_std = policy(obs_f)
+        ratio = torch.exp(gaussian_logprob(mean, log_std, act_f) - logp_f)
+        clipped = torch.clamp(ratio, 1 - clip_eps, 1 + clip_eps)
+        pl = -torch.minimum(ratio * adv_f, clipped * adv_f).mean()
+        pl.backward()
+        p_opt.step()
+        vl = fit_value(state["value"], state["v_opt"], obs_f, ret_f, 1)
+    return pl.detach(), vl
+
+
 def merge_time(x: torch.Tensor) -> torch.Tensor:
     """(T, B, ...) -> (T B, ...): a rollout's steps as one batch."""
     return x.reshape((-1,) + x.shape[2:])
@@ -223,17 +241,7 @@ class PPOAgent:
         advs_n, returns = advantages_and_returns(env, value, final_env, expert, values, rewards, dones, cfg.gamma,
                                                  cfg.gae_lambda)
         obs_f, act_f, logp_f, adv_f, ret_f = map(merge_time, (obs, actions, logps, advs_n, returns))
-
-        p_opt, v_opt = state["p_opt"], state["v_opt"]
-        for _ in range(cfg.epochs):
-            p_opt.zero_grad(set_to_none=False)
-            mean, log_std = policy(obs_f)
-            ratio = torch.exp(gaussian_logprob(mean, log_std, act_f) - logp_f)
-            clipped = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps)
-            pl = -torch.minimum(ratio * adv_f, clipped * adv_f).mean()
-            pl.backward()
-            p_opt.step()
-            vl = fit_value(value, v_opt, obs_f, ret_f, 1)
+        pl, vl = clipped_epochs(state, obs_f, act_f, logp_f, adv_f, ret_f, cfg.epochs, cfg.clip_eps)
         metrics = {"reward_mean": rewards.mean(), "episode_alive": 1.0 - dones[-1].float().mean(),
-                   "policy_loss": pl.detach(), "value_loss": vl}
+                   "policy_loss": pl, "value_loss": vl}
         return state, final_env, metrics
