@@ -103,7 +103,7 @@ Phases (any failure exits non-zero; nothing is caught):
  13. stage-1 training at the release widths (f32, batch 32) on fixtures
      written here (ARES-layout records with per-frame OF feature npys, a
      pickle of smooth head tracks): ``train_stage1 headnet`` and
-     ``train_stage1 gravitynet`` for 50 steps each (a falling mean loss,
+     ``train_stage1 gravitynet`` for 25 steps each (a falling mean loss,
      no NaN, a checkpoint per epoch, reloaded; every OF batch read by the
      native loader); each step's ms, busy share, peak memory and f32 bound,
      and va2rot's share of the HeadNet step; one step of each, card against
@@ -194,8 +194,24 @@ Phases (any failure exits non-zero; nothing is caught):
      card and on the CPU (ms, launches, busy share); ``python -m
      egoego_release_tpu_torch.rl.train_physics_agent --iters 2`` where
      ``mujoco`` imports (the card's machine has none: one line says so).
+ 20. the capability tools (``tools_phase``; egoego_release_tpu_torch/tools)
+     through their ``main`` on a 140-frame demo sequence written here: first
+     the three step wrappers at the tools' shapes (1 x 121 and the 1 x 31
+     tail, f32) against their plain versions; ``train_overfit_check`` at
+     the release widths (100 steps of 32 x 2 windows; each of its two eval
+     chains launches exactly 2 x 1000 step kernels of each kind; its
+     training step's ms, device ms, busy share and peak memory);
+     ``train_full_system_check`` (20 stage-1, 50 stage-2 steps; exact
+     counts on its four chains); ``train_kinematic_tracking`` (100 BC steps,
+     3 PPO iterations of 32 envs, on the demo's first 20 frames), then on the
+     whole demo one closed-loop BC step, one PPO iteration and the
+     ``eval_tracking`` rollout timed (ms, device ms, busy share, launches);
+     card vs CPU within 1e-3 of each frame's MPJPE: ``one_step_tracking``
+     (teacher-forced) on the tool's own BC and PPO-tuned policies, and the
+     free ``eval_tracking`` rollout as a smoke check. The physics tools
+     need MuJoCo: held on the CPU alone.
 Then one JSON line of per-kernel results (with the training and phase-16
-to phase-19 summaries), and as the last line {"ok": true, "device": {...}}.
+to phase-20 summaries), and as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -458,6 +474,88 @@ def write_ares_demo_fixture(root, rng, n_seqs, frames):
     with open(os.path.join(root, "demo_ares_data.p"), "wb") as f:
         pickle.dump(recs, f)
     return [r["seq_name"] for r in recs.values()]
+
+
+TOOLS_DEMO_FRAMES = 140  # phase 20: frames of the demo sequence the capability tools read
+TOOLS_STATS = "cano_min_max_mean_std_data_window_120.p"
+
+
+def write_tools_fixture(root, rng, frames=TOOLS_DEMO_FRAMES, neutral_frames=187, fr_num=90, policy_specs=None):
+    """The files the capability tools (``egoego_release_tpu_torch/tools``)
+    read, in the reference's layouts, from ``rng``: under ``root``
+    demo_ares_data.p (plain pickle) with one sequence of ``frames`` frames
+    that carries both the stage-1 fields (``frames`` OF feature npys under
+    the authors' cluster prefix, head_qpos and head_vels of frames + 1 rows,
+    a DROID-SLAM npy) and its body motion (trans, root_orient, body_pose), the
+    head being the FK head of that motion through the tools' skeleton; the
+    min/max stats pickle of its 120-frame windows (of more than 30 frames
+    alone); standing_neutral.pkl
+    (pose_aa (neutral_frames, 72), one qpos (76,)); statear.yml (fr_num and
+    ``policy_specs``, dynamic_supervision_v3 by default). Returns their
+    paths."""
+    import torch
+    import yaml
+
+    from egoego_release_tpu_torch.data.amass import AMASSWindowDataset
+    from egoego_release_tpu_torch.ops import fk as fk_mod
+    from egoego_release_tpu_torch.ops import geometry
+    from egoego_release_tpu_torch.tools._data import tool_rest_offsets
+
+    feat_dir = os.path.join(root, "feats")
+    slam_dir = os.path.join(root, "droid_slam_res", "frl_apartment_4")
+    for d in (feat_dir, slam_dir):
+        os.makedirs(d, exist_ok=True)
+    # a smooth walk of frames + 1 frames: the body's first ``frames``, the head's all
+    n = frames + 1
+    s = np.arange(n)[:, None] / 30.0
+    trans = np.concatenate([np.cumsum(rng.uniform(0.005, 0.02, (n, 2)), 0), np.full((n, 1), 0.9)], -1)
+    trans[:, 2] += 0.02 * np.sin(2 * np.pi * 1.5 * s[:, 0])
+    orient = np.stack([np.full(n, np.pi / 2) + 0.05 * np.sin(s[:, 0]), np.zeros(n),
+                       rng.uniform(-np.pi, np.pi) + 0.3 * np.sin(2 * np.pi * 0.2 * s[:, 0])], -1)
+    body = rng.uniform(0.05, 0.4, (1, 63)) * np.sin(2 * np.pi * rng.uniform(0.2, 1.0, (1, 63)) * s
+                                                    + rng.uniform(0, 2 * np.pi, (1, 63)))
+    trans, orient, body = (a.astype(np.float32) for a in (trans, orient, body))
+    rest = torch.from_numpy(tool_rest_offsets())
+    aa = torch.from_numpy(np.concatenate([orient[:, None], body.reshape(n, 21, 3)], 1))
+    gq, gp = fk_mod.fk_smpl(torch.from_numpy(trans), aa, rest)
+    head = torch.cat([gp[:, fk_mod.HEAD_IDX], gq[:, fk_mod.HEAD_IDX]], -1)
+    head_vels = geometry.get_head_vel(head).numpy()
+    head = head.numpy()
+    take = "demo_seq0"
+    of_files = []
+    for i in range(frames):
+        np.save(os.path.join(feat_dir, f"raft_of_feats_{take}_{i}.npy"), rng.randn(512).astype(np.float32))
+        of_files.append(os.path.join(ARES_DEMO_ROOT, "feats", f"raft_of_feats_{take}_{i}.npy"))
+    slam = np.concatenate([0.3 * (head[:, :3] - head[:1, :3]) + rng.randn(n, 3) * 1e-3, head[:, 3:]], -1)
+    np.save(os.path.join(slam_dir, f"{take}.npy"), slam.astype(np.float32))
+    demo = os.path.join(root, "demo_ares_data.p")
+    with open(demo, "wb") as f:
+        pickle.dump({0: {"seq_name": f"frl_apartment_4-{take}", "of_files": of_files, "head_qpos": head,
+                         "head_vels": head_vels.astype(np.float32),
+                         "trans": trans[:frames], "root_orient": orient[:frames],
+                         "body_pose": body[:frames]}}, f)
+    stats = os.path.join(root, TOOLS_STATS)
+    if os.path.exists(stats):
+        os.remove(stats)
+    if frames > 30:  # a window of at least 30 frames: AMASSWindowDataset writes the stats it computes
+        AMASSWindowDataset(demo, rest.numpy(), window=120, stats_path=stats)
+    # kinpoly's reset pose asset: a standing sway, no root translation track
+    t = np.arange(neutral_frames)[:, None] / 30.0
+    pose_aa = np.zeros((neutral_frames, 24, 3), np.float32)
+    pose_aa[:, 0] = [np.pi / 2, 0.0, 0.0]
+    pose_aa[:, 1:22] = (rng.uniform(0.02, 0.1, (1, 63)) * np.sin(2 * np.pi * rng.uniform(0.1, 0.5, (1, 63)) * t
+                                                                 + rng.uniform(0, 2 * np.pi, (1, 63)))
+                        ).reshape(neutral_frames, 21, 3)
+    qpos = np.zeros(76, np.float32)
+    qpos[2], qpos[3] = 0.92, 1.0
+    neutral = os.path.join(root, "standing_neutral.pkl")
+    with open(neutral, "wb") as f:
+        pickle.dump({"pose_aa": pose_aa.reshape(neutral_frames, 72), "qpos": qpos}, f)
+    cfg = os.path.join(root, "statear.yml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump({"fr_num": fr_num, "policy_specs": dict(
+            {"reward_id": "dynamic_supervision_v3"}, **(policy_specs or {}))}, f)
+    return {"root": root, "demo": demo, "stats": stats, "neutral": neutral, "cfg": cfg}
 
 
 def smplh_parents():
@@ -1088,7 +1186,7 @@ def train_phase(card, data_dir, eval_data_path, rest_path, check_counts, clear_c
             "padded_windows": n_padded, "card": card}
 
 
-STAGE1_SEQS, STAGE1_FRAMES, STAGE1_EPOCHS = 160, 62, 10  # phase 13: sequences, OF frames each, epochs
+STAGE1_SEQS, STAGE1_FRAMES, STAGE1_EPOCHS = 160, 62, 5  # phase 13: sequences, OF frames each, epochs
 STAGE1_BATCH = 32  # the reference's stage-1 batch
 ARES_ROOT = "/viscam/u/jiamanli/datasets/egomotion_syn_dataset"  # the OF paths' root in the reference's pickles
 
@@ -2852,11 +2950,11 @@ def raw_device_ms(fn, reps=1):
     """Device ms of one call of fn and its count of device kernels and
     copies, summed from the profiler's raw CUPTI records: key_averages
     builds an event tree that takes minutes for a TrajARNet step (~260,000
-    kernels). device_time_ms where the profiler saw no device event."""
+    kernels). device_time_ms where the profiler saw no device event. The
+    caller has warmed fn."""
     import torch
     from torch.autograd import DeviceType
 
-    fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -3735,6 +3833,262 @@ def physics_rl_phase(card, data_dir, expert_path, rest_path, clear_counts):
         raise AssertionError(f"phase 19: a kernel of the port's launched on the physics RL paths: {launched}")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 19: no kernel of the port's launched in 19a-19d; phase 19 took {out['phase_s']:.1f} s [{card}]")
+    return out
+
+
+TOOLS_OVERFIT_STEPS = 100        # phase 20a: train_overfit_check's steps (micro-batch 32 x grad-accum 2)
+TOOLS_S1_STEPS, TOOLS_S2_STEPS = 20, 50  # phase 20b: train_full_system_check's stage-1 and stage-2 steps
+TOOLS_KIN = {"KIN_BC_STEPS": "100", "KIN_ITERS": "3", "KIN_ENVS": "32"}  # phase 20c: 50 closed-loop BC steps
+TOOLS_KIN_FRAMES = 20            # phase 20c: the take train_kinematic_tracking's run trains and tracks
+TOOLS_KIN_FR_NUM = 16            # phase 20c: its PPO windows (the statear fixture's fr_num)
+
+
+def tools_phase(card, data_dir, clear_counts, c_per_step):
+    """Phase 20: the capability tools (``egoego_release_tpu_torch/tools``) on
+    the card, through their ``main``, on ``write_tools_fixture``'s files (a
+    140-frame demo sequence, seeded). (a) ``train_overfit_check`` at the
+    release widths: TOOLS_OVERFIT_STEPS steps, micro-batch 32 x grad-accum 2;
+    each of its two eval chains (DDPM-1000, one sample: a 121-token window
+    and a 31-token tail) launches exactly 2 x 1000 step kernels of each
+    kind, in f32; finite MPJPEs, the logged losses falling; its training
+    step's ms, device ms, busy share, peak memory and f32 bound. (b)
+    ``train_full_system_check`` at the release widths, TOOLS_S1_STEPS stage-1
+    and TOOLS_S2_STEPS stage-2 steps: exact counts on each of its four
+    chains; finite metrics. (c) ``train_kinematic_tracking`` at the statear
+    fixture's policy_specs (TOOLS_KIN) on the demo's first TOOLS_KIN_FRAMES
+    frames: its JSON line; then on the whole demo one closed-loop BC step,
+    one PPO iteration (32 envs) and the ``eval_tracking`` rollout, each's ms,
+    device ms, busy share and launches (``step_profile``: one call timed,
+    one walled, one profiled); card against CPU, each frame's MPJPE within
+    1e-3 of the CPU's: ``one_step_tracking`` on the tool's own BC and
+    PPO-tuned policies, and, as a smoke check, ``eval_tracking``'s free
+    rollout under a policy whose mean head is at 1e-2 of its scale.
+    No kernel of the port's launches in (c). The physics tools need MuJoCo,
+    absent on the card's machine: they are held on the CPU alone."""
+    import contextlib
+    import copy
+    import io
+
+    import torch
+
+    from egoego_release_tpu_torch.data.amass import AMASSWindowDataset
+    from egoego_release_tpu_torch.data.formats import load_pickle, save_pickle
+    from egoego_release_tpu_torch.data.kinpoly import StateARDataset
+    from egoego_release_tpu_torch.diffusion.gaussian_diffusion import CondGaussianDiffusion, DiffusionConfig
+    from egoego_release_tpu_torch.ops import cuda_kernels as ck
+    from egoego_release_tpu_torch.ops.fused_step import TorchNoise
+    from egoego_release_tpu_torch.preprocess.qpos import motion_to_expert
+    from egoego_release_tpu_torch.rl import train_agent
+    from egoego_release_tpu_torch.tools import train_full_system_check as t_full
+    from egoego_release_tpu_torch.tools._data import tool_rest_offsets
+    from egoego_release_tpu_torch.tools import train_kinematic_tracking as t_kin
+    from egoego_release_tpu_torch.tools import train_overfit_check as t_over
+    from egoego_release_tpu_torch.training.trainer_diffusion import DiffusionTrainer
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    t_phase = time.perf_counter()
+    at = lambda: f"; {time.perf_counter() - t_phase:.0f} s into phase 20"
+    root = os.path.join(data_dir, "tools")
+    shutil.rmtree(root, ignore_errors=True)
+    fx = write_tools_fixture(root, np.random.RandomState(20), fr_num=TOOLS_KIN_FR_NUM)
+    rest = tool_rest_offsets()
+    cfg = DiffusionConfig()
+    windows = 2  # a 140-frame sequence: a 120-frame window, then the 30-frame tail after a 10-frame overlap
+    per_chain = {"stem_layer": windows * cfg.timesteps, "decoder_layer": windows * cfg.timesteps * (
+        cfg.n_dec_layers - 2), "layer_epilogue": windows * cfg.timesteps}
+    per_chain_c = {k: windows * cfg.timesteps * v for k, v in c_per_step(False).items()}
+    out = {"card": card, "demo_frames": TOOLS_DEMO_FRAMES, "per_chain": per_chain, "per_chain_c": per_chain_c}
+
+    def counted_chains(mod, name, what):
+        """Wrap ``mod.name`` (an eval chain) so that each call's launches are
+        checked against per_chain and its seconds kept."""
+        real, seen = getattr(mod, name), []
+
+        def wrapped(*a, **kw):
+            clear_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = real(*a, **kw)
+            torch.cuda.synchronize()
+            got, got_c = dict(ck.launch_counts), dict(ck.kernel_launches)
+            if got != per_chain or got_c != per_chain_c:
+                raise AssertionError(f"phase 20{what}: chain {len(seen)} launched {got}, {got_c}; want {per_chain}, "
+                                     f"{per_chain_c}")
+            seen.append(time.perf_counter() - t0)
+            return res
+        return real, wrapped, seen
+
+    def run_main(what, mod, argv, env, chain_fn=None):
+        """``mod.main(argv)`` with the knobs ``env``, its stdout kept (and
+        printed after it); the chains of ``chain_fn`` counted. Returns
+        (result, stdout, s, chain s)."""
+        old = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        real = wrapped = None
+        seen = []
+        if chain_fn is not None:
+            real, wrapped, seen = counted_chains(mod, chain_fn, what)
+            setattr(mod, chain_fn, wrapped)
+        buf = io.StringIO()
+        try:
+            clear_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                res = mod.main(argv)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            if real is not None:
+                setattr(mod, chain_fn, real)
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        text = buf.getvalue()
+        sys.stdout.write(text)
+        if json.loads(text.strip().splitlines()[-1]) != res:
+            raise AssertionError(f"phase 20{what}: the last line printed is not the result {res}")
+        return res, text, dt, seen
+
+    finite = lambda d: all(math.isfinite(v) for v in d.values() if isinstance(v, float))
+
+    # (a) train_overfit_check
+    res, text, dt, chains = run_main(
+        "a", t_over, ["--demo", fx["demo"], "--stats", fx["stats"], "--device", "cuda"],
+        {"OVERFIT_STEPS": str(TOOLS_OVERFIT_STEPS), "OVERFIT_BS": "32", "OVERFIT_ACCUM": "2"}, "eval_mpjpe")
+    losses = [float(m) for m in re.findall(r"step \d+/\d+: loss ([0-9.eE+-]+)", text)]
+    half = len(losses) // 2
+    if len(chains) != 2 or not finite(res) or len(losses) != 8 or not np.mean(losses[half:]) < np.mean(losses[:half]):
+        raise AssertionError(f"phase 20a: {len(chains)} chains, result {res}, logged losses {losses}")
+    ds = AMASSWindowDataset(fx["demo"], rest, window=cfg.window, stats_path=fx["stats"])
+    trainer = DiffusionTrainer(CondGaussianDiffusion(cfg, device=dev), grad_accum=2)
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    batches, noise = ds.batch_iterator(64, seed=1), TorchNoise(dev, seed=3)
+    prof = step_profile(lambda: trainer.train_step(state, next(batches), noise), dev, 1, 3, 3, 1)
+    prof["bound_ms"] = train_step_flops(cfg, 64) / PEAK_F32 * 1e3
+    del trainer, state
+    out["overfit"] = {"result": res, "s": dt, "chain_s": chains, "losses": losses, "step": prof}
+    log(f"phase 20a: train_overfit_check, {TOOLS_OVERFIT_STEPS} steps of 32 x 2 windows at the release widths on "
+        f"the {TOOLS_DEMO_FRAMES}-frame demo ({len(ds)} windows): {dt:.1f} s; MPJPE random init "
+        f"{res['mpjpe_random_init_mm']:.2f} mm, trained {res['mpjpe_trained_mm']:.2f} mm; logged losses "
+        f"{[round(x, 4) for x in losses]}; each eval chain (DDPM-{cfg.timesteps}, 1 x 121 + 1 x 31 tokens, f32) "
+        f"launched exactly {per_chain}, C entries {per_chain_c}, in {[round(s, 2) for s in chains]} s; a training "
+        f"step {prof['step_ms']:.2f} ms (CUDA events, median of 3), wall {prof['wall_ms']:.2f} ms, device "
+        f"{prof['device_ms']:.2f} ms, busy share {prof['device_busy_share']:.3f}, {prof['launches_per_step']:.0f} "
+        f"launches, peak {prof['peak_mib']:.0f} MiB, f32 bound {prof['bound_ms']:.3f} ms{at()} [{card}]")
+
+    # (b) train_full_system_check
+    res, text, dt, chains = run_main(
+        "b", t_full, ["--demo_root", fx["root"], "--stats", fx["stats"], "--device", "cuda"],
+        {"FULLSYS_S1_STEPS": str(TOOLS_S1_STEPS), "FULLSYS_S2_STEPS": str(TOOLS_S2_STEPS)}, "evaluate_sequence")
+    if len(chains) != 4 or not all(finite(v) for v in res.values() if isinstance(v, dict)):
+        raise AssertionError(f"phase 20b: {len(chains)} chains, result {res}")
+    out["full_system"] = {"result": res, "s": dt, "chain_s": chains}
+    log(f"phase 20b: train_full_system_check, {TOOLS_S1_STEPS} HeadNet and GravityNet steps (batch 16), "
+        f"{TOOLS_S2_STEPS} stage-2 steps (32 x 2) at the release widths: {dt:.1f} s; each of its 4 chains launched "
+        f"exactly {per_chain}, in {[round(s, 2) for s in chains]} s; {json.dumps(res)}{at()} [{card}]")
+
+    # (c) train_kinematic_tracking, on the demo's first TOOLS_KIN_FRAMES frames
+    demo = load_pickle(fx["demo"])[0]
+    kin_demo = os.path.join(root, "demo_kin.p")
+    save_pickle({0: {k: demo[k][:TOOLS_KIN_FRAMES] for k in ("trans", "root_orient", "body_pose")} | {
+        "seq_name": demo["seq_name"]}}, kin_demo)
+    scored, real_eval = [], t_kin.eval_tracking
+
+    def keep_policy(env, agent, state, *a, **kw):
+        """eval_tracking, keeping the policy main scores: its BC policy, then its PPO-tuned one."""
+        scored.append(state["policy"])
+        return real_eval(env, agent, state, *a, **kw)
+
+    t_kin.eval_tracking = keep_policy
+    try:
+        res, text, dt, _ = run_main(
+            "c", t_kin, ["--demo", kin_demo, "--neutral", fx["neutral"], "--cfg", fx["cfg"], "--work_dir",
+                         os.path.join(root, "kin"), "--device", "cuda"], TOOLS_KIN)
+    finally:
+        t_kin.eval_tracking = real_eval
+    if not all(finite(res[k]) for k in ("tracking_bc", "tracking_final", "tracking_untrained")):
+        raise AssertionError(f"phase 20c: {res}")
+    out["kinematic"] = {"result": res, "s": dt, "take_frames": TOOLS_KIN_FRAMES}
+    log(f"phase 20c: train_kinematic_tracking {TOOLS_KIN} on a {TOOLS_KIN_FRAMES}-frame take: {dt:.1f} s; "
+        f"{json.dumps(res)}{at()} [{card}]")
+
+    # one closed-loop BC step, one PPO iteration and eval_tracking on the whole demo
+    aa = np.concatenate([demo["root_orient"][:, None], demo["body_pose"].reshape(-1, 21, 3)], 1)
+    rec = motion_to_expert(demo["trans"], aa, rest, device=dev)
+    rec["seq_name"] = "demo"
+    env, agent = train_agent.build_from_config(train_agent.KinpolyConfig(fx["cfg"]), rest, 32, device=dev)
+    policy = t_kin.new_policy(env, agent, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        # the mean head at 1e-2 of its scale: a free rollout of a barely
+        # trained policy is chaotic (card and CPU parted by 118% of a frame's
+        # MPJPE within 139 frames), this one f32 roundoff does not tip over
+        policy.fc.weight.mul_(1e-2)
+    cl_policy = copy.deepcopy(policy)  # the steps train a copy; the eval below holds the policy as made
+    cl_opt = t_kin.optax_adam(cl_policy, 1e-3)
+    lr = t_kin.cl_learning_rate(0, 1e-3, 50)
+    frames = rec["qpos"].shape[0]
+    kin = out["kinematic"]
+    kin["closed_loop_step"] = step_profile(lambda: t_kin.closed_loop_step(env, cl_policy, cl_opt, [rec], lr), dev,
+                                           0, 1, 1, 1)
+    expert_path = os.path.join(root, "kin", "expert_demo.p")
+    save_pickle({"demo": rec}, expert_path)
+    batch = train_agent.make_expert_batch(StateARDataset(expert_path, fr_num=TOOLS_KIN_FR_NUM, train=True, seed=0),
+                                          32, np.random.RandomState(0), dev)
+    state = agent.state_for(copy.deepcopy(policy), agent.init_state(torch.Generator().manual_seed(1))["value"])
+    ppo_noise = TorchNoise(dev, seed=4)
+    kin["ppo_iteration"] = step_profile(lambda: agent.iterate(state, ppo_noise, env.reset(batch["qpos"][0]), batch),
+                                        dev, 0, 1, 1, 1)
+    st = {"policy": policy}
+    kin["eval_tracking"] = step_profile(lambda: t_kin.eval_tracking(env, agent, st, rec, rest), dev, 0, 1, 1, 1)
+    env_cpu, agent_cpu = train_agent.build_from_config(train_agent.KinpolyConfig(fx["cfg"]), rest, 32, device=cpu)
+    rel_err = lambda pf, pf_h: float((np.abs(pf - pf_h) / np.maximum(pf_h, 1e-3)).max())
+    # teacher-forced, on the weights the tool trained: one step from each expert frame
+    kin["one_step"] = {}
+    for name, p in zip(("bc", "ppo"), scored[:2]):
+        pf = t_kin.one_step_tracking(env, {"policy": p}, rec)
+        pf_h = t_kin.one_step_tracking(env_cpu, {"policy": copy.deepcopy(p).to(cpu)}, rec)
+        if pf.shape != (frames - 1,):
+            raise AssertionError(f"phase 20c: one_step_tracking gave {pf.shape}")
+        kin["one_step"][name] = {"card_vs_cpu": rel_err(pf, pf_h), "mpjpe_mm": {"card": float(pf.mean()),
+                                                                                 "cpu": float(pf_h.mean())}}
+    # the free rollout, a smoke check: the mean head at 1e-2
+    card_ev = t_kin.eval_tracking(env, agent, st, rec, rest)
+    host_ev = t_kin.eval_tracking(env_cpu, agent_cpu, {"policy": copy.deepcopy(policy).to(cpu)}, rec, rest)
+    pf, pf_h = card_ev["per_frame_mpjpe_mm"], host_ev["per_frame_mpjpe_mm"]
+    rel = rel_err(pf, pf_h)
+    kin["eval_card_vs_cpu"] = rel
+    kin["eval_mpjpe_mm"] = {"card": card_ev["mpjpe_mm"], "cpu": host_ev["mpjpe_mm"]}
+    launched = {**dict(ck.launch_counts), **dict(ck.kernel_launches)}
+    for name, what in (("closed_loop_step", f"one closed-loop BC step ({frames - 1}-step rollout, then one forward "
+                                             f"and backward over it)"),
+                       ("ppo_iteration", "one PPO iteration (32 envs, horizon 32, 5 epochs)"),
+                       ("eval_tracking", f"eval_tracking ({frames - 1}-step rollout, FK)")):
+        r = kin[name]
+        log(f"phase 20c: {what} on the {frames}-frame demo, hsize {list(agent.hsize)}: {r['step_ms']:.1f} ms "
+            f"(CUDA events, one call), wall {r['wall_ms']:.1f} ms, device {r['device_ms']:.2f} ms, busy share "
+            f"{r['device_busy_share']:.3f}, {r['launches_per_step']:.0f} device kernels and copies, peak "
+            f"{r['peak_mib']:.1f} MiB{at()} [{card}]")
+    for name, r in kin["one_step"].items():
+        log(f"phase 20c: one_step_tracking card vs CPU on the tool's {name} policy: per-frame MPJPE within "
+            f"{r['card_vs_cpu']:.3e} of the CPU's (bound 1e-3); MPJPE card {r['mpjpe_mm']['card']:.3f} mm, CPU "
+            f"{r['mpjpe_mm']['cpu']:.3f} mm")
+    log(f"phase 20c: eval_tracking card vs CPU, the free rollout with the mean head at 1e-2 (a smoke check): "
+        f"per-frame MPJPE within {rel:.3e} of the CPU's (bound 1e-3); MPJPE card {card_ev['mpjpe_mm']:.3f} mm, CPU "
+        f"{host_ev['mpjpe_mm']:.3f} mm")
+    if len(scored) != 3 or not all(r["card_vs_cpu"] <= 1e-3 for r in kin["one_step"].values()):
+        raise AssertionError(f"phase 20c: {len(scored)} policies scored; one_step_tracking card vs CPU "
+                             f"{kin['one_step']}")
+    if not rel <= 1e-3 or pf.shape != (frames,):
+        raise AssertionError(f"phase 20c: eval_tracking card vs CPU {rel}")
+    if any(launched.values()):
+        raise AssertionError(f"phase 20c: a kernel of the port's launched on the kinematic paths: {launched}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 20: the physics tools (physics_tracking_check, train_physics_controller) need mujoco, absent "
+        f"here: held on the CPU alone (tests/test_torch_physics_tools.py); phase 20 took {out['phase_s']:.1f} s "
+        f"[{card}]")
     return out
 
 
@@ -4879,6 +5233,23 @@ def main() -> int:
     physics_rl = physics_rl_phase(card, data_dir, os.path.join(data_dir, "baselines", "expert_card.p"),
                                   os.path.join(data_dir, "baselines", "rest.npy"), clear_counts)
 
+    # -- phase 20: the capability tools --------------------------------------
+    # first the step wrappers at the tools' own shapes: one sequence, the
+    # 121-token window and the 31-token tail of the 140-frame demo, in f32
+    prep = {True: fs.prepare_step_params(model, True), False: fs.prepare_step_params(model, False)}
+    tools_k = {}
+    for tw in (cfg.window, TOOLS_DEMO_FRAMES - cfg.window + cfg.overlap_frames):
+        inp = inputs(tw, 1)
+        for name, what, wrapper, plain, args, extra in calls(inp, False):
+            tools_k[name] = max(tools_k.get(name, 0.0), check(name, what, wrapper, plain, args, extra, False, tw,
+                                                              phase="phase 20"))
+    del prep, inp
+    tools = tools_phase(card, data_dir, clear_counts, c_per_step)
+    n_chains = len(tools["overfit"]["chain_s"]) + len(tools["full_system"]["chain_s"])
+    for name in per_step:
+        results[name]["tools"] = {"max_abs_err_f32_1x121_1x31": tools_k[name],
+                                  "launches": n_chains * tools["per_chain"][name], "chains": n_chains}
+
     replaces = {"stem_layer": "egoego_release_tpu/ops/fused_step.py:126",
                 "decoder_layer": "egoego_release_tpu/ops/fused_layer.py:113",
                 "layer_epilogue": "egoego_release_tpu/ops/fused_step.py:160",
@@ -4917,7 +5288,7 @@ def main() -> int:
             **{key: r[key] for key in ("device_ms", "library_device_ms", "bound_f32_core_ms", "per_shape",
                                        "mma_sync_tf32_tflops", "launch_table", "gemm_launch", "attention_launch",
                                        "c_kernels", "launches_path_e", "max_abs_err_path_e", "act_bf16", "f32",
-                                       "f32_launch_table", "pred_noise") if key in r},
+                                       "f32_launch_table", "pred_noise", "tools") if key in r},
         })
     # the tensor-parallel layer's own launches: the 64 x 121-token, tp 2 rows
     # of phase 15 (bf16 PARTIAL fc; residual_layernorm with an f32 residual),
@@ -4951,7 +5322,8 @@ def main() -> int:
                       "stage1_training": stage1_training, "outputs": outputs,
                       "parallel": {k: v for k, v in parallel.items() if k != "kernels"},
                       "optical_flow": optical_flow, "baselines": baselines,
-                      "rl": {k: v for k, v in rl.items() if k != "pred_noise"}, "physics_rl": physics_rl}))
+                      "rl": {k: v for k, v in rl.items() if k != "pred_noise"}, "physics_rl": physics_rl,
+                      "tools": tools}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
