@@ -47,6 +47,7 @@ from egoego_release_tpu_torch.ops.fused_step import (
     prepare_step_params,
 )
 from egoego_release_tpu_torch.parallel.mesh import shard_module_, sharded_rows
+from egoego_release_tpu_torch.utils import trace
 from egoego_release_tpu_torch.utils.device import resolve_device
 
 NUM_JOINTS = fk_mod.NUM_JOINTS
@@ -150,6 +151,7 @@ def fused_layer_p_sample_loop(diff, x_start, cond_mask, padding_mask=None, inpai
         sched = ddim_scalars(diff.consts, cfg.timesteps, ddim_steps, eta)
     layers = diff.fused_layer_params()
     for t, scal in sched:
+        span = trace.begin("step") if trace.ON else -1
         noise_t = torch.full((shape[0],), t, dtype=torch.int64, device=x.device)
         out = fused_denoiser_apply(diff.model, torch.cat([x, x_cond], dim=-1), noise_t,
                                    padding_mask, cfg, layers=layers)
@@ -159,6 +161,8 @@ def fused_layer_p_sample_loop(diff, x_start, cond_mask, padding_mask=None, inpai
         x = a1 * out.clamp(-1.0, 1.0) + a2 * x + a3 * draw(noise.step)
         if inpaint_value is not None:
             x = torch.where(inpaint_mask > 0, inpaint_value, x)
+        if span >= 0:
+            trace.end(span)
     return x
 
 
@@ -264,6 +268,7 @@ class CondGaussianDiffusion:
 
     # -- reverse process ---------------------------------------------------
 
+    @trace.spanned("window.loop")
     def _loop(self, x_start, cond_mask, padding_mask, inpaint_value, inpaint_mask, *, noise, **kw):
         """The reverse chain of the configured route. With
         ``sample_microbatch`` N below the batch, the batch is padded to a
@@ -355,28 +360,33 @@ class CondGaussianDiffusion:
         rot6d = rot.matrix_to_rot6d(rot.quat_to_matrix(rot.quat_multiply(inv, gq)))
         return torch.cat([jpos_n.reshape(bs, ov, JPOS_DIM), rot6d.reshape(bs, ov, ROT_DIM)], dim=-1)
 
+    @trace.entered
+    @trace.spanned("window")
     def _sample_window(self, head_jpos, head_jquat, stats, inpaint_value, noise):
         """One canonical window: canonicalize -> reverse chain (with the
         overlap inpaint when ``inpaint_value`` is given) -> decode."""
-        bs, t = head_jpos.shape[:2]
-        x_start, recover = self._canonicalize_window(head_jpos, head_jquat, stats)
-        cond_mask = head_condition_mask(bs, t, device=x_start.device)
-        value = mask = None
-        if inpaint_value is not None:
-            ov = self.cfg.overlap_frames
-            mask = x_start.new_zeros(bs, t, 1)
-            mask[:, :ov] = 1.0
-            value = x_start.new_zeros(bs, t, D_FEATS)
-            value[:, :ov] = inpaint_value
+        with trace.span("window.canonicalize"):
+            bs, t = head_jpos.shape[:2]
+            x_start, recover = self._canonicalize_window(head_jpos, head_jquat, stats)
+            cond_mask = head_condition_mask(bs, t, device=x_start.device)
+            value = mask = None
+            if inpaint_value is not None:
+                ov = self.cfg.overlap_frames
+                mask = x_start.new_zeros(bs, t, 1)
+                mask[:, :ov] = 1.0
+                value = x_start.new_zeros(bs, t, D_FEATS)
+                value[:, :ov] = inpaint_value
         if self.cfg.sampler == "ddim":
             x = self.p_sample_loop_ddim(x_start, cond_mask, num_steps=self.cfg.ddim_steps,
                                         inpaint_value=value, inpaint_mask=mask, noise=noise)
         else:
             x = self.p_sample_loop(x_start, cond_mask, inpaint_value=value, inpaint_mask=mask,
                                    noise=noise)
-        return self.convert_model_res_to_data(x, recover, stats)
+        with trace.span("window.decode"):
+            return self.convert_model_res_to_data(x, recover, stats)
 
     @torch.no_grad()
+    @trace.entered
     def sample_sliding_window_w_canonical(self, head_jpos, head_jquat, stats: NormStats,
                                           rest_offsets, *, noise, mesh=None):
         """Long sequences in overlapping windows with per-window
@@ -403,16 +413,18 @@ class CondGaussianDiffusion:
             aa, root, headp = self._sample_window(
                 head_jpos[:, t_idx: t_idx + tw], head_jquat[:, t_idx: t_idx + tw], stats,
                 inpaint_value, noise.window())
-            if t_idx == 0:
-                whole_aa, whole_root, whole_head = aa, root, headp
-            else:
-                move = whole_head[:, -1:, :] - headp[:, ov - 1: ov, :]
-                root = root + move
-                headp = headp + move
-                whole_aa = torch.cat([whole_aa, aa[:, ov:]], dim=1)
-                whole_root = torch.cat([whole_root, root[:, ov:]], dim=1)
-                whole_head = torch.cat([whole_head, headp[:, ov:]], dim=1)
-            inpaint_value = self._next_window_inpaint(root, aa, rest_offsets, stats)
+            with trace.span("window.stitch"):
+                if t_idx == 0:
+                    whole_aa, whole_root, whole_head = aa, root, headp
+                else:
+                    move = whole_head[:, -1:, :] - headp[:, ov - 1: ov, :]
+                    root = root + move
+                    headp = headp + move
+                    whole_aa = torch.cat([whole_aa, aa[:, ov:]], dim=1)
+                    whole_root = torch.cat([whole_root, root[:, ov:]], dim=1)
+                    whole_head = torch.cat([whole_head, headp[:, ov:]], dim=1)
+            with trace.span("window.inpaint_fk"):
+                inpaint_value = self._next_window_inpaint(root, aa, rest_offsets, stats)
         return whole_aa, whole_root
 
     @torch.no_grad()

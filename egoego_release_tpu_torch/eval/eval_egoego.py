@@ -56,6 +56,7 @@ from egoego_release_tpu_torch.ops import geometry
 from egoego_release_tpu_torch.ops.fused_step import TorchNoise
 from egoego_release_tpu_torch.ops.mujoco_xml import load_mujoco_skeleton, qpos_fk
 from egoego_release_tpu_torch.parallel.mesh import spawn
+from egoego_release_tpu_torch.utils.logging import profile_trace
 from egoego_release_tpu_torch.vis.html_viewer import vis_skeleton_motion_html
 
 ARES_TEST_SCENES = ("office_0", "hotel_0", "room_2", "frl_apartment_4", "apartment_0")
@@ -107,7 +108,8 @@ def run_batched(opt, pipeline, eligible, noise):
         "gt_head_pose": np.stack([np.asarray(gt["head_pose"], np.float32) for _, _, gt in chunk]),
     } for chunk in chunks]
     t0 = time.perf_counter()
-    res = run_batches_pipelined(pipeline, batches, noise, sample_bs=opt.sample_bs)
+    with profile_trace(opt.profile_dir):
+        res = run_batches_pipelined(pipeline, batches, noise, sample_bs=opt.sample_bs)
     dt = time.perf_counter() - t0
     n = sum(len(c) for c in chunks)
     print(f"batched eval: {n} seqs in {dt:.1f}s ({n / dt:.2f} seqs/sec on {pipeline.device})")
@@ -290,6 +292,9 @@ def parse_opt(argv=None):
     p.add_argument("--out_dir", default="./results")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--profile_dir", default="",
+                   help="write a torch.profiler trace of the batched eval (run_batches_pipelined) there "
+                        "(trace.json) and the program's spans by name (spans.json, utils/trace.py)")
     return p.parse_args(argv)
 
 

@@ -35,6 +35,7 @@ from egoego_release_tpu_torch.eval.pipeline import (
 )
 from egoego_release_tpu_torch.ops.fused_step import TorchNoise
 from egoego_release_tpu_torch.parallel.mesh import spawn
+from egoego_release_tpu_torch.utils.logging import profile_trace
 
 TEST_SUBSETS = ("Transitions_mocap", "HumanEva")
 
@@ -115,7 +116,8 @@ def run(opt, mesh=None, devices=None) -> dict:
         batches = [{f"gt_{key}": np.stack([rec[key][:t] for _, rec in chunk])
                     for key in ("trans", "root_orient", "body_pose")} for chunk in chunks]
         t0 = time.perf_counter()
-        res = run_batches_pipelined(pipeline, batches, noise, sample_bs=opt.sample_bs)
+        with profile_trace(opt.profile_dir):
+            res = run_batches_pipelined(pipeline, batches, noise, sample_bs=opt.sample_bs)
         dt = time.perf_counter() - t0
         for chunk, b in zip(chunks, res):
             for (seq_name, _), md in zip(chunk, b["metrics"]):
@@ -166,6 +168,9 @@ def parse_opt(argv=None):
     p.add_argument("--out_dir", default="./results")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--profile_dir", default="",
+                   help="write a torch.profiler trace of the batched eval (run_batches_pipelined) there "
+                        "(trace.json) and the program's spans by name (spans.json, utils/trace.py)")
     return p.parse_args(argv)
 
 

@@ -27,6 +27,7 @@ from egoego_release_tpu_torch.ops import floor as floor_mod
 from egoego_release_tpu_torch.ops import geometry
 from egoego_release_tpu_torch.ops import rotations as rot
 from egoego_release_tpu_torch.parallel.mesh import Mesh
+from egoego_release_tpu_torch.utils import trace
 
 HEAD_IDX = fk_mod.HEAD_IDX
 
@@ -349,6 +350,7 @@ def _prechain(pf: dict) -> dict:
     return {"hp": hp, "gq": pf["gq"], "gp": pf["gp"], "s1m": s1m}
 
 
+@trace.entered
 def run_batches_pipelined(pipeline: EgoEgoPipeline, batches: list[dict], noise, sample_bs: int = 1):
     """Evaluate several batches of sequences in JAX's dispatch order, with
     one blocking device-to-host copy a batch.
@@ -371,7 +373,8 @@ def run_batches_pipelined(pipeline: EgoEgoPipeline, batches: list[dict], noise, 
     chain k-1 by the time batch k+1's host steps (the ``va2rot`` integration
     and the Umeyama solve) wait on it. The result is the same as
     ``gt_from_*_batched`` + ``stage1_head_pose_batched`` + ``evaluate_batch``
-    per batch with the same noise sources."""
+    per batch with the same noise sources. An entry of the span recorder
+    (``utils/trace.py``), with the ``driver.*`` spans of each batch."""
     n_b = len(batches)
     if n_b == 0:
         return []
@@ -383,47 +386,58 @@ def run_batches_pipelined(pipeline: EgoEgoPipeline, batches: list[dict], noise, 
 
     def prefetch(k):
         batch = batches[k]
-        if "gt_qpos" in batch:
-            gq, gp, head = gt_from_qpos_batched(pipeline, batch["gt_qpos"])
-        else:
-            gq, gp, head = gt_from_smpl_params_batched(pipeline, batch["gt_trans"], batch["gt_root_orient"],
-                                                       batch["gt_body_pose"])
-        records = batch.get("records")
-        ghp = batch.get("gt_head_pose")
-        return {"gq": gq, "gp": gp, "head": head,
-                "s1": pipeline.stage1_head_pose_batched(records) if records is not None else None,
-                "ghp": None if ghp is None else pipeline._upload(np.asarray(ghp, np.float32))}
+        with trace.span("driver.prefetch", k):
+            if "gt_qpos" in batch:
+                gq, gp, head = gt_from_qpos_batched(pipeline, batch["gt_qpos"])
+            else:
+                gq, gp, head = gt_from_smpl_params_batched(pipeline, batch["gt_trans"], batch["gt_root_orient"],
+                                                           batch["gt_body_pose"])
+            records = batch.get("records")
+            ghp = batch.get("gt_head_pose")
+            s1 = None
+            if records is not None:
+                with trace.span("driver.stage1"):
+                    s1 = pipeline.stage1_head_pose_batched(records)
+            return {"gq": gq, "gp": gp, "head": head, "s1": s1,
+                    "ghp": None if ghp is None else pipeline._upload(np.asarray(ghp, np.float32))}
 
     def collect(k, n_seqs, host, done, spec, n_extra):
-        if done is not None:
-            done.synchronize()
-        flat = host.numpy()
-        mds = _unflatten_metrics(flat[:, :-n_extra] if n_extra else flat, spec)
-        s1 = None
-        if n_extra:
-            s1_np = flat[::sample_bs, -n_extra:]
-            s1 = tuple(s1_np[:, i].copy() for i in range(n_extra))
-        results[k] = {"metrics": select_best_of(mds, n_seqs, sample_bs) if sample_bs > 1 else mds, "s1": s1}
+        with trace.span("driver.collect", k):
+            if done is not None:
+                with trace.span("driver.wait"):
+                    done.synchronize()
+            flat = host.numpy()
+            mds = _unflatten_metrics(flat[:, :-n_extra] if n_extra else flat, spec)
+            s1 = None
+            if n_extra:
+                s1_np = flat[::sample_bs, -n_extra:]
+                s1 = tuple(s1_np[:, i].copy() for i in range(n_extra))
+            results[k] = {"metrics": select_best_of(mds, n_seqs, sample_bs) if sample_bs > 1 else mds, "s1": s1}
 
     pending = None
     with torch.no_grad():
         pf = prefetch(0)
         for k in range(n_b):
-            prep = _prechain(pf)
+            with trace.span("driver.prechain", k):
+                prep = _prechain(pf)
             pf = prefetch(k + 1) if k + 1 < n_b else None
             hp, gq, gp = prep["hp"], prep["gq"], prep["gp"]
             n_seqs = hp.shape[0]
             if sample_bs > 1:
                 hp, gq, gp = _tile_samples(hp, gq, gp, sample_bs)
-            flat, spec, n_extra = _eval_metrics_dispatch(
-                _eval_chain_dispatch(pipeline, hp, gq, gp, noises[k]), prep["s1m"])
-            if cuda:
-                host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
-                host.copy_(flat, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
-            else:
-                host, done = flat, None
+            with trace.span("driver.chain", k):
+                chain = _eval_chain_dispatch(pipeline, hp, gq, gp, noises[k])
+            with trace.span("driver.metrics", k):
+                flat, spec, n_extra = _eval_metrics_dispatch(chain, prep["s1m"])
+            del chain  # the chain's outputs are the metric suite's alone: free them before the next chain
+            with trace.span("driver.copy", k):
+                if cuda:
+                    host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+                    host.copy_(flat, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record()
+                else:
+                    host, done = flat, None
             if pending is not None:
                 collect(*pending)
             pending = (k, n_seqs, host, done, spec, n_extra)

@@ -27,6 +27,7 @@ from egoego_release_tpu_torch.data.headpose import ARESDemoDataset
 from egoego_release_tpu_torch.eval.build import build_pipeline
 from egoego_release_tpu_torch.ops import geometry
 from egoego_release_tpu_torch.ops.fused_step import TorchNoise
+from egoego_release_tpu_torch.utils.logging import profile_trace
 from egoego_release_tpu_torch.vis.html_viewer import vis_skeleton_motion_html
 from egoego_release_tpu_torch.vis.mesh_export import export_obj_sequence
 
@@ -49,7 +50,8 @@ def run(opt) -> list[str]:
         head_pose = s1["head_pose"].cpu().numpy()
         head_pose[:, 2] += opt.demo_floor_offset  # the demo floor offset of the bundled sequence
 
-        local_aa, root_pos = pipeline.stage2_generate(head_pose, noise, sample_bs=1)
+        with profile_trace(opt.profile_dir and os.path.join(opt.profile_dir, rec["seq_name"])):
+            local_aa, root_pos = pipeline.stage2_generate(head_pose, noise, sample_bs=1)
         _, pred_jpos = pipeline.fk(root_pos, local_aa)
         pred_jpos = pred_jpos[0].cpu().numpy()
         floor, _, _ = geometry.determine_floor_height_and_contacts(pred_jpos, fps=30)
@@ -93,6 +95,9 @@ def parse_opt(argv=None):
     p.add_argument("--out_dir", default="./demo_out")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--profile_dir", default="",
+                   help="write a torch.profiler trace of each sequence's stage-2 chain (<profile_dir>/<sequence>/"
+                        "trace.json) and the program's spans by name (spans.json, utils/trace.py)")
     return p.parse_args(argv)
 
 

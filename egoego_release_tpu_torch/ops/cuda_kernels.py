@@ -20,6 +20,11 @@ The eager path calls ctypes directly (the dispatcher would add host time to
 each of a reverse step's launches); while ``torch.export`` traces, each
 wrapper below records its op instead, so an exported program keeps every
 kernel as a node and needs this module, which registers the ops, to load.
+
+While the span recorder (``utils/trace.py``) is on, each launch records a
+``launch.args`` span (its checks and argument struct) and a
+``launch.entry`` span (the stream, the device guard and the C entry),
+tagged with the kernel's launch name.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ from pathlib import Path
 
 import torch
 from torch import Tensor
+
+from egoego_release_tpu_torch.utils import trace
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
@@ -332,12 +339,17 @@ def gemm_args(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, o
     )
 
 
-def _launch_gemm(entry: str, args: GemmArgs, device) -> None:
+def _launch_gemm(entry: str, args: GemmArgs, device, t0=0) -> None:
+    """The launch through the C entry ``entry``; ``t0``: when the span
+    recorder is on, the time its checks began (``trace.launch``)."""
+    t1 = t0 and trace.now()
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         _check(getattr(_lib("gemm"), entry)(ctypes.byref(args), stream), "gemm")
     kernel_launches[GEMM_KERNELS[args.kernel]] += 1
     gemm_modes[STEP_NOISE if args.step_noise else args.mode] += 1
+    if t0:
+        trace.launch(GEMM_KERNELS[args.kernel], t0, t1)
 
 
 def gemm(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -383,9 +395,10 @@ def gemm(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         torch.ops.egoego.gemm(a, w, bias, out, mode, M, a2, res, ln_s, ln_b, row_mask, pos, emb, x, noise, ipv,
                               ipm, out_b, t_data, scal)
         return out_b if out is None else out
+    t0 = trace.ON and trace.now()
     args = gemm_args(mode, a, w, bias, out, M=M, a2=a2, res=res, ln_s=ln_s, ln_b=ln_b, row_mask=row_mask, pos=pos,
                      emb=emb, x=x, noise=noise, ipv=ipv, ipm=ipm, out_b=out_b, t_data=t_data, scal=scal)
-    _launch_gemm("egoego_gemm", args, a.device)
+    _launch_gemm("egoego_gemm", args, a.device, t0)
     return out_b if out is None else out
 
 
@@ -446,6 +459,7 @@ def attention(qkv: torch.Tensor, ctx: torch.Tensor, *, B: int, T: int, t_keys: i
     if tracing():
         torch.ops.egoego.attention(qkv, ctx, B, T, t_keys, n_head, d_k, d_v)
         return ctx
+    t0 = trace.ON and trace.now()
     dt = qkv.dtype
     _layout(qkv, (torch.float32, torch.bfloat16), (B * T, n_head * (2 * d_k + d_v)), "qkv")
     _layout(ctx, dt, (B * T, n_head * d_v), "ctx")
@@ -459,13 +473,16 @@ def attention(qkv: torch.Tensor, ctx: torch.Tensor, *, B: int, T: int, t_keys: i
         raise ValueError("attention: need CUDA tensors (the plain version takes CPU tensors)")
     if kernel == "mha":
         q, k, v, out = qkv_heads(qkv, ctx, B=B, T=T, n_head=n_head, d_k=d_k, d_v=d_v)
-        mha(q, k, v, out, t_keys=t_keys)
+        _mha(q, k, v, out, t_keys, t0)
         return ctx
     args = attention_args(qkv, ctx, B=B, T=T, t_keys=t_keys, n_head=n_head, d_k=d_k, d_v=d_v, kernel=kernel)
+    t1 = t0 and trace.now()
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     with torch.cuda.device(qkv.device):
         _check(_lib("attention").egoego_attention(ctypes.byref(args), stream), kernel)
     kernel_launches[kernel] += 1
+    if t0:
+        trace.launch(kernel, t0, t1)
     return ctx
 
 
@@ -507,6 +524,12 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, *,
     if tracing():
         torch.ops.egoego.mha(q, k, v, out, t_keys)
         return out
+    return _mha(q, k, v, out, t_keys, trace.ON and trace.now())
+
+
+def _mha(q: Tensor, k: Tensor, v: Tensor, out: Tensor, t_keys: int, t0) -> Tensor:
+    """``mha``'s launch; ``t0``: when the span recorder is on, the time the
+    launch's checks began (``attention``'s, on its f32 route)."""
     key = (t_keys, q.shape, k.shape, v.shape, out.shape, q.stride(), k.stride(), v.stride(), out.stride(),
            q.dtype, k.dtype, v.dtype, out.dtype, q.device, k.device, v.device, out.device)
     args = _mha_layouts.get(key)
@@ -516,10 +539,13 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, *,
     if any(p % 16 for p in ptrs):
         raise ValueError("mha: need 16-byte aligned q, k, v and out")
     args.q, args.k, args.v, args.out = ptrs
+    t1 = t0 and trace.now()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         _check(_lib("mha").egoego_mha(ctypes.byref(args), stream), "mha")
     kernel_launches["mha"] += 1
+    if t0:
+        trace.launch("mha", t0, t1)
     return out
 
 
@@ -534,6 +560,7 @@ def residual_layernorm(p: Tensor, bias: Tensor, res: Tensor, ln_s: Tensor, ln_b:
     if tracing():
         torch.ops.egoego.residual_layernorm(p, bias, res, ln_s, ln_b, row_mask, out, out_b)
         return out_b if out is None else out
+    t0 = trace.ON and trace.now()
     M, N = p.shape
     _need(p, torch.float32, (M, N), "p")
     _need(res, (torch.float32, torch.bfloat16), (M, N), "res")
@@ -549,11 +576,14 @@ def residual_layernorm(p: Tensor, bias: Tensor, res: Tensor, ln_s: Tensor, ln_b:
     args = RlnArgs(p=_ptr(p), bias=_ptr(bias), res=_ptr(res), ln_s=_ptr(ln_s), ln_b=_ptr(ln_b),
                    row_mask=_ptr(row_mask), out=_ptr(out), out_b=_ptr(out_b), M=M, N=N,
                    res_bf16=int(res.dtype == torch.bfloat16))
+    t1 = t0 and trace.now()
     stream = torch.cuda.current_stream(p.device).cuda_stream
     with torch.cuda.device(p.device):
         _check(_lib("residual_layernorm").egoego_residual_layernorm(ctypes.byref(args), stream),
                "residual_layernorm")
     kernel_launches["residual_layernorm"] += 1
+    if t0:
+        trace.launch("residual_layernorm", t0, t1)
     return out_b if out is None else out
 
 

@@ -63,6 +63,7 @@ from egoego_release_tpu_torch.ops.fused_layer import (
     linear_plain,
     with_splits,
 )
+from egoego_release_tpu_torch.utils import trace
 
 
 def prepare_step_params(model, bf16: bool) -> dict:
@@ -222,11 +223,15 @@ def fused_denoise_step(x, xc, emb, pos, mask, noise, scal, ipv, ipm, prep, *, n_
     the card): ``pack_xa(x, xc)``, updated in place to x_next's.
     ``act_bf16``: the outputs of layers 0 .. L-2 cross between the calls as
     bf16 tensors alone."""
+    span = trace.begin("step") if trace.ON else -1
     kw = dict(n_head=n_head, d_k=d_k, d_v=d_v)
     h, hb = stem_layer(x, xc, emb, pos, mask, prep, with_copy=True, xa=xa, act_bf16=act_bf16, **kw)
     for lp in prep["layers"][1:-1]:
         h, hb = decoder_layer(h, mask, lp, hb=hb, with_copy=True, act_bf16=act_bf16, **kw)
-    return layer_epilogue(h, mask, x, noise, scal, ipv, ipm, prep, hb=hb, xa=xa, **kw)
+    x = layer_epilogue(h, mask, x, noise, scal, ipv, ipm, prep, hb=hb, xa=xa, **kw)
+    if span >= 0:
+        trace.end(span)
+    return x
 
 
 # -- schedule scalars (host, f32) ----------------------------------------
@@ -341,38 +346,43 @@ def fused_p_sample_loop(diff, x_start, cond_mask, padding_mask=None, inpaint_val
     cfg = diff.cfg
     if cfg.n_dec_layers < 2:
         raise ValueError("the fused step needs n_dec_layers >= 2")
-    prep = diff.step_params()
     bsz, t, d = x_start.shape
     shape = (bsz, t, d)
     draw = lambda f: f(shape).to(x_start.device, torch.float32).contiguous()
-    x = draw(noise.initial)
-    x_cond = (x_start * (1.0 - cond_mask) + cond_mask * draw(noise.cond)).contiguous()
-    if padding_mask is None:
-        mask = x_start.new_ones(bsz, t + 1)
-    else:
-        mask = padding_mask[:, 0, :].float().contiguous()
-    pos = prep["pos_table"][1: t + 2].contiguous()
-    if inpaint_value is not None:
-        ipv = inpaint_value.float().contiguous()
-        ipm = inpaint_mask[..., 0].float().contiguous()
-    else:
-        ipv = ipm = None
+    with trace.span("loop.setup"):
+        prep = diff.step_params()
+        x = draw(noise.initial)
+        x_cond = (x_start * (1.0 - cond_mask) + cond_mask * draw(noise.cond)).contiguous()
+        if padding_mask is None:
+            mask = x_start.new_ones(bsz, t + 1)
+        else:
+            mask = padding_mask[:, 0, :].float().contiguous()
+        pos = prep["pos_table"][1: t + 2].contiguous()
+        if inpaint_value is not None:
+            ipv = inpaint_value.float().contiguous()
+            ipm = inpaint_mask[..., 0].float().contiguous()
+        else:
+            ipv = ipm = None
 
-    if ddim_steps is None:
-        sched = ddpm_scalars(diff.consts, cfg.timesteps, cfg.objective == "pred_noise")
-    else:
-        sched = ddim_scalars(diff.consts, cfg.timesteps, ddim_steps, eta)
-    embs = noise_level_embeddings(diff.model, [s[0] for s in sched])
-    kw = dict(n_head=cfg.n_head, d_k=cfg.d_k, d_v=cfg.d_v)
-    # the stem's A on the card, packed once a window; each step's update
-    # writes x_next's part
-    kernels = x.is_cuda or ck.tracing()
-    xa = pack_xa(x, x_cond, prep["wst"].shape[1], prep["wst"].dtype) if kernels else None
+        if ddim_steps is None:
+            sched = ddpm_scalars(diff.consts, cfg.timesteps, cfg.objective == "pred_noise")
+        else:
+            sched = ddim_scalars(diff.consts, cfg.timesteps, ddim_steps, eta)
+        embs = noise_level_embeddings(diff.model, [s[0] for s in sched])
+        kw = dict(n_head=cfg.n_head, d_k=cfg.d_k, d_v=cfg.d_v)
+        # the stem's A on the card, packed once a window; each step's update
+        # writes x_next's part
+        kernels = x.is_cuda or ck.tracing()
+        xa = pack_xa(x, x_cond, prep["wst"].shape[1], prep["wst"].dtype) if kernels else None
     if ck.tracing():
         return _traced_loop(x, x_cond, embs, pos, mask, ipv, ipm, prep, sched, xa,
                             lambda i: draw(lambda sh: noise.step_at(i, sh)), act_bf16, kw)
     for i, (_, scal) in enumerate(sched):
-        x = fused_denoise_step(x, x_cond, embs[i], pos, mask, draw(noise.step),
+        t0 = trace.ON and trace.now()
+        step_noise = draw(noise.step)
+        if t0:
+            trace.leaf("step.noise", t0)
+        x = fused_denoise_step(x, x_cond, embs[i], pos, mask, step_noise,
                                scal, ipv, ipm, prep, xa=xa, act_bf16=act_bf16, **kw)
     return x
 

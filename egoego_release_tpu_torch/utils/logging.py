@@ -2,7 +2,8 @@
 egoego_release_tpu/utils/logging.py).
 
   * MetricLogger: a JSONL file and stdout; wandb only when asked
-  * profile_trace: a torch.profiler Chrome trace of the block it wraps
+  * profile_trace: a torch.profiler Chrome trace of the block it wraps,
+    and the program's spans (utils/trace.py) in it by name
   * save_run_config: the run's settings as opt.yaml beside its results
 """
 
@@ -49,18 +50,27 @@ class MetricLogger:
 def profile_trace(profile_dir: str | None):
     """A torch.profiler trace of the CPU and, where there is one, the card,
     written as ``{profile_dir}/trace.json`` (open it in Perfetto or
-    chrome://tracing); nothing when ``profile_dir`` is unset."""
+    chrome://tracing), in which the eval driver's and the sampler's spans
+    are named ranges; and ``{profile_dir}/spans.json``: for each span name
+    of the program (``utils/trace.py``, on while the profiler records) the
+    count, total ms and self ms (less its child spans) of its spans in the
+    block. Nothing when ``profile_dir`` is unset."""
     if not profile_dir:
         yield
         return
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from egoego_release_tpu_torch.utils import trace
+
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
     os.makedirs(profile_dir, exist_ok=True)
+    since = time.time_ns()
     with profile(activities=acts) as prof:
         yield
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+    with open(os.path.join(profile_dir, "spans.json"), "w") as f:
+        json.dump(trace.summary(since), f, indent=1)
 
 
 def save_run_config(cfg, save_dir: str) -> str:
