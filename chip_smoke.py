@@ -210,6 +210,11 @@ Phases (any failure exits non-zero; nothing is caught):
      (teacher-forced) on the tool's own BC and PPO-tuned policies, and the
      free ``eval_tracking`` rollout as a smoke check. The physics tools
      need MuJoCo: held on the CPU alone.
+ 21. the reverse step replayed from its CUDA graph (``step_graph_phase``;
+     ops/fused_step.py StepGraph) beside the eager step, at 64 x 121 and
+     128 x 31 tokens in bf16: device ms a step, host us a step and the
+     ``step_graphs`` counts, as a log line (not a gate; the card tests
+     hold the graphed window to the eager one bit for bit).
 Then one JSON line of per-kernel results (with the training and phase-16
 to phase-20 summaries), and as the last line {"ok": true, "device": {...}}.
 """
@@ -218,6 +223,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -347,6 +353,65 @@ def held_events_ms(fn, reps):
             return start.elapsed_time(end) / reps
         hold_ms *= 2
     raise AssertionError(f"held_events_ms: the card ran ahead of the host even behind a {hold_ms / 2:.0f} ms hold")
+
+
+def host_us_a_call(fn, reps, hold_ms=100.0):
+    """Host us of one call of fn while a sleep kernel holds the stream, so
+    that no call waits for room in the card's launch queue."""
+    import torch
+    held_events_ms(fn, 1)  # the sleep kernel's rate, and fn warm
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(hold_ms * _SLEEP_CYCLES_PER_MS[0]))
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def step_graph_phase(card):
+    """Phase 21: one bf16 reverse step at the release width, launched eagerly
+    and replayed from its CUDA graph (ops/fused_step.py StepGraph), at
+    BATCH x 121 and 2 BATCH x 31 tokens: each one's device ms a step (CUDA
+    events behind a held stream), host us a step (the stream held) and the
+    ``step_graphs`` counts of the phase. A log line, not a gate."""
+    import torch
+
+    from egoego_release_tpu_torch.diffusion.gaussian_diffusion import CondGaussianDiffusion, DiffusionConfig
+    from egoego_release_tpu_torch.ops import cuda_kernels as ck
+    from egoego_release_tpu_torch.ops import fused_step as fs
+
+    cfg = DiffusionConfig(compute_dtype="bfloat16")
+    diff = CondGaussianDiffusion(cfg, device=card, seed=0)
+    prep, kw, dm = diff.step_params(), dict(n_head=cfg.n_head, d_k=cfg.d_k, d_v=cfg.d_v), cfg.d_model
+    table = fs.step_table(fs.noise_level_embeddings(diff.model, [999]), [(999, UPDATE)])
+    emb, scal = table[0, :dm], table[0, dm: dm + len(UPDATE)]
+    g = torch.Generator(device=card).manual_seed(21)
+    out = {}
+    for bsz, t in ((BATCH, cfg.window), (2 * BATCH, 30)):
+        x, xc, noise = (torch.randn(bsz, t, cfg.d_feats, generator=g, device=card) for _ in range(3))
+        mask, pos = torch.ones(bsz, t + 1, device=card), prep["pos_table"][1: t + 2].contiguous()
+        xa = fs.pack_xa(x, xc, prep["wst"].shape[1], prep["wst"].dtype)
+        before = dict(ck.step_graphs)
+        sg = diff.step_graphs.get(x, prep, act_bf16=False, n_scal=len(UPDATE), inpaint=False, kw=kw)
+        carry, xcs, xas, masks, poss, _, _ = sg.load(x, xc, xa, mask, pos, None, None)
+        sg.noise.copy_(noise)
+        state = [carry]
+
+        def graphed():
+            state[0] = fs.fused_denoise_step(state[0], xcs, emb, poss, masks, sg.noise, scal, None, None, prep,
+                                             xa=xas, graph=sg, **kw)
+
+        eager = lambda: fs.fused_denoise_step(x, xc, emb, pos, mask, noise, scal, None, None, prep, xa=xa, **kw)
+        row = {name: {"device_ms": held_events_ms(fn, 20), "host_us": host_us_a_call(fn, 20)}
+               for name, fn in (("eager", eager), ("graphed", graphed))}
+        row["step_graphs"] = {k: v - before.get(k, 0) for k, v in ck.step_graphs.items() if v != before.get(k, 0)}
+        out[f"{bsz}x{t + 1}"] = row
+        log(f"phase 21: bf16 step at {bsz} x {t + 1} tokens: eager {row['eager']['device_ms']:.4f} ms device, "
+            f"{row['eager']['host_us']:.1f} us host; graphed {row['graphed']['device_ms']:.4f} ms device, "
+            f"{row['graphed']['host_us']:.1f} us host; step_graphs {row['step_graphs']}")
+    return out
 
 
 # The card's rate for the instruction the mha kernel runs on: warps that
@@ -2213,6 +2278,7 @@ def act_bf16_phase(card, head, stats_path, rest_path, check_counts, clear_counts
     from egoego_release_tpu_torch.ops import fused_step as fs
 
     dev = torch.device("cuda")
+    update = torch.tensor(UPDATE, device=dev)  # the kernels read their update scalars on the card
     bf = torch.bfloat16
     t_phase = time.perf_counter()
     pipe = build_pipeline(stats_path=stats_path, rest_offsets_path=rest_path, device=dev, compute_dtype="bfloat16")
@@ -2267,7 +2333,7 @@ def act_bf16_phase(card, head, stats_path, rest_path, check_counts, clear_counts
                 "decoder_layer": (fl.decoder_layer, fl.decoder_layer_plain, (hb, mask, p["layers"][1]),
                                   {"act_bf16": True}),
                 "layer_epilogue": (fs.layer_epilogue, fs.layer_epilogue_plain,
-                                   (hb, mask, x, noise, UPDATE, ipv, ipm, p), {}),
+                                   (hb, mask, x, noise, update, ipv, ipm, p), {}),
             }
             for name, (wrapper, plain, args, extra) in cases.items():
                 clear_counts()
@@ -2306,13 +2372,13 @@ def act_bf16_phase(card, head, stats_path, rest_path, check_counts, clear_counts
         modes = {
             False: {"stem_layer": lambda: fs.stem_layer(x, xc, emb, pos, mask, p, with_copy=True, xa=xa, **kw),
                     "decoder_layer": lambda: fl.decoder_layer(h, mask, p["layers"][1], hb=hb, with_copy=True, **kw),
-                    "layer_epilogue": lambda: fs.layer_epilogue(h, mask, x, noise, UPDATE, ipv, ipm, p, hb=hb,
+                    "layer_epilogue": lambda: fs.layer_epilogue(h, mask, x, noise, update, ipv, ipm, p, hb=hb,
                                                                 xa=xa, **kw)},
             True: {"stem_layer": lambda: fs.stem_layer(x, xc, emb, pos, mask, p, with_copy=True, xa=xa,
                                                        act_bf16=True, **kw),
                    "decoder_layer": lambda: fl.decoder_layer(hb, mask, p["layers"][1], with_copy=True, act_bf16=True,
                                                              **kw),
-                   "layer_epilogue": lambda: fs.layer_epilogue(hb, mask, x, noise, UPDATE, ipv, ipm, p, xa=xa, **kw)},
+                   "layer_epilogue": lambda: fs.layer_epilogue(hb, mask, x, noise, update, ipv, ipm, p, xa=xa, **kw)},
         }
         for name in ACT_WRAPPERS:
             r = out[name].setdefault(f"{BATCH}x{t + 1}", {})
@@ -2333,7 +2399,7 @@ def act_bf16_phase(card, head, stats_path, rest_path, check_counts, clear_counts
         def epilogue_f32_write():
             _, hl = fl.decoder_layer_cuda(h, mask, p["layers"][-1], hb=hb, with_copy=True, **kw)
             ck.gemm(ck.STEP, hl, p["lw"], p["lb"], x_old, M=BATCH * t, x=x, noise=noise, ipv=ipv, ipm=ipm,
-                    t_data=t, scal=UPDATE, out_b=xa_old)
+                    t_data=t, scal=update, out_b=xa_old)
 
         epilogue_f32_write()
         x_new = modes[False]["layer_epilogue"]()
@@ -2347,7 +2413,7 @@ def act_bf16_phase(card, head, stats_path, rest_path, check_counts, clear_counts
             raise AssertionError("phase 12: layer_epilogue without the f32 write changed x_next or xa")
         # 3. the step in both modes: wall ms over 20 steps, busy share, device ms
         for act in (False, True):
-            step = lambda: fs.fused_denoise_step(x, xc, emb, pos, mask, noise, UPDATE, None, None, p, xa=xa,
+            step = lambda: fs.fused_denoise_step(x, xc, emb, pos, mask, noise, update, None, None, p, xa=xa,
                                                  act_bf16=act, **kw)
             step()
             torch.cuda.synchronize()
@@ -3416,14 +3482,15 @@ def rl_phase(card, data_dir, expert_path, rest_path, clear_counts):
         step = torch.empty(b * t, d, device=dev)
         launch = lambda scal: ck.gemm(ck.STEP, hb, kernel_weight(prep, "lw"), prep["lb"], step, M=b * t, x=x,
                                       noise=noise, ipv=ipv, ipm=ipm, t_data=t, scal=scal, out_b=xa)
-        launch(scal5)
+        scal5_card = torch.tensor(scal5, device=dev)  # as the kernels read them, on the card
+        launch(scal5_card)
         err_launch = float((step.reshape(b, t, d) - fs.step_update_plain(
             hb.float().reshape(b, t + 1, dm), x, noise, scal5, ipv, ipm, prep)).abs().max())
         if not err_launch <= tol:
             raise AssertionError(f"phase 18a: pred_noise STEP launch {name}: {err_launch} > {tol}")
-        ms_noise, _ = device_time_ms(lambda: launch(scal5))
-        ms_x0, _ = device_time_ms(lambda: launch(scal5[:3]))
-        ms_noise2, _ = device_time_ms(lambda: launch(scal5))
+        ms_noise, _ = device_time_ms(lambda: launch(scal5_card))
+        ms_x0, _ = device_time_ms(lambda: launch(scal5_card[:3]))
+        ms_noise2, _ = device_time_ms(lambda: launch(scal5_card))
         a[name] = {"max_abs_err": err, "bound": tol, "launch_max_abs_err": err_launch, "unclipped_x0": live,
                    "step_launch_device_ms": (ms_noise + ms_noise2) / 2, "step_launch_pred_x0_device_ms": ms_x0}
         log(f"phase 18a: layer_epilogue pred_noise {b} x {t + 1} tokens {name} (t = {RL_T_CHECK}): max|kernel - plain| "
@@ -3579,6 +3646,10 @@ def rl_phase(card, data_dir, expert_path, rest_path, clear_counts):
     with open(yml, "w") as f:
         yaml.safe_dump({"fr_num": 90, "policy_specs": {"reward_id": "dynamic_supervision_v3"}}, f)
     save = os.path.join(root, "agent")
+    # the CLI is a process of its own on this card: hand it the memory this
+    # process's caching allocator holds and no longer uses
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     run = subprocess.run([sys.executable, "-m", "egoego_release_tpu_torch.rl.train_agent", "--cfg", yml,
                           "--expert_path", expert_path, "--rest_offsets", rest_path, "--iters", "2", "--save_dir",
@@ -4115,6 +4186,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    # the update scalars as the kernels read them, on the card
+    update, x0_only = torch.tensor(UPDATE, device=dev), torch.tensor((1.0, 0.0, 0.0), device=dev)
     t_start = time.perf_counter()
 
     # -- phase 1 -----------------------------------------------------------
@@ -4239,9 +4312,9 @@ def main() -> int:
             ("decoder_layer", "", fl.decoder_layer, fl.decoder_layer_plain, (inp["h"], inp["mask"], p["layers"][1]),
              {}),
             ("layer_epilogue", " x0", fs.layer_epilogue, fs.layer_epilogue_plain,
-             (inp["h"], inp["mask"], inp["x"], inp["noise"], (1.0, 0.0, 0.0), None, None, p), {}),
+             (inp["h"], inp["mask"], inp["x"], inp["noise"], x0_only, None, None, p), {}),
             ("layer_epilogue", " update+inpaint", fs.layer_epilogue, fs.layer_epilogue_plain,
-             (inp["h"], inp["mask"], inp["x"], inp["noise"], UPDATE, inp["ipv"], inp["ipm"], p), {"xa": xa()}),
+             (inp["h"], inp["mask"], inp["x"], inp["noise"], update, inp["ipv"], inp["ipm"], p), {"xa": xa()}),
         ]
 
     def check(name, what, wrapper, plain, args, extra, bf16, t, phase="phase 2"):
@@ -4383,7 +4456,7 @@ def main() -> int:
                          inp["x"], inp["xc"], inp["emb"], inp["pos"], p)).abs().max()),
                          0.0 if torch.equal(stemb, stem.to(bf)) else math.inf)),
             "step": (lambda: ck.gemm(ck.STEP, hb, p["lw"], p["lb"], step, M=b * t, x=inp["x"], noise=inp["noise"],
-                                     ipv=inp["ipv"], ipm=inp["ipm"], t_data=t, scal=UPDATE, out_b=xa_step),
+                                     ipv=inp["ipv"], ipm=inp["ipm"], t_data=t, scal=update, out_b=xa_step),
                      (b * t, dm, d), [hb[:, 1:], p["lw"][:d], p["lb"], inp["x"], inp["noise"], inp["ipv"], inp["ipm"]],
                      [step, xa_step[..., :d]],
                      lambda: max(float((step.reshape(b, t, d) - fs.step_update_plain(
@@ -4500,7 +4573,7 @@ def main() -> int:
         torch.profiler; the stem packs xa each step."""
         p = prep[bf16]
         step = lambda: fs.fused_denoise_step(inp["x"], inp["xc"], inp["emb"], inp["pos"], inp["mask"],
-                                             inp["noise"], UPDATE, None, None, p, **kw)
+                                             inp["noise"], update, None, None, p, **kw)
         step()
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -4545,7 +4618,7 @@ def main() -> int:
         xa = fs.pack_xa(inp["x"], inp["xc"], p["wst"].shape[1], torch.float32)
         xa_step = xa.clone()
         stem_kw = dict(pos=inp["pos"], emb=inp["emb"], t_data=t)
-        step_kw = dict(x=inp["x"], noise=inp["noise"], ipv=inp["ipv"], ipm=inp["ipm"], t_data=t, scal=UPDATE)
+        step_kw = dict(x=inp["x"], noise=inp["noise"], ipv=inp["ipv"], ipm=inp["ipm"], t_data=t, scal=update)
         # name: (mode, A, params, weight, bias, M, keywords, (M, K, N) of the product, other reads)
         gemms = {
             "qkv": (ck.BIAS, x, lp, "wqkv", lp["bqkv"], rows, {}, (rows, dm, n_qkv), []),
@@ -5245,6 +5318,9 @@ def main() -> int:
                                                               phase="phase 20"))
     del prep, inp
     tools = tools_phase(card, data_dir, clear_counts, c_per_step)
+
+    # -- phase 21: the reverse step replayed from its CUDA graph ------------
+    step_graphs = step_graph_phase(dev)
     n_chains = len(tools["overfit"]["chain_s"]) + len(tools["full_system"]["chain_s"])
     for name in per_step:
         results[name]["tools"] = {"max_abs_err_f32_1x121_1x31": tools_k[name],
@@ -5323,7 +5399,7 @@ def main() -> int:
                       "parallel": {k: v for k, v in parallel.items() if k != "kernels"},
                       "optical_flow": optical_flow, "baselines": baselines,
                       "rl": {k: v for k, v in rl.items() if k != "pred_noise"}, "physics_rl": physics_rl,
-                      "tools": tools}))
+                      "tools": tools, "step_graphs": step_graphs}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -79,7 +79,10 @@
 //    two more scalars r1, r2) stages the unclipped A W + b and takes x0 =
 //    clip(r1 x - r2 (A W + b)) in the pass that already reads x, one more
 //    multiply-add an element. It is an instantiation of its own
-//    (kEpiStepNoise), so the pred_x0 epilogue keeps its code.
+//    (kEpiStepNoise), so the pred_x0 epilogue keeps its code. The 3 or 5
+//    scalars are read from device memory (scal), not passed by value, so
+//    one captured step (a CUDA graph, ops/fused_step.py StepGraph) replays
+//    every step of a schedule with the row its host copies in first.
 //  - kPartial (fc and w2 of a tensor-parallel layer): the f32 product A W
 //    alone, no bias, in the LayerNorm modes' 64 x 512 tiles, stored from
 //    the fragment. Each tp rank holds a slice of K, so its product is a
@@ -169,6 +172,7 @@ struct GemmArgs {
   const float* noise;     // kStep: (M, N)
   const float* ipv;       // kStep: (M, N) inpaint values, or null
   const float* ipm;       // kStep: (M,) inpaint row mask, or null
+  const float* scal;      // kStep: the update scalars a1, a2, a3 (step_noise: then r1, r2), read on the card
   void* out;              // (M, ldo); kLayerNorm: null when out_b takes the output alone (bf16 activations)
   void* out_b;            // bf16 (M, ldb): kLayerNorm/kStem the f32 out rounded; kStep the x part of xa; or null
   int M, N, K;            // M: rows of out
@@ -179,8 +183,6 @@ struct GemmArgs {
   int t_data;             // kStem/kStep: frames per window (tokens = t_data + 1)
   int kernel;             // set by the C entries: the GemmKernel launched
   int step_noise;         // kStep: the output is a noise prediction (x0 = r1 x - r2 out before the clip)
-  float c1, c2, c3;       // kStep: the update scalars a1, a2, a3
-  float c4, c5;           // kStep with step_noise: r1, r2
 };
 
 enum GemmKernel : int { kKernelCudaCores = 0, kKernelWgmma = 1, kKernelTf32x3 = 2 };
@@ -224,8 +226,8 @@ __device__ __forceinline__ float epilogue_value(const GemmArgs& p, float v, int 
     }
     case kStep: {
       const float x0 = fminf(fmaxf(v + p.bias[C], -1.f), 1.f);
-      const float xn = __fadd_rn(__fadd_rn(__fmul_rn(p.c1, x0), __fmul_rn(p.c2, p.x[e])),
-                                 __fmul_rn(p.c3, p.noise[e]));
+      const float xn = __fadd_rn(__fadd_rn(__fmul_rn(p.scal[0], x0), __fmul_rn(p.scal[1], p.x[e])),
+                                 __fmul_rn(p.scal[2], p.noise[e]));
       return p.ipv != nullptr ? xn + p.ipm[R] * (p.ipv[e] - xn) : xn;
     }
     default:  // kBias
@@ -731,9 +733,12 @@ __device__ __forceinline__ void wgmma_epilogue(const GemmArgs& p, float (&acc)[T
     const int f0 = o_lo * p.N, f1 = o_hi * p.N;
     const bool inpaint = p.ipv != nullptr;
     float* out = static_cast<float*>(p.out);
+    // the step's scalars from device memory (a captured step replays with the values of its step)
+    const float c1 = p.scal[0], c2 = p.scal[1], c3 = p.scal[2];
+    const float c4 = noise_model ? p.scal[3] : 0.f, c5 = noise_model ? p.scal[4] : 0.f;
     auto next = [&](float x0, float x, float nz, float v, float m) {
-      if constexpr (noise_model) x0 = fminf(fmaxf(__fsub_rn(__fmul_rn(p.c4, x), __fmul_rn(p.c5, x0)), -1.f), 1.f);
-      const float xn = __fadd_rn(__fadd_rn(__fmul_rn(p.c1, x0), __fmul_rn(p.c2, x)), __fmul_rn(p.c3, nz));
+      if constexpr (noise_model) x0 = fminf(fmaxf(__fsub_rn(__fmul_rn(c4, x), __fmul_rn(c5, x0)), -1.f), 1.f);
+      const float xn = __fadd_rn(__fadd_rn(__fmul_rn(c1, x0), __fmul_rn(c2, x)), __fmul_rn(c3, nz));
       return inpaint ? xn + m * (v - xn) : xn;
     };
     // pieces a thread loads before it stores any (in gemm_tf32x3_kernel 8 spill)
@@ -1318,7 +1323,8 @@ static cudaError_t tf32_route(const GemmArgs& p, cudaStream_t s) {
 // The argument checks both C entries share.
 static bool valid_args(const GemmArgs& p) {
   if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.mode < kBias || p.mode > kPartial ||
-      ((p.mode == kStem || p.mode == kStep) && p.t_data <= 0) || (p.step_noise && p.mode != kStep))
+      ((p.mode == kStem || p.mode == kStep) && p.t_data <= 0) || (p.step_noise && p.mode != kStep) ||
+      (p.mode == kStep && p.scal == nullptr))
     return false;
   // a bf16 residual, and an output that leaves as its bf16 copy alone, only in kLayerNorm
   return !((p.res_bf16 && p.mode != kLayerNorm) || (p.out == nullptr && (p.mode != kLayerNorm || p.out_b == nullptr)));

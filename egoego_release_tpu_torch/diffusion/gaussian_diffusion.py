@@ -43,6 +43,7 @@ from egoego_release_tpu_torch.ops.fused_layer import fused_denoiser_apply, layer
 from egoego_release_tpu_torch.ops.fused_step import (
     ddim_scalars,
     ddpm_scalars,
+    StepGraphs,
     fused_p_sample_loop,
     prepare_step_params,
 )
@@ -186,6 +187,9 @@ class CondGaussianDiffusion:
         self.mesh = None
         self._prep = None
         self._fused_layers = None
+        # the reverse step's captured CUDA graphs (ops/fused_step.py StepGraph),
+        # which read the step operands: they live and go with them
+        self.step_graphs = StepGraphs()
 
     def shard(self, mesh) -> "CondGaussianDiffusion":
         """Put the denoiser on ``mesh`` in place: under tp each rank keeps its
@@ -194,6 +198,7 @@ class CondGaussianDiffusion:
         shard_module_(self.model, mesh)
         self.mesh = mesh
         self._prep = self._fused_layers = None
+        self.step_graphs = StepGraphs()
         return self
 
     def _kept(self, attr: str, make):

@@ -25,6 +25,12 @@ While the span recorder (``utils/trace.py``) is on, each launch records a
 ``launch.args`` span (its checks and argument struct) and a
 ``launch.entry`` span (the stream, the device guard and the C entry),
 tagged with the kernel's launch name.
+
+The C entries make no synchronizing or allocating call (the attribute
+and device queries, the TMA encodes and the launch), so a chain of them can
+be captured in a CUDA graph: ``fused_step.StepGraph`` captures a reverse
+step's launches once and replays them, adding the step's launches to the
+counters below at each replay (``step_graphs`` counts the steps).
 """
 
 from __future__ import annotations
@@ -62,6 +68,10 @@ kernel_launches: Counter = Counter()
 # GEMM launches by epilogue mode (BIAS ... PARTIAL; a pred_noise update under
 # STEP_NOISE), counted with kernel_launches
 gemm_modes: Counter = Counter()
+# Reverse steps on the card (ops/fused_step.py): "replayed" from a captured
+# CUDA graph, "eager" launched one by one; "captured" counts the graphs
+# captured (two a step shape)
+step_graphs: Counter = Counter()
 
 # csrc/gemm.cu GemmKernel, by launch name
 GEMM_KERNELS = ("gemm", "gemm_wgmma", "gemm_tf32x3")
@@ -101,10 +111,9 @@ def count(name: str) -> None:
 class GemmArgs(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "a", "w", "w_lo", "bias", "res", "ln_s", "ln_b", "row_mask", "pos", "emb",
-        "x", "noise", "ipv", "ipm", "out", "out_b")] + [(name, ctypes.c_int) for name in (
+        "x", "noise", "ipv", "ipm", "scal", "out", "out_b")] + [(name, ctypes.c_int) for name in (
         "M", "N", "K", "lda", "ldw", "ldo", "ldb", "a_bf16", "out_bf16",
-        "compute_bf16", "res_bf16", "mode", "t_data", "kernel", "step_noise")] + [(name, ctypes.c_float) for name in (
-        "c1", "c2", "c3", "c4", "c5")]
+        "compute_bf16", "res_bf16", "mode", "t_data", "kernel", "step_noise")]
 
 
 class AttnArgs(ctypes.Structure):
@@ -238,10 +247,11 @@ def split_tf32(w: Tensor) -> Tensor:
 def gemm_args(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, out: torch.Tensor | None, *,
               M: int, a2: torch.Tensor | None = None, res=None, ln_s=None, ln_b=None, row_mask=None, pos=None,
               emb=None, x=None, noise=None, ipv=None, ipm=None, out_b=None, t_data: int = 0,
-              scal=(0.0, 0.0, 0.0), cores: bool = False) -> GemmArgs:
+              scal: Tensor | None = None, cores: bool = False) -> GemmArgs:
     """Check one ``gemm`` call's layout and return its argument struct
     (``cores``: for ``gemm_cuda_cores``, with W itself in f32). ``scal``:
-    STEP's three update scalars, or five for a pred_noise model."""
+    STEP's f32 tensor of three update scalars, or five for a pred_noise
+    model, which the kernel reads on the card."""
     f32, bf16 = torch.float32, torch.bfloat16
     _layout(w, (f32, bf16), what="w")
     _layout(bias, f32, what="bias")
@@ -283,9 +293,10 @@ def gemm_args(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, o
         if t.numel() != M * N:
             raise ValueError(f"{name}: need {M}x{N} elements, got {tuple(t.shape)}")
     if mode == STEP:
-        if len(scal) not in (3, 5) or (cores and len(scal) == 5):
+        _layout(scal, f32, what="scal")
+        if scal.numel() not in (3, 5) or (cores and scal.numel() == 5):
             raise ValueError(f"scal: STEP takes (a1, a2, a3) or, on the tensor-core kernels, (a1, a2, a3, r1, r2); "
-                             f"got {len(scal)} scalars")
+                             f"got {scal.numel()} scalars")
         if ipv is not None:
             _layout(ipm, f32, what="ipm")
             if ipm.numel() != M:
@@ -324,19 +335,37 @@ def gemm_args(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, o
         if K % 4 or not step_n or not aligned(a, w, w_lo, out, out_b, res, *(t for _, t in vecs)):
             raise ValueError(f"the 3xTF32 GEMM needs K a multiple of 4, N a multiple of 8 (BIAS/BIAS_RELU: even; "
                              f"STEP: even, <= 208) and 16-byte aligned tensors; got K={K}, N={N}")
-    if not all(t.is_cuda for t in (a, w, bias, res, ln_s, ln_b, row_mask, pos, emb, x, noise, ipv, ipm, out, out_b)
-               if t is not None):
+    scal = scal if mode == STEP else None
+    if not all(t.is_cuda for t in (a, w, bias, res, ln_s, ln_b, row_mask, pos, emb, x, noise, ipv, ipm, scal, out,
+                                   out_b) if t is not None):
         raise ValueError("gemm: need CUDA tensors (the plain versions take CPU tensors)")
     return GemmArgs(
         a=_ptr(a), w=_ptr(w), w_lo=_ptr(w_lo), bias=_ptr(bias), res=_ptr(res),
         ln_s=_ptr(ln_s), ln_b=_ptr(ln_b), row_mask=_ptr(row_mask), pos=_ptr(pos),
-        emb=_ptr(emb), x=_ptr(x), noise=_ptr(noise), ipv=_ptr(ipv), ipm=_ptr(ipm),
+        emb=_ptr(emb), x=_ptr(x), noise=_ptr(noise), ipv=_ptr(ipv), ipm=_ptr(ipm), scal=_ptr(scal),
         out=_ptr(out), out_b=_ptr(out_b), M=M, N=N, K=K, lda=lda, ldw=w.shape[1], ldo=N, ldb=ldb,
         a_bf16=int(a.dtype == bf16), out_bf16=int(out is not None and out.dtype == bf16),
         compute_bf16=int(is_bf16), res_bf16=int(res is not None and res.dtype == bf16), mode=mode, t_data=t_data,
-        step_noise=int(mode == STEP and len(scal) == 5), c1=scal[0], c2=scal[1], c3=scal[2],
-        c4=scal[3] if len(scal) == 5 else 0.0, c5=scal[4] if len(scal) == 5 else 0.0,
+        step_noise=int(mode == STEP and scal.numel() == 5),
     )
+
+
+def upload(t: Tensor, device) -> Tensor:
+    """A host tensor on ``device``; to the card from pinned memory, so the
+    host does not wait for the card's queue (a pageable copy waits for it)."""
+    if torch.device(device).type != "cuda" or tracing():
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def step_scalars(scal, device) -> Tensor:
+    """STEP's scalars as the f32 tensor on ``device`` that the kernel reads:
+    ``scal`` itself when it is one, else a copy there (a tuple of host
+    floats, for one-off calls; the samplers pass rows of their step table,
+    ``fused_step.step_table``)."""
+    if isinstance(scal, Tensor):
+        return scal.to(device, torch.float32)
+    return upload(torch.tensor(scal, dtype=torch.float32), device)
 
 
 def _launch_gemm(entry: str, args: GemmArgs, device, t0=0) -> None:
@@ -355,7 +384,7 @@ def _launch_gemm(entry: str, args: GemmArgs, device, t0=0) -> None:
 def gemm(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
          out: torch.Tensor | None, *, M: int, a2: torch.Tensor | None = None, res=None, ln_s=None, ln_b=None,
          row_mask=None, pos=None, emb=None, x=None, noise=None, ipv=None, ipm=None, out_b=None,
-         t_data: int = 0, scal=(0.0, 0.0, 0.0)) -> torch.Tensor:
+         t_data: int = 0, scal=None) -> torch.Tensor:
     """out (M, N) = epilogue(A W^T + b) on the card, N = len(bias), on the
     tensor cores in W's dtype: bf16 on the wgmma kernel; f32 (the CLIs'
     default numerics) on the 3xTF32 kernel, at f32 accuracy, with W given
@@ -376,7 +405,9 @@ def gemm(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
       at most 208; ``out_b`` (optional) receives x_next, rounded to the
       compute dtype, in the first N columns of its rows (xa). ``scal`` =
       (a1, a2, a3), or (a1, a2, a3, r1, r2) for a pred_noise model: x0 =
-      clip(r1 x - r2 (A W^T + b)), on an epilogue instantiation of its own.
+      clip(r1 x - r2 (A W^T + b)), on an epilogue instantiation of its own;
+      an f32 tensor on the card, from which the kernel reads them
+      (``step_scalars`` copies a tuple there first).
 
     ``out_b`` of LAYER_NORM: bf16 (M, N), the f32 output rounded. With bf16
     inter-layer activations LAYER_NORM's residual ``res`` may be bf16 (read
@@ -384,9 +415,9 @@ def gemm(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     as ``out_b`` alone, in either compute type (in f32 compute that is the
     only ``out_b`` taken). Returns ``out``, or ``out_b`` when ``out`` is
     None. A layout the kernels cannot take raises here or in the C entry;
-    nothing falls back to another kernel. While tracing, ``scal`` may be a
-    CPU f32 tensor of the three or five floats (an exported reverse loop
-    indexes its table)."""
+    nothing falls back to another kernel. While tracing, ``scal`` is a
+    tensor of the three or five floats (an exported reverse loop indexes
+    its step table)."""
     if tracing():
         if mode != STEP:
             scal = None
@@ -396,6 +427,8 @@ def gemm(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                               ipm, out_b, t_data, scal)
         return out_b if out is None else out
     t0 = trace.ON and trace.now()
+    if mode == STEP:
+        scal = step_scalars(scal, a.device)
     args = gemm_args(mode, a, w, bias, out, M=M, a2=a2, res=res, ln_s=ln_s, ln_b=ln_b, row_mask=row_mask, pos=pos,
                      emb=emb, x=x, noise=noise, ipv=ipv, ipm=ipm, out_b=out_b, t_data=t_data, scal=scal)
     _launch_gemm("egoego_gemm", args, a.device, t0)
@@ -408,6 +441,8 @@ def gemm_cuda_cores(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Ten
     "gemm"), which the route no longer takes: ``gemm``'s arguments in f32
     with W (N_w, K) itself; the stem reads the f32 xa and the update writes
     no xa. For timing it beside the route's kernel."""
+    if mode == STEP:
+        kw["scal"] = step_scalars(kw.get("scal"), a.device)
     args = gemm_args(mode, a, w, bias, out, cores=True, **kw)
     if args.compute_bf16:
         raise ValueError("gemm_cuda_cores: f32 compute only")
@@ -603,10 +638,12 @@ def residual_layernorm_plain(p: Tensor, bias: Tensor, res: Tensor, ln_s: Tensor,
 
 
 def gemm_plain(mode, a, w, bias, out, *, M, a2=None, res=None, ln_s=None, ln_b=None, row_mask=None, pos=None,
-               emb=None, x=None, noise=None, ipv=None, ipm=None, out_b=None, t_data=0, scal=(0.0, 0.0, 0.0)):
+               emb=None, x=None, noise=None, ipv=None, ipm=None, out_b=None, t_data=0, scal=None):
     """Plain version of one ``gemm`` call, on tensors of any device: the
     same arithmetic (A rounded to W's dtype, an f32 product, the epilogue in
-    f32), written into ``out`` and ``out_b`` as the kernels write them."""
+    f32), written into ``out`` and ``out_b`` as the kernels write them.
+    STEP's ``scal``: a tuple of floats or an f32 tensor (a row of the step
+    table), with the same results."""
     N = bias.numel()
     if w.dim() == 3:  # f32: split_tf32(W), whose hi + lo is W exactly
         w = w[0] + w[1]
@@ -661,7 +698,7 @@ def _gemm_op(a: Tensor, w: Tensor, bias: Tensor, out: Opt, epilogue: int, M: int
              ln_b: Opt, row_mask: Opt, pos: Opt, emb: Opt, x: Opt, noise: Opt, ipv: Opt, ipm: Opt, out_b: Opt,
              t_data: int, scal: Opt) -> None:
     kw = dict(M=M, a2=a2, res=res, ln_s=ln_s, ln_b=ln_b, row_mask=row_mask, pos=pos, emb=emb, x=x, noise=noise,
-              ipv=ipv, ipm=ipm, out_b=out_b, t_data=t_data, scal=(0.0, 0.0, 0.0) if scal is None else scal.tolist())
+              ipv=ipv, ipm=ipm, out_b=out_b, t_data=t_data, scal=scal)
     (gemm if a.is_cuda else gemm_plain)(epilogue, a, w, bias, out, **kw)
 
 

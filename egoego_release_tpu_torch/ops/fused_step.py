@@ -44,10 +44,25 @@ real, and every token is a key. The samplers
 take their noise from outside (a ``TorchNoise`` or any object with
 ``initial``, ``cond`` and ``step``), compute the schedule scalars on the
 host from the f32 schedule and embed every noise level of the chain once
-up front, so no step waits on the device.
+up front, into one step table on the device (``step_table``: row i the
+noise-level token and the update scalars of step i, which the kernels read
+there), so no step waits on the device.
+
+On the card ``fused_p_sample_loop`` replays each reverse step from a CUDA
+graph (``StepGraph``): the step's launches, captured once per step shape
+into static buffers, replayed after one copy of the step's table row, so
+the host issues one graph launch a step instead of its 22 launches. The
+capture depends on the shape, the compute dtype, the activations' dtype,
+the objective, the inpaint and the operands, never on the schedule or the
+noise source; the step draws its noise outside the graph, as an eager step
+does, and both launch the same kernels with the same arguments. The steps
+launch eagerly on the CPU, while ``torch.export`` traces, and with a
+tensor-parallel layer (its collective).
 """
 
 from __future__ import annotations
+
+from collections import Counter, OrderedDict
 
 import numpy as np
 import torch
@@ -105,8 +120,8 @@ def pack_xa(x: torch.Tensor, xc: torch.Tensor, width: int | None = None,
 @torch.no_grad()
 def noise_level_embeddings(model, ts) -> torch.Tensor:
     """(n, d_model) noise-level tokens for the timesteps ``ts``."""
-    dev = model.linear_out.weight.device
-    return model.time_mlp(torch.as_tensor(np.asarray(ts), device=dev)).float().contiguous()
+    ts = ck.upload(torch.as_tensor(np.asarray(ts)), model.linear_out.weight.device)
+    return model.time_mlp(ts).float().contiguous()
 
 
 # -- stem + layer 0 -------------------------------------------------------
@@ -187,30 +202,34 @@ def layer_epilogue_plain(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k
     return step_update_plain(h, x, noise, scal, ipv, ipm, prep)
 
 
-def layer_epilogue_cuda(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v, hb=None, xa=None):
+def layer_epilogue_cuda(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v, hb=None, xa=None, out=None):
     """The last layer, then the update's GEMM, which in bf16 reads the
     layer's output as bf16 alone (its only reader: the layer writes no f32
     output) and, when ``xa`` is given, writes x_next (rounded to the compute
-    dtype) into its x part."""
+    dtype) into its x part; x_next itself into ``out`` (made when None)."""
     bf16 = prep["lw"].dtype == torch.bfloat16
     h, _ = decoder_layer_cuda(h, mask, prep["layers"][-1], n_head=n_head, d_k=d_k, d_v=d_v, hb=hb, act_bf16=bf16)
     bsz, t, d = x.shape
-    out = torch.empty(bsz, t, d, dtype=torch.float32, device=x.device)
+    if out is None:
+        out = torch.empty(bsz, t, d, dtype=torch.float32, device=x.device)
     ck.gemm(ck.STEP, h, kernel_weight(prep, "lw"), prep["lb"], out, M=bsz * t, x=x, noise=noise,
             ipv=ipv, ipm=ipm, t_data=t, scal=scal, out_b=xa)
     return out
 
 
-def layer_epilogue(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v, hb=None, xa=None):
+def layer_epilogue(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v, hb=None, xa=None, out=None):
     """h (B, T+1, d_model) f32, or bf16 (the bf16 activations of the
-    ``act_bf16`` chain); x, noise (B, T, d) f32; scal = (a1, a2, a3)
-    host floats; ipv (B, T, d) and ipm (B, T) or both None; hb the bf16
-    copy of an f32 h on the card (made there when None); ``xa`` on the card:
-    the stem's packed A, whose x part receives x_next in its dtype. Returns
-    x_next (B, T, d) f32."""
+    ``act_bf16`` chain); x, noise (B, T, d) f32; scal = (a1, a2, a3) or a
+    pred_noise model's (a1, a2, a3, r1, r2): host floats or an f32 tensor
+    (a row of the step table; on the card the kernel reads it there); ipv
+    (B, T, d) and ipm (B, T) or both None; hb the bf16 copy of an f32 h on
+    the card (made there when None); ``xa`` on the card: the stem's packed
+    A, whose x part receives x_next in its dtype; ``out`` on the card: the
+    f32 tensor x_next is written into (made when None). Returns x_next (B,
+    T, d) f32."""
     if h.is_cuda or ck.tracing():
         out = layer_epilogue_cuda(h, mask, x, noise, scal, ipv, ipm, prep,
-                                  n_head=n_head, d_k=d_k, d_v=d_v, hb=hb, xa=xa)
+                                  n_head=n_head, d_k=d_k, d_v=d_v, hb=hb, xa=xa, out=out)
         ck.count("layer_epilogue")
         return out
     return layer_epilogue_plain(h, mask, x, noise, scal, ipv, ipm, prep,
@@ -218,20 +237,33 @@ def layer_epilogue(h, mask, x, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v,
 
 
 def fused_denoise_step(x, xc, emb, pos, mask, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v, xa=None,
-                       act_bf16=False):
+                       act_bf16=False, graph=None):
     """One reverse step: ``len(prep["layers"])`` kernel calls. ``xa`` (on
     the card): ``pack_xa(x, xc)``, updated in place to x_next's.
     ``act_bf16``: the outputs of layers 0 .. L-2 cross between the calls as
-    bf16 tensors alone."""
+    bf16 tensors alone. ``graph``: a ``StepGraph`` whose buffers the other
+    arguments are (``emb`` and ``scal`` one row of a step table): the step
+    is its replay."""
     span = trace.begin("step") if trace.ON else -1
+    if graph is not None:
+        x = graph.replay(x, emb, scal)
+    else:
+        x = _launch_step(x, xc, emb, pos, mask, noise, scal, ipv, ipm, prep, n_head=n_head, d_k=d_k, d_v=d_v,
+                         xa=xa, act_bf16=act_bf16, out=None)
+        if x.is_cuda and not ck.tracing():
+            ck.step_graphs["eager"] += 1
+    if span >= 0:
+        trace.end(span)
+    return x
+
+
+def _launch_step(x, xc, emb, pos, mask, noise, scal, ipv, ipm, prep, *, n_head, d_k, d_v, xa, act_bf16, out):
+    """The step's kernel calls, one by one (``fused_denoise_step``'s)."""
     kw = dict(n_head=n_head, d_k=d_k, d_v=d_v)
     h, hb = stem_layer(x, xc, emb, pos, mask, prep, with_copy=True, xa=xa, act_bf16=act_bf16, **kw)
     for lp in prep["layers"][1:-1]:
         h, hb = decoder_layer(h, mask, lp, hb=hb, with_copy=True, act_bf16=act_bf16, **kw)
-    x = layer_epilogue(h, mask, x, noise, scal, ipv, ipm, prep, hb=hb, xa=xa, **kw)
-    if span >= 0:
-        trace.end(span)
-    return x
+    return layer_epilogue(h, mask, x, noise, scal, ipv, ipm, prep, hb=hb, xa=xa, out=out, **kw)
 
 
 # -- schedule scalars (host, f32) ----------------------------------------
@@ -332,6 +364,172 @@ class DefaultNoise:
         return self._draw(shape)
 
 
+# -- the step table and the captured step ----------------------------------
+
+# columns of a step-table row past the noise-level token: the step's 3 (or a
+# pred_noise model's 5) update scalars, zero-padded
+SCAL_COLS = 8
+
+
+def step_table(embs: torch.Tensor, sched) -> torch.Tensor:
+    """(n, d_model + SCAL_COLS) f32 on the device of ``embs`` (n, d_model),
+    the noise-level tokens of the ``sched`` (``ddpm_scalars`` /
+    ``ddim_scalars``) steps: row i holds step i's token, then its update
+    scalars, then zeros. Step i reads ``table[i, :d_model]`` as its token and
+    ``table[i, d_model: d_model + len(scal)]`` as its scalars; the scalars
+    reach the card without a wait for its queue."""
+    scal = torch.zeros(len(sched), SCAL_COLS)
+    k = len(sched[0][1])
+    scal[:, :k] = torch.tensor([s for _, s in sched], dtype=torch.float32)
+    return torch.cat([embs, ck.upload(scal, embs.device)], 1)
+
+
+# the kernel counters a replayed step adds to, as its launches would
+_COUNTERS = (ck.kernel_launches, ck.gemm_modes, ck.launch_counts)
+
+
+class StepGraph:
+    """One reverse step at one step shape as CUDA graphs of its launches,
+    captured once and replayed for every step of every window of that
+    shape. Two graphs carry x from one replay to the next without a copy:
+    graph k reads ``x[k]`` and writes x_next into ``x[1 - k]``. Each reads
+    the static buffers here (``load`` fills them once a window, on the
+    current stream) and its step's noise-level token and update scalars
+    from ``row``, into which ``replay`` copies the step's row of the step
+    table first. The capture runs one eager step first (every kernel loaded
+    and its attributes set), then captures on a side stream into ``pool``;
+    the counters and the span recorder see neither. Each replay adds the
+    captured step's launches to the kernel counters."""
+
+    def __init__(self, prep, bsz: int, t: int, d: int, *, n_scal: int, inpaint: bool, act_bf16: bool, kw: dict,
+                 device, pool):
+        f32 = dict(dtype=torch.float32, device=device)
+        self.dm = prep["bst"].shape[0]
+        self.x = (torch.zeros(bsz, t, d, **f32), torch.zeros(bsz, t, d, **f32))
+        self.x_cond, self.noise = torch.zeros(bsz, t, d, **f32), torch.zeros(bsz, t, d, **f32)
+        self.mask, self.pos = torch.ones(bsz, t + 1, **f32), torch.zeros(t + 1, self.dm, **f32)
+        self.ipv = torch.zeros(bsz, t, d, **f32) if inpaint else None
+        self.ipm = torch.zeros(bsz, t, **f32) if inpaint else None
+        self.xa = torch.zeros(bsz, t, prep["wst"].shape[1], dtype=prep["wst"].dtype, device=device)
+        self.row = torch.zeros(self.dm + SCAL_COLS, **f32)
+
+        def step(k):
+            return _launch_step(self.x[k], self.x_cond, self.row[:self.dm], self.pos, self.mask, self.noise,
+                                self.row[self.dm: self.dm + n_scal], self.ipv, self.ipm, prep, xa=self.xa,
+                                act_bf16=act_bf16, out=self.x[1 - k], **kw)
+
+        before = [Counter(c) for c in _COUNTERS]
+        self.graphs = [torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()]
+        with trace.paused(), torch.cuda.device(device):
+            step(0)
+            start = [Counter(c) for c in _COUNTERS]
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                for k, graph in enumerate(self.graphs):
+                    graph.capture_begin(pool=pool)  # global capture mode: a synchronizing call would raise
+                    try:
+                        step(k)
+                    finally:
+                        graph.capture_end()
+            torch.cuda.current_stream(device).wait_stream(side)
+        # one step's launches: half of what the two captures counted
+        self.deltas = [Counter({n: (v - s[n]) // 2 for n, v in c.items() if v != s[n]})
+                       for c, s in zip(_COUNTERS, start)]
+        for c, b in zip(_COUNTERS, before):
+            c.clear()
+            c.update(b)
+        ck.step_graphs["captured"] += 2
+
+    def load(self, x, x_cond, xa, mask, pos, ipv, ipm):
+        """A window's inputs into the static buffers; returns the buffers in
+        the same order (x as the first carry)."""
+        for dst, src in ((self.x[0], x), (self.x_cond, x_cond), (self.xa, xa), (self.mask, mask), (self.pos, pos),
+                         (self.ipv, ipv), (self.ipm, ipm)):
+            if dst is not None:
+                dst.copy_(src)
+        return self.x[0], self.x_cond, self.xa, self.mask, self.pos, self.ipv, self.ipm
+
+    def draw(self, noise) -> torch.Tensor:
+        """A step's noise, drawn from ``noise.step`` and copied into the
+        static buffer."""
+        return self.noise.copy_(noise.step(self.noise.shape))
+
+    def replay(self, x, emb, scal) -> torch.Tensor:
+        """x_next of the step on ``x`` (one of the two carries), whose token
+        ``emb`` and scalars ``scal`` are one row of a step table."""
+        if x is self.x[0] or x is self.x[1]:
+            k = int(x is self.x[1])
+        else:
+            raise ValueError("a replayed step reads one of its graph's two carries (StepGraph.load)")
+        if emb.numel() != self.dm or scal.data_ptr() != emb.data_ptr() + 4 * self.dm:
+            raise ValueError("a replayed step reads its token and scalars from one row of a step table (step_table)")
+        t0 = trace.ON and trace.now()
+        self.row.copy_(emb.as_strided(self.row.shape, (1,)))
+        t1 = t0 and trace.now()
+        self.graphs[k].replay()
+        for c, delta in zip(_COUNTERS, self.deltas):
+            c.update(delta)
+        ck.step_graphs["replayed"] += 1
+        if t0:
+            trace.launch("step_graph", t0, t1)
+        return self.x[1 - k]
+
+
+MAX_STEP_GRAPHS = 16
+
+
+class StepGraphs:
+    """The captured steps of one set of step operands (a diffusion's,
+    ``CondGaussianDiffusion.step_graphs``), by ``step_graph_key``, the
+    least recently used first (at most ``MAX_STEP_GRAPHS``), and the memory
+    pool their graphs share on each stream (they replay there in
+    turn). The graphs and their pools go with it."""
+
+    def __init__(self):
+        self.graphs: OrderedDict = OrderedDict()
+        self.pools: dict = {}
+
+    def get(self, x, prep, *, act_bf16: bool, n_scal: int, inpaint: bool, kw: dict) -> StepGraph:
+        """The captured step of a window on ``x`` (B, T, d), captured at the
+        first window of its key."""
+        bsz, t, d = x.shape
+        key = step_graph_key(x.device, bsz, t, act_bf16=act_bf16, n_scal=n_scal, inpaint=inpaint)
+        graph = self.graphs.get(key)
+        if graph is not None:
+            self.graphs.move_to_end(key)
+            return graph
+        if len(self.graphs) >= MAX_STEP_GRAPHS:
+            torch.cuda.synchronize(x.device)  # no replay of the graph dropped is in flight
+            dropped, _ = self.graphs.popitem(last=False)
+            if all(k[0] != dropped[0] for k in self.graphs):
+                del self.pools[dropped[0]]  # a pool that no live graph holds is not shared again
+        if key[0] not in self.pools:
+            self.pools[key[0]] = torch.cuda.graph_pool_handle()
+        graph = self.graphs[key] = StepGraph(prep, bsz, t, d, n_scal=n_scal, inpaint=inpaint, act_bf16=act_bf16,
+                                             kw=kw, device=x.device, pool=self.pools[key[0]])
+        return graph
+
+
+def graphs_engage(device, prep) -> bool:
+    """Whether a window on ``device`` replays a captured step: on the card,
+    outside ``torch.export`` tracing, with no tensor-parallel layer (the
+    step would hold its collective); elsewhere the steps launch eagerly."""
+    return torch.device(device).type == "cuda" and not ck.tracing() and not any("tp" in lp for lp in prep["layers"])
+
+
+def step_graph_key(device, bsz: int, t: int, *, act_bf16: bool, n_scal: int, inpaint: bool) -> tuple:
+    """What a captured step depends on within one ``StepGraphs`` (whose
+    operands, and with them the device and the compute dtype, are fixed):
+    the stream it runs on (its buffers are the stream's), the batch, the
+    frames, the activations' dtype, the objective (``n_scal`` 5:
+    pred_noise) and whether the window inpaints; never the schedule, its
+    length or the noise source."""
+    device = torch.device(device)
+    stream = torch.cuda.current_stream(device).cuda_stream if device.type == "cuda" else None
+    return (stream, bsz, t, bool(act_bf16), n_scal == 5, bool(inpaint))
+
+
 @torch.no_grad()
 def fused_p_sample_loop(diff, x_start, cond_mask, padding_mask=None, inpaint_value=None,
                         inpaint_mask=None, *, noise, ddim_steps: int | None = None,
@@ -342,7 +540,9 @@ def fused_p_sample_loop(diff, x_start, cond_mask, padding_mask=None, inpaint_val
     ``initial(shape)``, ``cond(shape)`` and one ``step(shape)`` per step, in
     that order, on any device (they are moved to x_start's). ddim_steps
     None = DDPM over every timestep. ``act_bf16``: bf16 inter-layer
-    activations (JAX: ``act_dtype=jnp.bfloat16``)."""
+    activations (JAX: ``act_dtype=jnp.bfloat16``). Where ``graphs_engage``,
+    every step is a replay of the window shape's ``StepGraph``, kept in
+    ``diff.step_graphs``, and the result is copied out of its buffers."""
     cfg = diff.cfg
     if cfg.n_dec_layers < 2:
         raise ValueError("the fused step needs n_dec_layers >= 2")
@@ -368,42 +568,46 @@ def fused_p_sample_loop(diff, x_start, cond_mask, padding_mask=None, inpaint_val
             sched = ddpm_scalars(diff.consts, cfg.timesteps, cfg.objective == "pred_noise")
         else:
             sched = ddim_scalars(diff.consts, cfg.timesteps, ddim_steps, eta)
-        embs = noise_level_embeddings(diff.model, [s[0] for s in sched])
+        table = step_table(noise_level_embeddings(diff.model, [s[0] for s in sched]), sched)
+        dm, n_scal = table.shape[1] - SCAL_COLS, len(sched[0][1])
         kw = dict(n_head=cfg.n_head, d_k=cfg.d_k, d_v=cfg.d_v)
         # the stem's A on the card, packed once a window; each step's update
         # writes x_next's part
         kernels = x.is_cuda or ck.tracing()
         xa = pack_xa(x, x_cond, prep["wst"].shape[1], prep["wst"].dtype) if kernels else None
+        graph = None
+        if graphs_engage(x.device, prep):
+            graph = diff.step_graphs.get(x, prep, act_bf16=act_bf16, n_scal=n_scal, inpaint=ipv is not None, kw=kw)
+            x, x_cond, xa, mask, pos, ipv, ipm = graph.load(x, x_cond, xa, mask, pos, ipv, ipm)
     if ck.tracing():
-        return _traced_loop(x, x_cond, embs, pos, mask, ipv, ipm, prep, sched, xa,
+        return _traced_loop(x, x_cond, table, n_scal, pos, mask, ipv, ipm, prep, xa,
                             lambda i: draw(lambda sh: noise.step_at(i, sh)), act_bf16, kw)
-    for i, (_, scal) in enumerate(sched):
+    for i in range(len(sched)):
         t0 = trace.ON and trace.now()
-        step_noise = draw(noise.step)
+        step_noise = draw(noise.step) if graph is None else graph.draw(noise)
         if t0:
             trace.leaf("step.noise", t0)
-        x = fused_denoise_step(x, x_cond, embs[i], pos, mask, step_noise,
-                               scal, ipv, ipm, prep, xa=xa, act_bf16=act_bf16, **kw)
-    return x
+        x = fused_denoise_step(x, x_cond, table[i, :dm], pos, mask, step_noise, table[i, dm: dm + n_scal], ipv, ipm,
+                               prep, xa=xa, act_bf16=act_bf16, graph=graph, **kw)
+    return x if graph is None else x.clone()
 
 
-def _traced_loop(x, x_cond, embs, pos, mask, ipv, ipm, prep, sched, xa, draw_step, act_bf16, kw):
+def _traced_loop(x, x_cond, table, n_scal, pos, mask, ipv, ipm, prep, xa, draw_step, act_bf16, kw):
     """The reverse loop as ``torch.export`` records it: one
     ``while_loop`` whose body is one ``fused_denoise_step``, so a program of
     any step count holds one step's nodes. Step i reads its noise-level
-    token and its update scalars from tables (the scalars stay on the host,
-    so no step waits on the device) and draws its noise with ``draw_step(i)``;
-    the packed A ``xa`` is carried (copied each step: the loop's body may not
-    write its inputs)."""
+    token and its update scalars from row i of the step table (on x's
+    device, as every step reads them) and draws its noise with
+    ``draw_step(i)``; the packed A ``xa`` is carried (copied each step: the
+    loop's body may not write its inputs)."""
     from torch._higher_order_ops.while_loop import while_loop
 
-    n = len(sched)
-    scal = torch.tensor([s for _, s in sched], dtype=torch.float32)
+    n, dm = table.shape[0], table.shape[1] - SCAL_COLS
 
     def body(i, x, *xa):
         xa = xa[0].clone() if xa else None
-        emb = embs.index_select(0, i.reshape(1).to(embs.device))[0]
-        x = fused_denoise_step(x, x_cond, emb, pos, mask, draw_step(i), scal.index_select(0, i.reshape(1))[0],
+        row = table.index_select(0, i.reshape(1).to(table.device))[0]
+        x = fused_denoise_step(x, x_cond, row[:dm], pos, mask, draw_step(i), row[dm: dm + n_scal],
                                ipv, ipm, prep, xa=xa, act_bf16=act_bf16, **kw)
         return (i + 1, x) + (() if xa is None else (xa,))
 

@@ -38,8 +38,11 @@ Spans (the layer that records each):
       step.noise          a step's noise draw
       step                one reverse step (``fused_denoise_step``)
         launch.args         ops/cuda_kernels.py: a launch's checks and
-                            argument struct; tag = its kernel
+                            argument struct; tag = its kernel (a replayed
+                            step: the copy of its step-table row, tag
+                            "step_graph")
         launch.entry        the launch through the C entry; tag = its kernel
+                            (a replayed step: the graph's launch)
     window.decode       the model's output back to motion
   window.inpaint_fk   the FK re-projection of the overlap for the next window
   window.stitch       the head-continuity move and the concatenations
@@ -189,6 +192,12 @@ class _Switch:
     def __exit__(self, *exc):
         global ON
         ON = self.saved
+
+
+def paused():
+    """The recorder held off for a ``with`` block: what runs there is not
+    the program's own work (a reverse step's capture, ops/fused_step.py)."""
+    return _Switch(False) if ON else _NULL
 
 
 def entry():

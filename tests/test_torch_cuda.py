@@ -14,6 +14,7 @@ the two sum in other orders; outputs are O(1) LayerNorm values).
 import math
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -33,6 +34,13 @@ def card():
     torch.backends.cuda.matmul.allow_tf32 = False
     ck.build()
     return torch.device("cuda")
+
+
+def _scal(card, *values):
+    """STEP's update scalars as the samplers hand them to the kernels: an f32
+    tensor on the card (a tuple, which ``cuda_kernels.step_scalars`` copies
+    there first, is held by ``test_custom_ops_match_ctypes_wrappers``)."""
+    return torch.tensor(values, device=card)
 
 
 @pytest.mark.parametrize("bf16", [False, True])
@@ -61,11 +69,13 @@ def test_step_kernels_match_plain(card, bf16, frames, d_head):
         (fs.stem_layer, fs.stem_layer_plain, (x, xc, emb, pos, mask, prep)),
         (fl.decoder_layer, fl.decoder_layer_plain, (h, mask, prep["layers"][1])),
         # x0 alone (a1 = 1, no inpaint), then the update with the inpaint
-        (fs.layer_epilogue, fs.layer_epilogue_plain, (h, mask, x, noise, (1.0, 0.0, 0.0), None, None, prep)),
-        (fs.layer_epilogue, fs.layer_epilogue_plain, (h, mask, x, noise, (0.9, 0.1, 0.05), ipv, ipm, prep)),
-        # a pred_noise model's update (x0 = r1 x - r2 out; its own instantiation)
-        (fs.layer_epilogue, fs.layer_epilogue_plain, (h, mask, x, noise, (0.9, 0.1, 0.05, 1.02, 0.17), ipv, ipm,
+        (fs.layer_epilogue, fs.layer_epilogue_plain,
+         (h, mask, x, noise, _scal(card, 1.0, 0.0, 0.0), None, None, prep)),
+        (fs.layer_epilogue, fs.layer_epilogue_plain, (h, mask, x, noise, _scal(card, 0.9, 0.1, 0.05), ipv, ipm,
                                                       prep)),
+        # a pred_noise model's update (x0 = r1 x - r2 out; its own instantiation)
+        (fs.layer_epilogue, fs.layer_epilogue_plain,
+         (h, mask, x, noise, _scal(card, 0.9, 0.1, 0.05, 1.02, 0.17), ipv, ipm, prep)),
     ]
     for wrapper, plain, args in cases:
         ck.launch_counts.clear()
@@ -132,8 +142,8 @@ def test_stem_and_update_on_wgmma_match_plain(release, card, bsz, frames, inpain
     cases = [
         (fs.stem_layer, fs.stem_layer_plain, (inp["x"], inp["xc"], inp["emb"], pos, inp["mask"], prep),
          {"xa": xa}),
-        (fs.layer_epilogue, fs.layer_epilogue_plain, (inp["h"], inp["mask"], inp["x"], inp["noise"], (0.9, 0.1, 0.05),
-                                                      ipv, ipm, prep), {"xa": xa}),
+        (fs.layer_epilogue, fs.layer_epilogue_plain,
+         (inp["h"], inp["mask"], inp["x"], inp["noise"], _scal(card, 0.9, 0.1, 0.05), ipv, ipm, prep), {"xa": xa}),
     ]
     for wrapper, plain, args, extra in cases:
         ck.launch_counts.clear()
@@ -171,7 +181,7 @@ def test_stem_and_step_launches_match_plain(release, card, bsz, frames):
     assert torch.equal(hb, h.to(torch.bfloat16))
     hb = inp["h"].to(torch.bfloat16)
     out = torch.empty_like(inp["x"])
-    scal = (0.9, 0.1, 0.05)
+    scal = _scal(card, 0.9, 0.1, 0.05)
     ck.gemm(ck.STEP, hb, prep["lw"], prep["lb"], out, M=bsz * frames, x=inp["x"], noise=inp["noise"],
             ipv=inp["ipv"], ipm=inp["ipm"], t_data=frames, scal=scal, out_b=xa)
     want = fs.step_update_plain(hb.float(), inp["x"], inp["noise"], scal, inp["ipv"], inp["ipm"], prep)
@@ -221,8 +231,8 @@ def test_act_bf16_wrappers_match_plain(release, card, bf16, bsz, frames):
         (fs.stem_layer, fs.stem_layer_plain, (inp["x"], inp["xc"], inp["emb"], pos, inp["mask"], prep),
          {"act_bf16": True}, 5),
         (fl.decoder_layer, fl.decoder_layer_plain, (hb, inp["mask"], prep["layers"][1]), {"act_bf16": True}, 4),
-        (fs.layer_epilogue, fs.layer_epilogue_plain, (hb, inp["mask"], inp["x"], inp["noise"], (0.9, 0.1, 0.05),
-                                                      inp["ipv"], inp["ipm"], prep), {}, 5),
+        (fs.layer_epilogue, fs.layer_epilogue_plain,
+         (hb, inp["mask"], inp["x"], inp["noise"], _scal(card, 0.9, 0.1, 0.05), inp["ipv"], inp["ipm"], prep), {}, 5),
     ]
     for wrapper, plain, args, extra, gemms in cases:
         ck.launch_counts.clear()
@@ -249,7 +259,7 @@ def test_epilogue_without_the_f32_layer_output_is_bit_for_bit(release, card, bsz
     cfg, model, prep = release
     inp = _step_inputs(card, cfg, model, bsz, frames, seed=11 * frames)
     kw = dict(n_head=cfg.n_head, d_k=cfg.d_k, d_v=cfg.d_v)
-    scal = (0.9, 0.1, 0.05)
+    scal = _scal(card, 0.9, 0.1, 0.05)
     xa_new, xa_old = (fs.pack_xa(inp["x"], inp["xc"], prep["wst"].shape[1]) for _ in range(2))
     new = fs.layer_epilogue(inp["h"], inp["mask"], inp["x"], inp["noise"], scal, inp["ipv"], inp["ipm"], prep,
                             xa=xa_new, **kw)
@@ -321,7 +331,7 @@ def test_stem_and_step_refuse_what_they_cannot_take(release, card):
         w = torch.zeros(n + n % 8, dm, dtype=torch.bfloat16, device=card)
         x = torch.zeros(b * t, n, device=card) if x is None else x
         ck.gemm(ck.STEP, hb, w, torch.zeros(n, device=card), torch.empty(b * t, n, device=card), M=b * t, x=x,
-                noise=torch.zeros(b * t, n, device=card), t_data=t, scal=(1.0, 0.0, 0.0))
+                noise=torch.zeros(b * t, n, device=card), t_data=t, scal=_scal(card, 1.0, 0.0, 0.0))
 
     step(d)  # the release width passes
     with pytest.raises(ValueError, match="wgmma"):  # x 8 bytes off 16-byte alignment
@@ -822,7 +832,7 @@ def test_tf32x3_stem_and_step_match_plain(card, windows, tokens):
     torch.cuda.synchronize()
     assert float((h - want).abs().max()) < TOL[False]
     out, xa0 = torch.empty_like(inp["x"]), xa.clone()
-    scal = (0.9, 0.1, 0.05)
+    scal = _scal(card, 0.9, 0.1, 0.05)
     ck.gemm(ck.STEP, inp["h"], prep["lw_split"], prep["lb"], out, M=windows * t, x=inp["x"], noise=inp["noise"],
             ipv=inp["ipv"], ipm=inp["ipm"], t_data=t, scal=scal, out_b=xa)
     assert dict(ck.kernel_launches) == {"gemm_tf32x3": 2}
@@ -866,3 +876,125 @@ def test_tf32x3_gemm_refuses_what_it_cannot_take(card):
                 torch.empty(10, 256, device=card), M=10, a2=x, pos=torch.zeros(5, 256, device=card),
                 emb=bias, t_data=4)
     assert not ck.kernel_launches
+
+
+# -- the reverse step replayed from a CUDA graph (ops/fused_step.py StepGraph)
+
+# (compute dtype, bf16 activations, objective, DDIM steps or None, inpaint)
+GRAPH_MODES = [("bfloat16", False, "pred_x0", None, True), ("bfloat16", False, "pred_x0", None, False),
+               ("bfloat16", True, "pred_x0", None, True), ("float32", False, "pred_x0", None, True),
+               ("bfloat16", False, "pred_x0", 50, False), ("bfloat16", False, "pred_noise", None, True)]
+
+
+def _counters():
+    return [dict(c) for c in (ck.kernel_launches, ck.gemm_modes, ck.launch_counts, ck.step_graphs)]
+
+
+def _deltas(before):
+    return [{k: v - b.get(k, 0) for k, v in dict(c).items() if v != b.get(k, 0)}
+            for c, b in zip((ck.kernel_launches, ck.gemm_modes, ck.launch_counts, ck.step_graphs), before)]
+
+
+def _graph_window(diff, bsz, frames, inpaint, ddim, noise, act_bf16):
+    """One window of fused_p_sample_loop on seeded inputs; returns (x, the
+    counters' deltas)."""
+    g = torch.Generator(device=diff.device).manual_seed(5)
+    d = diff.cfg.d_feats
+    x_start = torch.randn(bsz, frames, d, generator=g, device=diff.device).clamp(-1, 1)
+    cond_mask = torch.zeros_like(x_start)
+    cond_mask[..., : d // 2] = 1.0
+    ipv = ipm = None
+    if inpaint:
+        ipv = torch.randn(bsz, frames, d, generator=g, device=diff.device).clamp(-1, 1)
+        ipm = torch.zeros(bsz, frames, 1, device=diff.device)
+        ipm[:, :diff.cfg.overlap_frames] = 1.0
+    before = _counters()
+    x = fs.fused_p_sample_loop(diff, x_start, cond_mask, None, ipv, ipm, noise=noise, ddim_steps=ddim,
+                               act_bf16=act_bf16)
+    torch.cuda.synchronize()
+    return x, _deltas(before)
+
+
+@pytest.mark.parametrize("frames", [120, 30])
+@pytest.mark.parametrize("mode", range(len(GRAPH_MODES)))
+def test_graphed_window_equals_eager_bit_for_bit(card, monkeypatch, mode, frames):
+    """A window replayed from the captured step equals the eager window bit
+    for bit, with the same kernel and epilogue counts, one replay a step
+    and no eager step, at 4 x 121 and the 4 x 31 tail."""
+    compute, act_bf16, objective, ddim, inpaint = GRAPH_MODES[mode]
+    cfg = DiffusionConfig(compute_dtype=compute, objective=objective, fused_step_act_bf16=act_bf16)
+    diff = CondGaussianDiffusion(cfg, device=card, seed=0)
+    steps = ddim or cfg.timesteps
+    run = lambda: _graph_window(diff, 4, frames, inpaint, ddim, fs.TorchNoise(card, seed=11), act_bf16)
+    with monkeypatch.context() as m:
+        m.setattr(fs, "graphs_engage", lambda device, prep: False)
+        x_eager, (launches, modes, wrappers, graphs) = run()
+    assert graphs == {"eager": steps}
+    x_graph, (g_launches, g_modes, g_wrappers, g_graphs) = run()
+    assert g_graphs.get("replayed") == steps and "eager" not in g_graphs
+    assert (g_launches, g_modes, g_wrappers) == (launches, modes, wrappers)
+    assert torch.equal(x_graph, x_eager)
+
+
+def test_step_graph_is_kept_across_schedules_and_sources(card, monkeypatch):
+    """A window of another schedule length and another noise source at the
+    same shape replays the graph the first captured; a window's result
+    survives the next window's replays; each equals its eager window."""
+    cfg = DiffusionConfig(compute_dtype="bfloat16")
+    diff = CondGaussianDiffusion(cfg, device=card, seed=1)
+    sources = [lambda: fs.TorchNoise(card, seed=3), lambda: fs.DefaultNoise(card)]
+    eager = []
+    with monkeypatch.context() as m:
+        m.setattr(fs, "graphs_engage", lambda device, prep: False)
+        for ddim, source in ((None, sources[0]), (3, sources[1])):
+            torch.manual_seed(7)
+            eager.append(_graph_window(diff, 4, 120, True, ddim, source(), False)[0])
+    first, (_, _, _, graphs) = _graph_window(diff, 4, 120, True, None, sources[0](), False)
+    kept = first.clone()
+    torch.manual_seed(7)
+    second, (_, _, _, graphs2) = _graph_window(diff, 4, 120, True, 3, sources[1](), False)
+    assert graphs2 == {"replayed": 3}
+    assert graphs.get("replayed") == cfg.timesteps
+    assert torch.equal(first, kept) and torch.equal(first, eager[0]) and torch.equal(second, eager[1])
+
+
+def test_replayed_step_records_its_spans(card):
+    """With the recorder on, a replayed step is one ``step`` span holding a
+    ``launch.args`` (the row's copy) and a ``launch.entry`` (the replay)
+    span tagged step_graph, and the window's kernel counts are 22 a step."""
+    from egoego_release_tpu_torch.utils import trace
+
+    cfg = DiffusionConfig(compute_dtype="bfloat16", timesteps=4)
+    diff = CondGaussianDiffusion(cfg, device=card, seed=2)
+    _graph_window(diff, 2, 120, False, None, fs.TorchNoise(card, seed=1), False)  # captures
+    trace.clear()
+    trace.enable()
+    try:
+        _, (launches, _, _, graphs) = _graph_window(diff, 2, 120, False, None, fs.TorchNoise(card, seed=1), False)
+    finally:
+        trace.disable()
+    rec = trace.spans()
+    steps = rec["name"] == "step"
+    inner = rec["parent"] >= 0
+    in_step = inner & (rec["name"][np.maximum(rec["parent"], 0)] == "step")
+    assert graphs == {"replayed": 4} and int(steps.sum()) == 4
+    for name in ("launch.args", "launch.entry"):
+        sel = in_step & (rec["name"] == name)
+        assert int(sel.sum()) == 4 and set(rec["tag"][sel]) == {"step_graph"}
+    assert sum(launches.values()) == 22 * 4
+
+
+def test_step_graphs_drop_the_least_recently_used(card, monkeypatch):
+    """Past MAX_STEP_GRAPHS keys a diffusion drops its least recently used
+    captured step (and a pool no graph holds); windows of the dropped shape
+    capture again and still equal their eager windows."""
+    cfg = DiffusionConfig(compute_dtype="bfloat16")
+    diff = CondGaussianDiffusion(cfg, device=card, seed=4)
+    monkeypatch.setattr(fs, "MAX_STEP_GRAPHS", 1)
+    run = lambda frames: _graph_window(diff, 2, frames, False, 3, fs.TorchNoise(card, seed=frames), False)
+    got = [(frames, *run(frames)) for frames in (30, 40, 30)]
+    assert [g[2][3].get("captured") for g in got] == [2, 2, 2] and len(diff.step_graphs.graphs) == 1
+    with monkeypatch.context() as m:
+        m.setattr(fs, "graphs_engage", lambda device, prep: False)
+        for frames, x, _ in got:
+            assert torch.equal(x, run(frames)[0])
