@@ -4212,19 +4212,26 @@ def main() -> int:
     log(f"phase 1: mha SASS: {len(hmma)} HMMA ({', '.join(sorted(set(hmma)))}), {len(ffma)} FFMA")
     if not hmma or any("TF32" not in x for x in hmma):
         raise AssertionError("mha: no TF32 tensor-core instruction in the built kernel")
-    # every bf16 product runs on wgmma (SASS: HGMMA), one instantiation of
-    # gemm_wgmma_kernel<BM, BN, STAGES, epilogue> per epilogue, and the library holds no HMMA
+    # every bf16 product runs on wgmma (SASS: HGMMA), one instantiation per
+    # epilogue: of gemm_wgmma_kernel<BM, BN, STAGES, epilogue>, or for the
+    # four LayerNorm layouts of gemm_wgmma_ln_kernel<epilogue> (the cluster
+    # kernel); the library holds no HMMA
     sass = subprocess.run([cuobjdump, "-sass", str(ck.BUILD_DIR / "libegoego_gemm.so")],
                           capture_output=True, text=True, check=True).stdout
     hmma = re.findall(r"\bHMMA\.[\w.]+", sass)
     wg_kernels = {}
     for fn in sass.split("Function : ")[1:]:
         m = re.match(r"\S*gemm_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d)E", fn)
-        if m:
+        ln = re.match(r"\S*gemm_wgmma_ln_kernelILi(\d)E", fn)
+        if m or ln:
             hg = re.findall(r"\bHGMMA\.[\w.]+", fn)
-            wg_kernels[WG_EPILOGUES[int(m.group(4))]] = (f"{m.group(1)}x{m.group(2)}, {m.group(3)} stages", hg)
+            epi = WG_EPILOGUES[int(m.group(4) if m else ln.group(1))]
+            if epi in wg_kernels:
+                raise AssertionError(f"gemm: two bf16 kernels for the {epi} epilogue")
+            wg_kernels[epi] = (f"{m.group(1)}x{m.group(2)}, {m.group(3)} stages" if m
+                               else "cluster of 4 CTAs of 64 x 128", hg)
     for epi, (tile, hg) in sorted(wg_kernels.items()):
-        log(f"phase 1: gemm_wgmma_kernel {epi} ({tile}): {len(hg)} HGMMA ({', '.join(sorted(set(hg)))})")
+        log(f"phase 1: gemm_wgmma {epi} ({tile}): {len(hg)} HGMMA ({', '.join(sorted(set(hg)))})")
     log(f"phase 1: gemm SASS: {len(hmma)} HMMA")
     if sorted(wg_kernels) != sorted(WG_EPILOGUES) or not all(hg for _, hg in wg_kernels.values()) or hmma:
         raise AssertionError(f"gemm: want HGMMA in each of {WG_EPILOGUES} and no HMMA, got "

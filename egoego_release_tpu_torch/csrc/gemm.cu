@@ -10,12 +10,14 @@
 // An H100 SM has 227 KB of shared memory, so here each product is its own
 // launch and the elementwise work that followed it in the TPU kernel rides
 // in that launch's epilogue, so no intermediate makes an extra trip through
-// device memory. Two kernels on the route; the compute type picks one.
+// device memory. Three kernels on the route: in bf16 the LayerNorm products
+// run on gemm_wgmma_ln_kernel and the others on gemm_wgmma_kernel; in f32
+// every product runs on gemm_tf32x3_kernel.
 //
-// gemm_wgmma_kernel, every product in bf16. wgmma is the only instruction
-// that reaches the card's full bf16 rate, so: one producer warpgroup, of
-// which one thread issues TMA loads (cp.async.bulk.tensor) of 64-deep
-// k-tiles of A (rows, K) and W (N, K), both bf16 and K-major, into a ring of
+// gemm_wgmma_kernel, every bf16 product but the LayerNorms'. wgmma is the
+// only instruction that reaches the card's full bf16 rate, so: one producer
+// warpgroup, of which one thread issues TMA loads (cp.async.bulk.tensor) of
+// 64-deep k-tiles of A (rows, K) and W (N, K), both bf16 and K-major, into a ring of
 // shared-memory stages with the 128-byte swizzle, each stage guarded by a
 // full and an empty mbarrier; two consumer warpgroups run wgmma on each
 // stage as it lands, keep one k-tile of products in flight, and hand the
@@ -36,16 +38,32 @@
 //    m64n256k16), 4 stages of 48 KB; bf16 out through 9 KB of staging a
 //    warpgroup (store_block), so every store instruction writes whole
 //    128-byte rows. QKV is bound by its operations, w1 by bytes.
-//  - kLayerNorm (fc, w2): whole rows, so 64 x 512 tiles (each warpgroup one
-//    256-column half), 3 stages of 72 KB; f32 out and its bf16 copy; the row
-//    statistics cross the two warpgroups through 1 KB of shared memory.
-//    Bound by bytes. With bf16 inter-layer activations (the TPU kernels'
-//    act dtype, fused_step_act_bf16) fc reads its residual, the layer input,
-//    as bf16 (res_bf16; the add stays f32) and w2 writes the layer output
-//    as bf16 alone (out null, out_b), as the f32 kernel does too. Each of
-//    these layouts is an instantiation of its own (kEpiLnResBf16,
-//    kEpiLnBf16Out, kEpiLnBf16), so the f32-activation epilogue carries no
-//    branch for them.
+//  - kLayerNorm (fc, w2) runs on gemm_wgmma_ln_kernel (below), a kernel of
+//    its own: the LayerNorm needs whole rows, and a whole-row 64 x 512 tile
+//    gave 121 blocks at 64 x 121 tokens, a lone block an SM with no next
+//    tile whose loads could hide its epilogue, which took three quarters of
+//    the launch. There a cluster of four CTAs shares each block of 64 rows,
+//    a CTA the 128 columns of one quarter (two warpgroups of m64n64k16), two
+//    CTAs an SM, persistent over the row blocks (the grid: the clusters the
+//    card holds at once, cudaOccupancyMaxActiveClusters). Each k-tile of A
+//    reaches the four CTAs by TMA multicast, 16 rows from each; a stage goes
+//    back to every CTA's producer as soon as its products are done (3
+//    stages of 24 KB). The producer brings the tile's residual into shared
+//    memory by TMA while the products run; the row statistics are summed
+//    over the quad, the two warpgroups and then the four CTAs, whose
+//    partials reach every CTA's shared memory (st.async into distributed
+//    shared memory) and are added there in rank order, so every CTA and
+//    every layout gets the same f32 statistics. The f32 rows leave from the
+//    fragment (each store instruction whole 32-byte sectors), the bf16 rows
+//    through the residual's buffer by TMA stores (from the fragment they
+//    would be 16-byte pieces of sectors). Bound by bytes (f32 residual in,
+//    f32 out and its bf16 copy).
+//    With bf16 inter-layer activations (the TPU kernels' act dtype,
+//    fused_step_act_bf16) fc reads its residual, the layer input, as bf16
+//    (res_bf16; the add stays f32) and w2 writes the layer output as bf16
+//    alone (out null, out_b), as the f32 kernel does too. Each of these
+//    layouts is an instantiation of its own (kEpiLnResBf16, kEpiLnBf16Out,
+//    kEpiLnBf16), so the f32-activation epilogue carries no branch for them.
 //  - kStem (the stem of _stem_layer_kernel). Bound by bytes: 3.1 GFLOP
 //    against ~30 MB at 64 x 121 tokens. Its A on the TPU was two f32 tensors
 //    of 198-wide rows (792 bytes, no TMA box). Here it is one packed bf16
@@ -84,8 +102,8 @@
 //    one captured step (a CUDA graph, ops/fused_step.py StepGraph) replays
 //    every step of a schedule with the row its host copies in first.
 //  - kPartial (fc and w2 of a tensor-parallel layer): the f32 product A W
-//    alone, no bias, in the LayerNorm modes' 64 x 512 tiles, stored from
-//    the fragment. Each tp rank holds a slice of K, so its product is a
+//    alone, no bias, in 64 x 512 tiles (each warpgroup one 256-column
+//    half), stored from the fragment. Each tp rank holds a slice of K, so its product is a
 //    partial sum: the caller all-reduces it over the tp group, and
 //    csrc/residual_layernorm.cu then adds the bias and the residual and
 //    normalizes. Bound by bytes (K = 512 / tp). Its own instantiation
@@ -356,14 +374,14 @@ struct F32Stage {
   static constexpr int kBytes = 64 * kRow;
 };
 
-// BM x BN tile, STAGES-deep ring, epilogue EPI. kSplitN (kLayerNorm's, kStep):
+// BM x BN tile, STAGES-deep ring, epilogue EPI. kSplitN (kStep, kPartial):
 // the two consumer warpgroups take the two column halves of BM = 64 rows;
 // otherwise each takes 64 of BM = 128 rows across all BN columns.
 template <int BM, int BN, int STAGES, int EPI>
 struct WgTile {
   static constexpr int kEpi = EPI;
   static constexpr bool kTf32 = false;  // bf16 operands (TfTile: gemm_tf32x3_kernel's f32 layouts)
-  static constexpr bool kSplitN = ln_epilogue(EPI) || step_epilogue(EPI) || EPI == kEpiPartial;
+  static constexpr bool kSplitN = step_epilogue(EPI) || EPI == kEpiPartial;
   static constexpr int kWN = kSplitN ? BN / 2 : BN;  // columns of one warpgroup's m64nWNk16
   static constexpr int kWBox = BN > 256 ? 256 : BN;  // rows of W in one TMA box
   static_assert(BM == (kSplitN ? 64 : 128) && kWN % 8 == 0 && kWN <= 256 && BN % kWBox == 0,
@@ -430,6 +448,23 @@ __device__ __forceinline__ void wgmma_k16(float (&d)[52], uint64_t desc_a, uint6
         "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
+      : "l"(desc_a), "l"(desc_w), "r"(1));  // scale-d 1: d += A W^T
+}
+
+// d (64 x 64 f32, the m64n64 fragment) += A (64 x 16) W^T (16 x 64), both from shared memory.
+__device__ __forceinline__ void wgmma_k16(float (&d)[32], uint64_t desc_a, uint64_t desc_w) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_w), "r"(1));  // scale-d 1: d += A W^T
 }
 
@@ -548,12 +583,12 @@ __device__ __forceinline__ float lane_of(const float4& v, int e) {
 // (the m64nNk16 fragment). So each row of the warpgroup's block lies in one
 // quad of lanes, and every load is a column pair. The bias/ReLU modes turn
 // the values into outputs in place and store them through `stage`
-// (store_block); the LayerNorm modes store column pairs straight from the
-// fragment (staging their f32 rows too gained them under 10% and cost a ring
-// stage and spills); kStem and kStep as the note at the top says. Same
+// (store_block); kStem and kStep as the note at the top says. Same
 // arithmetic as the f32 kernel's epilogue(). In gemm_tf32x3_kernel
 // (T::kTf32) the bias/ReLU modes store f32 column pairs from the fragment,
-// the stem writes no bf16 copy, and the update writes f32 x_next into xa.
+// the stem writes no bf16 copy, the update writes f32 x_next into xa, and
+// the LayerNorm modes (the bf16 ones run on gemm_wgmma_ln_kernel) store
+// column pairs straight from the fragment.
 template <typename T>
 __device__ __forceinline__ void wgmma_epilogue(const GemmArgs& p, float (&acc)[T::kWN / 2], unsigned char* stage,
                                                int m0, int n0, int row0, int col0) {
@@ -898,6 +933,275 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       wgmma_epilogue<T>(p, acc, out_stage + wg * T::kStageWg, t / n_tiles * BM, t % n_tiles * BN, row0, col0);
     }
   }
+}
+
+// -- gemm_wgmma_ln_kernel: the bf16 LayerNorm products on a cluster (see the note at the top) --
+
+constexpr int kLnThreads = 288;  // consumer warpgroups 0 and 1 (threads 0-255), producer warp 8
+constexpr int kLnCluster = 4;    // CTAs of a cluster: the column quarters of a block of 64 rows
+constexpr int kLnStages = 3;
+
+// CTA n of a cluster holds 64 rows and the BN = 128 columns from n BN, each
+// consumer warpgroup a 64-column half (m64n64k16). Each k-tile of A reaches
+// the cluster's CTAs by multicast, 16 rows from each. EPI: one of the four
+// LayerNorm layouts.
+template <int EPI>
+struct LnTile {
+  static_assert(ln_epilogue(EPI), "a LayerNorm layout");
+  static constexpr int kEpi = EPI;
+  static constexpr int kBN = 512 / kLnCluster, kWN = kBN / 2;
+  static constexpr int kASlice = 64 / kLnCluster;  // rows of each k-tile of A a CTA loads for the cluster
+  static constexpr int kA = 64 * 128, kStage = kA + kBN * 128;
+  static constexpr size_t kRing = (size_t)kLnStages * kStage;
+  // the tile's residual, then its bf16 output rows, as TMA boxes of 64 rows
+  // x 128 bytes with the 128-byte swizzle (sw128)
+  static constexpr int kRes = 64 * kBN * 4;
+  static constexpr int kResBoxes = kBN * (ln_res_bf16(EPI) ? 2 : 4) / 128;
+  // ring (1024-byte aligned for the swizzle), residual and bf16 rows, bias,
+  // LayerNorm scale and shift, row statistics (the cluster's CTAs' and the
+  // two warpgroups'), barriers
+  static constexpr size_t kSmem = kRing + kRes + (3 * kBN + (2 * kLnCluster + 4) * 64) * sizeof(float) +
+                                  (2 * kLnStages + 4) * sizeof(uint64_t) + 1024;
+  static_assert(2 * (kSmem + 1024) <= 228 * 1024, "two CTAs an SM");
+};
+
+// Byte offset of element (r, c) of a 64-row tile of E-byte elements held as
+// TMA boxes of 64 rows x 128 bytes, side by side, with the 128-byte swizzle
+// (the 16-byte chunk k of row r at k ^ (r % 8)): the fragment's column pairs
+// (rows 8 apart) meet in a bank at most twice (f32) or never (bf16).
+template <int E>
+__device__ __forceinline__ int sw128(int r, int c) {
+  const int box = c / (128 / E), byte = c % (128 / E) * E;
+  return box * 8192 + r * 128 + ((byte >> 4) ^ (r & 7)) * 16 + (byte & 15);
+}
+
+// The LayerNorm epilogue of one tile on a cluster: the consumer warpgroup
+// wg holds, in its m64nWN fragment (as wgmma_epilogue's), columns n0 + col0..
+// of rows m0..; buf holds the tile's residual (TMA), cst the CTA's bias,
+// scale and shift, mk the row mask of the thread's two rows. The row
+// statistics are f32 sums over the quad, the two warpgroups and then the
+// cluster's CTAs, which send their partials into every CTA's stat
+// (distributed shared memory); each CTA adds them in rank order, so every
+// layout and every CTA gets the same statistics from the same values. jt:
+// the CTA's tile count.
+template <typename T>
+__device__ __forceinline__ void ln_cluster_epilogue(const GemmArgs& p, float (&acc)[T::kWN / 2], unsigned char* buf,
+                                                    const float* cst, float* stat, float* part, const float (&mk)[2],
+                                                    const CUtensorMap* map_outb, uint64_t* res_full, uint64_t* res_empty, uint64_t* stat_full,
+                                                    int m0, int n0, int col0, int rank, int jt) {
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32, rl = 16 * warp + lane / 4;
+  const int wg = threadIdx.x / 128, cl = col0 + 2 * (lane % 4);  // cl: the thread's column in the CTA's slice
+  const float* bias = cst;
+  const float* ln_s = cst + T::kBN;
+  const float* ln_b = cst + 2 * T::kBN;
+  mbar_wait(res_full, jt & 1);
+  // y = (A W + b) + res, in place; columns past N stay 0 and out of the sums
+  // (the TMA read zeros past M and N)
+  float s[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < T::kWN / 8; ++j) {
+    const int c = cl + 8 * j;
+    if (n0 + c < p.N) {
+      const float2 b = *reinterpret_cast<const float2*>(bias + c);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float2 r;
+        if constexpr (ln_res_bf16(T::kEpi))
+          r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(buf + sw128<2>(rl + 8 * h, c)));
+        else
+          r = *reinterpret_cast<const float2*>(buf + sw128<4>(rl + 8 * h, c));
+        float& y0 = acc[4 * j + 2 * h];
+        float& y1 = acc[4 * j + 2 * h + 1];
+        y0 = (y0 + b.x) + r.x;
+        y1 = (y1 + b.y) + r.y;
+        s[h] += y0 + y1;
+      }
+    }
+  }
+  // a row statistic: the quad's sum, the two warpgroups' halves, then the
+  // cluster's CTAs' partials in rank order
+  auto row_total = [&](float (&v)[2], int stat_i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      v[h] += __shfl_xor_sync(0xffffffffu, v[h], 1);
+      v[h] += __shfl_xor_sync(0xffffffffu, v[h], 2);
+      if (lane % 4 == 0) part[(2 * stat_i + wg) * 64 + rl + 8 * h] = v[h];
+    }
+    consumer_sync();
+    if (threadIdx.x == 0) mbar_expect_tx(&stat_full[stat_i], kLnCluster * 64 * sizeof(float));
+    if (wg == 0 && lane % 4 == 0) {  // 32 threads a CTA send its 64 row partials to every CTA of the cluster
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = rl + 8 * h;
+        const float t = part[2 * stat_i * 64 + row] + part[(2 * stat_i + 1) * 64 + row];
+        float* slot = stat + (stat_i * kLnCluster + rank) * 64 + row;
+#pragma unroll
+        for (int c = 0; c < kLnCluster; ++c) st_async(cluster_addr(slot, c), t, cluster_addr(&stat_full[stat_i], c));
+      }
+    }
+    mbar_wait(&stat_full[stat_i], jt & 1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float t = 0.f;
+#pragma unroll
+      for (int c = 0; c < kLnCluster; ++c) t += stat[(stat_i * kLnCluster + c) * 64 + rl + 8 * h];
+      v[h] = t;
+    }
+  };
+  row_total(s, 0);
+  const float mean[2] = {s[0] / p.N, s[1] / p.N};
+  float q[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < T::kWN / 8; ++j) {
+    if (n0 + cl + 8 * j < p.N) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float d0 = acc[4 * j + 2 * h] - mean[h], d1 = acc[4 * j + 2 * h + 1] - mean[h];
+        q[h] += d0 * d0 + d1 * d1;
+      }
+    }
+  }
+  row_total(q, 1);
+  // the outputs: the f32 rows from the fragment (each store instruction
+  // writes whole 32-byte sectors, a quad's 8 columns of 8 rows), the bf16
+  // rows staged in place of the residual (whose reads all came before the
+  // first row_total's barrier) and stored by TMA
+  const bool bf16_rows = !ln_f32_out(T::kEpi) || p.out_b != nullptr;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float inv = rsqrtf(q[h] / p.N + 1e-5f);
+    const int R = m0 + rl + 8 * h;
+#pragma unroll
+    for (int j = 0; j < T::kWN / 8; ++j) {
+      const int c = cl + 8 * j;
+      if (n0 + c < p.N) {
+        const float2 g = *reinterpret_cast<const float2*>(ln_s + c);
+        const float2 b = *reinterpret_cast<const float2*>(ln_b + c);
+        const float o0 = ((acc[4 * j + 2 * h] - mean[h]) * inv * g.x + b.x) * mk[h];
+        const float o1 = ((acc[4 * j + 2 * h + 1] - mean[h]) * inv * g.y + b.y) * mk[h];
+        if (ln_f32_out(T::kEpi) && R < p.M)
+          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + (size_t)R * p.ldo + n0 + c) = make_float2(o0, o1);
+        if (bf16_rows)
+          *reinterpret_cast<__nv_bfloat162*>(buf + sw128<2>(rl + 8 * h, c)) = __floats2bfloat162_rn(o0, o1);
+      }
+    }
+  }
+  if (bf16_rows) {  // the staged boxes to out_b (rows past M and columns past N are not written)
+    fence_proxy_async();  // the staging writes, seen by the TMA
+    consumer_sync();
+    if (threadIdx.x == 0) {
+      for (int b = 0; b * 64 < T::kBN; ++b) tma_store_2d(map_outb, buf + b * 8192, n0 + b * 64, m0);
+      bulk_wait_read();
+    }
+  }
+  if (threadIdx.x == 0) mbar_arrive(res_empty);  // buf may take the next tile's residual
+}
+
+template <int EPI>
+__global__ void __launch_bounds__(kLnThreads, 2)
+    gemm_wgmma_ln_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
+                         const __grid_constant__ CUtensorMap map_res, const __grid_constant__ CUtensorMap map_outb,
+                         const GemmArgs p) {
+  using T = LnTile<EPI>;
+  constexpr int STAGES = kLnStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>((reinterpret_cast<size_t>(smem_raw) + 1023) & ~size_t(1023));
+  unsigned char* buf = ring + T::kRing;                    // the tile's residual, then its bf16 rows
+  float* cst = reinterpret_cast<float*>(buf + T::kRes);    // bias, ln_s, ln_b of the CTA's columns
+  float* stat = cst + 3 * T::kBN;                          // [statistic][CTA][row], written by the cluster's CTAs
+  float* part = stat + 2 * kLnCluster * 64;                // [statistic][warpgroup][row]
+  uint64_t* full = reinterpret_cast<uint64_t*>(part + 4 * 64);
+  uint64_t* empty = full + STAGES;
+  uint64_t* res_full = empty + STAGES;
+  uint64_t* res_empty = res_full + 1;
+  uint64_t* stat_full = res_empty + 1;  // [statistic]
+  const int rank = cluster_ctarank(), n0 = rank * T::kBN;
+  // persistent: cluster c takes the blocks of 64 rows c, c + clusters, ...
+  const int row_blocks = (p.M + 63) / 64, nk = (p.K + kWgBK - 1) / kWgBK;
+  const int cid = cluster_id_x(), clusters = cluster_count_x();
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);                   // the producer's arrive, plus the bytes from the peers' TMA
+      mbar_init(&empty[s], 2 * kLnCluster);     // each consumer warpgroup of the cluster (A reaches them all)
+    }
+    mbar_init(res_full, 1);       // the producer's arrive, plus the residual's bytes
+    mbar_init(res_empty, 1);      // the bf16 rows have left buf
+    mbar_init(&stat_full[0], 1);  // thread 0's arrive, plus the bytes of the cluster's CTAs' partials
+    mbar_init(&stat_full[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();  // every CTA's barriers are set before a peer loads or arrives into it
+
+  if (threadIdx.x >= 256) {
+    // producer warp: one thread keeps the ring full (it = k-tiles issued so
+    // far) and loads each tile's residual into buf
+    if (threadIdx.x == 256) {
+      int it = 0, jt = 0;
+      for (int g = cid; g < row_blocks; g += clusters, ++jt) {
+        const int m0 = g * 64;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % STAGES;
+          if (it >= STAGES) mbar_wait(&empty[s], (it / STAGES - 1) & 1);
+          unsigned char* st = ring + (size_t)s * T::kStage;
+          mbar_expect_tx(&full[s], T::kStage);
+          tma_load_2d_multicast(st + rank * T::kASlice * 128, &map_a, &full[s], kt * kWgBK, m0 + rank * T::kASlice,
+                                (1u << kLnCluster) - 1);
+          tma_load_2d(st + T::kA, &map_w, &full[s], kt * kWgBK, n0);
+          // the tile's residual, once its first k-tiles are on their way
+          if (kt == (nk < STAGES ? nk : STAGES) - 1) {
+            constexpr int kBoxCols = ln_res_bf16(EPI) ? 64 : 32;
+            if (jt > 0) mbar_wait(res_empty, (jt - 1) & 1);
+            mbar_expect_tx(res_full, T::kResBoxes * 8192);
+            for (int b = 0; b < T::kResBoxes; ++b)
+              tma_load_2d(buf + b * 8192, &map_res, res_full, n0 + b * kBoxCols, m0);
+          }
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    // consumers: warpgroup wg owns columns n0 + col0.. n0 + col0 + kWN - 1 of each tile's 64 rows
+    const int wg = threadIdx.x / 128, col0 = T::kWN * wg;
+    const bool leader = threadIdx.x % 128 == 0;
+    for (int i = threadIdx.x; i < T::kBN; i += 256) {
+      const bool in = n0 + i < p.N;
+      cst[i] = in ? p.bias[n0 + i] : 0.f;
+      cst[T::kBN + i] = in ? p.ln_s[n0 + i] : 0.f;
+      cst[2 * T::kBN + i] = in ? p.ln_b[n0 + i] : 0.f;
+    }
+    consumer_sync();
+    const int rl = 16 * ((threadIdx.x % 128) / 32) + threadIdx.x % 32 / 4;
+    int it = 0, jt = 0;
+    for (int g = cid; g < row_blocks; g += clusters, ++jt) {
+      const int m0 = g * 64;
+      // the row mask of the thread's two rows, read while the products run
+      const float mk[2] = {m0 + rl < p.M ? p.row_mask[m0 + rl] : 0.f,
+                           m0 + rl + 8 < p.M ? p.row_mask[m0 + rl + 8] : 0.f};
+      float acc[T::kWN / 2];
+#pragma unroll
+      for (int i = 0; i < T::kWN / 2; ++i) acc[i] = 0.f;
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        const unsigned char* st = ring + (size_t)s * T::kStage;
+        const uint64_t da = wg_desc(st), dw = wg_desc(st + T::kA + col0 * 128);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWgBK / 16; ++kk) wgmma_k16(acc, da + 2 * kk, dw + 2 * kk);
+        wgmma_commit();
+        // hand the stage back to every CTA's producer (each loads part of A
+        // into it) as soon as its products are done: the ring, not the
+        // tensor cores, sets the pace
+        wgmma_wait<0>();
+        if (leader)
+          for (int c = 0; c < kLnCluster; ++c) mbar_arrive_remote(cluster_addr(&empty[s], c));
+      }
+      ln_cluster_epilogue<T>(p, acc, buf, cst, stat, part, mk, &map_outb, res_full, res_empty, stat_full, m0, n0,
+                             col0, rank, jt);
+    }
+  }
+  cluster_sync();  // no CTA leaves while a peer may still load or arrive into its shared memory
 }
 
 // -- gemm_tf32x3_kernel: f32 products as 3xTF32 wgmma (see the note at the top) --
@@ -1245,19 +1549,59 @@ static cudaError_t launch_wgmma(const GemmArgs& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// TMA map of a row-major f32 (rows, cols) matrix with row stride ld,
-// boxes of box_rows x kTfBK columns with the 64-byte swizzle; out-of-bounds
-// elements read as zeros.
-static bool tma_map_f32(CUtensorMap* map, const void* base, int rows, int cols, int ld, int box_rows) {
+// TMA map of a row-major f32 (rows, cols) matrix with row stride ld, boxes
+// of box_rows x box_cols with the swizzle of box_cols x 4 bytes (kTfBK: 64,
+// the 3xTF32 k-tiles; 32: 128, the LayerNorm cluster kernel's residual);
+// out-of-bounds elements read as zeros.
+static bool tma_map_f32(CUtensorMap* map, const void* base, int rows, int cols, int ld, int box_rows,
+                        int box_cols = kTfBK) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
-  const cuuint32_t box[2] = {(cuuint32_t)kTfBK, (cuuint32_t)box_rows};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t elem_strides[2] = {1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+                CU_TENSOR_MAP_INTERLEAVE_NONE, box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int EPI>
+static cudaError_t launch_wgmma_ln(const GemmArgs& p, cudaStream_t stream) {
+  using T = LnTile<EPI>;
+  // A, W; the residual; the bf16 output (where the layout writes it)
+  CUtensorMap map_a, map_w, map_res, map_outb = {};
+  if (!tma_map(&map_a, p.a, p.M, p.K, p.lda, T::kASlice) || !tma_map(&map_w, p.w, p.N, p.K, p.ldw, T::kBN) ||
+      !(ln_res_bf16(EPI) ? tma_map(&map_res, p.res, p.M, p.N, p.N, 64)
+                         : tma_map_f32(&map_res, p.res, p.M, p.N, p.N, 64, 32)) ||
+      (p.out_b != nullptr && !tma_map(&map_outb, p.out_b, p.M, p.N, p.ldb, 64)))
+    return cudaErrorInvalidValue;
+  auto kernel = gemm_wgmma_ln_kernel<EPI>;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = kLnCluster, cluster.val.clusterDim.y = 1, cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kLnThreads);
+  cfg.dynamicSmemBytes = T::kSmem;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  // once per instantiation: the shared-memory size, then the clusters that
+  // the card holds at once (two CTAs an SM), the persistent grid's size
+  static const int max_clusters = [&] {
+    int n = 0;
+    cudaLaunchConfig_t one = cfg;
+    one.gridDim = dim3(kLnCluster);
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem) != cudaSuccess ||
+        cudaOccupancyMaxActiveClusters(&n, kernel, &one) != cudaSuccess)
+      return 0;
+    return n;
+  }();
+  if (max_clusters <= 0) return cudaErrorInvalidConfiguration;
+  const int row_blocks = (p.M + 63) / 64;
+  cfg.gridDim = dim3(kLnCluster * (row_blocks < max_clusters ? row_blocks : max_clusters));
+  cfg.stream = stream;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, map_a, map_w, map_res, map_outb, p);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <int BM, int BN, int STAGES, int EPI>
@@ -1357,13 +1701,13 @@ extern "C" int egoego_gemm(egoego::GemmArgs* p, void* stream) {
       if (!(ok && p->out_bf16 && p->N % 8 == 0 && p->ldo % 8 == 0)) return invalid;
       err = launch_wgmma<128, 256, 4, kEpiBias>(*p, s);
       break;
-    case kLayerNorm:  // f32 out (and its bf16 copy) or the bf16 out alone, whole rows in one tile
+    case kLayerNorm:  // f32 out (and its bf16 copy) or the bf16 out alone, whole rows on one cluster
       if (!(ok && !p->out_bf16 && p->N % 8 == 0 && p->N <= 512 && p->ldo % 8 == 0)) return invalid;
       switch (ln_epilogue_of(*p)) {
-        case kEpiLayerNorm: err = launch_wgmma<64, 512, 3, kEpiLayerNorm>(*p, s); break;
-        case kEpiLnResBf16: err = launch_wgmma<64, 512, 3, kEpiLnResBf16>(*p, s); break;
-        case kEpiLnBf16Out: err = launch_wgmma<64, 512, 3, kEpiLnBf16Out>(*p, s); break;
-        default: err = launch_wgmma<64, 512, 3, kEpiLnBf16>(*p, s);
+        case kEpiLayerNorm: err = launch_wgmma_ln<kEpiLayerNorm>(*p, s); break;
+        case kEpiLnResBf16: err = launch_wgmma_ln<kEpiLnResBf16>(*p, s); break;
+        case kEpiLnBf16Out: err = launch_wgmma_ln<kEpiLnBf16Out>(*p, s); break;
+        default: err = launch_wgmma_ln<kEpiLnBf16>(*p, s);
       }
       break;
     case kPartial:  // f32 out, no bias, no copy

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels (gemm.cu,
-// attention.cu): mbarriers, TMA loads, wgmma shared-memory descriptors and
-// the wgmma fence/commit/wait, and on the host the TMA map encoder.
+// attention.cu): mbarriers, TMA loads and stores, thread-block clusters,
+// wgmma shared-memory descriptors and the wgmma fence/commit/wait, and on
+// the host the TMA map encoder.
 #pragma once
 
 #include <cuda.h>
@@ -52,6 +53,82 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
       ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// TMA: the box at (inner coordinate c0, row c1) of the map into the same
+// shared-memory offset of every CTA of the cluster in cta_mask; each CTA's
+// barrier at the offset of bar counts the bytes it receives.
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                                      uint16_t cta_mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1, {%3, %4}], [%2], %5;\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "h"(cta_mask)
+      : "memory");
+}
+
+// TMA: shared memory into the box at (inner coordinate c0, row c1) of the
+// map, as the newest bulk group of the thread; elements past the map's
+// edges are not written.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Returns once the thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+
+// Orders the thread's writes to shared memory before later bulk copies (the async proxy) read it.
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// -- thread-block clusters --
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_id_x() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_count_x() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster (each warp converged): writes
+// before it are visible to the whole cluster after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of `ptr`'s location in CTA `rank` of the cluster.
+__device__ __forceinline__ uint32_t cluster_addr(const void* ptr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(ptr)), "r"(rank));
+  return r;
+}
+
+// Arrive on a barrier of a CTA of the cluster (cluster_addr): a consumer
+// handing a stage back to a producer that loads into this CTA.
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Store v at addr in a CTA of the cluster (cluster_addr); that CTA's
+// barrier at bar (cluster_addr, the same CTA) counts the 4 bytes, and a wait
+// on it sees the value.
+__device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(addr), "f"(v),
+               "r"(bar)
+               : "memory");
 }
 
 // TMA: the box at (c0, c1, c2) of a 3-D map, as tma_load_2d.

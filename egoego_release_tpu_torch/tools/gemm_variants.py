@@ -8,10 +8,12 @@ the kernel; they are skipped at run time), built into
 
 - ``kernel``: the source as it is;
 - ``mainloop_only``: the consumers skip the epilogue (TMA ring + wgmma, one
-  launch, no stores);
+  launch, no stores; the LayerNorm cluster kernel loads no residual);
 - ``no_stores``: the epilogue runs (and stages its outputs; the update also
   reads x, noise and the inpaint values) but stores none to device memory;
-- ``no_residual``: the LayerNorm epilogue reads zeros for the residual.
+- ``no_residual``: the LayerNorm epilogue reads no residual from device
+  memory (zeros in the f32 kernel's, what shared memory holds in the
+  cluster kernel's).
 
 Every product of a step (QKV, fc + LayerNorm, w1 + ReLU, w2 + LayerNorm, the
 LayerNorms with and without their bf16 copy; the stem from the packed xa,
@@ -39,9 +41,19 @@ import torch
 from egoego_release_tpu_torch.ops import cuda_kernels as ck
 
 EPILOGUE_CALL = "      wgmma_epilogue<T>(p, acc, out_stage"
-RESIDUAL_LOAD = "if (R[h] < p.M) {\n            const size_t e"  # the LayerNorm modes' residual
+LN_EPILOGUE_CALL = "      ln_cluster_epilogue<T>(p, acc, buf"  # gemm_wgmma_ln_kernel (bf16 LayerNorm modes)
+RESIDUAL_LOAD = "if (R[h] < p.M) {\n            const size_t e"  # the f32 kernel's LayerNorm residual
+LN_RES_TX = "mbar_expect_tx(res_full, T::kResBoxes * 8192);"  # the cluster kernel's residual, by its producer
+LN_RES_LOOP = "for (int b = 0; b < T::kResBoxes; ++b)\n              tma_load_2d("
+LN_RES_WAIT = "if (jt > 0) mbar_wait(res_empty"  # the cluster kernel's producer, before the next residual
 STORE = "      if (R < p.M && C < p.N) {\n        const uint4 v"  # store_block (bias/ReLU modes)
-LN_STORE = "        if (C < p.N && R[h] < p.M) {\n          const float2 g"  # the LayerNorm modes
+LN_STORE = "        if (C < p.N && R[h] < p.M) {\n          const float2 g"  # the f32 kernel's LayerNorm modes
+LN_CLUSTER_STORE = "b * 64 < T::kBN; ++b) tma_store_2d("  # the cluster kernel's bf16 rows (TMA)
+LN_CLUSTER_F32 = "if (ln_f32_out(T::kEpi) && R < p.M)\n"  # its f32 rows, from the fragment
+NO_LN_STORES = [(LN_CLUSTER_STORE, LN_CLUSTER_STORE.replace("< T::kBN;", "< T::kBN && p.M < 0;")),
+                (LN_CLUSTER_F32, LN_CLUSTER_F32.replace("R < p.M", "R < p.M && p.M < 0"))]
+NO_RESIDUAL_TMA = [(LN_RES_TX, LN_RES_TX.replace(");", " * (p.M < 0));")),
+                   (LN_RES_LOOP, LN_RES_LOOP.replace("b < T::kResBoxes;", "b < T::kResBoxes * (p.M < 0);"))]
 STEM_STORE = "      if (r < rows && C < p.N) {\n        const float4 a"  # store_block_f32 (kStem)
 STEM_TOKEN0 = "      if (C < p.N) {\n        const float2 e"  # kStem: token 0 of each window
 STEP_STORE = "          *reinterpret_cast<float4*>(out + f) ="  # kStep: x_next, 16-byte pieces
@@ -50,9 +62,12 @@ STEP_XA = "} else if (p.out_b != nullptr) {\n      const int pieces"  # kStep: b
 NO_STORE = lambda anchor, cond: (anchor, anchor.replace(cond, cond[:-3] + " && p.M < 0) {"))
 VARIANTS = {
     "kernel": [],
-    "mainloop_only": [(EPILOGUE_CALL, EPILOGUE_CALL.replace("      wgmma", "      if (p.M < 0) wgmma"))],
-    "no_residual": [(RESIDUAL_LOAD, RESIDUAL_LOAD.replace("R[h] < p.M", "R[h] < 0"))],
+    "mainloop_only": [(EPILOGUE_CALL, EPILOGUE_CALL.replace("      wgmma", "      if (p.M < 0) wgmma")),
+                      (LN_EPILOGUE_CALL, LN_EPILOGUE_CALL.replace("      ln", "      if (p.M < 0) ln")),
+                      (LN_RES_WAIT, LN_RES_WAIT.replace("jt > 0", "jt > 0 && p.M < 0"))] + NO_RESIDUAL_TMA,
+    "no_residual": [(RESIDUAL_LOAD, RESIDUAL_LOAD.replace("R[h] < p.M", "R[h] < 0"))] + NO_RESIDUAL_TMA,
     "no_stores": [NO_STORE(STORE, "C < p.N) {"), NO_STORE(LN_STORE, "R[h] < p.M) {"),
+                  *NO_LN_STORES,
                   NO_STORE(STEM_STORE, "C < p.N) {"), NO_STORE(STEM_TOKEN0, "C < p.N) {"),
                   NO_STORE(STEP_XA, "nullptr) {"),
                   (STEP_STORE, STEP_STORE.replace("*", "if (p.M < 0) *", 1)),
