@@ -35,9 +35,21 @@
 // links only the CUDA runtime). One instantiation per epilogue:
 //
 //  - kBias (QKV), kBiasRelu (w1): 128 x 256 tiles (each warpgroup 64 rows,
-//    m64n256k16), 4 stages of 48 KB; bf16 out through 9 KB of staging a
-//    warpgroup (store_block), so every store instruction writes whole
-//    128-byte rows. QKV is bound by its operations, w1 by bytes.
+//    m64n256k16), 4 stages of 48 KB. QKV is bound by its operations (24.4
+//    GFLOP against 59 MB at 64 x 121 tokens), w1 by bytes (4.1 GFLOP
+//    against 16 MB). K = 512 is only 8 k-tiles, so a tile's 64 KB of bf16
+//    outputs weigh nearly as much as its products, and stored by the
+//    consumers' own instructions they left the tensor cores idle. Here each
+//    warpgroup adds the bias (8 loads in flight at a time, none
+//    conditional), rounds its 64 x 256 outputs into staging boxes of 64
+//    rows x 64 columns with the 128-byte swizzle, two boxes at a time (the
+//    ring leaves 32 KB), and its leader hands each box to a TMA store
+//    (store_block_tma) and goes straight on: the second round waits only
+//    for the first's reads of the staging, the next tile only for the
+//    second's, and the writes to device memory run under the next tile's
+//    products. TMA writes no row past M nor column past N. A block's last
+//    tile has no next tile to hide its stores (w1 at 64 x 121: 122 tiles,
+//    one a block); ops/cuda_kernels.py gemm_tiles counts both kinds.
 //  - kLayerNorm (fc, w2) runs on gemm_wgmma_ln_kernel (below), a kernel of
 //    its own: the LayerNorm needs whole rows, and a whole-row 64 x 512 tile
 //    gave 121 blocks at 64 x 121 tokens, a lone block an SM with no next
@@ -201,6 +213,7 @@ struct GemmArgs {
   int t_data;             // kStem/kStep: frames per window (tokens = t_data + 1)
   int kernel;             // set by the C entries: the GemmKernel launched
   int step_noise;         // kStep: the output is a noise prediction (x0 = r1 x - r2 out before the clip)
+  int tiles, grid;        // set by egoego_gemm on gemm_wgmma_kernel: its output tiles and the blocks launched
 };
 
 enum GemmKernel : int { kKernelCudaCores = 0, kKernelWgmma = 1, kKernelTf32x3 = 2 };
@@ -361,14 +374,9 @@ __device__ __forceinline__ void epilogue(const GemmArgs& p, const float* Cs, int
 constexpr int kWgBK = 64;         // k-tile depth: 64 bf16 = one 128-byte swizzle row
 constexpr int kWgThreads = 384;   // consumer warpgroups 0 and 1 (threads 0-255), producer 2
 
-// Staging rows of one consumer warpgroup: in the bias/ReLU modes 64 rows of
-// 128 bytes of bf16 (64 columns), padded to 144 bytes so that the fragment's
-// bf16x2 stores hit every bank once; in kStem 64 rows of 32 floats, padded
-// to 40 (160 bytes) so that its float2 stores do.
-struct OutStage {
-  static constexpr int kRow = 144;
-  static constexpr int kBytes = 64 * kRow;
-};
+// Staging rows of one consumer warpgroup in kStem: 64 rows of 32 floats,
+// padded to 40 (160 bytes) so that the fragment's float2 stores hit every
+// bank once.
 struct F32Stage {
   static constexpr int kRow = 160;
   static constexpr int kBytes = 64 * kRow;
@@ -388,8 +396,12 @@ struct WgTile {
                 "two m64nNk16 warpgroups");
   static constexpr int kA = BM * kWgBK * 2, kB = BN * kWgBK * 2, kStage = kA + kB;
   static constexpr size_t kRing = (size_t)STAGES * kStage;
+  // bias/ReLU: a warpgroup's 64 x 256 bf16 outputs leave as TMA boxes of
+  // 64 rows x 64 columns (8 KB, sw128), two at a time: the 4-stage ring
+  // leaves room for half of them (3 stages and all four were slower)
+  static constexpr int kOutBoxes = 2;
   // staging: per warpgroup (bias/ReLU, stem), or the block's x0 tile (step)
-  static constexpr int kStageWg = EPI == kEpiBias ? OutStage::kBytes : EPI == kEpiStem ? F32Stage::kBytes : 0;
+  static constexpr int kStageWg = EPI == kEpiBias ? kOutBoxes * 8192 : EPI == kEpiStem ? F32Stage::kBytes : 0;
   static constexpr size_t kOut = step_epilogue(EPI) ? (size_t)BM * BN * 4 : 2 * kStageWg;
   // ring (1024-byte aligned for the swizzle), staging, barriers
   static constexpr size_t kSmem = kRing + kOut + 2 * STAGES * sizeof(uint64_t) + 1024;
@@ -475,37 +487,71 @@ __device__ __forceinline__ void warpgroup_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
 }
 
-// Stores a consumer warpgroup's 64 x 256 block of bf16 outputs, held in the
+// Byte offset of element (r, c) of a 64-row tile of E-byte elements held as
+// TMA boxes of 64 rows x 128 bytes, side by side, with the 128-byte swizzle
+// (the 16-byte chunk k of row r at k ^ (r % 8)): the fragment's column pairs
+// (rows 8 apart) meet in a bank at most twice (f32) or never (bf16).
+template <int E>
+__device__ __forceinline__ int sw128(int r, int c) {
+  const int box = c / (128 / E), byte = c % (128 / E) * E;
+  return box * 8192 + r * 128 + ((byte >> 4) ^ (r & 7)) * 16 + (byte & 15);
+}
+
+// Stores (lo, hi), rounded to bf16, at the shared-memory address addr (smem_u32).
+__device__ __forceinline__ void st_shared_bf16x2(uint32_t addr, float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(*reinterpret_cast<const uint32_t*>(&v)));
+}
+
+// Stores a consumer warpgroup's 64 x 256 block of products, held in the
 // m64n256 fragment (element 4j + 2h + e: row rl + 8h, column 8j + 2q + e,
-// with rl = 16 warp + lane / 4 and q = lane % 4), at (r0, c0) of out: 64
-// columns at a time through the warpgroup's staging rows, from which each
-// thread stores 16-byte pieces, eight threads to a row, so every store
-// instruction writes whole rows of 128 bytes. N % 8 == 0.
-__device__ __forceinline__ void store_block(const GemmArgs& p, const float (&acc)[128], unsigned char* stage, int r0,
-                                            int c0) {
+// with rl = 16 warp + lane / 4 and q = lane % 4), plus the bias (and the
+// ReLU in kBiasRelu), as bf16 at (r0, c0) of out (the TMA map map_out):
+// T::kOutBoxes boxes of 64 columns at a time are rounded into the
+// warpgroup's staging (sw128: every bf16x2 store of a warp hits each bank
+// once), then the warpgroup's leader stores them by TMA, one bulk group a
+// box, and goes on. Before the staging is written again (the next
+// round, or the next tile's epilogue) the leader waits only until those
+// stores have read it; their writes to device memory run on under the next
+// tile's products. TMA writes no element past the map's edges (rows past M,
+// columns past N).
+template <typename T>
+__device__ __forceinline__ void store_block_tma(const GemmArgs& p, const float (&acc)[128], unsigned char* stage,
+                                                const CUtensorMap* map_out, int r0, int c0) {
   const int t = threadIdx.x % 128, lane = t % 32, wg = threadIdx.x / 128;
   const int rl = 16 * (t / 32) + lane / 4, q = lane % 4;
+  const bool relu = p.mode == kBiasRelu;
+  const uint32_t st = smem_u32(stage);
 #pragma unroll
-  for (int j0 = 0; j0 < 32; j0 += 8) {
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        *reinterpret_cast<__nv_bfloat162*>(stage + (rl + 8 * h) * OutStage::kRow + (8 * jj + 2 * q) * 2) =
-            __floats2bfloat162_rn(acc[4 * (j0 + jj) + 2 * h], acc[4 * (j0 + jj) + 2 * h + 1]);
-      }
-    }
+  for (int b0 = 0; b0 < 4; b0 += T::kOutBoxes) {
+    if (t == 0) bulk_wait_read();  // the staging's previous stores have read it
     warpgroup_sync(wg);
 #pragma unroll
-    for (int i = t; i < 64 * 8; i += 128) {
-      const int row = i / 8, piece = i % 8;
-      const int R = r0 + row, C = c0 + 8 * (j0 + piece);
-      if (R < p.M && C < p.N) {
-        const uint4 v = *reinterpret_cast<const uint4*>(stage + row * OutStage::kRow + piece * 16);
-        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.out) + (size_t)R * p.ldo + C) = v;
+    for (int b = 0; b < T::kOutBoxes; ++b) {
+      // the bias pairs of the box's columns: no load is conditional (a
+      // column past N reads N - 2's, which the TMA store clips), so the
+      // eight are in flight at once
+      float2 bias[8];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        bias[jj] = *reinterpret_cast<const float2*>(p.bias + min(c0 + 64 * (b0 + b) + 8 * jj + 2 * q, p.N - 2));
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int j = 8 * (b0 + b) + jj;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float v0 = acc[4 * j + 2 * h] + bias[jj].x, v1 = acc[4 * j + 2 * h + 1] + bias[jj].y;
+          if (relu) v0 = fmaxf(v0, 0.f), v1 = fmaxf(v1, 0.f);
+          st_shared_bf16x2(st + sw128<2>(rl + 8 * h, 64 * b + 8 * jj + 2 * q), v0, v1);
+        }
       }
     }
-    warpgroup_sync(wg);  // the staging rows are free again
+    fence_proxy_async();  // the staging writes, seen by the TMA
+    warpgroup_sync(wg);
+    if (t == 0 && r0 < p.M) {
+      for (int b = 0; b < T::kOutBoxes; ++b)
+        if (c0 + 64 * (b0 + b) < p.N) tma_store_2d(map_out, stage + b * 8192, c0 + 64 * (b0 + b), r0);
+    }
   }
 }
 
@@ -582,8 +628,8 @@ __device__ __forceinline__ float lane_of(const float4& v, int e) {
 // is row r + 8, with r = row0 + 16 warp + lane / 4 and c = col0 + 2 (lane % 4)
 // (the m64nNk16 fragment). So each row of the warpgroup's block lies in one
 // quad of lanes, and every load is a column pair. The bias/ReLU modes turn
-// the values into outputs in place and store them through `stage`
-// (store_block); kStem and kStep as the note at the top says. Same
+// the values into outputs in place and store them through `stage` by TMA
+// (store_block_tma); kStem and kStep as the note at the top says. Same
 // arithmetic as the f32 kernel's epilogue(). In gemm_tf32x3_kernel
 // (T::kTf32) the bias/ReLU modes store f32 column pairs from the fragment,
 // the stem writes no bf16 copy, the update writes f32 x_next into xa, and
@@ -591,10 +637,13 @@ __device__ __forceinline__ float lane_of(const float4& v, int e) {
 // column pairs straight from the fragment.
 template <typename T>
 __device__ __forceinline__ void wgmma_epilogue(const GemmArgs& p, float (&acc)[T::kWN / 2], unsigned char* stage,
-                                               int m0, int n0, int row0, int col0) {
+                                               int m0, int n0, int row0, int col0,
+                                               const CUtensorMap* map_out = nullptr) {
   const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32, rl = 16 * warp + lane / 4;
   const int c = n0 + col0 + 2 * (lane % 4);
-  if constexpr (T::kEpi == kEpiBias) {  // kBias, kBiasRelu
+  if constexpr (T::kEpi == kEpiBias && !T::kTf32) {  // kBias, kBiasRelu in bf16
+    store_block_tma<T>(p, acc, stage, map_out, m0 + row0, n0 + col0);
+  } else if constexpr (T::kEpi == kEpiBias) {  // kBias, kBiasRelu in f32: f32 column pairs from the fragment
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       const int C = c + 8 * j;
@@ -609,21 +658,17 @@ __device__ __forceinline__ void wgmma_epilogue(const GemmArgs& p, float (&acc)[T
         }
       }
     }
-    if constexpr (T::kTf32) {  // f32 out: each quad of lanes writes 32 contiguous bytes of a row
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int R = m0 + row0 + rl + 8 * h;
-        if (R < p.M) {
-          float* o = static_cast<float*>(p.out) + (size_t)R * p.ldo;
+    for (int h = 0; h < 2; ++h) {  // each quad of lanes writes 32 contiguous bytes of a row
+      const int R = m0 + row0 + rl + 8 * h;
+      if (R < p.M) {
+        float* o = static_cast<float*>(p.out) + (size_t)R * p.ldo;
 #pragma unroll
-          for (int j = 0; j < 32; ++j) {
-            const int C = c + 8 * j;
-            if (C < p.N) *reinterpret_cast<float2*>(o + C) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-          }
+        for (int j = 0; j < 32; ++j) {
+          const int C = c + 8 * j;
+          if (C < p.N) *reinterpret_cast<float2*>(o + C) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
         }
       }
-    } else {
-      store_block(p, acc, stage, m0 + row0, n0 + col0);
     }
   } else if constexpr (ln_epilogue(T::kEpi)) {  // the two warpgroups hold the two column halves of 64 rows
     __shared__ float part[2][2][64];  // [statistic][warpgroup][row]: row sums over each half
@@ -863,7 +908,7 @@ __device__ __forceinline__ void wgmma_epilogue(const GemmArgs& p, float (&acc)[T
 template <int BM, int BN, int STAGES, int EPI>
 __global__ void __launch_bounds__(kWgThreads, 1)
     gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
-                      const GemmArgs p) {
+                      const __grid_constant__ CUtensorMap map_out, const GemmArgs p) {
   using T = WgTile<BM, BN, STAGES, EPI>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = reinterpret_cast<unsigned char*>((reinterpret_cast<size_t>(smem_raw) + 1023) & ~size_t(1023));
@@ -872,7 +917,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   uint64_t* empty = full + STAGES;
   // persistent: block b takes tiles b, b + gridDim.x, ..., columns fastest;
   // the ring runs on across tiles, so the next tile's loads overlap this
-  // tile's epilogue
+  // tile's epilogue (and in bf16 bias/ReLU the next tile's products this
+  // tile's stores)
   const int n_tiles = (p.N + BN - 1) / BN, tiles = n_tiles * ((prod_rows(p) + BM - 1) / BM);
   const int nk = (p.K + kWgBK - 1) / kWgBK;
 
@@ -930,8 +976,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       }
       wgmma_wait<0>();
       if (leader) mbar_arrive(&empty[(it - 1) % STAGES]);
-      wgmma_epilogue<T>(p, acc, out_stage + wg * T::kStageWg, t / n_tiles * BM, t % n_tiles * BN, row0, col0);
+      wgmma_epilogue<T>(p, acc, out_stage + wg * T::kStageWg, t / n_tiles * BM, t % n_tiles * BN, row0, col0,
+                        &map_out);
     }
+    if (EPI == kEpiBias && leader) bulk_wait_read();  // the last stores have read the staging before it goes
   }
 }
 
@@ -964,16 +1012,6 @@ struct LnTile {
                                   (2 * kLnStages + 4) * sizeof(uint64_t) + 1024;
   static_assert(2 * (kSmem + 1024) <= 228 * 1024, "two CTAs an SM");
 };
-
-// Byte offset of element (r, c) of a 64-row tile of E-byte elements held as
-// TMA boxes of 64 rows x 128 bytes, side by side, with the 128-byte swizzle
-// (the 16-byte chunk k of row r at k ^ (r % 8)): the fragment's column pairs
-// (rows 8 apart) meet in a bank at most twice (f32) or never (bf16).
-template <int E>
-__device__ __forceinline__ int sw128(int r, int c) {
-  const int box = c / (128 / E), byte = c % (128 / E) * E;
-  return box * 8192 + r * 128 + ((byte >> 4) ^ (r & 7)) * 16 + (byte & 15);
-}
 
 // The LayerNorm epilogue of one tile on a cluster: the consumer warpgroup
 // wg holds, in its m64nWN fragment (as wgmma_epilogue's), columns n0 + col0..
@@ -1531,11 +1569,13 @@ static bool tma_map(CUtensorMap* map, const void* base, int rows, int cols, int 
 }
 
 template <int BM, int BN, int STAGES, int EPI>
-static cudaError_t launch_wgmma(const GemmArgs& p, cudaStream_t stream) {
+static cudaError_t launch_wgmma(GemmArgs& p, cudaStream_t stream) {
   using T = WgTile<BM, BN, STAGES, EPI>;
   const int rows = prod_rows(p);
-  CUtensorMap map_a, map_w;
-  if (!tma_map(&map_a, p.a, rows, p.K, p.lda, BM) || !tma_map(&map_w, p.w, p.N, p.K, p.ldw, T::kWBox))
+  // A, W; the bf16 out of bias/ReLU, stored by TMA boxes of 64 x 64
+  CUtensorMap map_a, map_w, map_out = {};
+  if (!tma_map(&map_a, p.a, rows, p.K, p.lda, BM) || !tma_map(&map_w, p.w, p.N, p.K, p.ldw, T::kWBox) ||
+      (EPI == kEpiBias && !tma_map(&map_out, p.out, p.M, p.N, p.ldo, 64)))
     return cudaErrorInvalidValue;
   auto kernel = gemm_wgmma_kernel<BM, BN, STAGES, EPI>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
@@ -1544,8 +1584,9 @@ static cudaError_t launch_wgmma(const GemmArgs& p, cudaStream_t stream) {
   if ((err = cudaGetDevice(&device)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
     return err;
-  const int tiles = ((p.N + BN - 1) / BN) * ((rows + BM - 1) / BM);
-  kernel<<<tiles < sms ? tiles : sms, kWgThreads, T::kSmem, stream>>>(map_a, map_w, p);  // one block an SM
+  p.tiles = ((p.N + BN - 1) / BN) * ((rows + BM - 1) / BM);
+  p.grid = p.tiles < sms ? p.tiles : sms;  // one block an SM
+  kernel<<<p.grid, kWgThreads, T::kSmem, stream>>>(map_a, map_w, map_out, p);
   return cudaGetLastError();
 }
 
@@ -1685,6 +1726,7 @@ extern "C" int egoego_gemm(egoego::GemmArgs* p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int invalid = (int)cudaErrorInvalidValue;
   p->kernel = -1;
+  p->tiles = p->grid = 0;
   if (!valid_args(*p)) return invalid;
   if (!p->compute_bf16) {
     const cudaError_t err = tf32_route(*p, s);

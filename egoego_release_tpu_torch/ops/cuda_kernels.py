@@ -68,6 +68,11 @@ kernel_launches: Counter = Counter()
 # GEMM launches by epilogue mode (BIAS ... PARTIAL; a pred_noise update under
 # STEP_NOISE), counted with kernel_launches
 gemm_modes: Counter = Counter()
+# Output tiles of the bf16 BIAS / BIAS_RELU launches (QKV, w1) on the wgmma
+# kernel, as its C entry reports them: "bias" every tile, "bias_hidden" the
+# tiles whose stores run under the products of a next tile on the same block
+# (every tile but a block's last: tiles less the grid; ``bias_tiles``)
+gemm_tiles: Counter = Counter()
 # Reverse steps on the card (ops/fused_step.py): "replayed" from a captured
 # CUDA graph, "eager" launched one by one; "captured" counts the graphs
 # captured (two a step shape)
@@ -113,7 +118,7 @@ class GemmArgs(ctypes.Structure):
         "a", "w", "w_lo", "bias", "res", "ln_s", "ln_b", "row_mask", "pos", "emb",
         "x", "noise", "ipv", "ipm", "scal", "out", "out_b")] + [(name, ctypes.c_int) for name in (
         "M", "N", "K", "lda", "ldw", "ldo", "ldb", "a_bf16", "out_bf16",
-        "compute_bf16", "res_bf16", "mode", "t_data", "kernel", "step_noise")]
+        "compute_bf16", "res_bf16", "mode", "t_data", "kernel", "step_noise", "tiles", "grid")]
 
 
 class AttnArgs(ctypes.Structure):
@@ -350,6 +355,16 @@ def gemm_args(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, o
     )
 
 
+def bias_tiles(M: int, N: int, sms: int) -> tuple[int, int]:
+    """(tiles, blocks) of a bf16 BIAS / BIAS_RELU launch of (M, N) outputs
+    on a card of ``sms`` SMs, as csrc/gemm.cu launch_wgmma lays it out:
+    128 x 256 tiles, a persistent grid of one block an SM and at most one a
+    tile. Every tile but a block's last has its stores hidden under the
+    next tile's products: tiles less blocks of them."""
+    tiles = -(-M // 128) * -(-N // 256)
+    return tiles, min(tiles, sms)
+
+
 def upload(t: Tensor, device) -> Tensor:
     """A host tensor on ``device``; to the card from pinned memory, so the
     host does not wait for the card's queue (a pageable copy waits for it)."""
@@ -368,6 +383,16 @@ def step_scalars(scal, device) -> Tensor:
     return upload(torch.tensor(scal, dtype=torch.float32), device)
 
 
+def count_gemm(args: GemmArgs) -> None:
+    """Count one GEMM launch as its C entry reported it: the kernel, the
+    epilogue mode and, for a bf16 BIAS / BIAS_RELU launch, its tiles."""
+    kernel_launches[GEMM_KERNELS[args.kernel]] += 1
+    gemm_modes[STEP_NOISE if args.step_noise else args.mode] += 1
+    if GEMM_KERNELS[args.kernel] == "gemm_wgmma" and args.mode in (BIAS, BIAS_RELU):
+        gemm_tiles["bias"] += args.tiles
+        gemm_tiles["bias_hidden"] += args.tiles - args.grid
+
+
 def _launch_gemm(entry: str, args: GemmArgs, device, t0=0) -> None:
     """The launch through the C entry ``entry``; ``t0``: when the span
     recorder is on, the time its checks began (``trace.launch``)."""
@@ -375,8 +400,7 @@ def _launch_gemm(entry: str, args: GemmArgs, device, t0=0) -> None:
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         _check(getattr(_lib("gemm"), entry)(ctypes.byref(args), stream), "gemm")
-    kernel_launches[GEMM_KERNELS[args.kernel]] += 1
-    gemm_modes[STEP_NOISE if args.step_noise else args.mode] += 1
+    count_gemm(args)
     if t0:
         trace.launch(GEMM_KERNELS[args.kernel], t0, t1)
 

@@ -385,7 +385,7 @@ def step_table(embs: torch.Tensor, sched) -> torch.Tensor:
 
 
 # the kernel counters a replayed step adds to, as its launches would
-_COUNTERS = (ck.kernel_launches, ck.gemm_modes, ck.launch_counts)
+_COUNTERS = (ck.kernel_launches, ck.gemm_modes, ck.launch_counts, ck.gemm_tiles)
 
 
 class StepGraph:

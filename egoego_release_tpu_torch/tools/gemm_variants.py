@@ -10,7 +10,8 @@ the kernel; they are skipped at run time), built into
 - ``mainloop_only``: the consumers skip the epilogue (TMA ring + wgmma, one
   launch, no stores; the LayerNorm cluster kernel loads no residual);
 - ``no_stores``: the epilogue runs (and stages its outputs; the update also
-  reads x, noise and the inpaint values) but stores none to device memory;
+  reads x, noise and the inpaint values) but stores none to device memory
+  (QKV and w1 start no TMA store);
 - ``no_residual``: the LayerNorm epilogue reads no residual from device
   memory (zeros in the f32 kernel's, what shared memory holds in the
   cluster kernel's).
@@ -46,7 +47,7 @@ RESIDUAL_LOAD = "if (R[h] < p.M) {\n            const size_t e"  # the f32 kerne
 LN_RES_TX = "mbar_expect_tx(res_full, T::kResBoxes * 8192);"  # the cluster kernel's residual, by its producer
 LN_RES_LOOP = "for (int b = 0; b < T::kResBoxes; ++b)\n              tma_load_2d("
 LN_RES_WAIT = "if (jt > 0) mbar_wait(res_empty"  # the cluster kernel's producer, before the next residual
-STORE = "      if (R < p.M && C < p.N) {\n        const uint4 v"  # store_block (bias/ReLU modes)
+STORE = "if (c0 + 64 * (b0 + b) < p.N) tma_store_2d("  # store_block_tma (bias/ReLU modes): a box's TMA store
 LN_STORE = "        if (C < p.N && R[h] < p.M) {\n          const float2 g"  # the f32 kernel's LayerNorm modes
 LN_CLUSTER_STORE = "b * 64 < T::kBN; ++b) tma_store_2d("  # the cluster kernel's bf16 rows (TMA)
 LN_CLUSTER_F32 = "if (ln_f32_out(T::kEpi) && R < p.M)\n"  # its f32 rows, from the fragment
@@ -66,7 +67,7 @@ VARIANTS = {
                       (LN_EPILOGUE_CALL, LN_EPILOGUE_CALL.replace("      ln", "      if (p.M < 0) ln")),
                       (LN_RES_WAIT, LN_RES_WAIT.replace("jt > 0", "jt > 0 && p.M < 0"))] + NO_RESIDUAL_TMA,
     "no_residual": [(RESIDUAL_LOAD, RESIDUAL_LOAD.replace("R[h] < p.M", "R[h] < 0"))] + NO_RESIDUAL_TMA,
-    "no_stores": [NO_STORE(STORE, "C < p.N) {"), NO_STORE(LN_STORE, "R[h] < p.M) {"),
+    "no_stores": [(STORE, STORE.replace("< p.N)", "< p.N && p.M < 0)")), NO_STORE(LN_STORE, "R[h] < p.M) {"),
                   *NO_LN_STORES,
                   NO_STORE(STEM_STORE, "C < p.N) {"), NO_STORE(STEM_TOKEN0, "C < p.N) {"),
                   NO_STORE(STEP_XA, "nullptr) {"),

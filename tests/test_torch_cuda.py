@@ -340,22 +340,32 @@ def test_stem_and_step_refuse_what_they_cannot_take(release, card):
         step(256)
 
 
-@pytest.mark.parametrize("mode,m,n,k", [
-    (mode, m, n, k) for mode in (ck.BIAS, ck.BIAS_RELU, ck.LAYER_NORM) for m in (7744, 726, 93)
-    for n in (3072, 512, 384) for k in (512, 1024) if not (mode == ck.LAYER_NORM and n > 512)])
+# M: 128 x 121 and 64 x 121 tokens, 128 x 31 (the captures' tail), 6 x 121,
+# 121 (a tool's batch of one) and 93; N: QKV, a tp 2 shard's QKV, w1 (and
+# its tp 2 shard 256), 384
+BIAS_SHAPES = [(m, n, 512) for m in (15488, 7744, 3968, 726, 121, 93) for n in (3072, 1536, 512, 384, 256)] + [
+    (m, n, 1024) for m in (7744, 726, 93) for n in (3072, 512, 384)]
+
+
+@pytest.mark.parametrize("mode,m,n,k", [(mode, *s) for mode in (ck.BIAS, ck.BIAS_RELU) for s in BIAS_SHAPES] + [
+    (ck.LAYER_NORM, m, n, k) for m in (7744, 726, 93) for n in (512, 384) for k in (512, 1024)])
 def test_wgmma_gemm_matches_plain(card, mode, m, n, k):
     """The three layer modes through the wgmma kernel against linear_plain
     and the epilogue's plain form: M = 64 x 121 (the path), 6 x 121 and 93
     (not multiples of the 128- or 64-row tiles), N = 3072 (QKV), 512 and 384
     (not a multiple of the 256-column tile); the LayerNorm's bf16 copy is
     its f32 output rounded, bit for bit. Values stay under 2 in magnitude,
-    where a bf16 output rounding is under 2e-2."""
+    where a bf16 output rounding is under 2e-2. QKV and w1 (BIAS_SHAPES)
+    write by TMA into the first M rows of a buffer of 128 rows more, whose
+    other rows keep their sentinel, and report the tiles and the grid of
+    ``bias_tiles``."""
     g = torch.Generator(device=card).manual_seed(m + n + k)
     rn = lambda *s: torch.randn(*s, generator=g, device=card)
     bf = torch.bfloat16
     a, w, bias = rn(m, k).to(bf), (rn(n, k) * 0.25 / k ** 0.5).to(bf), 0.25 * rn(n)
     acc = fl.linear_plain(a, w) + bias
     ck.kernel_launches.clear()
+    ck.gemm_tiles.clear()
     if mode == ck.LAYER_NORM:
         res, ln_s, ln_b = rn(m, n), 1 + 0.1 * rn(n), 0.1 * rn(n)
         mask = (rn(m) > -1).float()
@@ -363,14 +373,40 @@ def test_wgmma_gemm_matches_plain(card, mode, m, n, k):
         ck.gemm(mode, a, w, bias, out, M=m, res=res, ln_s=ln_s, ln_b=ln_b, row_mask=mask, out_b=out_b)
         want = fl.layer_norm_plain(acc + res, ln_s, ln_b) * mask[:, None]
     else:
-        out = torch.empty(m, n, dtype=bf, device=card)
+        sentinel = torch.full((m + 128, n), -77.0, dtype=bf, device=card)
+        buf = sentinel.clone()
+        out = buf[:m]
         ck.gemm(mode, a, w, bias, out, M=m)
         want = torch.relu(acc) if mode == ck.BIAS_RELU else acc
+        tiles, grid = ck.bias_tiles(m, n, torch.cuda.get_device_properties(card).multi_processor_count)
+        assert dict(ck.gemm_tiles) == {"bias": tiles, "bias_hidden": tiles - grid}
     assert dict(ck.kernel_launches) == {"gemm_wgmma": 1}
     torch.cuda.synchronize()
     assert float((out.float() - want).abs().max()) < TOL[True]
     if mode == ck.LAYER_NORM:
         assert torch.equal(out_b, out.to(bf))
+    else:
+        assert torch.equal(buf[m:], sentinel[m:]), "a row past M was written"
+
+
+@pytest.mark.parametrize("mode", [ck.BIAS, ck.BIAS_RELU])
+@pytest.mark.parametrize("m,n", [(7744, 3072), (7744, 512), (3968, 3072)])
+def test_wgmma_bias_gemm_graphed_equals_eager(card, mode, m, n):
+    """QKV and w1 captured in a CUDA graph and replayed write what the
+    eager launch writes, bit for bit."""
+    g = torch.Generator(device=card).manual_seed(m + n)
+    bf = torch.bfloat16
+    a = torch.randn(m, 512, generator=g, device=card).to(bf)
+    w = (torch.randn(n, 512, generator=g, device=card) / 512 ** 0.5).to(bf)
+    bias = torch.randn(n, generator=g, device=card)
+    eager, graphed = torch.empty(m, n, dtype=bf, device=card), torch.zeros(m, n, dtype=bf, device=card)
+    ck.gemm(mode, a, w, bias, eager, M=m)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ck.gemm(mode, a, w, bias, graphed, M=m)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(graphed, eager)
 
 
 def test_wgmma_gemm_refuses_what_it_cannot_read(card):
