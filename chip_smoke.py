@@ -25,10 +25,9 @@ Phases (any failure exits non-zero; nothing is caught):
      wrapper's device ms beside its library calls in f32 and both bounds
      (3xTF32 and the f32 CUDA cores), the f32 step's device ms and profile,
      and each f32 launch of a step at 64 x 121 and 64 x 31 (gemm_tf32x3,
-     the attention on mha) beside the CUDA-core kernel it replaced at the
-     same layout, torch.matmul f32 or SDPA f32, both bounds, and its error
-     against its plain version; at 64 x 121 each GEMM launch must beat the
-     CUDA-core kernel.
+     the attention on mha) beside torch.matmul f32 or SDPA f32, both
+     bounds, and its error against its plain version; at 64 x 121 each GEMM
+     launch must beat torch.matmul f32.
   3. main path A: ``eval_stage2.run --fused_step`` on synthetic AMASS-layout
      records (64 sequences x 120 frames, one batch of
      run_batches_pipelined), full release width, random weights from a seed, DDPM-1000 in
@@ -128,8 +127,7 @@ Phases (any failure exits non-zero; nothing is caught):
      own launches at its shapes (the PARTIAL GEMM of fc and w2 in bf16 and
      f32, residual_layernorm with an f32 or bf16 residual; 64 windows of
      121 and 31 tokens, tp 2 and 4) against their plain versions, timed
-     beside their bounds and the library calls (the f32 PARTIAL also beside
-     the CUDA-core kernel); each custom op through
+     beside their bounds and the library calls; each custom op through
      torch.ops against its ctypes wrapper, bit for bit; two gloo ranks on
      cuda:0 running ``eval_stage2`` through the library (dp 2
      --fused_step, tp 2 in f32 and with --fused_step; DDIM-25 on 16
@@ -1870,7 +1868,7 @@ def parallel_phase(card, data_dir, data_path, stats_path, rest_path, clear_count
     """Phase 15: multi-GPU and serving, on the one card.
     (a) The tensor-parallel layer's own launches at the tp shapes (64
     windows of 121 and 31 tokens, tp 2 and 4): the PARTIAL GEMM of fc and w2
-    (bf16 on gemm_wgmma_kernel, f32 on the CUDA cores) and
+    (bf16 on gemm_wgmma_kernel, f32 on gemm_tf32x3_kernel) and
     residual_layernorm (f32 or bf16 residual; f32 and bf16 outputs), each
     against its plain version, counted once, timed beside its bound and
     the library call; each custom op through torch.ops bit for bit against
@@ -1945,16 +1943,12 @@ def parallel_phase(card, data_dir, data_path, stats_path, rest_path, clear_count
                            "library_device_ms": lib_ms, "plain_ms": plain_ms, "bound_ms": max(bound_b, bound_o),
                            "bound_by": "bytes" if bound_b >= bound_o else "operations", "max_abs_err": err,
                            "gflop": gflop, "mbytes": mbytes}
-                    if not bf16:  # the CUDA-core kernel the f32 route ran before
-                        o_old = torch.empty_like(o)
-                        row["cores_device_ms"] = device_time_ms(lambda: ck.gemm_cuda_cores(ck.PARTIAL, a, w, bias,
-                                                                                            o_old, M=m))[0]
+                    if not bf16:
                         row["bound_f32_core_ms"] = max(bound_b, gflop * 1e9 / PEAK_F32 * 1e3)
                     kern["partial"]["rows"].append(row)
                     key = "max_abs_err" if bf16 else "max_abs_err_f32"
                     kern["partial"][key] = max(kern["partial"][key], err)
-                    f32_more = ("" if bf16 else f", the CUDA-core kernel {row['cores_device_ms']:.4f} ms, f32-core "
-                                f"bound {row['bound_f32_core_ms']:.4f} ms")
+                    f32_more = "" if bf16 else f", f32-core bound {row['bound_f32_core_ms']:.4f} ms"
                     log(f"phase 15: PARTIAL {row['what']} {'bf16' if bf16 else 'f32'} (M, K, N) = {(m, k, dm)}: "
                         f"max|kernel - plain| {err:.3e} (bound {tol}); device {ms:.4f} ms, torch.matmul "
                         f"{lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}){f32_more} [{card}]")
@@ -2002,19 +1996,19 @@ def parallel_phase(card, data_dir, data_path, stats_path, rest_path, clear_count
     a32, w32, qkv32 = a.float(), ck.split_tf32(w.float()), qkv.float()
     pairs = {
         "gemm f32 LAYER_NORM": lambda o, ob, op: (
-            torch.ops.egoego.gemm(a32, w32, bias, o, ck.LAYER_NORM, 256, None, res, s_, b_, mask, None, None, None,
-                                  None, None, None, None, 0, None) if op else
+            torch.ops.egoego.gemm(a32, w32, bias, o, ck.LAYER_NORM, 256, res, s_, b_, mask, None, None, None, None,
+                                  None, None, None, 0, None) if op else
             ck.gemm(ck.LAYER_NORM, a32, w32, bias, o, M=256, res=res, ln_s=s_, ln_b=b_, row_mask=mask)),
         "attention f32": lambda o, ob, op: (torch.ops.egoego.attention(qkv32, o32, 2, 121, 121, 4, 256, 256) if op else
                                             ck.attention(qkv32, o32, B=2, T=121, t_keys=121, n_head=4, d_k=256,
                                                          d_v=256)),
-        "gemm LAYER_NORM": lambda o, ob, op: (torch.ops.egoego.gemm(a, w, bias, o, ck.LAYER_NORM, 256, None, res, s_, b_,
-                                                                    mask, None, None, None, None, None, None, ob, 0,
+        "gemm LAYER_NORM": lambda o, ob, op: (torch.ops.egoego.gemm(a, w, bias, o, ck.LAYER_NORM, 256, res, s_, b_, mask,
+                                                                    None, None, None, None, None, None, ob, 0,
                                                                     None) if op else
                                               ck.gemm(ck.LAYER_NORM, a, w, bias, o, M=256, res=res, ln_s=s_, ln_b=b_,
                                                       row_mask=mask, out_b=ob)),
         "gemm PARTIAL": lambda o, ob, op: (torch.ops.egoego.gemm(a, w, bias, o, ck.PARTIAL, 256, None, None, None, None,
-                                                                 None, None, None, None, None, None, None, None, 0,
+                                                                 None, None, None, None, None, None, None, 0,
                                                                  None) if op else
                                            ck.gemm(ck.PARTIAL, a, w, bias, o, M=256)),
         "attention": lambda o, ob, op: (torch.ops.egoego.attention(qkv, ob2, 2, 121, 121, 4, 256, 256) if op else
@@ -4446,7 +4440,7 @@ def main() -> int:
             "qkv": (lambda: ck.gemm(ck.BIAS, xb, lp["wqkv"], lp["bqkv"], qkv, M=rows),
                     (rows, dm, n_qkv), [xb, lp["wqkv"], lp["bqkv"]], [qkv]),
             "attention": (lambda: ck.attention(qkv, ctx, B=b, T=t1, t_keys=t1, **kw), None, [qkv], [ctx],
-                          lambda: float((ctx.float() - fl.attention_plain(
+                          lambda: float((ctx.float() - ck.attention_plain(
                               qkv, B=b, T=t1, t_keys=t1, **kw, bf16=True)).abs().max())),
             "fc_ln": (lambda: ck.gemm(ck.LAYER_NORM, ctx, lp["wfc"], lp["bfc"], h0, M=rows, res=x,
                                       ln_s=lp["ln1s"], ln_b=lp["ln1b"], row_mask=m, out_b=h0b),
@@ -4531,7 +4525,7 @@ def main() -> int:
             h = torch.randn(b, t1, dm, generator=g, device=dev)
             qkv = torch.empty(b * t1, lp["wqkv"].shape[0], dtype=torch.bfloat16, device=dev)
             ck.gemm(ck.BIAS, h.reshape(b * t1, dm).to(torch.bfloat16), lp["wqkv"], lp["bqkv"], qkv, M=b * t1)
-            want = fl.attention_plain(qkv, B=b, T=t1, t_keys=t1, **kw, bf16=True)
+            want = ck.attention_plain(qkv, B=b, T=t1, t_keys=t1, **kw, bf16=True)
             q, k, v = (qkv[:, i * nh * dk:(i + 1) * nh * dk].reshape(b, t1, nh, dk).transpose(1, 2) for i in range(3))
             flops = 2 * b * nh * t1 * t1 * (dk + dv)
             nbytes = qkv.numel() * 2 + b * t1 * nh * dv * 2
@@ -4560,7 +4554,7 @@ def main() -> int:
             sdpa = lambda: F.scaled_dot_product_attention(q, k, v)
             r["sdpa_device_ms"], sdpa_names = device_time_ms(sdpa)
             r["sdpa_max_abs_err"] = float((sdpa().transpose(1, 2).reshape(b * t1, -1).float() - want).abs().max())
-            r["plain_ms"] = cuda_time_ms(lambda: fl.attention_plain(qkv, B=b, T=t1, t_keys=t1, **kw, bf16=True))
+            r["plain_ms"] = cuda_time_ms(lambda: ck.attention_plain(qkv, B=b, T=t1, t_keys=t1, **kw, bf16=True))
             wg, wm = r["attention_wgmma"], r["attention_wmma"]
             table[f"{b}x{t1}"] = r
             log(f"phase 2: attention {b}x{t1} tokens bf16: wgmma device {wg['device_ms']:.4f} ms (per call "
@@ -4599,14 +4593,12 @@ def main() -> int:
     def f32_launch_table(inp, gate):
         """Per launch of one f32 step (the CLIs' default numerics), each alone
         on the operands the chain gives it: its device time (torch.profiler)
-        beside the CUDA-core kernel it replaced at the same layout
-        (gemm_f32_kernel through ck.gemm_cuda_cores; the CUDA-core attention
-        kernel by its C entry), torch.matmul f32 at the same (M, K, N) (SDPA
-        f32 for the attention), both bounds (3xTF32: 3 operations / 495
-        TFLOP/s; the f32 CUDA cores: operations / 67 TFLOP/s; each against
-        bytes / 3.35 TB/s, each input read once and each output written once)
-        and max|launch - plain| (TOL_F32; the update's f32 xa bit for bit).
-        gate: fail if a GEMM launch is not faster than gemm_f32_kernel."""
+        beside torch.matmul f32 at the same (M, K, N) (SDPA f32 for the
+        attention), both bounds (3xTF32: 3 operations / 495 TFLOP/s; the f32
+        CUDA cores: operations / 67 TFLOP/s; each against bytes / 3.35 TB/s,
+        each input read once and each output written once) and max|launch -
+        plain| (TOL_F32; the update's f32 xa bit for bit). gate: fail if a
+        GEMM launch is not faster than torch.matmul f32."""
         p = prep[False]
         lp = p["layers"][1]
         b, t1, _ = inp["h"].shape
@@ -4641,7 +4633,7 @@ def main() -> int:
         }
         table = {}
 
-        def row(name, mkn, flops, nbytes, run, old, lib, err, want_launch):
+        def row(name, mkn, flops, nbytes, run, lib, err, want_launch):
             ck.launch_counts.clear()
             ck.kernel_launches.clear()
             run()
@@ -4656,23 +4648,22 @@ def main() -> int:
                 raise AssertionError(f"f32 launch {name} {b}x{t1}: max|launch - plain| = {r['max_abs_err']} > "
                                      f"{TOL_F32} (inf: the update's xa is not its f32 x_next)")
             r["device_ms"], r["kernels"] = device_time_ms(run)
-            r["cores_device_ms"], _ = device_time_ms(old)
             r["library_device_ms"], _ = device_time_ms(lib)
             r["tflops"] = flops / r["device_ms"] / 1e9
             table[name] = r
             log(f"phase 2: f32 launch {name} {b}x{t1} tokens (M, K, N) = {mkn}: device {r['device_ms']:.4f} ms "
-                f"({r['tflops']:.1f} TFLOP/s of f32 work), the CUDA-core kernel {r['cores_device_ms']:.4f} ms, "
+                f"({r['tflops']:.1f} TFLOP/s of f32 work), "
                 f"{'SDPA' if mkn is None else 'torch.matmul'} f32 {r['library_device_ms']:.4f} ms; bound 3xTF32 "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}), f32 cores {r['bound_f32_core_ms']:.4f} ms "
                 f"({r['gflop']:.2f} GFLOP, {r['mbytes']:.1f} MB); max|launch - plain| {r['max_abs_err']:.3e} "
                 f"(bound {TOL_F32}); {r['kernels']} [{card}]")
-            if gate and mkn is not None and not r["device_ms"] < r["cores_device_ms"]:
+            if gate and mkn is not None and not r["device_ms"] < r["library_device_ms"]:
                 raise AssertionError(f"f32 launch {name} {b}x{t1}: gemm_tf32x3 {r['device_ms']:.4f} ms is not faster "
-                                     f"than gemm_f32_kernel's {r['cores_device_ms']:.4f} ms")
+                                     f"than torch.matmul f32's {r['library_device_ms']:.4f} ms")
 
         for name, (mode, a, prm, wname, bias, mm, kwargs, mkn, extra) in gemms.items():
             n = bias.numel()
-            out, out_old = torch.empty(mm, n, device=dev), torch.empty(mm, n, device=dev)
+            out = torch.empty(mm, n, device=dev)
             xa_kw = {"out_b": xa_step} if mode == ck.STEP else {}
             a_l = a.reshape(-1, a.shape[-1])[:, :mkn[1]].contiguous()
             w_l = prm[wname][:n, :mkn[1]].t()
@@ -4688,19 +4679,14 @@ def main() -> int:
             row(name, mkn, 2 * mkn[0] * mkn[1] * mkn[2], nbytes,
                 lambda mode=mode, a=a, prm=prm, wname=wname, bias=bias, mm=mm, kwargs=kwargs, out=out, xa_kw=xa_kw:
                     ck.gemm(mode, a, prm[wname + "_split"], bias, out, M=mm, **kwargs, **xa_kw),
-                lambda mode=mode, a=a, prm=prm, wname=wname, bias=bias, mm=mm, kwargs=kwargs, out_old=out_old:
-                    ck.gemm_cuda_cores(mode, a, prm[wname], bias, out_old, M=mm, **kwargs),
                 lambda a_l=a_l, w_l=w_l: torch.matmul(a_l, w_l), err, "gemm_tf32x3")
             if name == "qkv":  # the attention, on this launch's output
-                ctx_k, ctx_c = torch.empty_like(ctx), torch.empty_like(ctx)
-                args = ck.attention_args(qkv, ctx_c, B=b, T=t1, t_keys=t1, **kw, kernel="attention")
+                ctx_k = torch.empty_like(ctx)
                 q, k, v, _ = ck.qkv_heads(qkv, ctx, B=b, T=t1, **kw)
                 row("attention", None, 2 * b * nh * t1 * t1 * (dk + dv), 4 * (qkv.numel() + ctx.numel()),
                     lambda: ck.attention(qkv, ctx_k, B=b, T=t1, t_keys=t1, **kw),
-                    lambda: ck._check(ck._lib("attention").egoego_attention(
-                        ctypes.byref(args), torch.cuda.current_stream().cuda_stream), "attention"),
                     lambda: F.scaled_dot_product_attention(q, k, v),
-                    lambda: float((ctx_k - fl.attention_plain(qkv, B=b, T=t1, t_keys=t1, **kw)).abs().max()), "mha")
+                    lambda: float((ctx_k - ck.attention_plain(qkv, B=b, T=t1, t_keys=t1, **kw)).abs().max()), "mha")
         return table
 
     results, f32_step = {}, {}

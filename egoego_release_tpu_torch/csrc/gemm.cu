@@ -73,7 +73,7 @@
 //    With bf16 inter-layer activations (the TPU kernels' act dtype,
 //    fused_step_act_bf16) fc reads its residual, the layer input, as bf16
 //    (res_bf16; the add stays f32) and w2 writes the layer output as bf16
-//    alone (out null, out_b), as the f32 kernel does too. Each of these
+//    alone (out null, out_b), as gemm_tf32x3_kernel does too. Each of these
 //    layouts is an instantiation of its own (kEpiLnResBf16, kEpiLnBf16Out,
 //    kEpiLnBf16), so the f32-activation epilogue carries no branch for them.
 //  - kStem (the stem of _stem_layer_kernel). Bound by bytes: 3.1 GFLOP
@@ -139,8 +139,8 @@
 // the 64-byte swizzle.
 // The tensor cores add each product into their f32 accumulator truncated,
 // not rounded to nearest: over K = 512-1024 (3 K / 8 adds into one
-// accumulator) that bias cost the f32 step 5-9x the CUDA-core kernel's
-// error against the plain version, and the f32 chains their 1e-3
+// accumulator) that bias cost the f32 step 5-9x the error of an f32 GEMM
+// on the CUDA cores against the plain version, and the f32 chains their 1e-3
 // card-vs-CPU bound (chip_smoke.py phase 14). So each k-tile's six products
 // of a chunk of 128 columns (104 in kStep) go into a zeroed register chunk,
 // which the CUDA cores then add into the f32 accumulator rounding to
@@ -162,10 +162,6 @@
 //    (x and x_cond have 792-byte rows, which TMA cannot map); f32 h only.
 //  - kStep: 64 x 208, 4 stages of 30 KB and the 52 KB x0 span (172 KB); it
 //    writes x_next into the f32 xa's x part (out_b) for the next stem.
-//
-// gemm_f32_kernel, every mode in f32 on the CUDA cores (no TF32): off the
-// route, reachable by its own C entry (egoego_gemm_cuda_cores) alone, so
-// that chip_smoke.py can time it beside gemm_tf32x3_kernel.
 //
 // Rounding points follow _layer_body: A is rounded to bf16 before the
 // product, the epilogue adds the f32 bias and rounds the output to bf16
@@ -190,7 +186,7 @@ enum GemmMode : int {
 struct GemmArgs {
   const void* a;          // (rows, lda), f32 or bf16; kStem: xa (B t_data, lda)
   const void* w;          // (N or more rows, ldw), K-major as nn.Linear; bf16 in bf16 mode; f32 mode: Whi
-  const void* w_lo;       // f32 mode: Wlo = W - Whi, laid out like w (gemm_f32_kernel reads w as W itself)
+  const void* w_lo;       // f32 mode: Wlo = W - Whi, laid out like w
   const float* bias;      // (N,)
   const void* res;        // kLayerNorm: residual (M, N), f32 or (res_bf16) bf16
   const float* ln_s;      // kLayerNorm: (N,)
@@ -211,12 +207,12 @@ struct GemmArgs {
   int res_bf16;           // kLayerNorm: the residual is bf16 (read as f32, the add stays f32)
   int mode;
   int t_data;             // kStem/kStep: frames per window (tokens = t_data + 1)
-  int kernel;             // set by the C entries: the GemmKernel launched
+  int kernel;             // set by egoego_gemm: the GemmKernel launched
   int step_noise;         // kStep: the output is a noise prediction (x0 = r1 x - r2 out before the clip)
   int tiles, grid;        // set by egoego_gemm on gemm_wgmma_kernel: its output tiles and the blocks launched
 };
 
-enum GemmKernel : int { kKernelCudaCores = 0, kKernelWgmma = 1, kKernelTf32x3 = 2 };
+enum GemmKernel : int { kKernelWgmma = 0, kKernelTf32x3 = 1 };
 
 // Rows of the product: kStem multiplies the B t_data data rows (out has a
 // token 0 more per window), kStep all B (t_data + 1) token rows of A (out
@@ -227,51 +223,12 @@ __host__ __device__ __forceinline__ int prod_rows(const GemmArgs& p) {
   return p.M;
 }
 
-// f32 kernel: row of A that feeds output row r (-1: a row of zeros).
-__device__ __forceinline__ int a_row(const GemmArgs& p, int r) {
-  if (p.mode == kStem) {
-    const int tt = p.t_data + 1;
-    const int t = r % tt;
-    return t == 0 ? -1 : (r / tt) * p.t_data + t - 1;
-  }
-  if (p.mode == kStep) return (r / p.t_data) * (p.t_data + 1) + r % p.t_data + 1;
-  return r;
-}
-
-__device__ __forceinline__ float load_a(const GemmArgs& p, int arow, int k) {
-  if (arow < 0 || k >= p.K) return 0.f;
-  return load_f(p.a, (size_t)arow * p.lda + k, p.a_bf16);
-}
-
-constexpr int kBK = 32;
-
-// Epilogue of one element of the non-LayerNorm modes: acc = (A W)[R, C].
-__device__ __forceinline__ float epilogue_value(const GemmArgs& p, float v, int R, int C) {
-  const size_t e = (size_t)R * p.N + C;
-  switch (p.mode) {
-    case kBiasRelu:
-      return fmaxf(v + p.bias[C], 0.f);
-    case kStem: {
-      const int t = R % (p.t_data + 1);
-      return (t == 0 ? p.emb[C] : v + p.bias[C]) + p.pos[(size_t)t * p.N + C];
-    }
-    case kStep: {
-      const float x0 = fminf(fmaxf(v + p.bias[C], -1.f), 1.f);
-      const float xn = __fadd_rn(__fadd_rn(__fmul_rn(p.scal[0], x0), __fmul_rn(p.scal[1], p.x[e])),
-                                 __fmul_rn(p.scal[2], p.noise[e]));
-      return p.ipv != nullptr ? xn + p.ipm[R] * (p.ipv[e] - xn) : xn;
-    }
-    default:  // kBias
-      return v + p.bias[C];
-  }
-}
-
 // The epilogues of gemm_wgmma_kernel, one instantiation each. kLayerNorm
 // takes one of four, by its residual's and its output's types:
 // kEpiLayerNorm an f32 residual and an f32 out (with its bf16 copy when
 // out_b is given); with bf16 activations kEpiLnResBf16 a bf16 residual,
-// kEpiLnBf16Out an output that leaves as out_b alone, kEpiLnBf16 both. The
-// f32 kernel takes the same choice as a template argument.
+// kEpiLnBf16Out an output that leaves as out_b alone, kEpiLnBf16 both.
+// gemm_tf32x3_kernel takes the same choice as a template argument.
 // kEpiPartial is kPartial's, in both kernels. kStep takes kEpiStep, or
 // kEpiStepNoise with step_noise.
 enum WgEpilogue : int {
@@ -290,83 +247,6 @@ __host__ __device__ constexpr bool ln_f32_out(int e) { return e == kEpiLayerNorm
 inline int ln_epilogue_of(const GemmArgs& p) {
   return p.res_bf16 ? (p.out != nullptr ? kEpiLnResBf16 : kEpiLnBf16)
                     : (p.out != nullptr ? kEpiLayerNorm : kEpiLnBf16Out);
-}
-
-// The f32 kernel's epilogue on its f32 accumulator tile Cs (BM x BN, row
-// stride LDC); f32 out. LN (a kLayerNorm epilogue of WgEpilogue) fixes
-// kLayerNorm's residual and output types; kEpiPartial stores the product.
-template <int BM, int BN, int LDC, int LN>
-__device__ __forceinline__ void epilogue(const GemmArgs& p, const float* Cs, int m0, int n0) {
-  const int tid = threadIdx.x;
-  float* out = static_cast<float*>(p.out);
-  if (LN != kEpiPartial && p.mode == kLayerNorm) {
-    // One warp per row; the block holds all N <= BN columns of its rows.
-    constexpr int PER_LANE = BN / 32;
-    const int warp = tid >> 5, lane = tid & 31;
-    for (int r = warp; r < BM; r += 8) {
-      const int R = m0 + r;
-      if (R >= p.M) break;
-      float y[PER_LANE];
-      float s = 0.f;
-#pragma unroll
-      for (int j = 0; j < PER_LANE; ++j) {
-        const int c = lane + 32 * j;
-        y[j] = c < p.N ? (Cs[r * LDC + c] + p.bias[c]) + load_f(p.res, (size_t)R * p.N + c, ln_res_bf16(LN)) : 0.f;
-        s += y[j];
-      }
-      const float mean = warp_sum(s) / p.N;
-      float v = 0.f;
-#pragma unroll
-      for (int j = 0; j < PER_LANE; ++j) {
-        const int c = lane + 32 * j;
-        const float d = y[j] - mean;
-        v += c < p.N ? d * d : 0.f;
-      }
-      const float inv = rsqrtf(warp_sum(v) / p.N + 1e-5f);
-      const float m = p.row_mask[R];
-#pragma unroll
-      for (int j = 0; j < PER_LANE; ++j) {
-        const int c = lane + 32 * j;
-        if (c >= p.N) continue;
-        const float o = ((y[j] - mean) * inv * p.ln_s[c] + p.ln_b[c]) * m;
-        if constexpr (ln_f32_out(LN)) {
-          out[(size_t)R * p.ldo + c] = o;
-        } else {
-          static_cast<__nv_bfloat16*>(p.out_b)[(size_t)R * p.ldb + c] = __float2bfloat16(o);
-        }
-      }
-    }
-    return;
-  }
-
-  // eight consecutive columns per thread: two 16-byte reads of the tile
-  // and 16-byte stores where the row layout allows
-  const bool vec = p.ldo % 8 == 0 && p.N % 8 == 0 && reinterpret_cast<size_t>(p.out) % 16 == 0;
-  for (int i = tid; i < BM * BN / 8; i += kThreads) {
-    const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-    const int R = m0 + r, C = n0 + c;
-    if (R >= p.M || C >= p.N) continue;
-    const float4 a0 = *reinterpret_cast<const float4*>(Cs + r * LDC + c);
-    const float4 a1 = *reinterpret_cast<const float4*>(Cs + r * LDC + c + 4);
-    float v[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    if constexpr (LN != kEpiPartial) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (C + j < p.N) v[j] = epilogue_value(p, v[j], R, C + j);
-      }
-    }
-    float* o = out + (size_t)R * p.ldo + C;
-    if (vec) {
-      reinterpret_cast<float4*>(o)[0] = make_float4(v[0], v[1], v[2], v[3]);
-      reinterpret_cast<float4*>(o)[1] = make_float4(v[4], v[5], v[6], v[7]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (C + j >= p.N) break;
-        o[j] = v[j];
-      }
-    }
-  }
 }
 
 // -- gemm_wgmma_kernel: TMA + mbarrier ring + wgmma (see the note at the top) --
@@ -629,12 +509,11 @@ __device__ __forceinline__ float lane_of(const float4& v, int e) {
 // (the m64nNk16 fragment). So each row of the warpgroup's block lies in one
 // quad of lanes, and every load is a column pair. The bias/ReLU modes turn
 // the values into outputs in place and store them through `stage` by TMA
-// (store_block_tma); kStem and kStep as the note at the top says. Same
-// arithmetic as the f32 kernel's epilogue(). In gemm_tf32x3_kernel
-// (T::kTf32) the bias/ReLU modes store f32 column pairs from the fragment,
-// the stem writes no bf16 copy, the update writes f32 x_next into xa, and
-// the LayerNorm modes (the bf16 ones run on gemm_wgmma_ln_kernel) store
-// column pairs straight from the fragment.
+// (store_block_tma); kStem and kStep as the note at the top says. In
+// gemm_tf32x3_kernel (T::kTf32) the bias/ReLU modes store f32 column pairs
+// from the fragment, the stem writes no bf16 copy, the update writes f32
+// x_next into xa, and the LayerNorm modes (the bf16 ones run on
+// gemm_wgmma_ln_kernel) store column pairs straight from the fragment.
 template <typename T>
 __device__ __forceinline__ void wgmma_epilogue(const GemmArgs& p, float (&acc)[T::kWN / 2], unsigned char* stage,
                                                int m0, int n0, int row0, int col0,
@@ -1483,81 +1362,6 @@ __global__ void __launch_bounds__(kTfThreads, 1)
   }
 }
 
-// f32 GEMM on the CUDA cores: thread (tx, ty) owns rows ty + 8i, columns tx + 32j.
-template <int BM, int BN>
-struct F32Tile {
-  static constexpr int LDA = kBK + 1, LDW = BN, LDC = BN + 4;
-  static constexpr size_t kMain = (size_t)(BM * LDA + kBK * LDW) * 4;
-  static constexpr size_t kEpi = (size_t)BM * LDC * 4;
-  static constexpr size_t kSmem = kMain > kEpi ? kMain : kEpi;
-};
-
-template <int BM, int BN, int LN>
-__global__ void __launch_bounds__(kThreads) gemm_f32_kernel(const GemmArgs p) {
-  using T = F32Tile<BM, BN>;
-  constexpr int RM = BM / 8, RN = BN / 32;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ int arows[BM];
-  float* Cs = reinterpret_cast<float*>(smem);
-  float* As = Cs;
-  float* Ws = As + BM * T::LDA;
-  const float* W = static_cast<const float*>(p.w);
-
-  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  for (int i = tid; i < BM; i += kThreads) arows[i] = (m0 + i < p.M) ? a_row(p, m0 + i) : -1;
-  __syncthreads();
-
-  float acc[RM][RN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < p.K; k0 += kBK) {
-    for (int i = tid; i < BM * kBK; i += kThreads) {
-      const int r = i / kBK, c = i % kBK;
-      As[r * T::LDA + c] = load_a(p, arows[r], k0 + c);
-    }
-    for (int i = tid; i < kBK * BN; i += kThreads) {
-      const int r = i / BN, c = i % BN;
-      const int k = k0 + r, n = n0 + c;
-      Ws[r * T::LDW + c] = (k < p.K && n < p.N) ? W[(size_t)n * p.ldw + k] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[RM];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) a[i] = As[(ty + 8 * i) * T::LDA + kk];
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const float b = Ws[kk * T::LDW + tx + 32 * j];
-#pragma unroll
-        for (int i = 0; i < RM; ++i) acc[i][j] = fmaf(a[i], b, acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j) Cs[(ty + 8 * i) * T::LDC + tx + 32 * j] = acc[i][j];
-  __syncthreads();
-  epilogue<BM, BN, T::LDC, LN>(p, Cs, m0, n0);
-}
-
-template <int BM, int BN, int LN = kEpiLayerNorm>
-static cudaError_t launch_f32(const GemmArgs& p, cudaStream_t stream) {
-  auto kernel = gemm_f32_kernel<BM, BN, LN>;
-  const size_t smem = F32Tile<BM, BN>::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
 // TMA map of a row-major bf16 (rows, cols) matrix with row stride ld,
 // boxes of box_rows x 64 columns with the 128-byte swizzle; out-of-bounds
 // elements read as zeros.
@@ -1705,7 +1509,7 @@ static cudaError_t tf32_route(const GemmArgs& p, cudaStream_t s) {
   }
 }
 
-// The argument checks both C entries share.
+// The argument checks of egoego_gemm, the one C entry.
 static bool valid_args(const GemmArgs& p) {
   if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.mode < kBias || p.mode > kPartial ||
       ((p.mode == kStem || p.mode == kStep) && p.t_data <= 0) || (p.step_noise && p.mode != kStep) ||
@@ -1770,35 +1574,6 @@ extern "C" int egoego_gemm(egoego::GemmArgs* p, void* stream) {
       err = p->step_noise ? launch_wgmma<64, 208, 4, kEpiStepNoise>(*p, s) : launch_wgmma<64, 208, 4, kEpiStep>(*p, s);
   }
   if (err == cudaSuccess) p->kernel = kKernelWgmma;
-  return (int)err;
-}
-
-// gemm_f32_kernel (f32 on the CUDA cores) on an f32-compute product: off
-// the route, for timing beside gemm_tf32x3_kernel. w is W itself (w_lo is
-// not read); in kStem A is the f32 xa; kStep writes no out_b and takes no
-// step_noise.
-extern "C" int egoego_gemm_cuda_cores(egoego::GemmArgs* p, void* stream) {
-  using namespace egoego;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  p->kernel = -1;
-  if (!valid_args(*p) || p->compute_bf16 || p->a_bf16 || p->out_bf16 || p->step_noise ||
-      (p->out_b != nullptr && p->out != nullptr) ||
-      (p->mode == kLayerNorm && p->N > 512))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  if (p->mode == kPartial) {
-    err = launch_f32<64, 128, kEpiPartial>(*p, s);
-  } else if (p->mode != kLayerNorm) {
-    err = launch_f32<64, 128>(*p, s);
-  } else {
-    switch (ln_epilogue_of(*p)) {
-      case kEpiLayerNorm: err = launch_f32<32, 512, kEpiLayerNorm>(*p, s); break;
-      case kEpiLnResBf16: err = launch_f32<32, 512, kEpiLnResBf16>(*p, s); break;
-      case kEpiLnBf16Out: err = launch_f32<32, 512, kEpiLnBf16Out>(*p, s); break;
-      default: err = launch_f32<32, 512, kEpiLnBf16>(*p, s);
-    }
-  }
-  if (err == cudaSuccess) p->kernel = kKernelCudaCores;
   return (int)err;
 }
 

@@ -10,7 +10,9 @@ allocate outputs with ``torch.empty``.
 
 Nothing here is built for CPU tensors; the wrappers in
 ``ops/fused_layer.py``, ``ops/fused_step.py`` and ``ops/attention.py`` take
-their plain PyTorch versions for those.
+their plain PyTorch versions for those. The plain versions of the C
+entries live here, at the end (``gemm_plain``, ``attention_plain``,
+``residual_layernorm_plain``), beside the entries they stand for.
 
 Each C entry is also a ``torch.library.custom_op`` (``torch.ops.egoego.gemm``,
 ``attention``, ``mha``, ``residual_layernorm``), which writes into its
@@ -29,8 +31,9 @@ tagged with the kernel's launch name.
 The C entries make no synchronizing or allocating call (the attribute
 and device queries, the TMA encodes and the launch), so a chain of them can
 be captured in a CUDA graph: ``fused_step.StepGraph`` captures a reverse
-step's launches once and replays them, adding the step's launches to the
-counters below at each replay (``step_graphs`` counts the steps).
+step's launches once, with what they count set aside (``set_aside``), and
+replays them, adding the step's launches to the counters below at each
+replay (``add_counts``; ``step_graphs`` counts the steps).
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ import shutil
 import subprocess
 import time
 from collections import Counter
+from collections.abc import Iterator
+from contextlib import contextmanager
 from pathlib import Path
 
 import torch
@@ -60,9 +65,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 launch_counts: Counter = Counter()
 # Launches of each kernel of the C entries, counted once the entry has
 # returned without error: "gemm_wgmma" (every product in bf16) and
-# "gemm_tf32x3" (f32) as egoego_gemm reports its choice (GEMM_KERNELS;
-# "gemm", the CUDA-core kernel, only by ``gemm_cuda_cores``); the attention
-# kernel that ``attention`` picks (``attention_route``); "mha";
+# "gemm_tf32x3" (f32) as egoego_gemm reports its choice (GEMM_KERNELS); the
+# attention kernel that ``attention`` picks (``attention_route``); "mha";
 # "residual_layernorm".
 kernel_launches: Counter = Counter()
 # GEMM launches by epilogue mode (BIAS ... PARTIAL; a pred_noise update under
@@ -77,9 +81,12 @@ gemm_tiles: Counter = Counter()
 # CUDA graph, "eager" launched one by one; "captured" counts the graphs
 # captured (two a step shape)
 step_graphs: Counter = Counter()
+# the counters that launches add to, which ``set_aside`` and ``add_counts``
+# cover (step_graphs counts steps, not launches)
+_LAUNCH_COUNTERS = (kernel_launches, gemm_modes, launch_counts, gemm_tiles)
 
 # csrc/gemm.cu GemmKernel, by launch name
-GEMM_KERNELS = ("gemm", "gemm_wgmma", "gemm_tf32x3")
+GEMM_KERNELS = ("gemm_wgmma", "gemm_tf32x3")
 
 # csrc/attention.cu AttnKernel, by launch name: the CUDA-core kernel (f32
 # at head widths mha cannot take; bf16 at other widths than 256), the WMMA
@@ -111,6 +118,31 @@ def count(name: str) -> None:
     """One launch of the ported TPU kernel ``name`` (not while tracing)."""
     if not tracing():
         launch_counts[name] += 1
+
+
+@contextmanager
+def set_aside() -> Iterator[list[Counter]]:
+    """Count the launches inside apart: on exit each launch counter
+    (kernel_launches, gemm_modes, launch_counts, gemm_tiles) reads what it
+    read on entry, and the list yielded holds what the launches inside added
+    to each, which ``add_counts`` adds back."""
+    before = [Counter(c) for c in _LAUNCH_COUNTERS]
+    added: list[Counter] = []
+    try:
+        yield added
+    finally:
+        added.extend(Counter({n: v - b[n] for n, v in c.items() if v != b[n]})
+                     for c, b in zip(_LAUNCH_COUNTERS, before))
+        for c, b in zip(_LAUNCH_COUNTERS, before):
+            c.clear()
+            c.update(b)
+
+
+def add_counts(added: list[Counter]) -> None:
+    """Add to the launch counters what ``set_aside`` reported (or a share of
+    it, counter by counter), as the launches themselves would have."""
+    for c, more in zip(_LAUNCH_COUNTERS, added):
+        c.update(more)
 
 
 class GemmArgs(ctypes.Structure):
@@ -198,9 +230,9 @@ def _lib(name: str) -> ctypes.CDLL:
     if name not in _libs:
         build()
         lib = ctypes.CDLL(str(_lib_path(name)))
-        for entry in [getattr(lib, f"egoego_{name}")] + ([lib.egoego_gemm_cuda_cores] if name == "gemm" else []):
-            entry.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-            entry.restype = ctypes.c_int
+        entry = getattr(lib, f"egoego_{name}")
+        entry.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        entry.restype = ctypes.c_int
         struct, size_fn = _ARGS[name]
         size = getattr(lib, size_fn)
         size.restype = ctypes.c_int
@@ -250,18 +282,16 @@ def split_tf32(w: Tensor) -> Tensor:
 
 
 def gemm_args(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, out: torch.Tensor | None, *,
-              M: int, a2: torch.Tensor | None = None, res=None, ln_s=None, ln_b=None, row_mask=None, pos=None,
-              emb=None, x=None, noise=None, ipv=None, ipm=None, out_b=None, t_data: int = 0,
-              scal: Tensor | None = None, cores: bool = False) -> GemmArgs:
-    """Check one ``gemm`` call's layout and return its argument struct
-    (``cores``: for ``gemm_cuda_cores``, with W itself in f32). ``scal``:
-    STEP's f32 tensor of three update scalars, or five for a pred_noise
-    model, which the kernel reads on the card."""
+              M: int, res=None, ln_s=None, ln_b=None, row_mask=None, pos=None, emb=None, x=None, noise=None,
+              ipv=None, ipm=None, out_b=None, t_data: int = 0, scal: Tensor | None = None) -> GemmArgs:
+    """Check one ``gemm`` call's layout and return its argument struct.
+    ``scal``: STEP's f32 tensor of three update scalars, or five for a
+    pred_noise model, which the kernel reads on the card."""
     f32, bf16 = torch.float32, torch.bfloat16
     _layout(w, (f32, bf16), what="w")
     _layout(bias, f32, what="bias")
     is_bf16 = w.dtype == bf16
-    if not is_bf16 and not cores:
+    if not is_bf16:
         if w.dim() != 3 or w.shape[0] != 2:
             raise ValueError(f"f32 mode: w must be split_tf32(W), (2, N, K), got {tuple(w.shape)}")
         w, w_lo = w[0], w[1]
@@ -279,8 +309,6 @@ def gemm_args(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, o
         _layout(out, (f32, bf16), what="out")
         if out.numel() != M * N:
             raise ValueError(f"out: need {M}x{N} elements, got {tuple(out.shape)}")
-    if a2 is not None:  # the op schema keeps the argument; no kernel on the route reads it
-        raise ValueError("a2: the stem reads the packed xa (fused_step.pack_xa), not x and x_cond apart")
     lda = a.shape[-1]
     rows = M  # of A: the stem's product skips token 0, the update's includes it
     if mode in (STEM, STEP):
@@ -299,9 +327,8 @@ def gemm_args(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, o
             raise ValueError(f"{name}: need {M}x{N} elements, got {tuple(t.shape)}")
     if mode == STEP:
         _layout(scal, f32, what="scal")
-        if scal.numel() not in (3, 5) or (cores and scal.numel() == 5):
-            raise ValueError(f"scal: STEP takes (a1, a2, a3) or, on the tensor-core kernels, (a1, a2, a3, r1, r2); "
-                             f"got {scal.numel()} scalars")
+        if scal.numel() not in (3, 5):
+            raise ValueError(f"scal: STEP takes (a1, a2, a3) or (a1, a2, a3, r1, r2); got {scal.numel()} scalars")
         if ipv is not None:
             _layout(ipm, f32, what="ipm")
             if ipm.numel() != M:
@@ -319,7 +346,7 @@ def gemm_args(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, o
         _layout(out_b, f32 if mode == STEP and not is_bf16 else bf16, what="out_b")
         ldb = out_b.shape[-1]
         if (mode not in (LAYER_NORM, STEM, STEP) or (not is_bf16 and out is not None and mode != STEP)
-                or (cores and mode == STEP) or out_b.numel() != M * ldb or ldb < N or (mode != STEP and ldb != N)):
+                or out_b.numel() != M * ldb or ldb < N or (mode != STEP and ldb != N)):
             raise ValueError("out_b: a bf16 copy (M, N) of the f32 output of LAYER_NORM or STEM in bf16, the "
                              "(M, N) bf16 output of LAYER_NORM alone (out None), or the (M, >= N) x part of xa "
                              "(in the compute dtype) for STEP")
@@ -335,7 +362,7 @@ def gemm_args(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, o
                              f"K={K}, N={N}")
     elif a.dtype != f32 or (out is not None and out.dtype != f32):
         raise ValueError(f"f32 mode: need f32 A and out, got {a.dtype}, {None if out is None else out.dtype}")
-    elif not cores:
+    else:
         step_n = N % 2 == 0 and N <= 208 if mode == STEP else N % (2 if mode in (BIAS, BIAS_RELU) else 8) == 0
         if K % 4 or not step_n or not aligned(a, w, w_lo, out, out_b, res, *(t for _, t in vecs)):
             raise ValueError(f"the 3xTF32 GEMM needs K a multiple of 4, N a multiple of 8 (BIAS/BIAS_RELU: even; "
@@ -393,22 +420,9 @@ def count_gemm(args: GemmArgs) -> None:
         gemm_tiles["bias_hidden"] += args.tiles - args.grid
 
 
-def _launch_gemm(entry: str, args: GemmArgs, device, t0=0) -> None:
-    """The launch through the C entry ``entry``; ``t0``: when the span
-    recorder is on, the time its checks began (``trace.launch``)."""
-    t1 = t0 and trace.now()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        _check(getattr(_lib("gemm"), entry)(ctypes.byref(args), stream), "gemm")
-    count_gemm(args)
-    if t0:
-        trace.launch(GEMM_KERNELS[args.kernel], t0, t1)
-
-
 def gemm(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-         out: torch.Tensor | None, *, M: int, a2: torch.Tensor | None = None, res=None, ln_s=None, ln_b=None,
-         row_mask=None, pos=None, emb=None, x=None, noise=None, ipv=None, ipm=None, out_b=None,
-         t_data: int = 0, scal=None) -> torch.Tensor:
+         out: torch.Tensor | None, *, M: int, res=None, ln_s=None, ln_b=None, row_mask=None, pos=None, emb=None,
+         x=None, noise=None, ipv=None, ipm=None, out_b=None, t_data: int = 0, scal=None) -> torch.Tensor:
     """out (M, N) = epilogue(A W^T + b) on the card, N = len(bias), on the
     tensor cores in W's dtype: bf16 on the wgmma kernel; f32 (the CLIs'
     default numerics) on the 3xTF32 kernel, at f32 accuracy, with W given
@@ -447,31 +461,22 @@ def gemm(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
             scal = None
         elif not isinstance(scal, Tensor):
             scal = torch.tensor(scal, dtype=torch.float32)
-        torch.ops.egoego.gemm(a, w, bias, out, mode, M, a2, res, ln_s, ln_b, row_mask, pos, emb, x, noise, ipv,
-                              ipm, out_b, t_data, scal)
+        torch.ops.egoego.gemm(a, w, bias, out, mode, M, res, ln_s, ln_b, row_mask, pos, emb, x, noise, ipv, ipm,
+                              out_b, t_data, scal)
         return out_b if out is None else out
     t0 = trace.ON and trace.now()
     if mode == STEP:
         scal = step_scalars(scal, a.device)
-    args = gemm_args(mode, a, w, bias, out, M=M, a2=a2, res=res, ln_s=ln_s, ln_b=ln_b, row_mask=row_mask, pos=pos,
+    args = gemm_args(mode, a, w, bias, out, M=M, res=res, ln_s=ln_s, ln_b=ln_b, row_mask=row_mask, pos=pos,
                      emb=emb, x=x, noise=noise, ipv=ipv, ipm=ipm, out_b=out_b, t_data=t_data, scal=scal)
-    _launch_gemm("egoego_gemm", args, a.device, t0)
+    t1 = t0 and trace.now()
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    with torch.cuda.device(a.device):
+        _check(_lib("gemm").egoego_gemm(ctypes.byref(args), stream), "gemm")
+    count_gemm(args)
+    if t0:
+        trace.launch(GEMM_KERNELS[args.kernel], t0, t1)
     return out_b if out is None else out
-
-
-def gemm_cuda_cores(mode: int, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, out: torch.Tensor | None,
-                    **kw) -> torch.Tensor:
-    """The f32 product on csrc/gemm.cu's CUDA-core kernel (counted as
-    "gemm"), which the route no longer takes: ``gemm``'s arguments in f32
-    with W (N_w, K) itself; the stem reads the f32 xa and the update writes
-    no xa. For timing it beside the route's kernel."""
-    if mode == STEP:
-        kw["scal"] = step_scalars(kw.get("scal"), a.device)
-    args = gemm_args(mode, a, w, bias, out, cores=True, **kw)
-    if args.compute_bf16:
-        raise ValueError("gemm_cuda_cores: f32 compute only")
-    _launch_gemm("egoego_gemm_cuda_cores", args, a.device)
-    return kw.get("out_b") if out is None else out
 
 
 def attention_route(dtype: torch.dtype, T: int, d_k: int, d_v: int) -> str:
@@ -510,7 +515,7 @@ def attention(qkv: torch.Tensor, ctx: torch.Tensor, *, B: int, T: int, t_keys: i
               d_v: int) -> torch.Tensor:
     """ctx (B*T, H*dv) = softmax(q k^T / sqrt(dk), keys < t_keys) v per
     head, from the packed qkv (B*T, H (2 dk + dv)); the function of
-    ``fused_layer.attention_plain``, on the kernel ``attention_route``
+    ``attention_plain``, on the kernel ``attention_route``
     picks (in f32 ``mha`` on views of qkv and ctx, ``qkv_heads``). The
     tensor-core kernels need 16-byte aligned qkv and ctx; a layout the
     picked kernel cannot take raises, and nothing falls back to another
@@ -661,8 +666,8 @@ def residual_layernorm_plain(p: Tensor, bias: Tensor, res: Tensor, ln_s: Tensor,
     return layer_norm_plain((p + bias) + res.float(), ln_s, ln_b) * row_mask.reshape(-1, 1)
 
 
-def gemm_plain(mode, a, w, bias, out, *, M, a2=None, res=None, ln_s=None, ln_b=None, row_mask=None, pos=None,
-               emb=None, x=None, noise=None, ipv=None, ipm=None, out_b=None, t_data=0, scal=None):
+def gemm_plain(mode, a, w, bias, out, *, M, res=None, ln_s=None, ln_b=None, row_mask=None, pos=None, emb=None,
+               x=None, noise=None, ipv=None, ipm=None, out_b=None, t_data=0, scal=None):
     """Plain version of one ``gemm`` call, on tensors of any device: the
     same arithmetic (A rounded to W's dtype, an f32 product, the epilogue in
     f32), written into ``out`` and ``out_b`` as the kernels write them.
@@ -705,6 +710,28 @@ def gemm_plain(mode, a, w, bias, out, *, M, a2=None, res=None, ln_s=None, ln_b=N
     return out_b if out is None else out
 
 
+def round_bf16(t: Tensor) -> Tensor:
+    return t.to(torch.bfloat16).float()
+
+
+def attention_plain(qkv, *, B, T, t_keys, n_head, d_k, d_v, bf16=False):
+    """Plain PyTorch version of the attention launch (csrc/attention.cu):
+    qkv (B*T, H (2 dk + dv)) packed as q | k | v, head h at columns h d of
+    each; ctx (B*T, H*dv) f32 = softmax(q k^T / sqrt(dk)) v per (batch,
+    head), keys at or past t_keys at -inf, in f32; ``bf16`` rounds p before
+    p v and ctx after it, as ``_layer_body`` does in bf16 mode."""
+    rnd = round_bf16 if bf16 else (lambda a: a)
+    hk = n_head * d_k
+    qkv = qkv.float()
+    heads = lambda a, d: a.reshape(B, T, n_head, d).transpose(1, 2)
+    q, k, v = heads(qkv[:, :hk], d_k), heads(qkv[:, hk:2 * hk], d_k), heads(qkv[:, 2 * hk:], d_v)
+    s = (q @ k.transpose(-1, -2)) * (1.0 / d_k ** 0.5)
+    if t_keys < T:
+        s[..., t_keys:] = float("-inf")
+    p = rnd(torch.softmax(s, dim=-1))
+    return rnd((p @ v).transpose(1, 2).reshape(B * T, n_head * d_v))
+
+
 def _mha_plain(q: Tensor, k: Tensor, v: Tensor, t_keys: int) -> Tensor:
     s = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / q.shape[-1] ** 0.5)
     if t_keys < q.shape[2]:
@@ -718,10 +745,10 @@ Opt = Tensor | None
 
 
 @torch.library.custom_op("egoego::gemm", mutates_args=("out", "out_b"))
-def _gemm_op(a: Tensor, w: Tensor, bias: Tensor, out: Opt, epilogue: int, M: int, a2: Opt, res: Opt, ln_s: Opt,
-             ln_b: Opt, row_mask: Opt, pos: Opt, emb: Opt, x: Opt, noise: Opt, ipv: Opt, ipm: Opt, out_b: Opt,
-             t_data: int, scal: Opt) -> None:
-    kw = dict(M=M, a2=a2, res=res, ln_s=ln_s, ln_b=ln_b, row_mask=row_mask, pos=pos, emb=emb, x=x, noise=noise,
+def _gemm_op(a: Tensor, w: Tensor, bias: Tensor, out: Opt, epilogue: int, M: int, res: Opt, ln_s: Opt, ln_b: Opt,
+             row_mask: Opt, pos: Opt, emb: Opt, x: Opt, noise: Opt, ipv: Opt, ipm: Opt, out_b: Opt, t_data: int,
+             scal: Opt) -> None:
+    kw = dict(M=M, res=res, ln_s=ln_s, ln_b=ln_b, row_mask=row_mask, pos=pos, emb=emb, x=x, noise=noise,
               ipv=ipv, ipm=ipm, out_b=out_b, t_data=t_data, scal=scal)
     (gemm if a.is_cuda else gemm_plain)(epilogue, a, w, bias, out, **kw)
 
@@ -731,8 +758,6 @@ def _attention_op(qkv: Tensor, ctx: Tensor, B: int, T: int, t_keys: int, n_head:
     if qkv.is_cuda:
         attention(qkv, ctx, B=B, T=T, t_keys=t_keys, n_head=n_head, d_k=d_k, d_v=d_v)
     else:
-        from egoego_release_tpu_torch.ops.fused_layer import attention_plain
-
         ctx.copy_(attention_plain(qkv, B=B, T=T, t_keys=t_keys, n_head=n_head, d_k=d_k, d_v=d_v,
                                   bf16=qkv.dtype == torch.bfloat16))
 

@@ -1,8 +1,11 @@
 """SMPL 22-joint forward / inverse kinematics on torch tensors (port of
 egoego_release_tpu/ops/fk.py): joints at the same tree depth update
-together, so FK is 8 batched steps instead of 21."""
+together, so FK is 8 batched steps instead of 21. ``fk_from_local_quat``
+takes any kinematic tree (the MuJoCo humanoid's too, ``ops/mujoco_xml.py``)."""
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -18,24 +21,31 @@ HEAD_IDX = 15
 ROOT_IDX = 0
 
 
-def _levels(parents: np.ndarray):
+@functools.cache
+def _tree_levels(parents: tuple[int, ...]):
+    parents = np.asarray(parents, dtype=np.int64)
     depth = np.zeros(len(parents), dtype=np.int64)
     for j in range(1, len(parents)):
         depth[j] = depth[parents[j]] + 1
     return [(np.nonzero(depth == d)[0], parents[depth == d]) for d in range(1, depth.max() + 1)]
 
 
-_LEVELS = _levels(SMPL_PARENTS)
+def _levels(parents) -> list[tuple[np.ndarray, np.ndarray]]:
+    """(joints, their parents) at each depth of the tree below the root,
+    shallowest first; computed once per tree."""
+    return _tree_levels(tuple(np.asarray(parents).tolist()))
 
 
 def fk_from_local_quat(local_quat: torch.Tensor, local_offsets: torch.Tensor,
-                       root_trans: torch.Tensor | None = None):
-    """local_quat (..., 22, 4), local_offsets (22, 3) or (..., 22, 3),
-    optional root_trans (..., 3). Returns (global_quat, global_jpos)."""
+                       root_trans: torch.Tensor | None = None, parents=SMPL_PARENTS):
+    """local_quat (..., J, 4), local_offsets (J, 3) or (..., J, 3),
+    optional root_trans (..., 3), over the tree ``parents`` (J,)
+    (parents[0] = -1; SMPL's 22 joints by default). Returns (global_quat,
+    global_jpos)."""
     local_offsets = local_offsets.expand(local_quat.shape[:-1] + (3,))
     gq = local_quat.clone()
     gp = local_offsets.clone()
-    for js, ps in _LEVELS:
+    for js, ps in _levels(parents):
         js_t = torch.as_tensor(js, device=gq.device)
         ps_t = torch.as_tensor(ps, device=gq.device)
         parent_q = gq[..., ps_t, :]
@@ -58,7 +68,7 @@ def local_to_global_matrix(local_mat: torch.Tensor) -> torch.Tensor:
     """Local rotation matrices (..., 22, 3, 3) -> global, one tree level at
     a time (each joint's parent is final before the joint's level runs)."""
     g = local_mat.clone()
-    for js, ps in _LEVELS:
+    for js, ps in _levels(SMPL_PARENTS):
         js_t = torch.as_tensor(js, device=g.device)
         ps_t = torch.as_tensor(ps, device=g.device)
         g[..., js_t, :, :] = torch.matmul(g[..., ps_t, :, :], local_mat[..., js_t, :, :])

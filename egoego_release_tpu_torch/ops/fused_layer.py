@@ -10,9 +10,9 @@ launches for every middle layer of a denoise step):
 On the TPU the whole layer was one kernel with its ~5 MB of bf16 weights
 resident in VMEM. An H100 SM has 227 KB of shared memory, so on the card
 the layer is five launches (csrc/gemm.cu, csrc/attention.cu): the fused
-QKV product, attention (``attention_plain`` is its plain version), fc
-with the residual + LayerNorm + mask epilogue, w1 with bias + ReLU, and w2
-with the residual + LayerNorm + mask epilogue.
+QKV product, attention (``cuda_kernels.attention_plain`` is its plain
+version), fc with the residual + LayerNorm + mask epilogue, w1 with bias +
+ReLU, and w2 with the residual + LayerNorm + mask epilogue.
 The layer is compute-bound at the main path's shapes (~47 GFLOP against
 ~40 MB), so the products run on the tensor cores: in bf16 mode on the
 wgmma kernel, which reads both operands as bf16 in device memory: the
@@ -64,7 +64,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from egoego_release_tpu_torch.ops import cuda_kernels as ck
-from egoego_release_tpu_torch.ops.cuda_kernels import layer_norm_plain  # noqa: F401 (the tests read it here)
+from egoego_release_tpu_torch.ops.cuda_kernels import attention_plain, round_bf16
 
 
 def layer_params(layer, bf16: bool) -> dict:
@@ -106,33 +106,11 @@ def kernel_weight(params: dict, name: str) -> torch.Tensor:
     return params.get(f"{name}_split", params[name])
 
 
-def round_bf16(t: torch.Tensor) -> torch.Tensor:
-    return t.to(torch.bfloat16).float()
-
-
 def linear_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """A W^T for w (N, K), with A rounded to W's dtype first, then an f32
     product: the arithmetic of a bf16 tensor-core product with f32
     accumulation (or a plain f32 product in f32 mode)."""
     return a.to(w.dtype).float() @ w.float().t()
-
-
-def attention_plain(qkv, *, B, T, t_keys, n_head, d_k, d_v, bf16=False):
-    """Plain PyTorch version of the attention launch (csrc/attention.cu):
-    qkv (B*T, H (2 dk + dv)) packed as q | k | v, head h at columns h d of
-    each; ctx (B*T, H*dv) f32 = softmax(q k^T / sqrt(dk)) v per (batch,
-    head), keys at or past t_keys at -inf, in f32; ``bf16`` rounds p before
-    p v and ctx after it, as ``_layer_body`` does in bf16 mode."""
-    rnd = round_bf16 if bf16 else (lambda a: a)
-    hk = n_head * d_k
-    qkv = qkv.float()
-    heads = lambda a, d: a.reshape(B, T, n_head, d).transpose(1, 2)
-    q, k, v = heads(qkv[:, :hk], d_k), heads(qkv[:, hk:2 * hk], d_k), heads(qkv[:, 2 * hk:], d_v)
-    s = (q @ k.transpose(-1, -2)) * (1.0 / d_k ** 0.5)
-    if t_keys < T:
-        s[..., t_keys:] = float("-inf")
-    p = rnd(torch.softmax(s, dim=-1))
-    return rnd((p @ v).transpose(1, 2).reshape(B * T, n_head * d_v))
 
 
 def local_heads(lp: dict, n_head: int) -> int:

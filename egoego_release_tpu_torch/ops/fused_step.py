@@ -384,10 +384,6 @@ def step_table(embs: torch.Tensor, sched) -> torch.Tensor:
     return torch.cat([embs, ck.upload(scal, embs.device)], 1)
 
 
-# the kernel counters a replayed step adds to, as its launches would
-_COUNTERS = (ck.kernel_launches, ck.gemm_modes, ck.launch_counts, ck.gemm_tiles)
-
-
 class StepGraph:
     """One reverse step at one step shape as CUDA graphs of its launches,
     captured once and replayed for every step of every window of that
@@ -418,14 +414,13 @@ class StepGraph:
                                 self.row[self.dm: self.dm + n_scal], self.ipv, self.ipm, prep, xa=self.xa,
                                 act_bf16=act_bf16, out=self.x[1 - k], **kw)
 
-        before = [Counter(c) for c in _COUNTERS]
         self.graphs = [torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()]
         with trace.paused(), torch.cuda.device(device):
-            step(0)
-            start = [Counter(c) for c in _COUNTERS]
+            with ck.set_aside():
+                step(0)
             side = torch.cuda.Stream(device)
             side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side):
+            with ck.set_aside() as captured, torch.cuda.stream(side):
                 for k, graph in enumerate(self.graphs):
                     graph.capture_begin(pool=pool)  # global capture mode: a synchronizing call would raise
                     try:
@@ -434,11 +429,7 @@ class StepGraph:
                         graph.capture_end()
             torch.cuda.current_stream(device).wait_stream(side)
         # one step's launches: half of what the two captures counted
-        self.deltas = [Counter({n: (v - s[n]) // 2 for n, v in c.items() if v != s[n]})
-                       for c, s in zip(_COUNTERS, start)]
-        for c, b in zip(_COUNTERS, before):
-            c.clear()
-            c.update(b)
+        self.counted = [Counter({n: v // 2 for n, v in c.items()}) for c in captured]
         ck.step_graphs["captured"] += 2
 
     def load(self, x, x_cond, xa, mask, pos, ipv, ipm):
@@ -468,8 +459,7 @@ class StepGraph:
         self.row.copy_(emb.as_strided(self.row.shape, (1,)))
         t1 = t0 and trace.now()
         self.graphs[k].replay()
-        for c, delta in zip(_COUNTERS, self.deltas):
-            c.update(delta)
+        ck.add_counts(self.counted)
         ck.step_graphs["replayed"] += 1
         if t0:
             trace.launch("step_graph", t0, t1)

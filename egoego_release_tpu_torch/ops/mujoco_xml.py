@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from egoego_release_tpu_torch.ops import rotations as rot
-from egoego_release_tpu_torch.ops.fk import _levels
+from egoego_release_tpu_torch.ops.fk import fk_from_local_quat
 from egoego_release_tpu_torch.ops.geometry import euler_zyx_to_matrix
 
 
@@ -59,29 +59,12 @@ def load_mujoco_skeleton(xml_path: str, device="cpu") -> MujocoSkeleton:
                           torch.as_tensor(rest_pos, device=device))
 
 
-def fk_generic(local_quat: torch.Tensor, offsets: torch.Tensor, parents: np.ndarray,
-               root_trans: torch.Tensor | None = None):
-    """Level-parallel FK over any kinematic tree (JAX ``ops/mujoco_xml.py:78``):
-    local_quat (..., J, 4), offsets (J, 3) or (..., J, 3), optional
-    root_trans (..., 3) -> (global quats, global positions)."""
-    offsets = offsets.expand(local_quat.shape[:-1] + (3,))
-    gq, gp = local_quat.clone(), offsets.clone()
-    for js, ps in _levels(np.asarray(parents)):
-        js_t = torch.as_tensor(js, device=gq.device)
-        ps_t = torch.as_tensor(ps, device=gq.device)
-        parent_q = gq[..., ps_t, :]
-        gp[..., js_t, :] = rot.quat_apply(parent_q, offsets[..., js_t, :]) + gp[..., ps_t, :]
-        gq[..., js_t, :] = rot.quat_multiply(parent_q, local_quat[..., js_t, :])
-    if root_trans is not None:
-        gp = gp + root_trans[..., None, :]
-    return gq, gp
-
-
 def qpos_fk(skeleton: MujocoSkeleton, qpos: torch.Tensor):
     """qpos (T, 76) -> world body quats (T, J, 4) and positions (T, J, 3),
     kinpoly ``Humanoid.qpos_fk``'s wbquat / wbpos (JAX
-    ``ops/mujoco_xml.py:96``)."""
+    ``ops/mujoco_xml.py:96``), by ``fk.fk_from_local_quat`` over the body
+    tree (JAX's ``fk_generic``)."""
     t, j = qpos.shape[0], len(skeleton.body_names)
     joint_quat = rot.matrix_to_quat(euler_zyx_to_matrix(qpos[:, 7:].reshape(t, j - 1, 3)))
     local_quat = torch.cat([qpos[:, None, 3:7], joint_quat], dim=1)
-    return fk_generic(local_quat, skeleton.offsets.to(qpos.device), skeleton.parents, root_trans=qpos[:, :3])
+    return fk_from_local_quat(local_quat, skeleton.offsets.to(qpos.device), qpos[:, :3], parents=skeleton.parents)

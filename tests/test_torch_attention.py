@@ -269,7 +269,7 @@ def test_bf16_copy_at_the_producer_is_the_rounding_at_the_product():
     layer = ttr.DecoderLayer(512, 4, 256, 256)
     lp = tfl.layer_params(layer, bf16=True)
     x = torch.randn(2 * 121, 512)
-    h0 = tfl.layer_norm_plain(3 * torch.randn(2 * 121, 512), lp["ln1s"], lp["ln1b"])
+    h0 = ck.layer_norm_plain(3 * torch.randn(2 * 121, 512), lp["ln1s"], lp["ln1b"])
     for a, w in ((x, lp["wqkv"]), (h0, lp["w1"])):
         copy = a.to(torch.bfloat16)
         assert torch.equal(tfl.linear_plain(copy, w), tfl.linear_plain(a, w))

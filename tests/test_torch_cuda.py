@@ -288,7 +288,7 @@ def test_layer_norm_bf16_residual_and_output_match_plain(card):
         a, w, bias = rn(m, k).to(wdt), (rn(n, k) * 0.25 / k ** 0.5).to(wdt), 0.25 * rn(n)
         wk = w if bf16 else ck.split_tf32(w)
         for res in (res32, res32.to(bf)):
-            want = fl.layer_norm_plain(fl.linear_plain(a, w) + bias + res.float(), ln_s, ln_b) * mask[:, None]
+            want = ck.layer_norm_plain(fl.linear_plain(a, w) + bias + res.float(), ln_s, ln_b) * mask[:, None]
             for f32_out in (True, False):
                 what = (kernel, res.dtype, f32_out)
                 out = torch.empty(m, n, device=card) if f32_out else None
@@ -371,7 +371,7 @@ def test_wgmma_gemm_matches_plain(card, mode, m, n, k):
         mask = (rn(m) > -1).float()
         out, out_b = torch.empty(m, n, device=card), torch.empty(m, n, dtype=bf, device=card)
         ck.gemm(mode, a, w, bias, out, M=m, res=res, ln_s=ln_s, ln_b=ln_b, row_mask=mask, out_b=out_b)
-        want = fl.layer_norm_plain(acc + res, ln_s, ln_b) * mask[:, None]
+        want = ck.layer_norm_plain(acc + res, ln_s, ln_b) * mask[:, None]
     else:
         sentinel = torch.full((m + 128, n), -77.0, dtype=bf, device=card)
         buf = sentinel.clone()
@@ -450,7 +450,7 @@ def test_layer_attention_matches_plain(card, b, t, t_keys, kernel):
     ck.kernel_launches.clear()
     ck.attention(qkv, ctx, B=b, T=t, t_keys=t_keys, n_head=4, d_k=256, d_v=256)
     assert dict(ck.kernel_launches) == {kernel: 1}
-    want = fl.attention_plain(qkv, B=b, T=t, t_keys=t_keys, n_head=4, d_k=256, d_v=256, bf16=True)
+    want = ck.attention_plain(qkv, B=b, T=t, t_keys=t_keys, n_head=4, d_k=256, d_v=256, bf16=True)
     torch.cuda.synchronize()
     assert float((ctx.float() - want).abs().max()) < TOL[True]
 
@@ -746,7 +746,7 @@ def test_custom_ops_match_ctypes_wrappers(card):
     none9 = (None,) * 9
     cases = {
         "gemm f32 BIAS": (
-            lambda o: torch.ops.egoego.gemm(a32, w32, bias, o[0], ck.BIAS, m, *none9, None, None, None, 0, None),
+            lambda o: torch.ops.egoego.gemm(a32, w32, bias, o[0], ck.BIAS, m, *none9, None, None, 0, None),
             lambda o: ck.gemm(ck.BIAS, a32, w32, bias, o[0], M=m),
             lambda: (torch.zeros(m, 512, device=card),)),
         "attention f32": (
@@ -754,18 +754,18 @@ def test_custom_ops_match_ctypes_wrappers(card):
             lambda o: ck.attention(qkv32, o[0], B=64, T=121, t_keys=121, n_head=4, d_k=256, d_v=256),
             lambda: (torch.zeros(m, 1024, device=card),)),
         "gemm LAYER_NORM": (
-            lambda o: torch.ops.egoego.gemm(a, w, bias, o[0], ck.LAYER_NORM, m, None, res, s, b, mask, None, None,
-                                            None, None, None, None, o[1], 0, None),
+            lambda o: torch.ops.egoego.gemm(a, w, bias, o[0], ck.LAYER_NORM, m, res, s, b, mask, None, None, None,
+                                            None, None, None, o[1], 0, None),
             lambda o: ck.gemm(ck.LAYER_NORM, a, w, bias, o[0], M=m, res=res, ln_s=s, ln_b=b, row_mask=mask,
                               out_b=o[1]),
             lambda: (torch.zeros(m, 512, device=card), torch.zeros(m, 512, dtype=bf, device=card))),
         "gemm PARTIAL": (
-            lambda o: torch.ops.egoego.gemm(a, w, bias, o[0], ck.PARTIAL, m, *none9, None, None, None, 0, None),
+            lambda o: torch.ops.egoego.gemm(a, w, bias, o[0], ck.PARTIAL, m, *none9, None, None, 0, None),
             lambda o: ck.gemm(ck.PARTIAL, a, w, bias, o[0], M=m),
             lambda: (torch.zeros(m, 512, device=card),)),
         "gemm STEP": (
             lambda o: torch.ops.egoego.gemm(a, lw, lb, o[0], ck.STEP, 64 * t, None, None, None, None, None, None,
-                                            None, x, noise, ipv, ipm, None, t, torch.tensor([0.9, 0.1, 0.05])),
+                                            x, noise, ipv, ipm, None, t, torch.tensor([0.9, 0.1, 0.05])),
             lambda o: ck.gemm(ck.STEP, a, lw, lb, o[0], M=64 * t, x=x, noise=noise, ipv=ipv, ipm=ipm, t_data=t,
                               scal=(0.9, 0.1, 0.05)),
             lambda: (torch.zeros(64 * t, 198, device=card),)),
@@ -892,13 +892,13 @@ def test_f32_layer_attention_runs_on_mha(card, windows, tokens, cut):
     ck.attention(qkv, ctx, **kw)
     assert dict(ck.kernel_launches) == {"mha": 1}
     torch.cuda.synchronize()
-    assert float((ctx - fl.attention_plain(qkv, **kw)).abs().max()) < TOL[False]
+    assert float((ctx - ck.attention_plain(qkv, **kw)).abs().max()) < TOL[False]
 
 
 def test_tf32x3_gemm_refuses_what_it_cannot_take(card):
-    """The f32 route takes W split (split_tf32), an A whose rows are
-    16-byte multiples and the packed stem A; the wrapper raises on anything
-    else and launches nothing."""
+    """The f32 route takes W split (split_tf32) and an A whose rows are
+    16-byte multiples; the wrapper raises on anything else and launches
+    nothing."""
     w, bias = torch.zeros(256, 64, device=card), torch.zeros(256, device=card)
     out = torch.empty(8, 256, device=card)
     ck.kernel_launches.clear()
@@ -906,11 +906,6 @@ def test_tf32x3_gemm_refuses_what_it_cannot_take(card):
         ck.gemm(ck.BIAS, torch.zeros(8, 64, device=card), w, bias, out, M=8)
     with pytest.raises(ValueError, match="3xTF32"):  # K = 62: rows of 248 bytes
         ck.gemm(ck.BIAS, torch.zeros(8, 62, device=card), ck.split_tf32(w[:, :62]), bias, out, M=8)
-    x = torch.zeros(2, 4, 31, device=card)
-    with pytest.raises(ValueError, match="packed xa"):
-        ck.gemm(ck.STEM, x, ck.split_tf32(torch.zeros(256, 64, device=card)), bias,
-                torch.empty(10, 256, device=card), M=10, a2=x, pos=torch.zeros(5, 256, device=card),
-                emb=bias, t_data=4)
     assert not ck.kernel_launches
 
 

@@ -241,7 +241,7 @@ def test_attention_plain_is_mha_plain_on_packed_qkv(b, t, t_keys):
     ctx = torch.empty(b * t, h * d)
     q, k, v, _ = ck.qkv_heads(qkv, ctx, B=b, T=t, n_head=h, d_k=d, d_v=d)
     got = ck._mha_plain(q, k, v, t_keys).transpose(1, 2).reshape(b * t, h * d)
-    want = tfl.attention_plain(qkv, B=b, T=t, t_keys=t_keys, n_head=h, d_k=d, d_v=d)
+    want = ck.attention_plain(qkv, B=b, T=t, t_keys=t_keys, n_head=h, d_k=d, d_v=d)
     assert float((got - want).abs().max()) < 1e-6
 
 

@@ -1,5 +1,5 @@
 """The denoiser layer's attention launch (csrc/attention.cu) as its plain
-version ``fused_layer.attention_plain`` computes it, against the JAX
+version ``cuda_kernels.attention_plain`` computes it, against the JAX
 package on the CPU, and the wrapper's choice of kernel.
 
 ``attention_plain`` takes the packed qkv (B*T, H (2 dk + dv)) that the QKV
@@ -21,7 +21,6 @@ from jax import nn as jnn
 
 import egoego_release_tpu.ops.attention as jattn
 from egoego_release_tpu_torch.ops import cuda_kernels as ck
-from egoego_release_tpu_torch.ops import fused_layer as tfl
 
 ATOL_ATTN = 2e-5
 TOL_BF16 = 2e-2
@@ -43,7 +42,7 @@ def _qkv(b, t, h, dk, dv, seed):
 def test_attention_plain_matches_jax_reference(b, t, h, dk, dv, t_keys):
     """f32 mode against reference_attention over the first t_keys keys."""
     qkv, q, k, v = _qkv(b, t, h, dk, dv, seed=t + t_keys)
-    ours = tfl.attention_plain(torch.from_numpy(qkv), B=b, T=t, t_keys=t_keys, n_head=h, d_k=dk, d_v=dv)
+    ours = ck.attention_plain(torch.from_numpy(qkv), B=b, T=t, t_keys=t_keys, n_head=h, d_k=dk, d_v=dv)
     want = np.asarray(jattn.reference_attention(jnp.asarray(q), jnp.asarray(k[:, :, :t_keys]),
                                                 jnp.asarray(v[:, :, :t_keys])))
     assert ours.shape == (b * t, h * dv) and ours.dtype == torch.float32
@@ -60,8 +59,8 @@ def test_attention_plain_ignores_keys_past_t_keys(bf16):
     other = qkv.reshape(b, t, -1).copy()
     other[:, t_keys:, h * d:] = 1e3 * np.random.RandomState(6).randn(b, t - t_keys, 2 * h * d)
     kw = dict(B=b, T=t, t_keys=t_keys, n_head=h, d_k=d, d_v=d, bf16=bf16)
-    base = tfl.attention_plain(torch.from_numpy(qkv), **kw)
-    moved = tfl.attention_plain(torch.from_numpy(other.reshape(b * t, -1)), **kw)
+    base = ck.attention_plain(torch.from_numpy(qkv), **kw)
+    moved = ck.attention_plain(torch.from_numpy(other.reshape(b * t, -1)), **kw)
     assert torch.equal(base, moved)
 
 
@@ -72,7 +71,7 @@ def test_attention_plain_bf16_keeps_layer_body_rounding(b, t, h, d):
     a bf16 value."""
     qkv, q, k, v = _qkv(b, t, h, d, d, seed=t)
     qkv_b = torch.from_numpy(qkv).to(torch.bfloat16).float()
-    ours = tfl.attention_plain(qkv_b, B=b, T=t, t_keys=t, n_head=h, d_k=d, d_v=d, bf16=True)
+    ours = ck.attention_plain(qkv_b, B=b, T=t, t_keys=t, n_head=h, d_k=d, d_v=d, bf16=True)
     cdt = jnp.bfloat16
     qj, kj, vj = (jnp.asarray(a).astype(cdt) for a in (q, k, v))
     s = lax.dot_general(qj, kj, (((3,), (3,)), ((0, 1), (0, 1))), preferred_element_type=jnp.float32) * (1.0 / d ** 0.5)
@@ -80,7 +79,7 @@ def test_attention_plain_bf16_keeps_layer_body_rounding(b, t, h, d):
     ctx = lax.dot_general(p, vj, (((3,), (2,)), ((0, 1), (0, 1))), preferred_element_type=jnp.float32).astype(cdt)
     want = np.asarray(ctx.astype(jnp.float32)).transpose(0, 2, 1, 3).reshape(b * t, h * d)
     np.testing.assert_allclose(ours.numpy(), want, atol=TOL_BF16, rtol=0)
-    assert torch.equal(ours, tfl.round_bf16(ours))
+    assert torch.equal(ours, ck.round_bf16(ours))
 
 
 @pytest.mark.parametrize("dtype,t,d_k,d_v,kernel", [

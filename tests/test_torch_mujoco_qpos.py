@@ -80,7 +80,7 @@ def test_fk_generic_matches_jax(skeletons):
     q = rng.randn(3, 5, 24, 4).astype(np.float32)
     q /= np.linalg.norm(q, axis=-1, keepdims=True)
     root = rng.randn(3, 5, 3).astype(np.float32)
-    got = tmx.fk_generic(torch.from_numpy(q), ts.offsets, ts.parents, torch.from_numpy(root))
+    got = tfk.fk_from_local_quat(torch.from_numpy(q), ts.offsets, torch.from_numpy(root), parents=ts.parents)
     want = jmx.fk_generic(jnp.asarray(q), js.offsets, js.parents, jnp.asarray(root))
     for a, b in zip(got, want):
         _close(a.numpy(), b, 1e-5)

@@ -205,18 +205,18 @@ def _op_cases():
     g = torch.Generator().manual_seed(0)
     r = lambda *s, dt=torch.float32: torch.randn(*s, generator=g).to(dt)
     m, k, n, t = 18, 24, 16, 5  # 3 windows of 5 frames (the stem's 6 tokens a window: 18 rows)
-    none = [None] * 11
+    none = [None] * 10
     gemm = torch.ops.egoego.gemm.default
     cases = []
     for mode in (ck.BIAS, ck.BIAS_RELU, ck.PARTIAL):
         cases.append((gemm, (r(m, k), r(n, k), r(n), torch.empty(m, n), mode, m, *none, None, 0, None)))
     cases.append((gemm, (r(m, k, dt=torch.bfloat16), r(n, k, dt=torch.bfloat16), r(n), torch.empty(m, n), ck.LAYER_NORM,
-                         m, None, r(m, n), r(n), r(n), torch.ones(m), None, None, None, None, None, None,
+                         m, r(m, n), r(n), r(n), torch.ones(m), None, None, None, None, None, None,
                          torch.empty(m, n, dtype=torch.bfloat16), 0, None)))
-    cases.append((gemm, (r(3, t, 8), r(n, 16), r(n), torch.empty(3 * (t + 1), n), ck.STEM, 3 * (t + 1), r(3, t, 8),
-                         None, None, None, None, r(t + 1, n), r(n), None, None, None, None, None, t, None)))
+    cases.append((gemm, (r(3, t, 8), r(n, 16), r(n), torch.empty(3 * (t + 1), n), ck.STEM, 3 * (t + 1), None, None,
+                         None, None, r(t + 1, n), r(n), None, None, None, None, None, t, None)))
     cases.append((gemm, (r(3 * (t + 1), k), r(n, k), r(n), torch.empty(3 * t, n), ck.STEP, 3 * t, None, None, None,
-                         None, None, None, None, r(3 * t, n), r(3 * t, n), r(3 * t, n), torch.ones(3 * t), None, t,
+                         None, None, None, r(3 * t, n), r(3 * t, n), r(3 * t, n), torch.ones(3 * t), None, t,
                          torch.tensor([0.9, 0.1, 0.05]))))
     cases.append((torch.ops.egoego.attention.default, (r(2 * 7, 2 * 24), torch.empty(2 * 7, 2 * 8), 2, 7, 7, 2, 8, 8)))
     cases.append((torch.ops.egoego.mha.default, (r(2, 2, 9, 8), r(2, 2, 9, 8), r(2, 2, 9, 8), torch.empty(2, 2, 9, 8),
